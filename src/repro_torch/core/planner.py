@@ -1,0 +1,555 @@
+"""Adaptive algorithm planner for Masked SpGEMM (paper Sec. 7-8).
+
+The paper's headline result is that no single Masked-SpGEMM algorithm wins
+everywhere.  This module turns its guidelines into an explicit,
+deterministic decision function:
+
+    stats  = collect_stats(A, B, M, ...)      # cheap structural statistics
+    plan   = decide(stats)                    # pure: stats -> Plan
+    result = masked_spgemm(A, B, M)           # algorithm="auto" runs both
+
+``plan()`` memoizes Plans in an LRU cache keyed on a structural signature
+(shapes + nnz + CRC of the index arrays) and the cost-model token, so
+repeated shapes skip re-planning entirely.  ``decide`` ranks algorithms
+with the per-algorithm cost hooks exported by ``accumulators.py``, plus the
+BCSR tile route when the operands' block occupancy makes it eligible.
+
+The cost constants are the reference's, calibrated on a CPU; no GPU
+calibration exists yet, so the elections on a GPU follow the CPU model.
+
+When the model ranks two candidates within ``TRIAL_RATIO`` of each other
+the tie is resolved empirically: ``plan()`` times the contenders once on
+the real operands, on the caller's device, and caches the winner.  The
+pure ``decide`` path never measures — only ``plan`` does, and only on a
+cache miss for large non-complemented problems.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import zlib
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import caches
+from repro_torch.tuning import profile as tuning_profile
+
+from . import accumulators as acc
+from .formats import CSR, PaddedCSR
+from .semiring import Semiring, PLUS_TIMES
+
+#: candidate algorithms, in cost-hook order
+CANDIDATES = tuple(acc.COST_HOOKS)
+
+#: rows sampled by the symbolic probe
+PROBE_ROWS = 64
+#: per-row flop budget above which the probe falls back to upper bounds
+PROBE_FLOP_CAP = 1 << 16
+
+#: candidates whose modeled cost is within this factor of the best are
+#: resolved by a one-shot measured trial on the real operands
+TRIAL_RATIO = 1.25
+#: at most this many candidates enter a trial
+TRIAL_MAX_CANDIDATES = 3
+#: timed repetitions per trial candidate (plus one warmup call); the
+#: minimum is kept (robust to additive noise)
+TRIAL_ITERS = 3
+#: problems smaller than this are too fast for a meaningful trial (and any
+#: choice is fine); the modeled ranking is used directly
+TRIAL_MIN_ROWS = 256
+
+#: minimum input density for the tile path: dense (bs x bs) tiles compute
+#: bs^3 flops regardless of occupancy, so sparse operands would be mostly
+#: padding (the reference's CPU-tuned gate)
+TILE_MIN_DENSITY = 0.05
+#: minimum expected nonzeros per (bs x bs) tile for a block size to be
+#: worth scheduling
+TILE_MIN_OCCUPANCY = 4.0
+#: block sizes the tile path will consider, largest first
+TILE_BLOCK_SIZES = (128, 32, 8)
+#: minimum fraction of mask nonzeros the symbolic probe must see hit by
+#: the product for the tile path to stay eligible
+TILE_MIN_HIT_RATE = 0.05
+
+#: tile-route cost model constants (ms), the reference's CPU calibration:
+#: host covers the bcsr_from_csr scatters + schedule build (per element /
+#: worklist entry), mac the block products of the two replays (values +
+#: structure), gather the per-mask-element result extraction
+TILE_COST = dict(base=3.0, per_host=2.5e-4, per_mac=1.6e-7,
+                 per_gather=3.0e-4)
+
+#: distributed cost-model constants (ms), the reference's; part of the
+#: cost-model fingerprint until the distributed planner is ported
+DIST_COST = dict(per_bcast_elem=1.5e-6, per_ring_byte=2.0e-7,
+                 stage_base=0.15)
+
+
+# ---------------------------------------------------------------------------
+# Statistics
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanStats:
+    """Cheap structural statistics driving the decision function.
+
+    Widths are the padded row widths the row kernels will actually run
+    (``wa``/``wb`` = max row nnz of A/B, ``wbt`` = max *column* nnz of B =
+    row width of B^T for Inner, ``pm`` = max mask-row nnz).  ``flops`` /
+    ``out_nnz`` come from the sampled symbolic probe, scaled to the full
+    matrix; ``compression`` is their ratio (paper Sec. 7).
+    """
+
+    m: int
+    k: int
+    n: int
+    nnz_a: int
+    nnz_b: int
+    nnz_m: int
+    wa: int
+    wb: int
+    wbt: int
+    pm: int
+    complement: bool
+    semiring: str = "plus_times"
+    flops: float = 0.0
+    out_nnz: float = 0.0
+    #: False when B is device-resident row-major (PaddedCSR): Inner needs
+    #: B^T, which a padded B cannot give without a host round-trip
+    b_transposable: bool = True
+
+    @property
+    def compression(self) -> float:
+        return self.flops / max(1.0, self.out_nnz)
+
+    @property
+    def mask_density(self) -> float:
+        return self.nnz_m / max(1, self.m * self.n)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Executable decision: which kernel, with which static parameters."""
+
+    algorithm: str
+    widths: Tuple[int, int, int]  # (wa, wb_or_wbt, wm) pad widths
+    two_phase: bool
+    n_inspect: Optional[int]
+    tile_eligible: bool
+    tile_block: int               # suggested BCSR block size (0 = n/a)
+    costs: Tuple[Tuple[str, float], ...]
+    stats: PlanStats
+    trialed: Tuple[str, ...] = ()  # candidates resolved by measured trial
+
+    def cost(self, algorithm: str) -> float:
+        return dict(self.costs)[algorithm]
+
+
+def _max_row_nnz(x: CSR) -> int:
+    return max(1, int(np.diff(x.indptr).max(initial=0)))
+
+
+def _max_col_nnz(x: CSR) -> int:
+    if x.nnz == 0:
+        return 1
+    return max(1, int(np.bincount(x.indices, minlength=x.shape[1]).max()))
+
+
+def _probe_rows(m: int, sample: int) -> np.ndarray:
+    if m <= sample:
+        return np.arange(m)
+    return np.unique(np.linspace(0, m - 1, sample).astype(np.int64))
+
+
+def symbolic_probe(A: CSR, B: CSR, M: CSR, *, complement: bool = False,
+                   sample: int = PROBE_ROWS) -> Tuple[float, float]:
+    """Sampled symbolic pass: (est. flops, est. nnz of the masked output).
+
+    Walks ``sample`` evenly spaced rows; for each, flops_i is the exact
+    Gustavson flop count and out_i the exact masked output nnz (union of the
+    touched B rows intersected with — or minus, under complement — the mask
+    row).  Rows whose flop count exceeds ``PROBE_FLOP_CAP`` fall back to the
+    mask-row upper bound instead of materializing the union.
+    """
+    m, n = M.shape
+    rows = _probe_rows(m, sample)
+    b_nnz = B.row_nnz()
+    flops = 0.0
+    out = 0.0
+    for i in rows:
+        a_cols, _ = A.row(int(i))
+        f_i = float(b_nnz[a_cols].sum()) if len(a_cols) else 0.0
+        flops += f_i
+        m_cols, _ = M.row(int(i))
+        if f_i == 0.0:
+            continue
+        if f_i > PROBE_FLOP_CAP:
+            out += float(n - len(m_cols)) if complement else float(len(m_cols))
+            continue
+        touched = np.unique(np.concatenate(
+            [B.indices[B.indptr[j]: B.indptr[j + 1]] for j in a_cols]))
+        if complement:
+            out += float(len(touched) - np.isin(touched, m_cols).sum())
+        else:
+            out += float(np.isin(m_cols, touched).sum())
+    scale = m / max(1, len(rows))
+    return flops * scale, out * scale
+
+
+def collect_stats(A: CSR, B: CSR, M: CSR, *, complement: bool = False,
+                  semiring: Semiring = PLUS_TIMES,
+                  probe: bool = True) -> PlanStats:
+    """Gather the planner's statistics from host CSR operands."""
+    m, k = A.shape
+    _, n = B.shape
+    flops, out_nnz = (symbolic_probe(A, B, M, complement=complement)
+                      if probe else (0.0, 0.0))
+    return PlanStats(
+        m=m, k=k, n=n, nnz_a=A.nnz, nnz_b=B.nnz, nnz_m=M.nnz,
+        wa=_max_row_nnz(A), wb=_max_row_nnz(B), wbt=_max_col_nnz(B),
+        pm=_max_row_nnz(M), complement=complement, semiring=semiring.name,
+        flops=flops, out_nnz=out_nnz)
+
+
+# ---------------------------------------------------------------------------
+# Decision function (pure, deterministic, testable)
+# ---------------------------------------------------------------------------
+
+
+def rank_algorithms(stats: PlanStats) -> Tuple[Tuple[str, float], ...]:
+    """Per-algorithm cost estimates (ms for the whole product), cheapest
+    first.  Pure function of ``stats``."""
+    candidates = [a for a in CANDIDATES
+                  if not stats.complement or a in acc.SUPPORTS_COMPLEMENT]
+    if not stats.b_transposable:
+        candidates = [a for a in candidates if a != "inner"]
+    scale = stats.m / 1024.0
+    costs = []
+    for name in candidates:
+        per_row = acc.COST_HOOKS[name](
+            n=stats.n, wa=stats.wa, wb=stats.wb, wbt=stats.wbt, pm=stats.pm)
+        costs.append((name, per_row * scale))
+    return tuple(sorted(costs, key=lambda kv: (kv[1], kv[0])))
+
+
+def _tile_path(stats: PlanStats) -> Tuple[bool, int]:
+    """Eligibility of the BCSR tile route.
+
+    Requires the plus_times semiring and an explicit mask (the block
+    product accumulates with a dense block matmul), block-divisible dims,
+    and enough expected nonzeros per tile that dense blocks are not mostly
+    padding.
+    """
+    from repro_torch.kernels.masked_matmul.ops import tile_path_supported
+    if not tile_path_supported(stats.semiring, stats.complement):
+        return False, 0
+    dens_a = stats.nnz_a / max(1, stats.m * stats.k)
+    dens_b = stats.nnz_b / max(1, stats.k * stats.n)
+    if min(dens_a, dens_b) < TILE_MIN_DENSITY:
+        return False, 0
+    # symbolic-probe gate: a mask that almost never hits the product makes
+    # dense output tiles pointless (most scheduled tiles would be zero)
+    if stats.flops > 0 and stats.out_nnz < TILE_MIN_HIT_RATE * stats.nnz_m:
+        return False, 0
+    for bs in TILE_BLOCK_SIZES:
+        if stats.m % bs or stats.n % bs or stats.k % bs:
+            continue
+        occ = min(dens_a, dens_b) * bs * bs
+        if occ >= TILE_MIN_OCCUPANCY:
+            return True, bs
+    return False, 0
+
+
+def _block_occupancy(dens: float, bs: int) -> float:
+    """P(a bs x bs block holds >= 1 nonzero) under uniform sparsity."""
+    return float(-np.expm1(bs * bs * np.log1p(-min(dens, 1 - 1e-12))))
+
+
+def _block_counts(stats: PlanStats, bs: int
+                  ) -> Tuple[float, float, float]:
+    """Random-occupancy block expectations: ``(m_blocks, b_blocks, pair)``
+    — expected occupied output/mask blocks, occupied B blocks, and expected
+    worklist entries per mask block."""
+    m, k, n = stats.m, stats.k, stats.n
+    dens_a = stats.nnz_a / max(1, m * k)
+    dens_b = stats.nnz_b / max(1, k * n)
+    dens_m = stats.nnz_m / max(1, m * n)
+    mb, kb, nb = -(-m // bs), -(-k // bs), -(-n // bs)
+    p_a = _block_occupancy(dens_a, bs)
+    p_b = _block_occupancy(dens_b, bs)
+    p_m = _block_occupancy(dens_m, bs)
+    return mb * nb * p_m, kb * nb * p_b, kb * p_a * p_b
+
+
+def _tile_feature_dict(stats: PlanStats, worklist: float, bs: int,
+                       mac_div: float) -> Dict[str, float]:
+    """The host/mac/gather decomposition of the block route, as a
+    TILE_COST feature vector."""
+    return {
+        "base": 1.0,
+        "per_host": float(stats.nnz_a + stats.nnz_b + stats.nnz_m
+                          + worklist),
+        "per_mac": 2.0 * worklist * bs ** 3 / mac_div,  # values + structure
+        "per_gather": float(stats.nnz_m),
+    }
+
+
+def tile_cost_features(stats: PlanStats, bs: int) -> Dict[str, float]:
+    """Feature vector of the tile-route model: ``tile_cost`` is the dot
+    product of this with ``TILE_COST``."""
+    m_blocks, _, pair = _block_counts(stats, bs)
+    return _tile_feature_dict(stats, m_blocks * pair, bs, 1.0)
+
+
+def tile_cost(stats: PlanStats, bs: int) -> float:
+    """Modeled total ms of the BCSR tile route at block size ``bs``, in the
+    row-kernel hooks' units so the planner can rank them side by side."""
+    f = tile_cost_features(stats, bs)
+    return sum(TILE_COST[k] * f[k] for k in f)
+
+
+def decide(stats: PlanStats, *, allow_tile: bool = True) -> Plan:
+    """Pure decision function: statistics -> Plan.
+
+    ``allow_tile=False`` keeps the tile route out of the ranking (it still
+    reports eligibility).
+    """
+    costs = rank_algorithms(stats)
+    tile_eligible, tile_block = _tile_path(stats)
+    # the tile route enters the ranking only when the stats carry a real
+    # symbolic probe (flops > 0): width-only stats lack the occupancy
+    # evidence the gate relies on
+    if allow_tile and tile_eligible and stats.flops > 0:
+        costs = tuple(sorted(
+            costs + (("tile", tile_cost(stats, tile_block)),),
+            key=lambda kv: (kv[1], kv[0])))
+    algorithm = costs[0][0]
+    wb = stats.wbt if algorithm == "inner" else stats.wb
+    return Plan(
+        algorithm=algorithm,
+        widths=(stats.wa, wb, stats.pm),
+        two_phase=False,           # 1P: the mask bounds the allocation
+        n_inspect=None,            # per-algorithm default
+        tile_eligible=tile_eligible,
+        tile_block=tile_block,
+        costs=costs,
+        stats=stats)
+
+
+def ring_block_candidates(m: int, k: int, n: int) -> Tuple[int, ...]:
+    """BCSR block sizes the tile route may use for an (m, k, n) product,
+    largest first."""
+    lo = max(8, min(m, k, n))
+    return (tuple(bs for bs in TILE_BLOCK_SIZES if bs <= lo)
+            or (TILE_BLOCK_SIZES[-1],))
+
+
+# ---------------------------------------------------------------------------
+# Measured trial: resolve modeled near-ties empirically (cached with the plan)
+# ---------------------------------------------------------------------------
+
+
+def _trial_candidates(p: Plan) -> Tuple[str, ...]:
+    best_cost = p.costs[0][1]
+    cand = tuple(name for name, c in p.costs[:TRIAL_MAX_CANDIDATES]
+                 if c <= best_cost * TRIAL_RATIO)
+    return cand if len(cand) >= 2 else ()
+
+
+#: measured-trial winners memoized by coarse shape class, so iterative
+#: algorithms whose operand structure drifts every iteration pay for at
+#: most one trial per shape class
+_trial_winners: Dict[tuple, str] = {}
+_TRIAL_MEMO_CAPACITY = 256
+caches.register("planner-trials",
+                clear=_trial_winners.clear,
+                size=lambda: len(_trial_winners),
+                capacity=lambda: _TRIAL_MEMO_CAPACITY)
+
+
+def _shape_class(s: PlanStats) -> tuple:
+    b = int.bit_length  # log2 buckets: widths within 2x share a class
+    return (s.m, s.k, s.n, b(s.wa), b(s.wb), b(s.wbt), b(s.pm),
+            s.semiring, s.complement)
+
+
+def _refine_with_trial(A: CSR, B: CSR, M: CSR, p: Plan,
+                       semiring: Semiring, device) -> Plan:
+    """Time the near-tied candidates once on the real operands, on
+    ``device``, and keep the winner.  On CUDA each timed call ends in
+    ``torch.cuda.synchronize()``."""
+    import time
+    from .masked_spgemm import masked_spgemm  # deferred: no import cycle
+
+    cand = _trial_candidates(p)
+    if not cand:
+        return p
+    s = p.stats
+    memo_key = _shape_class(s)
+    with _cache_lock:
+        winner = _trial_winners.get(memo_key)
+    if winner is not None and winner in cand:
+        wb = s.wbt if winner == "inner" else s.wb
+        return dataclasses.replace(p, algorithm=winner,
+                                   widths=(s.wa, wb, s.pm), trialed=cand)
+    on_cuda = torch.device(device).type == "cuda"
+
+    def make(name):
+        widths = (s.wa, s.wbt if name == "inner" else s.wb, s.pm)
+        tb = p.tile_block if name == "tile" else None
+
+        def call():
+            masked_spgemm(A, B, M, algorithm=name, semiring=semiring,
+                          widths=widths, tile_block=tb, device=device)
+            if on_cuda:
+                torch.cuda.synchronize(device)
+
+        return call
+
+    calls = {name: make(name) for name in cand}
+    for call in calls.values():        # warm
+        call()
+    # interleaved rounds, min per candidate: drift in machine conditions
+    # during the trial hits every candidate alike
+    timed = {name: float("inf") for name in cand}
+    for _ in range(TRIAL_ITERS):
+        for name, call in calls.items():
+            t0 = time.perf_counter()
+            call()
+            timed[name] = min(timed[name], time.perf_counter() - t0)
+    winner = min(timed, key=timed.get)
+    with _cache_lock:
+        if len(_trial_winners) >= _TRIAL_MEMO_CAPACITY:
+            _trial_winners.clear()
+        _trial_winners[memo_key] = winner
+    wb = s.wbt if winner == "inner" else s.wb
+    return dataclasses.replace(p, algorithm=winner,
+                               widths=(s.wa, wb, s.pm), trialed=cand)
+
+
+# ---------------------------------------------------------------------------
+# Plan cache (structural-signature LRU)
+# ---------------------------------------------------------------------------
+
+#: default plan-cache entries; override with $REPRO_PLAN_CACHE_CAP or
+#: ``repro_torch.caches.set_capacity("planner-plans", n)``
+_CACHE_CAPACITY = 128
+_cache = caches.LRUCache("planner-plans", _CACHE_CAPACITY,
+                         env_var="REPRO_PLAN_CACHE_CAP")
+_cache_lock = threading.Lock()
+
+
+def _crc(a: np.ndarray) -> int:
+    return zlib.crc32(np.ascontiguousarray(a).tobytes())
+
+
+def cost_model_token() -> str:
+    """Identity of the cost model every cached Plan was decided under: the
+    active version plus a fingerprint of the LIVE constant tables, so
+    mutating ``COST_CONSTANTS`` / ``TILE_COST`` / ``DIST_COST`` / the gates
+    in place changes every plan-cache key."""
+    fp = tuning_profile.fingerprint_tables(
+        acc.COST_CONSTANTS, TILE_COST,
+        {"min_density": TILE_MIN_DENSITY,
+         "min_occupancy": TILE_MIN_OCCUPANCY,
+         "min_hit_rate": TILE_MIN_HIT_RATE},
+        DIST_COST)
+    return f"{tuning_profile.active_version()}-{fp}"
+
+
+def structure_signature(x) -> tuple:
+    """Structural identity of an operand: equal signatures => equal sparsity
+    structure (up to CRC collision), values ignored.
+
+    Memoized on the CSR instance: ``indptr``/``indices`` are never mutated
+    in place, so the signature is stable for the object's lifetime.
+    """
+    if isinstance(x, CSR):
+        sig = getattr(x, "_structure_sig", None)
+        if sig is None:
+            sig = ("csr", x.shape, x.nnz, _crc(x.indptr), _crc(x.indices))
+            x._structure_sig = sig
+        return sig
+    if isinstance(x, PaddedCSR):
+        # device-resident: identify by the host-visible static structure
+        # only (no device sync); callers wanting exact reuse pass a Plan
+        return ("padded", x.shape, x.width)
+    raise TypeError(f"unsupported operand type {type(x)!r}")
+
+
+def plan_cache_info() -> Dict[str, int]:
+    return _cache.info()
+
+
+def clear_plan_cache() -> None:
+    _cache.clear()
+    with _cache_lock:
+        _trial_winners.clear()
+
+
+#: serializes plan construction per key stripe: concurrent misses on the
+#: SAME structure must resolve to ONE plan (the measured trial is
+#: load-dependent, so two racing trials can elect different kernels)
+_PLAN_LOCK_STRIPES = 16
+_plan_build_locks = tuple(threading.Lock()
+                          for _ in range(_PLAN_LOCK_STRIPES))
+
+
+def _plan_build_lock(key) -> threading.Lock:
+    return _plan_build_locks[hash(key) % _PLAN_LOCK_STRIPES]
+
+
+def plan(A, B, M, *, complement: bool = False,
+         semiring: Semiring = PLUS_TIMES, use_cache: bool = True,
+         device="cuda") -> Plan:
+    """Plan C = M (.) (A B): cached decision on structural signatures.
+
+    ``A``/``B``/``M`` are host ``CSR`` (the common entry); ``PaddedCSR``
+    operands are planned from their static widths without a probe.
+    ``device`` is where a measured trial runs.
+    """
+    def build() -> Plan:
+        if isinstance(A, CSR) and isinstance(B, CSR) and isinstance(M, CSR):
+            stats = collect_stats(A, B, M, complement=complement,
+                                  semiring=semiring)
+        else:  # device-resident operands: widths are already static
+            m, k = A.shape
+            _, n = B.shape
+            stats = PlanStats(
+                m=m, k=k, n=n,
+                nnz_a=m * A.width if isinstance(A, PaddedCSR) else A.nnz,
+                nnz_b=(B.shape[0] * B.width if isinstance(B, PaddedCSR)
+                       else B.nnz),
+                nnz_m=m * M.width if isinstance(M, PaddedCSR) else M.nnz,
+                wa=A.width if isinstance(A, PaddedCSR) else _max_row_nnz(A),
+                wb=B.width if isinstance(B, PaddedCSR) else _max_row_nnz(B),
+                wbt=B.width if isinstance(B, PaddedCSR) else _max_col_nnz(B),
+                pm=M.width if isinstance(M, PaddedCSR) else _max_row_nnz(M),
+                complement=complement, semiring=semiring.name,
+                b_transposable=not isinstance(B, PaddedCSR))
+        p = decide(stats)
+        if (not complement and stats.m >= TRIAL_MIN_ROWS
+                and isinstance(A, CSR) and isinstance(B, CSR)
+                and isinstance(M, CSR)):
+            p = _refine_with_trial(A, B, M, p, semiring, device)
+        return p
+
+    if not use_cache:
+        return build()
+    key = (structure_signature(A), structure_signature(B),
+           structure_signature(M), complement, semiring.name,
+           cost_model_token())
+    hit = _cache.get(key)
+    if hit is not None:
+        return hit
+    # double-checked build: concurrent misses on one structure must all
+    # observe the SAME plan
+    with _plan_build_lock(key):
+        hit = _cache.peek(key)
+        if hit is not None:
+            return hit
+        p = build()
+        _cache.put(key, p)
+    return p

@@ -1,0 +1,102 @@
+"""Build the package's CUDA kernels with ``nvcc`` at first use.
+
+Each source under a kernel's ``csrc/`` compiles, on its own, to a shared
+library with a plain C interface in ``build/repro_torch/`` at the repository
+root, for ``sm_90a`` (Hopper).  The library's file name carries a hash of
+its source and of the flags, so an edited source rebuilds and an unchanged
+one is reused.  ``build_all`` starts one ``nvcc`` per source at once and
+waits for all of them.
+
+Nothing here runs at import: the CPU tests import every module of the
+package on machines without ``nvcc``.
+"""
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List
+
+_PKG = Path(__file__).resolve().parent
+#: build directory at the repository root (listed in .gitignore)
+BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch"
+
+#: every CUDA source of the package, by library name
+SOURCES: Dict[str, Path] = {
+    "block_spgemm": _PKG / "masked_matmul" / "csrc" / "block_spgemm.cu",
+}
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: ptxas report (registers, shared memory, spills) of each library built
+#: by this process
+PTXAS_LOG: Dict[str, str] = {}
+
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
+    if cuda.exists():
+        return str(cuda)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                       "the CUDA toolkit is installed")
+
+
+def library_path(name: str) -> Path:
+    """Where the library of source ``name`` lives once built."""
+    src = SOURCES[name]
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def _start(name: str):
+    out = library_path(name)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, proc, tmp: Path, out: Path) -> Path:
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{log}")
+    os.replace(tmp, out)        # atomic: a concurrent build never sees half
+    PTXAS_LOG[name] = log
+    return out
+
+
+def build_all(names: List[str] = None) -> Dict[str, Path]:
+    """Build every listed source (default: all) that is not built yet, one
+    ``nvcc`` per source, all started together.  Returns name -> path."""
+    names = list(SOURCES) if names is None else names
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        paths = {name: library_path(name) for name in names}
+        todo = [name for name in names if not paths[name].exists()]
+        started = {name: _start(name) for name in todo}
+        errors = []
+        for name, (proc, tmp, out) in started.items():
+            try:      # wait for every nvcc before reporting a failure
+                _finish(name, proc, tmp, out)
+            except RuntimeError as e:
+                errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+    return paths
+
+
+def build(name: str) -> Path:
+    """Path of the built library of source ``name`` (building it first)."""
+    return build_all([name])[name]

@@ -19,3 +19,8 @@ def random_csr(rng, m, n, density, dtype=np.float32, sorted_rows=True) -> CSR:
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU with CUDA (skips without one)")

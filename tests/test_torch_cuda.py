@@ -1,0 +1,119 @@
+"""The port on a CUDA device: the block_spgemm kernel against its plain
+version, and both routes of masked_spgemm against the same calls on the
+CPU.  Every test needs a GPU and skips without one.
+
+This file imports neither JAX nor the reference package, so it runs where
+only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances: exact on small-integer data; rtol = atol = 1e-4 for the block
+product and 1e-5 for the row kernels on normal data (atomics in the plain
+version's ``index_add_`` and the reduction orders of heap/inner differ
+between devices).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import formats as F
+from repro_torch.core.masked_spgemm import ALGORITHMS, masked_spgemm
+from repro_torch.kernels.masked_matmul import kernel, ops
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def dense_operands(seed, n, dens, ints):
+    rng = np.random.default_rng(seed)
+
+    def one(d):
+        s = rng.random((n, n)) < d
+        v = (rng.integers(1, 5, (n, n)) if ints
+             else rng.standard_normal((n, n)))
+        return (s * v).astype(np.float32)
+
+    return one(dens[0]), one(dens[1]), \
+        (rng.random((n, n)) < dens[2]).astype(np.float32)
+
+
+def padded_worklist(schedule, extra, dev):
+    """The schedule plus ``extra`` all-flags-off entries at the last rank
+    (the distributed ring's padding), as device tensors."""
+    rank, pa, pb, flags = schedule
+    z = np.zeros(extra, np.int32)
+    parts = (np.concatenate([rank, np.full(extra, rank[-1], np.int32)]),
+             np.concatenate([pa, z]), np.concatenate([pb, z]),
+             np.concatenate([flags, z]))
+    return [torch.as_tensor(x, device=dev) for x in parts]
+
+
+@pytest.mark.parametrize("bs", [2, 4, 8, 12, 16, 32, 48, 128])
+@pytest.mark.parametrize("ints", [True, False])
+def test_kernel_matches_plain(cuda_device, bs, ints):
+    nb = max(3, 256 // bs)
+    a, b, mk = dense_operands(bs, nb * bs, (0.3, 0.3, 0.5), ints)
+    a[:bs] = 0.0          # an empty block row leaves zero-fill entries
+    A, B, M = (F.bcsr_from_dense(x, bs, device=cuda_device)
+               for x in (a, b, mk))
+    sched = ops.build_spgemm_schedule(A, B, M)
+    assert ((sched[3] & 2) == 0).any()
+    wl = padded_worklist(sched, 3, cuda_device)
+    before = kernel.LAUNCHES
+    got = kernel.block_spgemm_kernel(A.blocks, B.blocks, *wl, M.nnzb)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES == before + 1
+    want = kernel.block_spgemm_plain(A.blocks, B.blocks, *wl, M.nnzb)
+    tol = 0 if ints else 1e-4
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+def test_kernel_empty_b_gives_zero_blocks(cuda_device):
+    a, _, mk = dense_operands(3, 64, (0.4, 0.4, 0.5), True)
+    A, M = (F.bcsr_from_dense(x, 8, device=cuda_device) for x in (a, mk))
+    B = F.bcsr_from_dense(np.zeros((64, 64), np.float32), 8,
+                          device=cuda_device)
+    out = ops.block_spgemm(A, B, M).blocks
+    assert out.is_cuda and out.shape[0] == M.nnzb
+    assert not out.any()
+
+
+@pytest.mark.parametrize("alg", ALGORITHMS)
+def test_row_algorithms_match_cpu(cuda_device, alg):
+    A, B, M = (F.csr_from_dense(x) for x in
+               dense_operands(7, 96, (0.1, 0.1, 0.2), True))
+    got = masked_spgemm(A, B, M, algorithm=alg, device=cuda_device)
+    want = masked_spgemm(A, B, M, algorithm=alg, device="cpu")
+    assert got.vals.is_cuda
+    for g, w in ((got.vals, want.vals), (got.present, want.present),
+                 (got.mask_cols, want.mask_cols)):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+
+
+def test_tile_route_matches_cpu(cuda_device):
+    mats = [F.block_sparse(256, 32, 0.4, 0.9, seed=s) for s in (1, 2)]
+    mats.append(F.block_sparse(256, 32, 0.6, 1.0, seed=3, mask=True))
+    A, B, M = (F.csr_from_dense(x) for x in mats)
+    before = kernel.LAUNCHES
+    got = masked_spgemm(A, B, M, algorithm="tile", tile_block=32,
+                        device=cuda_device)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES == before + 2
+    want = masked_spgemm(A, B, M, algorithm="tile", tile_block=32,
+                         device="cpu")
+    torch.testing.assert_close(got.vals.cpu(), want.vals, rtol=0, atol=0)
+    assert torch.equal(got.present.cpu(), want.present)
+
+
+def test_default_device_is_cuda(cuda_device):
+    A, B, M = (F.csr_from_dense(x) for x in
+               dense_operands(9, 64, (0.2, 0.2, 0.3), True))
+    res = masked_spgemm(A, B, M)
+    assert res.vals.is_cuda and res.present.is_cuda
