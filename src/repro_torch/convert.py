@@ -4,7 +4,8 @@ Each function reads the reference object's attributes as numpy arrays
 (``np.asarray`` of a JAX array needs no JAX import here) and builds the
 port's counterpart, so both packages can compute on identical operands and
 a plan elected by the reference planner can drive the port
-(``masked_spgemm(plan=plan_from_reference(p))``).  Nothing of the
+(``masked_spgemm(plan=plan_from_reference(p))``) and a model can run the
+reference's weights (``load_reference_params``).  Nothing of the
 reference is imported.
 """
 from __future__ import annotations
@@ -57,3 +58,57 @@ def plan_from_reference(obj):
                 costs=tuple((str(name), float(c)) for name, c in obj.costs),
                 stats=_stats(obj.stats),
                 trialed=tuple(obj.trialed))
+
+
+def _copy(dst: torch.Tensor, src, name: str) -> None:
+    arr = np.array(src, dtype=np.float32)
+    if tuple(arr.shape) != tuple(dst.shape):
+        raise ValueError(f"{name}: reference shape {arr.shape} does not "
+                         f"match the port's {tuple(dst.shape)}")
+    with torch.no_grad():
+        dst.copy_(torch.as_tensor(arr))
+
+
+def load_reference_params(model, tree) -> None:
+    """Copy a reference parameter tree (``repro.models.transformer
+    .init_params``; leaves as numpy or JAX arrays) into a port
+    ``Transformer`` of the same config, in place.
+
+    ``embed``, ``final_ln_scale`` (``final_ln_bias``) and ``lm_head`` map
+    to the model's own; ``layers_dense`` holds each block parameter stacked
+    on a leading layer axis: ``attn/{wq, wk, wv, wo, bq, bk, bv}``,
+    ``ffn/{w_gate, w_up, w_down, b_up, b_down}``, ``ln1_scale``,
+    ``ln2_scale`` (and ``_bias``) go to block i's modules.  A key the port
+    has no place for raises.
+    """
+    cfg = model.cfg
+    known = {"embed", "final_ln_scale", "final_ln_bias", "lm_head",
+             "layers_dense"}
+    extra = sorted(set(tree) - known)
+    if extra:
+        raise ValueError(f"reference parameters the port has no place for: "
+                         f"{extra}")
+    _copy(model.embed, tree["embed"], "embed")
+    _copy(model.final_ln.scale, tree["final_ln_scale"], "final_ln_scale")
+    if model.final_ln.bias is not None:
+        _copy(model.final_ln.bias, tree["final_ln_bias"], "final_ln_bias")
+    if model.lm_head is not None:
+        _copy(model.lm_head, tree["lm_head"], "lm_head")
+    layers = tree["layers_dense"]
+    n = np.asarray(layers["ln1_scale"]).shape[0]
+    if n != len(model.blocks):
+        raise ValueError(f"reference has {n} layers, the port "
+                         f"{len(model.blocks)}")
+    kv = ({"wk_rep": "wk", "wv_rep": "wv"} if cfg.kv_replicated else {})
+    for i, block in enumerate(model.blocks):
+        for group, module in (("attn", block.attn), ("ffn", block.ffn)):
+            for name, stacked in layers[group].items():
+                dst = getattr(module, kv.get(name, name), None)
+                if not isinstance(dst, torch.Tensor):
+                    raise ValueError(f"layers_dense/{group}/{name}: the "
+                                     f"port has no such parameter")
+                _copy(dst, stacked[i], f"layers_dense/{group}/{name}[{i}]")
+        for ln, module in (("ln1", block.ln1), ("ln2", block.ln2)):
+            _copy(module.scale, layers[f"{ln}_scale"][i], f"{ln}_scale[{i}]")
+            if module.bias is not None:
+                _copy(module.bias, layers[f"{ln}_bias"][i], f"{ln}_bias[{i}]")

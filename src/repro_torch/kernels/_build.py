@@ -12,6 +12,7 @@ package on machines without ``nvcc``.
 """
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
@@ -27,6 +28,8 @@ BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch"
 #: every CUDA source of the package, by library name
 SOURCES: Dict[str, Path] = {
     "block_spgemm": _PKG / "masked_matmul" / "csrc" / "block_spgemm.cu",
+    "masked_matmul": _PKG / "masked_matmul" / "csrc" / "masked_matmul.cu",
+    "flash_mask": _PKG / "flash_mask" / "csrc" / "flash_mask.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -100,3 +103,20 @@ def build_all(names: List[str] = None) -> Dict[str, Path]:
 def build(name: str) -> Path:
     """Path of the built library of source ``name`` (building it first)."""
     return build_all([name])[name]
+
+
+#: C entry points loaded by this process, by library name
+_FUNCTIONS: Dict[str, ctypes._CFuncPtr] = {}
+
+
+def load(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C function ``symbol`` of source ``name``'s library, built and
+    loaded at first use, with ``argtypes`` set.  Every entry point of the
+    package returns the ``cudaError_t`` of its launch as an int."""
+    fn = _FUNCTIONS.get(name)
+    if fn is None:
+        fn = getattr(ctypes.CDLL(str(build(name))), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[name] = fn
+    return fn

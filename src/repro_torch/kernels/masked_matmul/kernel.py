@@ -1,44 +1,44 @@
-"""Masked BCSR x BCSR block product: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Masked tile products: the CUDA kernels' wrappers and their plain PyTorch
+versions.
 
-The kernel (``csrc/block_spgemm.cu``) replaces the TPU kernel
+``block_spgemm_kernel`` (``csrc/block_spgemm.cu``) replaces the TPU kernel
 ``repro/kernels/masked_matmul/kernel.py::block_spgemm_kernel``.  It replays
 a rank-sorted worklist ``(rank, pa, pb, flags)``: flag bit 1 zeroes the f32
 accumulator, bit 2 adds ``A[pa] @ B[pb]``, bit 4 writes the accumulator to
 ``out[rank]``.  One CTA per (output rank, output sub-tile) walks that rank's
-worklist segment, so the result needs no atomics and is deterministic; the
-note at the top of the source gives its bound on an H100.
+worklist segment, so the result needs no atomics and is deterministic.
 
-``block_spgemm_kernel`` launches the kernel for CUDA tensors (or raises) and
-runs ``block_spgemm_plain`` for CPU tensors; ``LAUNCHES`` counts launches.
+``masked_matmul_kernel`` (``csrc/masked_matmul.cu``) replaces the TPU
+kernel ``repro/kernels/masked_matmul/kernel.py::masked_matmul_kernel``, the
+tile SDDMM ``out[r] = A[bi[r] row panel] @ B[bj[r] column panel]``.  One CTA
+per (mask tile, output sub-tile) loops over K itself.
+
+The note at the top of each source gives its bound on an H100.  Each
+wrapper launches its kernel for CUDA tensors (or raises) and runs its plain
+version for CPU tensors; ``LAUNCHES`` and ``MASKED_MATMUL_LAUNCHES`` count
+the launches.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from repro_torch.kernels import _build
 
 #: peak f32 elements the plain version materializes per worklist chunk
 #: (~64 MB); the row route's batch budget reuses it
 _XLA_CHUNK_ELEMS = 1 << 24
 
-#: number of times the CUDA kernel was launched in this process
+#: number of times the block_spgemm kernel was launched in this process
 LAUNCHES = 0
+#: number of times the masked_matmul kernel was launched in this process
+MASKED_MATMUL_LAUNCHES = 0
 
-_lib = None
-
-
-def _load():
-    """Build (first use only) and load the kernel's library."""
-    global _lib
-    if _lib is None:
-        import ctypes
-        from repro_torch.kernels import _build
-        lib = ctypes.CDLL(str(_build.build("block_spgemm")))
-        fn = lib.block_spgemm_f32
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: C signatures: pointers, then ints, then the stream
+_BLOCK_SPGEMM_ARGS = [_P] * 7 + [_I] * 4 + [_P]
+_MASKED_MATMUL_ARGS = [_P] * 5 + [_I] * 7 + [_P]
 
 
 def _check(a_blocks, b_blocks, rank, pa, pb, flags, nnzb_out):
@@ -118,10 +118,10 @@ def block_spgemm_kernel(a_blocks, b_blocks, rank, pa, pb, flags,
     seg_ptr = torch.searchsorted(
         rank, torch.arange(nnzb_out + 1, dtype=torch.int32, device=dev),
         out_int32=True)
-    lib = _load()
+    fn = _build.load("block_spgemm", "block_spgemm_f32", _BLOCK_SPGEMM_ARGS)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.block_spgemm_f32(
+        err = fn(
             a_blocks.data_ptr(), b_blocks.data_ptr(), pa.data_ptr(),
             pb.data_ptr(), flags.data_ptr(), seg_ptr.data_ptr(),
             out.data_ptr(), nnzb_out, bs, a_blocks.shape[0],
@@ -130,4 +130,81 @@ def block_spgemm_kernel(a_blocks, b_blocks, rank, pa, pb, flags,
         raise RuntimeError(f"block_spgemm kernel launch failed: CUDA error "
                            f"{err}")
     LAUNCHES += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Tile SDDMM:  out[r] = A[bi[r], :] @ B[:, bj[r]]   for each mask tile r
+# ---------------------------------------------------------------------------
+
+
+def _check_sddmm(a, b, bi, bj, bm, bn, bk):
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"a (M, K) and b (K, N) do not chain: "
+                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    if a.dtype != b.dtype or a.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"a and b must both be float32 or bfloat16, got "
+                         f"{a.dtype} and {b.dtype}")
+    M, K = a.shape
+    N = b.shape[1]
+    if min(bm, bn, bk) < 1 or M % bm or N % bn or K % bk:
+        raise ValueError(f"blocks ({bm}, {bn}, {bk}) must divide "
+                         f"(M, N, K) = ({M}, {N}, {K})")
+    nnzb = bi.shape[0]
+    for name, x in (("bi", bi), ("bj", bj)):
+        if x.dtype != torch.int32 or x.dim() != 1 or x.shape[0] != nnzb:
+            raise ValueError(f"{name} must be a ({nnzb},) int32 tensor, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+    if any(x.device != a.device for x in (b, bi, bj)):
+        raise ValueError("all operands must lie on one device")
+
+
+def masked_matmul_plain(a, b, bi, bj, *, bm: int, bn: int) -> torch.Tensor:
+    """Plain version: gather A's row panels and B's column panels, then one
+    batched f32 matmul.  Returns (nnzb, bm, bn) f32."""
+    rows = bi.long()[:, None] * bm + torch.arange(bm, device=a.device)
+    cols = bj.long()[:, None] * bn + torch.arange(bn, device=a.device)
+    a_pan = a.float()[rows]                        # (nnzb, bm, K)
+    b_pan = b.float()[:, cols].permute(1, 0, 2)    # (nnzb, K, bn)
+    return torch.bmm(a_pan, b_pan)
+
+
+def masked_matmul_kernel(a, b, bi, bj, *, bm: int, bn: int,
+                         bk: int) -> torch.Tensor:
+    """C_tiles[r] = (A @ B) tile (bi[r], bj[r]); only allowed tiles computed.
+
+    a: (M, K), b: (K, N), both float32 or both bfloat16, with
+    M % bm == N % bn == K % bk == 0.  bi, bj: (nnzb,) int32 mask tile
+    coordinates.  Returns (nnzb, bm, bn) float32.
+
+    CPU tensors run ``masked_matmul_plain``.  CUDA tensors launch the kernel
+    on the current stream without synchronising, or raise.  The kernel
+    loops over all of K in chunks of its own, so ``bk`` only has to divide
+    K, as the reference requires; a tile whose coordinates lie outside A or
+    B comes out as zeros.
+    """
+    global MASKED_MATMUL_LAUNCHES
+    _check_sddmm(a, b, bi, bj, bm, bn, bk)
+    dev = a.device
+    if dev.type == "cpu":
+        return masked_matmul_plain(a, b, bi, bj, bm=bm, bn=bn)
+    if dev.type != "cuda":
+        raise ValueError(f"no masked_matmul kernel for device {dev}")
+    a, b, bi, bj = (x.contiguous() for x in (a, b, bi, bj))
+    nnzb = bi.shape[0]
+    out = torch.empty((nnzb, bm, bn), dtype=torch.float32, device=dev)
+    if nnzb == 0:
+        return out
+    fn = _build.load("masked_matmul", "masked_matmul", _MASKED_MATMUL_ARGS)
+    M, K = a.shape
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            a.data_ptr(), b.data_ptr(), bi.data_ptr(), bj.data_ptr(),
+            out.data_ptr(), nnzb, M, K, b.shape[1], bm, bn,
+            0 if a.dtype == torch.float32 else 1, stream)
+    if err != 0:
+        raise RuntimeError(f"masked_matmul kernel launch failed: CUDA error "
+                           f"{err}")
+    MASKED_MATMUL_LAUNCHES += 1
     return out

@@ -9,6 +9,7 @@ construction is vectorized numpy, identical to the reference's.
 
 ``_run_schedule`` replays a worklist on the device its blocks lie on: the
 CUDA kernel for CUDA tensors, the plain PyTorch version for CPU tensors.
+``masked_matmul`` is the tile SDDMM's entry point.
 """
 from __future__ import annotations
 
@@ -19,9 +20,11 @@ import torch
 
 from repro_torch.core.formats import (BCSR, bcsr_from_csr,
                                       bcsr_structure_transpose)
-from .kernel import _XLA_CHUNK_ELEMS, block_spgemm_kernel
+from .kernel import (_XLA_CHUNK_ELEMS, block_spgemm_kernel,
+                     masked_matmul_kernel)
 
-__all__ = ["Schedule", "tile_path_supported", "build_spgemm_schedule",
+__all__ = ["Schedule", "tile_path_supported", "masked_matmul",
+           "build_spgemm_schedule",
            "block_spgemm", "block_spgemm_with_structure",
            "block_spgemm_from_csr", "_XLA_CHUNK_ELEMS"]
 
@@ -36,6 +39,16 @@ def tile_path_supported(semiring_name: str, complement: bool) -> bool:
     complement's output is not bounded by the mask's block structure).
     """
     return semiring_name == "plus_times" and not complement
+
+
+def masked_matmul(a, b, bi, bj, *, bm: int, bn: int,
+                  bk: int) -> torch.Tensor:
+    """Tile-MCA SDDMM: only mask-allowed output tiles are computed.
+
+    a: (M, K), b: (K, N) float32 or bfloat16 tensors on one device; bi, bj:
+    (nnzb,) int32 mask tile coordinates.  Returns (nnzb, bm, bn) float32.
+    """
+    return masked_matmul_kernel(a, b, bi, bj, bm=bm, bn=bn, bk=bk)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,23 @@
-"""Dense oracle for the masked block product."""
+"""Dense oracles for the masked tile products."""
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def masked_matmul_ref(a, b, bi, bj, *, bm, bn):
+    """Tile-MCA SDDMM oracle: dense C = A @ B, then gather allowed tiles.
+
+    a: (M, K), b: (K, N), bi/bj: (nnzb,) block coords of allowed tiles.
+    Returns (nnzb, bm, bn) float32.
+    """
+    a = torch.as_tensor(a).float()
+    c = a @ torch.as_tensor(b, device=a.device).float()
+    out = [c[i * bm:(i + 1) * bm, j * bn:(j + 1) * bn]
+           for i, j in zip(np.asarray(bi), np.asarray(bj))]
+    return (torch.stack(out) if out
+            else torch.zeros((0, bm, bn), dtype=torch.float32,
+                             device=a.device))
 
 
 def block_spgemm_ref(a_dense, b_dense, mask_bi, mask_bj, *, bs):

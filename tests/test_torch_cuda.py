@@ -1,6 +1,8 @@
-"""The port on a CUDA device: the block_spgemm kernel against its plain
-version, and both routes of masked_spgemm against the same calls on the
-CPU.  Every test needs a GPU and skips without one.
+"""The port on a CUDA device: the block_spgemm, masked_matmul and
+flash_mask kernels against their plain versions, both routes of
+masked_spgemm against the same calls on the CPU, and the LM forward with
+the flash kernel against dense attention.  Every test needs a GPU and
+skips without one.
 
 This file imports neither JAX nor the reference package, so it runs where
 only PyTorch is installed:
@@ -10,15 +12,20 @@ only PyTorch is installed:
 Tolerances: exact on small-integer data; rtol = atol = 1e-4 for the block
 product and 1e-5 for the row kernels on normal data (atomics in the plain
 version's ``index_add_`` and the reduction orders of heap/inner differ
-between devices).
+between devices); the reference's 1e-5 / 2e-2 (f32 / bf16) for
+masked_matmul and 2e-5 / 3e-2 for flash_mask.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.base import get_config
 from repro_torch.core import formats as F
 from repro_torch.core.masked_spgemm import ALGORITHMS, masked_spgemm
+from repro_torch.kernels.flash_mask import kernel as flash
+from repro_torch.kernels.flash_mask.ops import flash_mask_attention
 from repro_torch.kernels.masked_matmul import kernel, ops
+from repro_torch.models import transformer as T
 
 pytestmark = pytest.mark.cuda
 
@@ -117,3 +124,95 @@ def test_default_device_is_cuda(cuda_device):
                dense_operands(9, 64, (0.2, 0.2, 0.3), True))
     res = masked_spgemm(A, B, M)
     assert res.vals.is_cuda and res.present.is_cuda
+
+
+@pytest.mark.parametrize("blocks", [(8, 8, 8), (16, 16, 16), (32, 32, 16),
+                                    (128, 128, 128), (8, 128, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ints", [True, False])
+def test_masked_matmul_kernel_matches_plain(cuda_device, blocks, dtype,
+                                            ints):
+    bm, bn, bk = blocks
+    rng = np.random.default_rng(bm + bn)
+    M, K, N = 4 * bm, 3 * bk, 3 * bn
+    draw = ((lambda s: rng.integers(-4, 5, s)) if ints
+            else rng.standard_normal)
+    a = torch.as_tensor(draw((M, K)), dtype=dtype, device=cuda_device)
+    b = torch.as_tensor(draw((K, N)), dtype=dtype, device=cuda_device)
+    ok = rng.random((4, 3)) < 0.5
+    ok[0, 0] = True
+    bi, bj = (torch.as_tensor(x.astype(np.int32), device=cuda_device)
+              for x in np.nonzero(ok))
+    before = kernel.MASKED_MATMUL_LAUNCHES
+    got = ops.masked_matmul(a, b, bi, bj, bm=bm, bn=bn, bk=bk)
+    torch.cuda.synchronize()
+    assert kernel.MASKED_MATMUL_LAUNCHES == before + 1
+    want = kernel.masked_matmul_plain(a, b, bi, bj, bm=bm, bn=bn)
+    tol = 0 if ints else (1e-5 if dtype == torch.float32 else 2e-2)
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+FLASH_PATTERNS = [dict(causal=True, window=0, prefix=0),
+                  dict(causal=True, window=16, prefix=0),
+                  dict(causal=True, window=16, prefix=8),
+                  dict(causal=False, window=0, prefix=0)]
+
+
+@pytest.mark.parametrize("pattern", FLASH_PATTERNS,
+                         ids=["causal", "window", "window+prefix", "dense"])
+@pytest.mark.parametrize("shape", [(32, 32, 8, 8, 16), (64, 64, 16, 16, 16),
+                                   (32, 64, 8, 16, 16), (256, 256, 64, 32, 64),
+                                   (256, 256, 128, 128, 128),
+                                   (8, 64, 8, 8, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda_device, pattern, shape, dtype):
+    s_q, s_k, bq, bk, d = shape
+    b, hq, hkv = 2, 4, 2
+    g = torch.Generator(device=cuda_device).manual_seed(s_q + bq + d)
+
+    def mk(*shape):
+        return (torch.randn(shape, generator=g, device=cuda_device)
+                * 0.5).to(dtype)
+
+    q, k, v = mk(b, hq, s_q, d), mk(b, hkv, s_k, d), mk(b, hkv, s_k, d)
+    q_off = s_k - s_q
+    sched = [torch.as_tensor(x, device=cuda_device) for x in
+             flash.build_schedule(s_q, s_k, bq=bq, bk=bk, q_offset=q_off,
+                                  **pattern)]
+    kw = dict(bq=bq, bk=bk, scale=d ** -0.5, q_offset=q_off, **pattern)
+    before = flash.LAUNCHES
+    got = flash.flash_mask_kernel(q, k, v, *sched, **kw)
+    torch.cuda.synchronize()
+    assert flash.LAUNCHES == before + 1
+    want = flash.flash_mask_plain(q, k, v, *sched, **kw)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_op_matches_cpu(cuda_device):
+    rng = np.random.default_rng(5)
+    q = torch.as_tensor(rng.standard_normal((2, 8, 128, 64)) * 0.3,
+                        dtype=torch.float32)
+    k, v = (torch.as_tensor(rng.standard_normal((2, 2, 128, 64)) * 0.3,
+                            dtype=torch.float32) for _ in range(2))
+    want = flash_mask_attention(q, k, v, causal=True, bq=32, bk=32)
+    got = flash_mask_attention(q.to(cuda_device), k.to(cuda_device),
+                               v.to(cuda_device), causal=True, bq=32, bk=32)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_lm_forward_flash_matches_dense(cuda_device):
+    cfg = get_config("llama3_2_1b", smoke=True).replace(
+        attn_impl="flash_pallas")
+    model = T.init_params(cfg, device=cuda_device)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda_device,
+                           generator=torch.Generator(
+                               device=cuda_device).manual_seed(1))
+    before = flash.LAUNCHES
+    got = T.forward(model, cfg, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert flash.LAUNCHES == before + cfg.n_layers
+    want = T.forward(model, cfg.replace(attn_impl="dense_masked"),
+                     {"tokens": tokens})
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
