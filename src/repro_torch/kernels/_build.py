@@ -2,10 +2,11 @@
 
 Each source under a kernel's ``csrc/`` compiles, on its own, to a shared
 library with a plain C interface in ``build/repro_torch/`` at the repository
-root, for ``sm_90a`` (Hopper).  The library's file name carries a hash of
-its source and of the flags, so an edited source rebuilds and an unchanged
-one is reused.  ``build_all`` starts one ``nvcc`` per source at once and
-waits for all of them.
+root, for ``sm_90a`` (Hopper).  The sources include the shared headers of
+``kernels/csrc/`` (``-I``).  The library's file name carries a hash of its
+source, of every shared header and of the flags, so an edited source or
+header rebuilds and an unchanged one is reused.  ``build_all`` starts one
+``nvcc`` per source at once and waits for all of them.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on machines without ``nvcc``.
@@ -19,7 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 _PKG = Path(__file__).resolve().parent
 #: build directory at the repository root (listed in .gitignore)
@@ -32,8 +33,12 @@ SOURCES: Dict[str, Path] = {
     "flash_mask": _PKG / "flash_mask" / "csrc" / "flash_mask.cu",
 }
 
+#: headers every source may include (``mma.cuh``: tensor-core primitives)
+INCLUDE_DIR = _PKG / "csrc"
+
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(INCLUDE_DIR))
 
 #: ptxas report (registers, shared memory, spills) of each library built
 #: by this process
@@ -55,9 +60,12 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of source ``name`` lives once built."""
-    src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(p for p in INCLUDE_DIR.rglob("*") if p.is_file()):
+        h.update(str(header.relative_to(INCLUDE_DIR)).encode())
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -105,18 +113,36 @@ def build(name: str) -> Path:
     return build_all([name])[name]
 
 
-#: C entry points loaded by this process, by library name
-_FUNCTIONS: Dict[str, ctypes._CFuncPtr] = {}
+#: C entry points loaded by this process, by (library name, symbol)
+_FUNCTIONS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def load(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """The C function ``symbol`` of source ``name``'s library, built and
     loaded at first use, with ``argtypes`` set.  Every entry point of the
-    package returns the ``cudaError_t`` of its launch as an int."""
-    fn = _FUNCTIONS.get(name)
+    package returns a ``cudaError_t`` as an int."""
+    fn = _FUNCTIONS.get((name, symbol))
     if fn is None:
         fn = getattr(ctypes.CDLL(str(build(name))), symbol)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-        _FUNCTIONS[name] = fn
+        _FUNCTIONS[(name, symbol)] = fn
     return fn
+
+
+#: what the ``*_info`` entry points report about one kernel instance
+INFO_FIELDS = ("threads", "smem_bytes", "registers", "local_bytes",
+               "ctas_per_sm")
+
+
+def kernel_info(name: str, symbol: str, *args: int) -> Dict[str, int]:
+    """Threads per CTA, dynamic shared memory, registers and local (spill)
+    bytes per thread, and resident CTAs per SM of the kernel instance that
+    the C entry point ``symbol(*args, int info[5])`` of source ``name``
+    reports, on the current CUDA device."""
+    fn = load(name, symbol, [ctypes.c_int] * len(args) + [ctypes.c_void_p])
+    info = (ctypes.c_int * len(INFO_FIELDS))()
+    err = fn(*args, ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f"{symbol}{args} failed: CUDA error {err}")
+    return dict(zip(INFO_FIELDS, info))

@@ -10,54 +10,74 @@
 // (causal: k <= q; window: q - k < window or k < prefix) applies at the
 // absolute query position q + q_offset; masked scores are NEG_INF = -1e30
 // and their probabilities are zeroed after the exp, so a fully masked tile
-// leaves alpha = exp(m_prev - m_new) = 1 and no NaN.  p.v runs in f32 with
-// v upcast.  Flag bit 1 resets the running max m, normaliser l and
+// leaves alpha = exp(m_prev - m_new) = 1 and no NaN.  p.v is f32 p times v
+// upcast.  Flag bit 1 resets the running max m, normaliser l and
 // accumulator; bit 2 writes acc / l (rows with l == 0 come out as 0) in the
-// input dtype.
+// input dtype.  A kv-block index out of range reads as fully masked.
 //
-// Design.  The TPU kernel keeps m, l and acc in VMEM across consecutive
-// grid steps of one q-block.  Here one CTA of 256 threads owns one
-// (q-block, batch * head) pair and walks that q-block's contiguous segment
-// seg_ptr[qb] .. seg_ptr[qb + 1] of the worklist: no atomics, one sum
-// order, deterministic results.  The q tile stays in shared memory (as
-// f32); each step stages the k tile, computes the scores into registers
-// (a 16 x 16 thread grid, RQ x RK scores per thread, IEEE fmaf, no TF32),
-// stores them masked to shared memory, lets each warp take rows for the
-// online softmax while the v tile is staged into the buffer k used, and
-// then adds p.v into an accumulator held in registers (RQ x RD per thread).
-// Tiles are chosen per call from {16, 32, 64, 128} for max(bq, bk) and
-// {16, 64, 128} for D; smaller sizes are guarded.
+// Both kernels keep the TPU kernel's state across one q-block's grid steps
+// in one CTA per (q-block, batch * head), which walks that q-block's
+// contiguous segment seg_ptr[qb] .. seg_ptr[qb + 1] of the worklist: no
+// atomics, one sum order, deterministic results.  The C entry point picks
+// the kernel by dtype.
+//
+// bf16: tensor cores (flash_mask_tc_kernel).  Warps of 16 query rows each (8
+// warps at bq = 128).  The q tile is loaded once into shared memory and read
+// as mma A-fragments (ldmatrix) at every tile: kept in registers it spilled
+// more of the 128-register budget and ran slower on an NVIDIA H100 80GB HBM3
+// at 700 W (PERF.md).  k and v tiles stay bf16 in shared memory in a 2-stage
+// cp.async ring: the next worklist entry's ki is read ahead and its k/v copy
+// overlaps this tile's math.  S = q.k^T runs on m16n8k16 bf16 mma (exact
+// products, f32 sums, as in the reference).  The element mask is applied in
+// registers, and only where a warp's rows straddle the causal diagonal, the
+// window edge or the block's end; interior tiles skip it.  The online softmax
+// stays in registers: each row's max and sum reduce over its quad of four
+// threads, with no shared-memory score tile and no barrier.  p.v keeps the
+// reference's f32 p: p = hi + lo, hi = bf16(p), lo = bf16(p - hi), both
+// re-packed from the C-fragment into the A-fragment layout in registers, each
+// an mma against v's fragments (ldmatrix.trans).  That costs 1.5x the tile's
+// operations and holds the layer to 9e-5 normwise from f32 p on that card
+// (chip_smoke.py), where one bf16 term exceeds its 2e-3 limit
+// (tests/test_torch_tc_numerics.py).  Longest q-blocks launch first
+// (qb = nq - 1 - blockIdx.y) to shorten the causal tail.  The output leaves
+// through shared memory in 16 B stores.  Registers are held to 128 per thread
+// so that two CTAs (16 warps, 2 x 90 KB of shared memory at 128/128/64) share
+// an SM; one CTA of 223 spill-free registers ran slower (PERF.md).  Blocks
+// below 16 and head dims below the mma depth are zero-padded in shared memory,
+// the padding masked.
+//
+// f32: CUDA cores (flash_mask_f32_kernel), the first port's design.  A CTA
+// of 256 threads stages q (as f32) and then k and v through shared memory,
+// computes a 16 x 16 thread grid of scores with IEEE fmaf (no TF32), keeps
+// the masked score tile in shared memory for a warp-per-row softmax, and
+// adds p.v into registers.
 //
 // Bound on an H100 SXM at the full-width llama3.2-1b layer (B = 4,
-// Hq = 32, Hkv = 8, S = 2048, D = 64, bq = bk = 128, causal: 136 pairs per
-// (batch, head)): 4 * 128 * 136 * 128 * 128 * 64 = 73 GFLOP per launch,
-// 0.074 ms at 989 TFLOP/s on bf16 tensor cores (1.09 ms at 67 TFLOP/s of
-// f32 on CUDA cores, the units this kernel uses); q, k, v read once and
-// the output written once are 84 MB, 0.025 ms at 3.35 TB/s.  It is bound
-// by operations.
+// Hq = 32, Hkv = 8, S = 2048, D = 64, bq = bk = 128, causal): the allowed
+// (q, k) elements need 4 * B * Hq * D * S (S + 1) / 2 = 68.75 GFLOP, 0.0695
+// ms at 989 TFLOP/s of bf16 tensor cores; q, k, v read once and the output
+// written once are 84 MB, 0.025 ms at 3.35 TB/s, so it is bound by
+// operations.  The bf16 kernel issues whole tiles with p.v twice, about
+// 109.5 GFLOP, so it can reach at most about 63 % of that bound.  What
+// holds it back further: mma.sync reaches only part of the rate that
+// wgmma does, the exp and the hi/lo split of every score run on the
+// CUDA cores between the two products, two barriers per tile, and a few
+// registers spilled at 128 per thread.  The f32
+// instance's bound is three TF32 passes, 3 * 68.75 GFLOP at 495 TFLOP/s =
+// 0.417 ms; it runs on f32 CUDA cores (67 TFLOP/s, 1.03 ms).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr int TS = 16;          // thread grid edge
-constexpr int NT = TS * TS;     // threads per CTA
+using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 // the parametric element mask of kernel.py:55-60 (no prefix-LM rule)
 __device__ __forceinline__ bool allowed(int qg, int kg, int causal,
@@ -67,6 +87,261 @@ __device__ __forceinline__ bool allowed(int qg, int kg, int causal,
   if (window > 0) ok = ok && ((qg - kg) < window || kg < prefix);
   return ok;
 }
+
+// ---------------------------------------------------------------------------
+// bf16 on tensor cores
+// ---------------------------------------------------------------------------
+
+// BT: q and kv tile rows (16 .. 128), DM: padded head dim (16, 64, 128)
+template <int BT, int DM>
+struct TcCfg {
+  static constexpr int NT = BT * 2;           // BT / 16 warps
+  static constexpr int LD = DM + 8;           // padded row: no bank conflicts
+  static constexpr int TILE = BT * LD;        // elements of one tile
+  // q, then 2 stages of (k, v)
+  static constexpr size_t SMEM = sizeof(bf16) * (size_t)TILE * 5;
+};
+
+// rows [0, rows) x cols [0, D) of a row-major (., D) tile into a BT x DM
+// shared tile, zero-filled beyond; 16 B cp.async when `vec`, else plain
+// element copies (done when the caller's barrier passes)
+template <int BT, int DM>
+__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, int rows,
+                                          int D, bool vec, int tid) {
+  using C = TcCfg<BT, DM>;
+  if (vec) {
+    for (int e = tid; e < BT * (DM / 8); e += C::NT) {
+      const int r = e / (DM / 8), c = (e % (DM / 8)) * 8;
+      const bool in = r < rows && c < D;
+      tc::cp_async16(s + r * C::LD + c, in ? g + (size_t)r * D + c : g, in);
+    }
+  } else {
+    for (int e = tid; e < BT * DM; e += C::NT) {
+      const int r = e / DM, c = e % DM;
+      s[r * C::LD + c] = (r < rows && c < D) ? g[(size_t)r * D + c]
+                                             : __float2bfloat16(0.0f);
+    }
+  }
+}
+
+template <int BT, int DM>
+__global__ void __launch_bounds__(BT * 2, (DM <= 64 ? 2 : 1))
+flash_mask_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const int* __restrict__ ki,
+                     const int* __restrict__ flags,
+                     const int* __restrict__ seg_ptr, bf16* __restrict__ out,
+                     int Hq, int Hkv, int S, int Tk, int D, int bq, int bk,
+                     float scale, int causal, int window, int prefix,
+                     int q_offset, int vec) {
+  using C = TcCfg<BT, DM>;
+  constexpr int NB = BT / 8;                  // n8 score tiles per row block
+  constexpr int ND = DM / 8;                  // n8 output tiles
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* KV = Qs + C::TILE;                    // stage s: k at 2s, v at 2s+1
+
+  const int qb = gridDim.y - 1 - blockIdx.y;  // longest segments first
+  const int bh = blockIdx.x;                  // b * Hq + h
+  const int w_beg = seg_ptr[qb], w_end = seg_ptr[qb + 1];
+  if (w_beg >= w_end) return;                 // never visited: stays zero
+  const int kvh = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
+  const bf16* Qg = q + ((size_t)bh * S + (size_t)qb * bq) * D;
+  const bf16* Kg = k + (size_t)kvh * Tk * D;
+  const bf16* Vg = v + (size_t)kvh * Tk * D;
+  bf16* Og = out + ((size_t)bh * S + (size_t)qb * bq) * D;
+  const int nkb = Tk / bk;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = warp * 16;                 // this warp's rows in the tile
+  const int q_lo = qb * bq + q_offset + row0;  // its first absolute query
+
+  auto stage = [&](int w, int st) {           // k, v of entry w into st
+    const int kb = ki[w];
+    if (kb < 0 || kb >= nkb) return;          // fully masked: no data
+    load_tile<BT, DM>(KV + (2 * st) * C::TILE, Kg + (size_t)kb * bk * D, bk,
+                      D, vec, tid);
+    load_tile<BT, DM>(KV + (2 * st + 1) * C::TILE, Vg + (size_t)kb * bk * D,
+                      bk, D, vec, tid);
+  };
+  load_tile<BT, DM>(Qs, Qg, bq, D, vec, tid);
+  stage(w_beg, 0);
+  tc::cp_async_commit();
+
+  float o[ND][4];                             // rows g, g + 8 of the warp
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) o[n][x] = 0.0f;
+
+  for (int w = w_beg, it = 0; w < w_end; ++w, ++it) {
+    const int st = it & 1;
+    if (w + 1 < w_end) stage(w + 1, st ^ 1);  // read ahead: overlaps below
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();                   // entry w (and q) landed
+    __syncthreads();
+    const int f = flags[w];                   // uniform across the CTA
+    const int kb = ki[w];
+    if (f & 1) {
+      m_r[0] = m_r[1] = NEG_INF;
+      l_r[0] = l_r[1] = 0.0f;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) o[n][x] = 0.0f;
+    }
+    // an out-of-range kv-block is fully masked: m, l and acc keep their
+    // values (alpha = 1, p = 0), so only the flags act
+    if (kb >= 0 && kb < nkb) {
+      const bf16* Ks = KV + (2 * st) * C::TILE;
+      const bf16* Vs = KV + (2 * st + 1) * C::TILE;
+
+      // S = q . k^T for the warp's 16 rows x BT keys
+      float s[NB][4];
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) s[n][x] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < DM / 16; ++kk) {
+        uint32_t qf[4];                       // q's A-fragment, this k-step
+        tc::ldmatrix_x4(qf, Qs + (row0 + (lane & 15)) * C::LD + kk * 16 +
+                                (lane >> 4) * 8);
+#pragma unroll
+        for (int j = 0; j < NB / 2; ++j) {
+          uint32_t kf[4];
+          const int key = 16 * j + (lane & 7) + (lane >> 4) * 8;
+          tc::ldmatrix_x4(kf, Ks + key * C::LD + kk * 16 +
+                                  ((lane >> 3) & 1) * 8);
+          tc::mma_bf16(s[2 * j], qf, kf[0], kf[1]);
+          tc::mma_bf16(s[2 * j + 1], qf, kf[2], kf[3]);
+        }
+      }
+
+      // scale; mask only where the warp's rows straddle an edge
+      const int k_lo = kb * bk, k_hi = k_lo + bk - 1;
+      const int q_hi = q_lo + 15;
+      const bool full =
+          bk == BT && (!causal || k_hi <= q_lo) &&
+          (window <= 0 || q_hi - k_lo < window || k_hi < prefix);
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          s[n][x] *= scale;
+          if (!full) {
+            const int col = 8 * n + 2 * t + (x & 1);
+            const int qg = q_lo + g + (x >> 1) * 8;
+            if (col >= bk || !allowed(qg, k_lo + col, causal, window, prefix))
+              s[n][x] = NEG_INF;
+          }
+        }
+
+      // online softmax, rows g (h = 0) and g + 8 (h = 1)
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = NEG_INF;
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+          mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_r[h], mx);
+        const float mc = m_new * LOG2E;
+        alpha[h] = exp2f((m_r[h] - m_new) * LOG2E);
+        float sum = 0.0f;
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+#pragma unroll
+          for (int x = 2 * h; x < 2 * h + 2; ++x) {
+            // masked here means set to NEG_INF above (no real score of a
+            // finite q, k reaches -1e30 after scaling in practice)
+            const bool ok = full || s[n][x] != NEG_INF;
+            const float p = ok ? exp2f(fmaf(s[n][x], LOG2E, -mc)) : 0.0f;
+            s[n][x] = p;
+            sum += p;
+          }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        l_r[h] = l_r[h] * alpha[h] + sum;
+        m_r[h] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+
+      // acc += p . v with p = hi + lo, each a bf16 A-fragment
+#pragma unroll
+      for (int kk = 0; kk < NB / 2; ++kk) {
+        uint32_t hi[4], lo[4];
+        tc::split_bf16x2(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
+        tc::split_bf16x2(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
+        tc::split_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
+        tc::split_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
+#pragma unroll
+        for (int j = 0; j < ND / 2; ++j) {
+          uint32_t vf[4];
+          tc::ldmatrix_x4_trans(
+              vf, Vs + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * C::LD +
+                      16 * j + (lane >> 4) * 8);
+          tc::mma_bf16(o[2 * j], lo, vf[0], vf[1]);
+          tc::mma_bf16(o[2 * j], hi, vf[0], vf[1]);
+          tc::mma_bf16(o[2 * j + 1], lo, vf[2], vf[3]);
+          tc::mma_bf16(o[2 * j + 1], hi, vf[2], vf[3]);
+        }
+      }
+    }
+
+    if (f & 2) {   // flush: acc / l (0 where l == 0), staged in shared
+      __syncthreads();                        // memory where k was
+      bf16* Os = KV + (2 * st) * C::TILE + row0 * C::LD;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float l = l_r[h];
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          const float x0 = l > 0.0f ? o[n][2 * h] / fmaxf(l, 1e-30f) : 0.0f;
+          const float x1 =
+              l > 0.0f ? o[n][2 * h + 1] / fmaxf(l, 1e-30f) : 0.0f;
+          *reinterpret_cast<__nv_bfloat162*>(
+              Os + (g + 8 * h) * C::LD + 8 * n + 2 * t) =
+              __floats2bfloat162_rn(x0, x1);
+        }
+      }
+      __syncwarp();
+      const int rows = min(16, bq - row0);
+      if (vec) {
+        for (int e = lane; e < 16 * (DM / 8); e += 32) {
+          const int r = e / (DM / 8), c = (e % (DM / 8)) * 8;
+          if (r < rows && c < D)
+            *reinterpret_cast<uint4*>(Og + (size_t)(row0 + r) * D + c) =
+                *reinterpret_cast<const uint4*>(Os + r * C::LD + c);
+        }
+      } else {
+        for (int e = lane; e < 16 * DM; e += 32) {
+          const int r = e / DM, c = e % DM;
+          if (r < rows && c < D)
+            Og[(size_t)(row0 + r) * D + c] = Os[r * C::LD + c];
+        }
+      }
+      __syncwarp();
+    }
+    __syncthreads();          // stage st is consumed before it is refilled
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 on CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int TS = 16;          // thread grid edge
+constexpr int NT = TS * TS;     // threads per CTA
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -89,20 +364,21 @@ constexpr size_t smem_bytes() {
                           (size_t)TS * RQ * (TS * RQ + 1) + 3 * TS * RQ);
 }
 
-template <typename T, int RQ, int RD>
+template <int RQ, int RD>
 __global__ void __launch_bounds__(NT)
-flash_mask_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const int* __restrict__ ki,
-                  const int* __restrict__ flags,
-                  const int* __restrict__ seg_ptr, T* __restrict__ out,
-                  int Hq, int Hkv, int S, int Tk, int D, int bq, int bk,
-                  float scale, int causal, int window, int prefix,
-                  int q_offset) {
+flash_mask_f32_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v, const int* __restrict__ ki,
+                      const int* __restrict__ flags,
+                      const int* __restrict__ seg_ptr,
+                      float* __restrict__ out, int Hq, int Hkv, int S,
+                      int Tk, int D, int bq, int bk, float scale, int causal,
+                      int window, int prefix, int q_offset) {
   constexpr int RK = RQ;
   constexpr int BQ = TS * RQ, BK = TS * RK, DM = TS * RD;
   constexpr int QLD = DM + 1, SLD = BK + 1;    // padded row strides
-  extern __shared__ float smem[];
-  float* Qs = smem;                      // [BQ][QLD]
+  extern __shared__ float smem_f[];
+  float* Qs = smem_f;                    // [BQ][QLD]
   float* KVs = Qs + BQ * QLD;            // [BK][QLD]: k tile, then v tile
   float* Ss = KVs + BK * QLD;            // [BQ][SLD]: scores, then p
   float* m_s = Ss + BQ * SLD;            // running max per row
@@ -112,10 +388,10 @@ flash_mask_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qb = blockIdx.x;
   const int bh = blockIdx.y;             // b * Hq + h
   const int kvh = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
-  const T* Qg = q + ((size_t)bh * S + (size_t)qb * bq) * D;
-  const T* Kg = k + (size_t)kvh * Tk * D;
-  const T* Vg = v + (size_t)kvh * Tk * D;
-  T* Og = out + ((size_t)bh * S + (size_t)qb * bq) * D;
+  const float* Qg = q + ((size_t)bh * S + (size_t)qb * bq) * D;
+  const float* Kg = k + (size_t)kvh * Tk * D;
+  const float* Vg = v + (size_t)kvh * Tk * D;
+  float* Og = out + ((size_t)bh * S + (size_t)qb * bq) * D;
   const int nkb = Tk / bk;
 
   const int tid = threadIdx.x;
@@ -124,8 +400,7 @@ flash_mask_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int e = tid; e < BQ * DM; e += NT) {
     const int i = e / DM, d = e % DM;
-    Qs[i * QLD + d] = (i < bq && d < D) ? to_f32(Qg[(size_t)i * D + d])
-                                         : 0.0f;
+    Qs[i * QLD + d] = (i < bq && d < D) ? Qg[(size_t)i * D + d] : 0.0f;
   }
   for (int i = tid; i < BQ; i += NT) {
     m_s[i] = NEG_INF;
@@ -150,14 +425,14 @@ flash_mask_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < RD; ++c) acc[i][c] = 0.0f;
     }
-    const T* Kt = Kg + (size_t)kb * bk * D;
-    const T* Vt = Vg + (size_t)kb * bk * D;
+    const float* Kt = Kg + (size_t)kb * bk * D;
+    const float* Vt = Vg + (size_t)kb * bk * D;
 
     __syncthreads();                     // last step's reads of KVs, Ss done
     for (int e = tid; e < BK * DM; e += NT) {
       const int j = e / DM, d = e % DM;
-      KVs[j * QLD + d] = (kb_ok && j < bk && d < D)
-                             ? to_f32(Kt[(size_t)j * D + d]) : 0.0f;
+      KVs[j * QLD + d] = (kb_ok && j < bk && d < D) ? Kt[(size_t)j * D + d]
+                                                     : 0.0f;
     }
     __syncthreads();
 
@@ -196,8 +471,8 @@ flash_mask_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // stage the v tile where the k tile was
     for (int e = tid; e < BK * DM; e += NT) {
       const int j = e / DM, d = e % DM;
-      KVs[j * QLD + d] = (kb_ok && j < bk && d < D)
-                             ? to_f32(Vt[(size_t)j * D + d]) : 0.0f;
+      KVs[j * QLD + d] = (kb_ok && j < bk && d < D) ? Vt[(size_t)j * D + d]
+                                                     : 0.0f;
     }
     // online softmax: one warp per row
     for (int row = warp; row < bq; row += NT / 32) {
@@ -257,72 +532,118 @@ flash_mask_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const int col = tx + TS * c;
           if (col < D)
             Og[(size_t)row * D + col] =
-                from_f32<T>(l > 0.0f ? acc[i][c] / fmaxf(l, 1e-30f) : 0.0f);
+                l > 0.0f ? acc[i][c] / fmaxf(l, 1e-30f) : 0.0f;
         }
       }
     }
   }
 }
 
-template <typename T, int RQ, int RD>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* ki, const int* flags, const int* seg_ptr,
-                   void* out, int BH, int Hq, int Hkv, int S, int Tk, int D,
-                   int bq, int bk, float scale, int causal, int window,
-                   int prefix, int q_offset, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<RQ, RD>();
+// ---------------------------------------------------------------------------
+// dispatch
+// ---------------------------------------------------------------------------
+
+struct Args {
+  const void *q, *k, *v;
+  const int *ki, *flags, *seg_ptr;
+  void* out;
+  int BH, Hq, Hkv, S, Tk, D, bq, bk;
+  float scale;
+  int causal, window, prefix, q_offset;
+  cudaStream_t stream;
+};
+
+// CTA shape, dynamic shared memory, registers, local memory per thread and
+// resident CTAs per SM of `fn` on the current device
+template <typename Fn>
+cudaError_t query(Fn* fn, int threads, size_t smem, int* info) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_mask_kernel<T, RQ, RD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(S / bq, BH);
-  flash_mask_kernel<T, RQ, RD><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), ki, flags, seg_ptr, static_cast<T*>(out), Hq,
-      Hkv, S, Tk, D, bq, bk, scale, causal, window, prefix, q_offset);
-  return cudaGetLastError();
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return err;
+  int ctas = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, threads,
+                                                      smem);
+  info[0] = threads;
+  info[1] = (int)smem;
+  info[2] = attr.numRegs;
+  info[3] = (int)attr.localSizeBytes;
+  info[4] = ctas;
+  return err;
 }
 
-template <typename T, int RQ>
-cudaError_t by_dim(const void* q, const void* k, const void* v,
-                   const int* ki, const int* flags, const int* seg_ptr,
-                   void* out, int BH, int Hq, int Hkv, int S, int Tk, int D,
-                   int bq, int bk, float scale, int causal, int window,
-                   int prefix, int q_offset, cudaStream_t s) {
-  if (D <= 16)
-    return launch<T, RQ, 1>(q, k, v, ki, flags, seg_ptr, out, BH, Hq, Hkv, S,
-                            Tk, D, bq, bk, scale, causal, window, prefix,
-                            q_offset, s);
-  if (D <= 64)
-    return launch<T, RQ, 4>(q, k, v, ki, flags, seg_ptr, out, BH, Hq, Hkv, S,
-                            Tk, D, bq, bk, scale, causal, window, prefix,
-                            q_offset, s);
-  return launch<T, RQ, 8>(q, k, v, ki, flags, seg_ptr, out, BH, Hq, Hkv, S,
-                          Tk, D, bq, bk, scale, causal, window, prefix,
-                          q_offset, s);
+// the tensor-core kernel for tiles of BT rows and head dim padded to DM
+struct TcLaunch {
+  const Args& a;
+  template <int BT, int DM>
+  cudaError_t run() const {
+    constexpr size_t smem = TcCfg<BT, DM>::SMEM;
+    auto* fn = flash_mask_tc_kernel<BT, DM>;
+    cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const bool aligned = ((reinterpret_cast<uintptr_t>(a.q) |
+                           reinterpret_cast<uintptr_t>(a.k) |
+                           reinterpret_cast<uintptr_t>(a.v) |
+                           reinterpret_cast<uintptr_t>(a.out)) & 15) == 0;
+    fn<<<dim3(a.BH, a.S / a.bq), TcCfg<BT, DM>::NT, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), a.ki, a.flags, a.seg_ptr,
+        static_cast<bf16*>(a.out), a.Hq, a.Hkv, a.S, a.Tk, a.D, a.bq, a.bk,
+        a.scale, a.causal, a.window, a.prefix, a.q_offset,
+        aligned && a.D % 8 == 0);
+    return cudaGetLastError();
+  }
+};
+
+struct TcInfo {
+  int* info;
+  template <int BT, int DM>
+  cudaError_t run() const {
+    return query(flash_mask_tc_kernel<BT, DM>, TcCfg<BT, DM>::NT,
+                 TcCfg<BT, DM>::SMEM, info);
+  }
+};
+
+// the CUDA-core kernel: a 16 x 16 thread grid, BT / 16 rows and DM / 16
+// head-dim columns per thread
+struct F32Launch {
+  const Args& a;
+  template <int BT, int DM>
+  cudaError_t run() const {
+    constexpr int RQ = BT / 16, RD = DM / 16;
+    constexpr size_t smem = smem_bytes<RQ, RD>();
+    auto* fn = flash_mask_f32_kernel<RQ, RD>;
+    cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    fn<<<dim3(a.S / a.bq, a.BH), NT, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), a.ki, a.flags, a.seg_ptr,
+        static_cast<float*>(a.out), a.Hq, a.Hkv, a.S, a.Tk, a.D, a.bq, a.bk,
+        a.scale, a.causal, a.window, a.prefix, a.q_offset);
+    return cudaGetLastError();
+  }
+};
+
+// op.run<BT, DM>() with BT = max(bq, bk) and DM = D rounded up to the
+// instantiated tiles
+template <int BT, class Op>
+cudaError_t by_dim(int D, const Op& op) {
+  if (D <= 16) return op.template run<BT, 16>();
+  if (D <= 64) return op.template run<BT, 64>();
+  return op.template run<BT, 128>();
 }
 
-template <typename T>
-cudaError_t by_block(const void* q, const void* k, const void* v,
-                     const int* ki, const int* flags, const int* seg_ptr,
-                     void* out, int BH, int Hq, int Hkv, int S, int Tk, int D,
-                     int bq, int bk, float scale, int causal, int window,
-                     int prefix, int q_offset, cudaStream_t s) {
+template <class Op>
+cudaError_t by_tile(int bq, int bk, int D, const Op& op) {
   const int big = bq > bk ? bq : bk;
-  if (big <= 16)
-    return by_dim<T, 1>(q, k, v, ki, flags, seg_ptr, out, BH, Hq, Hkv, S, Tk,
-                        D, bq, bk, scale, causal, window, prefix, q_offset,
-                        s);
-  if (big <= 32)
-    return by_dim<T, 2>(q, k, v, ki, flags, seg_ptr, out, BH, Hq, Hkv, S, Tk,
-                        D, bq, bk, scale, causal, window, prefix, q_offset,
-                        s);
-  if (big <= 64)
-    return by_dim<T, 4>(q, k, v, ki, flags, seg_ptr, out, BH, Hq, Hkv, S, Tk,
-                        D, bq, bk, scale, causal, window, prefix, q_offset,
-                        s);
-  return by_dim<T, 8>(q, k, v, ki, flags, seg_ptr, out, BH, Hq, Hkv, S, Tk,
-                      D, bq, bk, scale, causal, window, prefix, q_offset, s);
+  if (big <= 16) return by_dim<16>(D, op);
+  if (big <= 32) return by_dim<32>(D, op);
+  if (big <= 64) return by_dim<64>(D, op);
+  return by_dim<128>(D, op);
 }
 
 }  // namespace
@@ -332,9 +653,10 @@ cudaError_t by_block(const void* q, const void* k, const void* v,
 // k and v (B, Hkv, Tk, D), out (B, Hq, S, D) zero-initialised; ki and flags
 // (P,) int32 worklist entries sorted by q-block, seg_ptr (S / bq + 1,)
 // int32 segment offsets of each q-block.  BH = B * Hq.  Requires
-// S % bq == Tk % bk == Hq % Hkv == 0, 1 <= bq, bk <= 128 and D <= 128 (the
-// wrapper checks).  Returns the cudaError_t of the launch (0 on success);
-// an unknown dtype returns cudaErrorInvalidValue.
+// S % bq == Tk % bk == Hq % Hkv == 0, 1 <= bq, bk <= 128, D <= 128 and
+// BH, S / bq <= 65535 (the wrapper checks).  dtype 1 runs the tensor-core
+// kernel, dtype 0 the CUDA-core one.  Returns the cudaError_t of the launch
+// (0 on success); an unknown dtype returns cudaErrorInvalidValue.
 extern "C" int flash_mask(const void* q, const void* k, const void* v,
                           const int* ki, const int* flags,
                           const int* seg_ptr, void* out, int BH, int Hq,
@@ -342,14 +664,23 @@ extern "C" int flash_mask(const void* q, const void* k, const void* v,
                           float scale, int causal, int window, int prefix,
                           int q_offset, int dtype, void* stream) {
   if (BH <= 0 || S <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return by_block<float>(q, k, v, ki, flags, seg_ptr, out, BH, Hq, Hkv, S,
-                           Tk, D, bq, bk, scale, causal, window, prefix,
-                           q_offset, s);
-  if (dtype == 1)
-    return by_block<__nv_bfloat16>(q, k, v, ki, flags, seg_ptr, out, BH, Hq,
-                                   Hkv, S, Tk, D, bq, bk, scale, causal,
-                                   window, prefix, q_offset, s);
-  return cudaErrorInvalidValue;
+  const Args a{q,  k,   v,  ki, flags, seg_ptr, out,    BH,     Hq,
+               Hkv, S,  Tk, D,  bq,    bk,      scale,  causal, window,
+               prefix, q_offset, static_cast<cudaStream_t>(stream)};
+  switch (dtype) {
+    case 0:
+      return by_tile(bq, bk, D, F32Launch{a});
+    case 1:
+      return by_tile(bq, bk, D, TcLaunch{a});
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The tensor-core kernel that flash_mask runs for bf16 blocks (bq, bk) and
+// head dim D: info receives threads per CTA, dynamic shared memory bytes,
+// registers per thread, local (spill) bytes per thread and resident CTAs
+// per SM on the current device.  Returns a cudaError_t.
+extern "C" int flash_mask_tc_info(int bq, int bk, int D, int* info) {
+  return by_tile(bq, bk, D, TcInfo{info});
 }

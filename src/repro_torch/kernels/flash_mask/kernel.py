@@ -9,8 +9,13 @@ batch * head) walks that q-block's segment of the qi-sorted worklist
 q-block: reset; bit 2 = last visit: normalise and write).  The note at the
 top of the source gives its bound on an H100.
 
+The source holds two kernels, picked by dtype in its C entry point: bf16
+runs on tensor cores (``mma.sync``, k/v in a ``cp.async`` ring, p.v in two
+bf16 terms), f32 on CUDA cores.
+
 ``flash_mask_kernel`` launches the kernel for CUDA tensors (or raises) and
-runs ``flash_mask_plain`` for CPU tensors; ``LAUNCHES`` counts launches.
+runs ``flash_mask_plain`` for CPU tensors; ``LAUNCHES`` counts launches and
+``TC_LAUNCHES`` those of them that ran the tensor-core kernel.
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ MAX_HEAD_DIM = 128
 
 #: number of times the CUDA kernel was launched in this process
 LAUNCHES = 0
+#: of those, the launches of the tensor-core (bf16) kernel
+TC_LAUNCHES = 0
 
 #: C signature: 7 pointers, 8 ints, the scale, 5 ints, the stream
 _ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float]
@@ -170,10 +177,11 @@ def flash_mask_kernel(q, k, v, qi, ki, flags, *, bq: int, bk: int,
 
     CPU tensors run ``flash_mask_plain``.  CUDA tensors launch the kernel
     once for every (batch, head) on the current stream without
-    synchronising, or raise.  A q-block the worklist never visits comes
+    synchronising, or raise: the tensor-core kernel for bfloat16, the
+    CUDA-core one for float32.  A q-block the worklist never visits comes
     out as zeros; a kv-block index out of range reads as fully masked.
     """
-    global LAUNCHES
+    global LAUNCHES, TC_LAUNCHES
     _check(q, k, v, qi, ki, flags, bq, bk)
     dev = q.device
     kw = dict(bq=bq, bk=bk, scale=scale, causal=causal, window=window,
@@ -183,8 +191,9 @@ def flash_mask_kernel(q, k, v, qi, ki, flags, *, bq: int, bk: int,
     if dev.type != "cuda":
         raise ValueError(f"no flash_mask kernel for device {dev}")
     b, hq, s_q, d = q.shape
-    if b * hq > 65535:
-        raise ValueError(f"B * Hq = {b * hq} exceeds the grid's 65535")
+    if max(b * hq, s_q // bq) > 65535:
+        raise ValueError(f"B * Hq = {b * hq} or S / bq = {s_q // bq} "
+                         f"exceeds the grid's 65535")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     ki, flags = ki.contiguous(), flags.contiguous()
     out = torch.zeros_like(q)
@@ -206,4 +215,6 @@ def flash_mask_kernel(q, k, v, qi, ki, flags, *, bq: int, bk: int,
         raise RuntimeError(f"flash_mask kernel launch failed: CUDA error "
                            f"{err}")
     LAUNCHES += 1
+    if q.dtype == torch.bfloat16:
+        TC_LAUNCHES += 1
     return out

@@ -22,10 +22,12 @@
 // guarded.
 //
 // Bound on an H100 SXM at the main-path shape (W = 14,434 real entries,
-// bs = 128): 2 * W * bs^3 = 60.5 GFLOP per replay against 67 TFLOP/s of
-// f32 on CUDA cores is 0.90 ms; the bytes it must move (A and B blocks
-// once, 159 MB of output) take about 0.1 ms at 3.35 TB/s, so it is bound
-// by operations.  Read naively, every pair re-reads its two blocks
+// bs = 128): 2 * W * bs^3 = 60.5 GFLOP per replay.  The least time of an
+// f32-accurate product is three TF32 passes at 495 TFLOP/s (3xTF32, as the
+// tile SDDMM computes it): 0.367 ms; on f32 CUDA cores, the units this
+// kernel uses, 0.90 ms at 67 TFLOP/s.  The bytes it must move (A and B
+// blocks once, 159 MB of output) take about 0.1 ms at 3.35 TB/s, so it is
+// bound by operations.  Read naively, every pair re-reads its two blocks
 // (>= 1.9 GB), which L2 and the shared-memory staging are there to absorb.
 
 #include <cuda_runtime.h>

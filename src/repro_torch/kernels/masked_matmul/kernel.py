@@ -11,7 +11,9 @@ worklist segment, so the result needs no atomics and is deterministic.
 ``masked_matmul_kernel`` (``csrc/masked_matmul.cu``) replaces the TPU
 kernel ``repro/kernels/masked_matmul/kernel.py::masked_matmul_kernel``, the
 tile SDDMM ``out[r] = A[bi[r] row panel] @ B[bj[r] column panel]``.  One CTA
-per (mask tile, output sub-tile) loops over K itself.
+per (mask tile, output sub-tile) loops over K itself on tensor cores: bf16
+operands in one ``mma.sync`` pass, f32 operands in three TF32 passes of
+split operands (3xTF32, f32 accuracy), fed by a ``cp.async`` ring.
 
 The note at the top of each source gives its bound on an H100.  Each
 wrapper launches its kernel for CUDA tensors (or raises) and runs its plain
