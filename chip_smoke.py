@@ -11,15 +11,19 @@ Phases, each printing its own lines:
    ``src/repro_torch/kernels/*/csrc`` into ``build/repro_torch/``, one
    ``nvcc`` per source, all started together; ``ptxas``'s registers and
    spills of every kernel instance, and the registers, shared memory and
-   resident CTAs per SM of the two tensor-core kernels at the path's
-   shapes;
-3. kernel against plain: the ``block_spgemm`` kernel against its plain
-   PyTorch version at block sizes 4, 8, 32 and 128, with zero-fill
+   resident CTAs per SM of the tensor-core kernels at the path's shapes
+   (every ``block_spgemm`` instance);
+3. kernel against plain: the ``block_spgemm`` kernel, values only and
+   fused with the structural counts, against its plain PyTorch version at
+   block sizes 4, 8, 32, 48 and 128 (every instance), with zero-fill
    entries, an empty B and a worklist padded with all-flags-off entries;
+   standard-normal data also within 2e-6 normwise of float64;
 4. tile route: ``masked_spgemm(A, B, M)`` (algorithm "auto") on an
    n = 8192 block-sparse problem; the planner must elect the tile route
-   at block size 128, the kernel must launch exactly twice, and the result
-   must equal the dense product gathered at the mask; then timings;
+   at block size 128, the fused kernel must launch exactly once and no
+   plain version run, the values must equal the dense product at the mask
+   and ``present`` the structural product; then timings of the fused and
+   the values-only replay, and the host steps of the call one by one;
 5. row route: triangle counting on R-MAT scale 14 (algorithm "auto"),
    checked against scipy;
 6. tile SDDMM: the ``masked_matmul`` kernel against its plain version over
@@ -31,7 +35,8 @@ Phases, each printing its own lines:
    over the reference's test sweep (bf16 also within 2e-3 normwise), the
    decode offset and the GQA op, then one full-width llama3.2-1b layer
    (B 4, 32/8 heads, S 2048, D 64, causal, bf16); then timings beside
-   ``scaled_dot_product_attention``;
+   ``scaled_dot_product_attention``, and the f32 instance's at B 1 (the
+   f32 prefill's shape) and B 4;
 8. LM serving: llama3.2-1b at full width with ``attn_impl="flash_pallas"``
    and random weights from seed 0: a bf16 prefill of 4 x 2,048 tokens (the
    tensor-core flash kernel must launch once per layer, 16 times; logits
@@ -89,6 +94,10 @@ PEAK_F32_ACCURATE_FLOPS = PEAK_TF32_FLOPS / 3
 #: each kernel's time at the path's shape in PR 12's last run (NVIDIA H100
 #: 80GB HBM3, 700.00 W), printed beside this run's
 PR12_MS = {"block_spgemm": 3.569, "masked_matmul": 1.057, "flash_mask": 5.268}
+#: per replay, the CUDA-core block_spgemm kernel that the tensor-core one
+#: replaced (its last run on an NVIDIA H100 80GB HBM3 at 700.00 W); the tile
+#: call ran it twice, once for values and once for counts
+CUDA_CORE_BLOCK_SPGEMM_MS = 3.564
 
 #: the tile-route workload: A, B, M from ``block_sparse`` at n = 8192
 TILE_N = 8192
@@ -111,6 +120,7 @@ def check(ok: bool, what: str) -> None:
 def reset_counts() -> None:
     """Zero every kernel's launch count (just before a path runs)."""
     kernel.LAUNCHES = 0
+    kernel.FUSED_LAUNCHES = 0
     kernel.MASKED_MATMUL_LAUNCHES = 0
     flash.LAUNCHES = 0
     flash.TC_LAUNCHES = 0
@@ -228,6 +238,13 @@ def build(dev) -> None:
                   f"stores {st} B, loads {ld} B")
     # the tensor-core kernels at the path's shapes, as the card runs them
     with torch.cuda.device(dev):
+        for bs in BLOCK_SIZES:
+            info = _build.kernel_info("block_spgemm", "block_spgemm_info", bs)
+            print(f"build: block_spgemm bs {bs} ({block_instance(bs)}): "
+                  f"{info['threads']} threads, {info['smem_bytes']} B dynamic "
+                  f"shared memory, {info['registers']} registers and "
+                  f"{info['local_bytes']} B local memory per thread, "
+                  f"{info['ctas_per_sm']} CTAs per SM")
         for what, info in (
                 ("flash_mask bf16 128/128, D 64",
                  _build.kernel_info("flash_mask", "flash_mask_tc_info", 128,
@@ -250,17 +267,52 @@ def build(dev) -> None:
 # ---------------------------------------------------------------------------
 
 
+#: block sizes of phase 3, one or more per instance of the block_spgemm
+#: kernel (CTA tiles 16, 32, 64 and 128)
+BLOCK_SIZES = (4, 8, 32, 48, 128)
+
+
+def block_instance(bs: int) -> str:
+    """The block_spgemm kernel instance that block size ``bs`` runs."""
+    t, wm, wn = next(c for c in ((16, 1, 1), (32, 2, 1), (64, 2, 2),
+                                 (128, 2, 4)) if bs <= c[0] or c[0] == 128)
+    return f"block_spgemm_tc_kernel<{t}, {wm}, {wn}>"
+
+
+def block_f64(a_blocks, b_blocks, wl, nnzb_out) -> torch.Tensor:
+    """The worklist replay in float64: the exact value to f32 accuracy."""
+    rank, pa, pb, flags = (x.long() for x in wl)
+    real = ((flags >> 1) & 1).double()
+    out = torch.zeros((nnzb_out,) + tuple(a_blocks.shape[1:]),
+                      dtype=torch.float64, device=a_blocks.device)
+    prods = torch.bmm(a_blocks.double()[pa], b_blocks.double()[pb])
+    return out.index_add_(0, rank, prods * real[:, None, None])
+
+
 def compare(a_blocks, b_blocks, wl, nnzb_out, exact: bool) -> float:
-    """Kernel against plain on the same tensors: returns max |diff|."""
+    """Kernel against plain on the same tensors, values only and fused
+    with the counts over the operands' 0/1 patterns: returns max |diff|.
+    On float data the values are also held to 2e-6 normwise of float64."""
+    a_pat, b_pat = ((x != 0).float() for x in (a_blocks, b_blocks))
     got = kernel.block_spgemm_kernel(a_blocks, b_blocks, *wl, nnzb_out)
-    want = kernel.block_spgemm_plain(a_blocks, b_blocks, *wl, nnzb_out)
+    vals, counts = kernel.block_spgemm_with_structure_kernel(
+        a_blocks, b_blocks, a_pat, b_pat, *wl, nnzb_out)
+    want, want_c = kernel.block_spgemm_with_structure_plain(
+        a_blocks, b_blocks, a_pat, b_pat, *wl, nnzb_out)
     sync(a_blocks.device)
+    check(torch.equal(counts, want_c), "fused counts equal plain exactly")
+    check(torch.equal(vals, got), "fused values equal the values-only "
+          "kernel's")
     err = float((got - want).abs().max()) if got.numel() else 0.0
     if exact:
         check(torch.equal(got, want), "kernel equals plain exactly")
     else:
         check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
               f"kernel within 1e-4 of plain (max err {err})")
+        exact64 = block_f64(a_blocks, b_blocks, wl, nnzb_out)
+        rel = float((got.double() - exact64).norm() / exact64.norm())
+        check(rel <= 2e-6, f"kernel within 2e-6 normwise of float64 (got "
+              f"{rel:.3g})")
     return err
 
 
@@ -277,7 +329,7 @@ def worklist(schedule, dev, pad: int = 0):
 
 def kernel_vs_plain(dev) -> float:
     err = 0.0
-    for bs, nb in ((4, 64), (8, 48), (32, 16), (128, 8)):
+    for bs, nb in zip(BLOCK_SIZES, (64, 48, 16, 12, 8)):
         n = bs * nb
         rng = np.random.default_rng(bs)
         for ints in (True, False):
@@ -305,9 +357,11 @@ def kernel_vs_plain(dev) -> float:
         zero = torch.zeros((1, bs, bs), device=dev)
         err = max(err, compare(A.blocks, zero, worklist(sched, dev),
                                M.nnzb, exact=True))
-        print(f"kernel-vs-plain: bs={bs} n={n} W={len(sched[0])}.. ok")
-    print(f"kernel-vs-plain: all block sizes agree (exact on integers, "
-          f"1e-4 otherwise), max abs err {err:.3g}")
+        print(f"kernel-vs-plain: bs={bs} ({block_instance(bs)}) n={n} "
+              f"W={len(sched[0])}.. ok")
+    print(f"kernel-vs-plain: all block sizes agree, values only and fused "
+          f"(exact on integers and counts; 1e-4 and 2e-6 normwise from "
+          f"float64 otherwise), max abs err {err:.3g}")
     return err
 
 
@@ -321,6 +375,92 @@ def tile_problem(n: int, bs: int):
     b = F.block_sparse(n, bs, 0.3, 0.9, seed=2)
     m = F.block_sparse(n, bs, 0.6, 1.0, seed=3, mask=True)
     return a, b, m
+
+
+class count_plain:
+    """Within the block, count the calls of the block product's plain
+    versions (kernel.py looks them up at call time)."""
+
+    NAMES = ("block_spgemm_plain", "block_spgemm_with_structure_plain")
+
+    def __enter__(self):
+        self.calls = 0
+        self.saved = {name: getattr(kernel, name) for name in self.NAMES}
+
+        def counted(fn):
+            def call(*args, **kw):
+                self.calls += 1
+                return fn(*args, **kw)
+            return call
+
+        for name, fn in self.saved.items():
+            setattr(kernel, name, counted(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(kernel, name, fn)
+
+
+def host_steps(A, B, M, dev, bs: int):
+    """The tile call's steps one by one, each on the host clock ended by a
+    synchronise, as ``_masked_spgemm_tile`` and ``gather_mask_aligned`` run
+    them: returns (milliseconds by step, the BCSR operands, the patterns,
+    the schedule)."""
+    ms = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        ms[name] = ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+
+    def pattern(x):
+        ones = F.CSR(x.indptr, x.indices, np.ones(x.nnz, np.float32),
+                     x.shape)
+        return F.bcsr_from_csr(ones, bs, dtype=torch.bfloat16,
+                               device=dev).blocks
+
+    Ab, Bb, Mb = (timed(f"bcsr_from_csr({name})",
+                        lambda x=x: F.bcsr_from_csr(x, bs, device=dev))
+                  for name, x in (("A", A), ("B", B), ("M", M)))
+    a_pat, b_pat = (timed(f"bcsr_from_csr(pattern {name})",
+                          lambda x=x: pattern(x))
+                    for name, x in (("A", A), ("B", B)))
+    sched = timed("build_spgemm_schedule",
+                  lambda: ops.build_spgemm_schedule(Ab, Bb, Mb))
+    wl = timed("worklist check and upload", lambda: ops._worklist(
+        Mb, sched, Ab.nnzb, Bb.nnzb, dev))
+    cb, sb = timed("fused kernel", lambda: kernel.
+                   block_spgemm_with_structure_kernel(
+                       Ab.blocks, Bb.blocks, a_pat, b_pat, *wl, Mb.nnzb))
+    # gather_mask_aligned, step by step
+    m = M.shape[0]
+    M_p = timed("padded_from_csr(M)",
+                lambda: F.padded_from_csr(M, None, device=dev))
+
+    def addressing():
+        mr = F._expand_rows(M.indptr)
+        slots = np.arange(M.nnz, dtype=np.int64) - M.indptr[mr]
+        keep = slots < M_p.width
+        return mr[keep], M.indices[keep], slots[keep]
+
+    mr, mc, slots = timed("gather addressing (rows, slots)", addressing)
+    pos = timed("bcsr_block_positions", lambda: F.bcsr_block_positions(
+        Mb, mr // bs, mc // bs))
+    idx = timed("index stack and upload", lambda: torch.as_tensor(
+        np.stack([pos, mr % bs, mc % bs, mr, slots]), device=dev))
+
+    def scatter():
+        pos_t, roff, coff, rows, slot_t = idx
+        vals = torch.zeros((m, M_p.width), dtype=cb.dtype, device=dev)
+        present = torch.zeros((m, M_p.width), dtype=torch.bool, device=dev)
+        vals[rows, slot_t] = cb[pos_t, roff, coff]
+        present[rows, slot_t] = sb[pos_t, roff, coff] > 0
+
+    timed("gather scatter (device)", scatter)
+    return ms, (Ab, Bb, Mb), (a_pat, b_pat), sched
 
 
 def tile_route(dev, n: int = TILE_N, bs: int = TILE_BS):
@@ -338,10 +478,11 @@ def tile_route(dev, n: int = TILE_N, bs: int = TILE_BS):
         torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
     t0 = time.perf_counter()
-    res = masked_spgemm(A, B, M, device=dev)
-    sync(dev)
+    with count_plain() as plain:
+        res = masked_spgemm(A, B, M, device=dev)
+        sync(dev)
     first_ms = (time.perf_counter() - t0) * 1e3
-    launches = kernel.LAUNCHES
+    launches = kernel.FUSED_LAUNCHES
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else 0)
     p = planner.plan(A, B, M, device=dev)        # the cached plan
@@ -349,7 +490,10 @@ def tile_route(dev, n: int = TILE_N, bs: int = TILE_BS):
           + ", ".join(f"{k}={v:.4g}" for k, v in p.costs[:3]))
     check(p.algorithm == "tile" and p.tile_block == bs,
           f"planner elects tile at block {bs}")
-    check(launches == 2, f"kernel launched twice (got {launches})")
+    check(launches == 1 and kernel.LAUNCHES == 0, f"the fused kernel "
+          f"launched once and the values-only one never (got {launches}, "
+          f"{kernel.LAUNCHES})")
+    check(plain.calls == 0, f"no plain version ran (got {plain.calls})")
 
     # the result against the dense product at the mask (exact: integer
     # data, every partial sum below 2^24)
@@ -369,65 +513,80 @@ def tile_route(dev, n: int = TILE_N, bs: int = TILE_BS):
     check(int(res.present.sum()) == int(got_p.sum()), "no slot beyond a "
           "mask row is present")
     check(bool(torch.isfinite(res.vals).all()), "values are finite")
-    print(f"tile: result equals dense matmul at the mask "
-          f"({int(got_p.sum())} of {M.nnz} present); first call "
+    print(f"tile: result equals dense matmul at all {M.nnz} mask entries "
+          f"and present the structural product ({int(got_p.sum())} "
+          f"present); one fused launch, no plain version; first call "
           f"{first_ms:.1f} ms incl. planning; peak memory "
           f"{peak / 2**20:.1f} MiB")
-    del S
+    del S, C, res, got_v, got_p, idx
 
-    # stage timings at the main-path shapes
-    t0 = time.perf_counter()
-    Ab, Bb, Mb = (F.bcsr_from_csr(x, bs, device=dev) for x in (A, B, M))
-
-    def pattern(x):
-        ones = F.CSR(x.indptr, x.indices, np.ones(x.nnz, np.float32),
-                     x.shape)
-        return F.bcsr_from_csr(ones, bs, device=dev).blocks
-
-    a_pat, b_pat = pattern(A), pattern(B)
-    sched = ops.build_spgemm_schedule(Ab, Bb, Mb)
-    sync(dev)
-    prep_ms = (time.perf_counter() - t0) * 1e3
+    # the call's host steps one by one, then the kernels at its shapes
+    steps, (Ab, Bb, Mb), (a_pat, b_pat), sched = host_steps(A, B, M, dev, bs)
+    print("tile: host steps (ms): " + "; ".join(
+        f"{k} {v:.1f}" for k, v in steps.items()))
+    prep = [k for k in steps if k.startswith(("bcsr", "build", "worklist"))]
+    prep_ms = sum(steps[k] for k in prep)
+    bcsr_ms = sum(steps[k] for k in prep if k.startswith("bcsr"))
+    gather_steps_ms = sum(v for k, v in steps.items()
+                          if k not in prep and k != "fused kernel")
+    print(f"tile: host steps: prep {prep_ms:.1f} ms (bcsr_from_csr x5 "
+          f"{bcsr_ms:.1f}), gather {gather_steps_ms:.1f} ms")
     wl = worklist(sched, dev)
     W = len(sched[0])
     real = int(((sched[3] >> 1) & 1).sum())
-    err = max(compare(Ab.blocks, Bb.blocks, wl, Mb.nnzb, exact=True),
-              compare(a_pat, b_pat, wl, Mb.nnzb, exact=True))
+    err = compare(Ab.blocks, Bb.blocks, wl, Mb.nnzb, exact=True)
 
-    def run_kernel():
+    def run_fused():
+        return kernel.block_spgemm_with_structure_kernel(
+            Ab.blocks, Bb.blocks, a_pat, b_pat, *wl, Mb.nnzb)
+
+    def run_values():
         return kernel.block_spgemm_kernel(Ab.blocks, Bb.blocks, *wl,
                                           Mb.nnzb)
 
     def run_plain():
-        return kernel.block_spgemm_plain(Ab.blocks, Bb.blocks, *wl, Mb.nnzb)
+        return kernel.block_spgemm_with_structure_plain(
+            Ab.blocks, Bb.blocks, a_pat, b_pat, *wl, Mb.nnzb)
 
-    kernel_ms = device_ms(run_kernel, dev, reps=7, warm=2)
+    fused_ms = device_ms(run_fused, dev, reps=7, warm=2)
+    values_ms = device_ms(run_values, dev, reps=7, warm=2)
     plain_ms = device_ms(run_plain, dev, reps=3, warm=1)
-    Cb, Sb = run_kernel(), kernel.block_spgemm_kernel(a_pat, b_pat, *wl,
-                                                      Mb.nnzb)
+    Cb, Sb = run_fused()
     gather_ms = host_ms(lambda: gather_mask_aligned(M, Mb, Cb, Sb, n=n), dev)
     e2e_ms = host_ms(lambda: masked_spgemm(A, B, M, device=dev), dev)
     dense_ms = device_ms(lambda: Ad @ Bd, dev, reps=5, warm=2)
 
     flops = 2.0 * real * bs ** 3
-    nbytes = (Ab.blocks.nbytes + Bb.blocks.nbytes + 16 * W
-              + 4 * (Mb.nnzb + 1) + Mb.nnzb * bs * bs * 4)
-    bound_ms, by = bound(flops, nbytes, PEAK_F32_ACCURATE_FLOPS)
-    f32_ms = flops / PEAK_F32_FLOPS * 1e3
+    out_bytes = Mb.nnzb * bs * bs * 4
+    in_bytes = Ab.blocks.nbytes + Bb.blocks.nbytes
+    idx_bytes = 16 * W + 4 * (Mb.nnzb + 1)
+    values_bound, values_by = bound(flops, in_bytes + idx_bytes + out_bytes,
+                                    PEAK_F32_ACCURATE_FLOPS)
+    # fused: values as three TF32 passes plus counts as one bf16 pass, on
+    # the same tensor cores; the bf16 patterns read and counts written too
+    t_ops = flops / PEAK_F32_ACCURATE_FLOPS + flops / PEAK_BF16_FLOPS
+    fused_bytes = (in_bytes + a_pat.nbytes + b_pat.nbytes + 2 * out_bytes
+                   + idx_bytes)
+    t_bytes = fused_bytes / PEAK_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
     print(f"tile: W={W} real={real} nnzb A={Ab.nnzb} B={Bb.nnzb} "
-          f"out={Mb.nnzb}; {flops / 1e9:.1f} GFLOP and {nbytes / 1e6:.0f} "
-          f"MB per replay")
-    print(f"tile: host prep (bcsr + patterns + schedule, with upload) "
-          f"{prep_ms:.1f} ms; kernel {kernel_ms:.3f} ms per replay "
-          f"({flops / kernel_ms / 1e9:.1f} TFLOP/s); plain {plain_ms:.3f} "
-          f"ms per replay; gather {gather_ms:.1f} ms; end to end "
-          f"{e2e_ms:.1f} ms")
-    print(f"tile: kernel {kernel_ms:.3f} ms per replay (PR 12: "
-          f"{PR12_MS['block_spgemm']:.3f} ms); bound {bound_ms:.3f} ms (by "
-          f"{by}, an f32-accurate product as three TF32 passes at "
-          f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s; {f32_ms:.3f} ms on f32 CUDA "
-          f"cores, the units this kernel uses); kernel at "
-          f"{bound_ms / kernel_ms:.1%} of it")
+          f"out={Mb.nnzb}; {flops / 1e9:.1f} GFLOP per replay; fused call "
+          f"moves {fused_bytes / 1e6:.0f} MB")
+    print(f"tile: fused kernel {fused_ms:.3f} ms per tile call (values and "
+          f"counts; the CUDA-core kernel it replaced: 2 x "
+          f"{CUDA_CORE_BLOCK_SPGEMM_MS:.3f} ms); bound "
+          f"{bound_ms:.3f} ms (by {by}: three TF32 passes at "
+          f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s plus one bf16 pass at "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f}); at {bound_ms / fused_ms:.1%} of "
+          f"it; plain {plain_ms:.3f} ms")
+    print(f"tile: values-only replay {values_ms:.3f} ms "
+          f"({flops / values_ms / 1e9:.1f} TF32-accurate TFLOP/s; the "
+          f"CUDA-core kernel: {CUDA_CORE_BLOCK_SPGEMM_MS:.3f} ms); bound "
+          f"{values_bound:.3f} ms "
+          f"(by {values_by}); at {values_bound / values_ms:.1%} of it; the "
+          f"counting CTAs add {fused_ms - values_ms:.3f} ms")
+    print(f"tile: gather {gather_ms:.1f} ms; end to end {e2e_ms:.1f} ms")
     print(f"tile: dense torch.matmul {n}^3 f32 (SpGEMM-then-mask "
           f"baseline, NOT the same function) {dense_ms:.3f} ms")
     mask_tiles = (np.repeat(np.arange(Mb.block_rows), np.diff(Mb.indptr)),
@@ -436,9 +595,17 @@ def tile_route(dev, n: int = TILE_N, bs: int = TILE_BS):
             "source": "src/repro_torch/kernels/masked_matmul/csrc/"
                       "block_spgemm.cu",
             "replaces": "src/repro/kernels/masked_matmul/kernel.py:105",
-            "launches": launches, "max_abs_err": err, "ms": kernel_ms,
+            "launches": launches, "max_abs_err": err, "ms": fused_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": None}
+            "library_ms": None,
+            "instance": block_instance(bs) + ", fused values and counts",
+            "values_ms": values_ms, "values_bound_ms": values_bound,
+            "design": "mma.sync tensor cores: values 3xTF32 (hi + lo "
+                      "splits, IEEE k-step adds), counts one bf16 pass over "
+                      "bf16 patterns, in one grid of both CTA kinds; the "
+                      "(pair, k-chunk) stream in a 3-stage cp.async ring of "
+                      "32-deep chunks, ldmatrix fragments; 128x128 CTA "
+                      "tile, 8 warps of 64x32"}
 
 
 # ---------------------------------------------------------------------------
@@ -465,7 +632,8 @@ def row_route(dev, scale: int = RMAT_SCALE,
     count, seconds = triangle_count(g, device=dev)
     check(planner.plan_cache_info()["hits"] == hits + 1,
           "triangle_count ran the planner's pick")
-    check(kernel.LAUNCHES == 0, "the row route launches no block kernel")
+    check(kernel.LAUNCHES == kernel.FUSED_LAUNCHES == 0,
+          "the row route launches no block kernel")
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else 0)
     Ls = sp.csr_matrix((L.data.astype(np.float64), L.indices, L.indptr),
@@ -573,7 +741,8 @@ def sddmm_path(dev, mask_tiles, n: int = TILE_N, bs: int = TILE_BS,
     sync(dev)
     launches = kernel.MASKED_MATMUL_LAUNCHES
     check(launches == 1, f"masked_matmul launched once (got {launches})")
-    check(kernel.LAUNCHES == flash.LAUNCHES == 0, "the SDDMM path launches "
+    check(kernel.LAUNCHES == kernel.FUSED_LAUNCHES == flash.LAUNCHES == 0,
+          "the SDDMM path launches "
           "no other kernel")
     want = kernel.masked_matmul_plain(a, b, bi, bj, bm=bs, bn=bs)
     check(torch.equal(got, want), "masked_matmul equals plain exactly on "
@@ -782,6 +951,19 @@ def flash_layer(dev, b: int = LM_BATCH, s: int = LM_SEQ) -> dict:
     nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel()) + 12 * pairs
     bound_ms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
     f32_ms = bound(flops, nbytes, PEAK_F32_ACCURATE_FLOPS)[0]
+    # the f32 instance (CUDA cores) at the f32 prefill's shape (B 1) and at
+    # the layer's, each beside its bound as three TF32 passes
+    f32_times = {}
+    for bb in sorted({1, b}):
+        qf, kf, vf = (x[:bb].float() for x in (q, k, v))
+        t_ms = device_ms(lambda: flash.flash_mask_kernel(qf, kf, vf, *sched,
+                                                         **kw),
+                         dev, reps=5, warm=1)
+        f32_times[bb] = (t_ms, bound(
+            4.0 * bb * hq * allowed * d,
+            4 * (qf.numel() * 2 + kf.numel() + vf.numel()) + 12 * pairs,
+            PEAK_F32_ACCURATE_FLOPS)[0])
+        del qf, kf, vf
     print(f"flash: B={b} Hq={hq} Hkv={hkv} S={s} D={d} blocks {blk} causal "
           f"bf16: {pairs} pairs per (batch, head), {flops / 1e9:.2f} GFLOP "
           f"at the allowed elements ({tile_flops / 1e9:.1f} over whole "
@@ -795,12 +977,18 @@ def flash_layer(dev, b: int = LM_BATCH, s: int = LM_SEQ) -> dict:
           f"causal, GQA) {library_ms:.3f} ms; bound {bound_ms:.4f} ms (by "
           f"{by}, bf16 tensor cores; the f32 instance's, three TF32 passes: "
           f"{f32_ms:.3f} ms); kernel at {bound_ms / kernel_ms:.2%} of it")
+    print("flash: f32 instance (CUDA cores): " + "; ".join(
+        f"B={bb} {t_ms:.3f} ms against its 3xTF32 bound {bd:.3f} ms "
+        f"({bd / t_ms:.1%})" for bb, (t_ms, bd) in f32_times.items()))
     return {"name": "flash_mask", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_mask/csrc/flash_mask.cu",
             "replaces": "src/repro/kernels/flash_mask/kernel.py:121",
             "launches": 0, "max_abs_err": err, "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
             "library_ms": library_ms,
+            "f32_ms": {f"B{bb}": t for bb, (t, _) in f32_times.items()},
+            "f32_bound_ms": {f"B{bb}": bd for bb, (_, bd) in
+                             f32_times.items()},
             "design": "bf16: mma.sync m16n8k16 tensor cores, q in registers, "
                       "k/v in a 2-stage cp.async ring, online softmax in "
                       "registers, p.v as two bf16 terms (p = hi + lo); "
@@ -884,7 +1072,8 @@ def lm_serving(dev, batch: int = LM_BATCH, seq: int = LM_SEQ,
     sync(dev)
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = flash.LAUNCHES
-    check(kernel.LAUNCHES == kernel.MASKED_MATMUL_LAUNCHES == 0,
+    check(kernel.LAUNCHES == kernel.FUSED_LAUNCHES
+          == kernel.MASKED_MATMUL_LAUNCHES == 0,
           "prefill launches no masked product")
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else 0)

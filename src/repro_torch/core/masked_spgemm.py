@@ -289,10 +289,12 @@ def _masked_spgemm_tile(A: CSR, B: CSR, M: CSR, *,
     Mb = bcsr_from_csr(M, bs, device=device)
 
     def pattern(x: CSR) -> torch.Tensor:
-        """Stored-entry pattern blocks: 1.0 per CSR entry (an explicitly
-        stored 0.0 is structural to the row kernels)."""
+        """Stored-entry pattern blocks: 1 per CSR entry (an explicitly
+        stored 0.0 is structural to the row kernels), in bf16, the type
+        the block kernel counts in."""
         ones = CSR(x.indptr, x.indices, np.ones(x.nnz, np.float32), x.shape)
-        return bcsr_from_csr(ones, bs, device=device).blocks
+        return bcsr_from_csr(ones, bs, dtype=torch.bfloat16,
+                             device=device).blocks
 
     Cb, Sb = block_spgemm_with_structure(
         Ab, Bb, Mb, a_pattern=pattern(A), b_pattern=pattern(B))

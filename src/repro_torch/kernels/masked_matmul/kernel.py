@@ -6,7 +6,10 @@ versions.
 a rank-sorted worklist ``(rank, pa, pb, flags)``: flag bit 1 zeroes the f32
 accumulator, bit 2 adds ``A[pa] @ B[pb]``, bit 4 writes the accumulator to
 ``out[rank]``.  One CTA per (output rank, output sub-tile) walks that rank's
-worklist segment, so the result needs no atomics and is deterministic.
+worklist segment on tensor cores (3xTF32, f32 accuracy), so the result needs
+no atomics and is deterministic.  ``block_spgemm_with_structure_kernel``
+adds, in the same launch, the replay of the worklist over the operands' 0/1
+patterns (structural counts, one exact bf16 pass).
 
 ``masked_matmul_kernel`` (``csrc/masked_matmul.cu``) replaces the TPU
 kernel ``repro/kernels/masked_matmul/kernel.py::masked_matmul_kernel``, the
@@ -17,8 +20,8 @@ split operands (3xTF32, f32 accuracy), fed by a ``cp.async`` ring.
 
 The note at the top of each source gives its bound on an H100.  Each
 wrapper launches its kernel for CUDA tensors (or raises) and runs its plain
-version for CPU tensors; ``LAUNCHES`` and ``MASKED_MATMUL_LAUNCHES`` count
-the launches.
+version for CPU tensors; ``LAUNCHES``, ``FUSED_LAUNCHES`` and
+``MASKED_MATMUL_LAUNCHES`` count the launches.
 """
 from __future__ import annotations
 
@@ -32,14 +35,18 @@ from repro_torch.kernels import _build
 #: (~64 MB); the row route's batch budget reuses it
 _XLA_CHUNK_ELEMS = 1 << 24
 
-#: number of times the block_spgemm kernel was launched in this process
+#: number of times the block_spgemm kernel was launched for values only in
+#: this process
 LAUNCHES = 0
+#: number of times it was launched for values and structure together
+FUSED_LAUNCHES = 0
 #: number of times the masked_matmul kernel was launched in this process
 MASKED_MATMUL_LAUNCHES = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C signatures: pointers, then ints, then the stream
 _BLOCK_SPGEMM_ARGS = [_P] * 7 + [_I] * 4 + [_P]
+_FUSED_ARGS = [_P] * 10 + [_I] * 4 + [_P]
 _MASKED_MATMUL_ARGS = [_P] * 5 + [_I] * 7 + [_P]
 
 
@@ -64,7 +71,18 @@ def _check(a_blocks, b_blocks, rank, pa, pb, flags, nnzb_out):
         raise ValueError("all operands must lie on one device")
     if nnzb_out < 0:
         raise ValueError(f"nnzb_out must be >= 0, got {nnzb_out}")
-    return bs
+
+
+def _check_patterns(a_blocks, b_blocks, a_pat, b_pat):
+    for name, x, like in (("a_pat", a_pat, a_blocks),
+                          ("b_pat", b_pat, b_blocks)):
+        if (x.dtype not in (torch.bfloat16, torch.float32)
+                or x.shape != like.shape or not x.is_contiguous()
+                or x.device != like.device):
+            raise ValueError(f"{name} must be a contiguous bfloat16 or "
+                             f"float32 tensor of shape {tuple(like.shape)} "
+                             f"on {like.device}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
 
 
 def block_spgemm_plain(a_blocks, b_blocks, rank, pa, pb, flags,
@@ -91,6 +109,36 @@ def block_spgemm_plain(a_blocks, b_blocks, rank, pa, pb, flags,
     return out
 
 
+def _launch_block_spgemm(symbol, argtypes, blocks, rank, pa, pb, flags,
+                         nnzb_out):
+    """Launch ``symbol`` of the block_spgemm library on the current stream
+    with ``blocks`` (the operand pointers, in order) and one output per
+    operand pair; returns the outputs."""
+    a_blocks = blocks[0]
+    bs, dev = a_blocks.shape[1], a_blocks.device
+    if dev.type != "cuda":
+        raise ValueError(f"no block_spgemm kernel for device {dev}")
+    outs = [torch.empty((nnzb_out, bs, bs), dtype=torch.float32, device=dev)
+            for _ in range(len(blocks) // 2)]
+    if nnzb_out == 0:
+        return outs
+    # segment offsets of the rank-sorted worklist, on the device
+    seg_ptr = torch.searchsorted(
+        rank, torch.arange(nnzb_out + 1, dtype=torch.int32, device=dev),
+        out_int32=True)
+    fn = _build.load("block_spgemm", symbol, argtypes)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(x.data_ptr() for x in blocks), pa.data_ptr(),
+                 pb.data_ptr(), flags.data_ptr(), seg_ptr.data_ptr(),
+                 *(o.data_ptr() for o in outs), nnzb_out, bs,
+                 a_blocks.shape[0], blocks[1].shape[0], stream)
+    if err != 0:
+        raise RuntimeError(f"block_spgemm kernel launch failed: CUDA error "
+                           f"{err}")
+    return outs
+
+
 def block_spgemm_kernel(a_blocks, b_blocks, rank, pa, pb, flags,
                         nnzb_out: int) -> torch.Tensor:
     """Masked BCSR product from a worklist sorted by rank.
@@ -106,33 +154,57 @@ def block_spgemm_kernel(a_blocks, b_blocks, rank, pa, pb, flags,
     validate them on the host.
     """
     global LAUNCHES
-    bs = _check(a_blocks, b_blocks, rank, pa, pb, flags, nnzb_out)
-    dev = a_blocks.device
-    if dev.type == "cpu":
+    _check(a_blocks, b_blocks, rank, pa, pb, flags, nnzb_out)
+    if a_blocks.device.type == "cpu":
         return block_spgemm_plain(a_blocks, b_blocks, rank, pa, pb, flags,
                                   nnzb_out)
-    if dev.type != "cuda":
-        raise ValueError(f"no block_spgemm kernel for device {dev}")
-    out = torch.zeros((nnzb_out, bs, bs), dtype=torch.float32, device=dev)
-    if nnzb_out == 0:
-        return out
-    # segment offsets of the rank-sorted worklist, on the device
-    seg_ptr = torch.searchsorted(
-        rank, torch.arange(nnzb_out + 1, dtype=torch.int32, device=dev),
-        out_int32=True)
-    fn = _build.load("block_spgemm", "block_spgemm_f32", _BLOCK_SPGEMM_ARGS)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            a_blocks.data_ptr(), b_blocks.data_ptr(), pa.data_ptr(),
-            pb.data_ptr(), flags.data_ptr(), seg_ptr.data_ptr(),
-            out.data_ptr(), nnzb_out, bs, a_blocks.shape[0],
-            b_blocks.shape[0], stream)
-    if err != 0:
-        raise RuntimeError(f"block_spgemm kernel launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES += 1
+    out, = _launch_block_spgemm("block_spgemm_f32", _BLOCK_SPGEMM_ARGS,
+                                (a_blocks, b_blocks), rank, pa, pb, flags,
+                                nnzb_out)
+    if nnzb_out:
+        LAUNCHES += 1
     return out
+
+
+def block_spgemm_with_structure_plain(a_blocks, b_blocks, a_pat, b_pat,
+                                      rank, pa, pb, flags, nnzb_out: int):
+    """Plain version of the fused replay: ``block_spgemm_plain`` over the
+    values, then over the patterns in f32.  Returns (values, counts)."""
+    return (block_spgemm_plain(a_blocks, b_blocks, rank, pa, pb, flags,
+                               nnzb_out),
+            block_spgemm_plain(a_pat.float(), b_pat.float(), rank, pa, pb,
+                               flags, nnzb_out))
+
+
+def block_spgemm_with_structure_kernel(a_blocks, b_blocks, a_pat, b_pat,
+                                       rank, pa, pb, flags, nnzb_out: int):
+    """The masked BCSR product and its structural counts from one worklist.
+
+    As ``block_spgemm_kernel``, plus ``a_pat`` and ``b_pat``: bf16 (or
+    f32) blocks of the shapes of ``a_blocks`` and ``b_blocks`` holding 1 at
+    the operands' stored entries and 0 elsewhere.  Returns (values,
+    counts), both (nnzb_out, bs, bs) f32, where counts replays the worklist
+    over the patterns: ``counts > 0`` is element-level structural presence.
+
+    CPU tensors run ``block_spgemm_with_structure_plain``.  CUDA tensors
+    launch one kernel for both on the current stream without
+    synchronising, or raise.  The kernel reads the patterns in bf16 (f32
+    ones are converted first, one more pass over them) and counts exactly
+    while they hold integers up to 256 in magnitude.
+    """
+    global FUSED_LAUNCHES
+    _check(a_blocks, b_blocks, rank, pa, pb, flags, nnzb_out)
+    _check_patterns(a_blocks, b_blocks, a_pat, b_pat)
+    if a_blocks.device.type == "cpu":
+        return block_spgemm_with_structure_plain(
+            a_blocks, b_blocks, a_pat, b_pat, rank, pa, pb, flags, nnzb_out)
+    a_pat, b_pat = (x.to(torch.bfloat16) for x in (a_pat, b_pat))
+    vals, counts = _launch_block_spgemm(
+        "block_spgemm_with_structure", _FUSED_ARGS,
+        (a_blocks, b_blocks, a_pat, b_pat), rank, pa, pb, flags, nnzb_out)
+    if nnzb_out:
+        FUSED_LAUNCHES += 1
+    return vals, counts
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,10 @@ allocation and the worklist are fully determined on the host before any
 device compute, so the device program is a single numeric phase.  The
 construction is vectorized numpy, identical to the reference's.
 
-``_run_schedule`` replays a worklist on the device its blocks lie on: the
-CUDA kernel for CUDA tensors, the plain PyTorch version for CPU tensors.
+``_run_schedule`` replays a worklist on the device its blocks lie on, and
+``block_spgemm_with_structure`` replays it for values and structural
+counts together: the CUDA kernel for CUDA tensors (one launch for both),
+the plain PyTorch version for CPU tensors.
 ``masked_matmul`` is the tile SDDMM's entry point.
 """
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 from repro_torch.core.formats import (BCSR, bcsr_from_csr,
                                       bcsr_structure_transpose)
 from .kernel import (_XLA_CHUNK_ELEMS, block_spgemm_kernel,
-                     masked_matmul_kernel)
+                     block_spgemm_with_structure_kernel, masked_matmul_kernel)
 
 __all__ = ["Schedule", "tile_path_supported", "masked_matmul",
            "build_spgemm_schedule",
@@ -147,30 +149,40 @@ def build_spgemm_schedule(A: BCSR, B: BCSR, M: BCSR) -> Schedule:
 # ---------------------------------------------------------------------------
 
 
+def _worklist(M: BCSR, schedule: Schedule, nnzb_a: int, nnzb_b: int,
+              dev) -> torch.Tensor:
+    """Validate ``schedule`` against the operands' block counts and upload
+    it: one host-to-device copy of the four worklist arrays, (4, W) int32
+    rows rank, pa, pb, flags."""
+    rank, pa, pb, flags = schedule
+    if len(rank) and (pa.min() < 0 or pa.max() >= nnzb_a
+                      or pb.min() < 0 or pb.max() >= nnzb_b
+                      or rank.min() < 0 or rank.max() >= M.nnzb
+                      or np.any(np.diff(rank) < 0)):
+        raise ValueError("worklist positions out of range or not rank-sorted")
+    return torch.as_tensor(np.stack([rank, pa, pb, flags]).astype(np.int32),
+                           device=dev)
+
+
+def _operand(blocks: torch.Tensor, bs: int,
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Contiguous ``dtype`` blocks; an empty operand becomes one zero block,
+    because the zero-fill entries it leaves still address block 0."""
+    if blocks.shape[0] == 0:
+        return torch.zeros((1, bs, bs), dtype=dtype, device=blocks.device)
+    return blocks.to(dtype).contiguous()
+
+
 def _run_schedule(M: BCSR, schedule: Schedule, blocks_a: torch.Tensor,
                   blocks_b: torch.Tensor) -> torch.Tensor:
     """Replay ``schedule`` on the device the blocks lie on: the CUDA kernel
     for CUDA tensors, the plain version for CPU tensors."""
     bs = M.block_size
-    dev = blocks_a.device
-    # an empty operand leaves only zero-fill entries in the worklist, but
-    # those still address block 0 — give them one zero block to read
-    if blocks_a.shape[0] == 0:
-        blocks_a = torch.zeros((1, bs, bs), dtype=blocks_a.dtype, device=dev)
-    if blocks_b.shape[0] == 0:
-        blocks_b = torch.zeros((1, bs, bs), dtype=blocks_b.dtype, device=dev)
-    rank, pa, pb, flags = schedule
-    if len(rank) and (pa.min() < 0 or pa.max() >= blocks_a.shape[0]
-                      or pb.min() < 0 or pb.max() >= blocks_b.shape[0]
-                      or rank.min() < 0 or rank.max() >= M.nnzb
-                      or np.any(np.diff(rank) < 0)):
-        raise ValueError("worklist positions out of range or not rank-sorted")
-    # one host-to-device copy for the four worklist arrays
-    wl = torch.as_tensor(np.stack([rank, pa, pb, flags]).astype(np.int32),
-                         device=dev)
-    return block_spgemm_kernel(blocks_a.float().contiguous(),
-                               blocks_b.float().contiguous(),
-                               wl[0], wl[1], wl[2], wl[3], M.nnzb)
+    blocks_a, blocks_b = _operand(blocks_a, bs), _operand(blocks_b, bs)
+    wl = _worklist(M, schedule, blocks_a.shape[0], blocks_b.shape[0],
+                   blocks_a.device)
+    return block_spgemm_kernel(blocks_a, blocks_b, wl[0], wl[1], wl[2],
+                               wl[3], M.nnzb)
 
 
 def block_spgemm(A: BCSR, B: BCSR, M: BCSR, *,
@@ -201,7 +213,8 @@ def block_spgemm(A: BCSR, B: BCSR, M: BCSR, *,
 def block_spgemm_with_structure(A: BCSR, B: BCSR, M: BCSR, *,
                                 a_pattern=None, b_pattern=None
                                 ) -> Tuple[BCSR, BCSR]:
-    """(values, structural-counts) pair sharing ONE schedule build.
+    """(values, structural-counts) pair sharing ONE schedule build and, on
+    CUDA, one launch of the fused kernel.
 
     The second BCSR replays the same worklist over the operands' 0/1
     patterns; its entries count structural contributions, so ``count > 0``
@@ -209,9 +222,9 @@ def block_spgemm_with_structure(A: BCSR, B: BCSR, M: BCSR, *,
     structural semantics even when numeric cancellation produces a stored
     0.0 in the values pass.  ``a_pattern``/``b_pattern`` are optional
     (nnzb, bs, bs) 0/1 block tensors marking the operands' *stored entries*
-    (the row kernels treat an explicitly stored 0.0 as structural); when
-    omitted, value-nonzeroness of the blocks is used, which cannot tell a
-    stored zero from block padding.
+    (the row kernels treat an explicitly stored 0.0 as structural), best
+    bf16, the type the kernel reads; when omitted, value-nonzeroness of the
+    blocks is used, which cannot tell a stored zero from block padding.
     """
     if not A.block_size == B.block_size == M.block_size:
         raise ValueError("operands must share one block size")
@@ -223,12 +236,16 @@ def block_spgemm_with_structure(A: BCSR, B: BCSR, M: BCSR, *,
         return (BCSR(M.indptr.copy(), M.indices.copy(), empty, shape, bs),
                 BCSR(M.indptr.copy(), M.indices.copy(), empty, shape, bs))
     schedule = build_spgemm_schedule(A, B, M)
-    vals = _run_schedule(M, schedule, A.blocks, B.blocks)
     if a_pattern is None:
-        a_pattern = (A.blocks != 0).float()
+        a_pattern = A.blocks != 0
     if b_pattern is None:
-        b_pattern = (B.blocks != 0).float()
-    struct = _run_schedule(M, schedule, a_pattern, b_pattern)
+        b_pattern = B.blocks != 0
+    a, b = (_operand(x, bs) for x in (A.blocks, B.blocks))
+    a_pat, b_pat = (_operand(x, bs, torch.bfloat16)
+                    for x in (a_pattern, b_pattern))
+    wl = _worklist(M, schedule, a.shape[0], b.shape[0], a.device)
+    vals, struct = block_spgemm_with_structure_kernel(
+        a, b, a_pat, b_pat, wl[0], wl[1], wl[2], wl[3], M.nnzb)
     return (BCSR(M.indptr.copy(), M.indices.copy(), vals, shape, bs),
             BCSR(M.indptr.copy(), M.indices.copy(), struct, shape, bs))
 

@@ -186,3 +186,82 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build("block_spgemm")
+
+
+def stored_zero_case(bs, seed):
+    """Reference operands with explicitly stored 0.0 entries in A and an
+    empty block row in A (zero-fill entries), the stored-entry patterns of
+    A and B, and the port's copies."""
+    from repro.core.formats import CSR as RefCSR
+    from repro.core.formats import bcsr_from_csr as ref_bcsr_from_csr
+    from repro.core.formats import csr_from_dense as ref_csr_from_dense
+    a, b, mk = dense_operands(seed, 24, 32, 24, (0.4, 0.3, 0.5), ints=True)
+    a[:bs] = 0.0
+    csrs = [ref_csr_from_dense(x) for x in (a, b, mk)]
+    csrs[0].data[::4] = 0.0              # stored zeros stay structural
+    ref = [ref_bcsr_from_csr(x, bs) for x in csrs]
+    pats = [np.array(ref_bcsr_from_csr(
+        RefCSR(x.indptr, x.indices, np.ones(x.nnz, np.float32), x.shape),
+        bs).blocks) for x in csrs[:2]]
+    return ref, [bcsr_from_reference(x, "cpu") for x in ref], pats
+
+
+@pytest.mark.parametrize("bs", [4, 8])
+@pytest.mark.parametrize("pat_dtype", [torch.float32, torch.bfloat16])
+def test_fused_wrapper_matches_reference_structure(bs, pat_dtype):
+    """The fused wrapper on CPU tensors equals the reference's
+    block_spgemm_with_structure (Pallas kernel, interpret mode) bitwise:
+    zero-fill ranks come out as zero blocks, all-flags-off padding changes
+    nothing, and a stored 0.0 counts where its value adds nothing."""
+    (A, B, M), (At, Bt, Mt), (ap, bp) = stored_zero_case(bs, 70 + bs)
+    want_v, want_s = ref_ops.block_spgemm_with_structure(
+        A, B, M, a_pattern=jnp.asarray(ap), b_pattern=jnp.asarray(bp),
+        backend="pallas", interpret=True)
+    want_v, want_s = np.asarray(want_v.blocks), np.asarray(want_s.blocks)
+    schedule = ops.build_spgemm_schedule(At, Bt, Mt)
+    zero_fill = schedule[0][(schedule[3] & 2) == 0]
+    assert len(zero_fill)
+    ap_t, bp_t = (torch.as_tensor(x).to(pat_dtype) for x in (ap, bp))
+    for extra in (0, 5):
+        wl = padded_worklist(schedule, extra) if extra else schedule
+        got_v, got_s = kernel.block_spgemm_with_structure_kernel(
+            At.blocks, Bt.blocks, ap_t, bp_t,
+            *(torch.as_tensor(x) for x in wl), Mt.nnzb)
+        assert got_v.dtype == got_s.dtype == torch.float32
+        np.testing.assert_array_equal(got_v.numpy(), want_v)
+        np.testing.assert_array_equal(got_s.numpy(), want_s)
+    assert not got_v[zero_fill].any() and not got_s[zero_fill].any()
+    # outputs reached only through stored zeros: value 0, count > 0
+    assert bool(((got_s > 0) & (got_v == 0)).any())
+    by_value = ops.block_spgemm_with_structure(At, Bt, Mt)[1].blocks
+    assert bool((got_s > by_value).any())
+    got_ops = ops.block_spgemm_with_structure(At, Bt, Mt, a_pattern=ap_t,
+                                              b_pattern=bp_t)
+    np.testing.assert_array_equal(got_ops[0].blocks.numpy(), want_v)
+    np.testing.assert_array_equal(got_ops[1].blocks.numpy(), want_s)
+
+
+def test_fused_wrapper_rejects_bad_operands():
+    blocks = torch.zeros((2, 4, 4))
+    pat = torch.zeros((2, 4, 4), dtype=torch.bfloat16)
+    wl = [torch.zeros(3, dtype=torch.int32) for _ in range(4)]
+    fused = kernel.block_spgemm_with_structure_kernel
+    for bad in ((blocks, blocks, pat.double(), pat, *wl, 2),
+                (blocks, blocks, pat, pat.to(torch.int32), *wl, 2),
+                (blocks, blocks, pat[:1], pat, *wl, 2),
+                (blocks, blocks, pat, pat.transpose(1, 2), *wl, 2),
+                (blocks.double(), blocks, pat, pat, *wl, 2),
+                (blocks, blocks, pat, pat, wl[0].long(), *wl[1:], 2),
+                (blocks, blocks, pat, pat, *wl[:3],
+                 torch.zeros(2, dtype=torch.int32), 2),
+                (blocks, blocks, pat, pat, *wl, -1)):
+        with pytest.raises(ValueError):
+            fused(*bad)
+
+
+def test_cpu_tensors_never_launch_the_fused_kernel():
+    before = kernel.FUSED_LAUNCHES, kernel.LAUNCHES
+    _, (At, Bt, Mt), (ap, bp) = stored_zero_case(4, 80)
+    ops.block_spgemm_with_structure(At, Bt, Mt, a_pattern=torch.as_tensor(ap),
+                                    b_pattern=torch.as_tensor(bp))
+    assert (kernel.FUSED_LAUNCHES, kernel.LAUNCHES) == before

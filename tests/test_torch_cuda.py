@@ -1,5 +1,6 @@
-"""The port on a CUDA device: the block_spgemm, masked_matmul and
-flash_mask kernels against their plain versions, both routes of
+"""The port on a CUDA device: the block_spgemm (values only and fused with
+the structural counts), masked_matmul and flash_mask kernels against their
+plain versions, both routes of
 masked_spgemm against the same calls on the CPU, and the LM forward with
 the flash kernel against dense attention.  Every test needs a GPU and
 skips without one.
@@ -9,8 +10,9 @@ only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: exact on small-integer data; rtol = atol = 1e-4 for the block
-product and 1e-5 for the row kernels on normal data (atomics in the plain
+Tolerances: exact on small-integer data and on structural counts; rtol =
+atol = 1e-4 for the block product (and 2e-6 normwise from float64, which
+one TF32 pass misses) and 1e-5 for the row kernels on normal data (atomics in the plain
 version's ``index_add_`` and the reduction orders of heap/inner differ
 between devices); the reference's 1e-5 / 2e-2 (f32 / bf16) for
 masked_matmul and 2e-5 / 3e-2 for flash_mask.  The tensor-core schemes are
@@ -93,6 +95,47 @@ def test_kernel_matches_plain(cuda_device, bs, ints):
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
+def block_f64(a_blocks, b_blocks, wl, nnzb_out):
+    """The worklist replay in float64."""
+    rank, pa, pb, flags = (x.long() for x in wl)
+    out = torch.zeros((nnzb_out,) + tuple(a_blocks.shape[1:]),
+                      dtype=torch.float64, device=a_blocks.device)
+    prods = torch.bmm(a_blocks.double()[pa], b_blocks.double()[pb])
+    return out.index_add_(0, rank, prods * ((flags >> 1) & 1).double()
+                          [:, None, None])
+
+
+@pytest.mark.parametrize("bs", [2, 4, 8, 12, 16, 32, 48, 128])
+@pytest.mark.parametrize("ints", [True, False])
+def test_fused_kernel_matches_plain(cuda_device, bs, ints):
+    """Values and structural counts in one launch: counts exact, values
+    exact on integers, else within 1e-4 of the plain version and 2e-6
+    normwise of float64; the values equal the values-only kernel's."""
+    nb = max(3, 256 // bs)
+    a, b, mk = dense_operands(bs + 1, nb * bs, (0.3, 0.3, 0.5), ints)
+    a[:bs] = 0.0          # an empty block row leaves zero-fill entries
+    A, B, M = (F.bcsr_from_dense(x, bs, device=cuda_device)
+               for x in (a, b, mk))
+    a_pat, b_pat = ((x != 0).to(torch.bfloat16) for x in (A.blocks,
+                                                           B.blocks))
+    wl = padded_worklist(ops.build_spgemm_schedule(A, B, M), 3, cuda_device)
+    before = kernel.FUSED_LAUNCHES, kernel.LAUNCHES
+    vals, counts = kernel.block_spgemm_with_structure_kernel(
+        A.blocks, B.blocks, a_pat, b_pat, *wl, M.nnzb)
+    torch.cuda.synchronize()
+    assert (kernel.FUSED_LAUNCHES, kernel.LAUNCHES) == (before[0] + 1,
+                                                       before[1])
+    want, want_c = kernel.block_spgemm_with_structure_plain(
+        A.blocks, B.blocks, a_pat, b_pat, *wl, M.nnzb)
+    assert torch.equal(counts, want_c)
+    assert torch.equal(vals, kernel.block_spgemm_kernel(A.blocks, B.blocks,
+                                                        *wl, M.nnzb))
+    tol = 0 if ints else 1e-4
+    torch.testing.assert_close(vals, want, rtol=tol, atol=tol)
+    exact = block_f64(A.blocks, B.blocks, wl, M.nnzb)
+    assert float((vals.double() - exact).norm() / exact.norm()) <= 2e-6
+
+
 def test_kernel_empty_b_gives_zero_blocks(cuda_device):
     a, _, mk = dense_operands(3, 64, (0.4, 0.4, 0.5), True)
     A, M = (F.bcsr_from_dense(x, 8, device=cuda_device) for x in (a, mk))
@@ -119,11 +162,13 @@ def test_tile_route_matches_cpu(cuda_device):
     mats = [F.block_sparse(256, 32, 0.4, 0.9, seed=s) for s in (1, 2)]
     mats.append(F.block_sparse(256, 32, 0.6, 1.0, seed=3, mask=True))
     A, B, M = (F.csr_from_dense(x) for x in mats)
-    before = kernel.LAUNCHES
+    before = kernel.FUSED_LAUNCHES, kernel.LAUNCHES
     got = masked_spgemm(A, B, M, algorithm="tile", tile_block=32,
                         device=cuda_device)
     torch.cuda.synchronize()
-    assert kernel.LAUNCHES == before + 2
+    # values and structure in one fused launch
+    assert (kernel.FUSED_LAUNCHES, kernel.LAUNCHES) == (before[0] + 1,
+                                                       before[1])
     want = masked_spgemm(A, B, M, algorithm="tile", tile_block=32,
                          device="cpu")
     torch.testing.assert_close(got.vals.cpu(), want.vals, rtol=0, atol=0)

@@ -1,9 +1,10 @@
 """The tensor-core kernels' precision schemes, emulated on the CPU.
 
-The SDDMM kernel computes f32 products as 3xTF32 (``cvt.rna.tf32.f32``
-splits each operand into hi + lo and three tf32 mma passes accumulate in
-f32), and the bf16 flash kernel computes p.v with p split into two bf16
-terms.  The mma's f32 accumulation truncates (rounds toward zero) instead
+The SDDMM and block-product kernels compute f32 products as 3xTF32
+(``cvt.rna.tf32.f32`` splits each operand into hi + lo and three tf32 mma
+passes accumulate in f32), the block product counts structure over 0/1
+patterns in one bf16 pass, and the bf16 flash kernel computes p.v with p
+split into two bf16 terms.  The mma's f32 accumulation truncates (rounds toward zero) instead
 of rounding to nearest, as measured on NVIDIA tensor cores (Fasi, Higham,
 Mikaitis and Pranesh, "Numerical behavior of NVIDIA tensor cores", 2021);
 on an NVIDIA H100 80GB HBM3 at 700 W the SDDMM that accumulated all its
@@ -204,3 +205,55 @@ def test_single_term_p_flash_misses_the_layer_limit(flash_case):
     q, k, v, want = flash_case
     got = flash_emulated(q, k, v, "single")
     assert float((got - want).norm() / want.norm()) > 2e-3
+
+
+def block_worklist(seed, ints=False, outs=4, pairs=6, bs=128):
+    """The block product's K stream as the kernel sees it: for each output
+    block, the concatenation of its worklist pairs' A rows (outs, bs,
+    pairs * bs) and B columns (outs, pairs * bs, bs), the tile-8192 main
+    path's shape (bs 128, about 6 pairs per output)."""
+    rng = np.random.default_rng(seed)
+    draw = ((lambda s: rng.integers(1, 5, s)) if ints
+            else rng.standard_normal)
+    a = torch.as_tensor(draw((outs, bs, pairs * bs)), dtype=torch.float32)
+    b = torch.as_tensor(draw((outs, pairs * bs, bs)), dtype=torch.float32)
+    return a, b
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_3xtf32_block_replay_keeps_f32_accuracy(seed):
+    """3xTF32 with truncating mma sums and IEEE k-step adds over a
+    worklist of 6 pairs (K = 768) stays within the card's 2e-6 normwise
+    of float64, with margin."""
+    a, b = block_worklist(seed)
+    want = a.double() @ b.double()
+    got = three_tf32(a, b).double()
+    assert float((got - want).norm() / want.norm()) <= 2e-6 / 5
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_1xtf32_block_replay_misses_the_limit(seed):
+    a, b = block_worklist(seed)
+    want = a.double() @ b.double()
+    got = one_tf32(a, b).double()
+    assert float((got - want).norm() / want.norm()) > 2e-6 * 10
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_3xtf32_block_replay_is_exact_on_integers(seed):
+    """The tile route's integer data (values 1..4): every partial sum is
+    an integer below 2^24, so the kernel's values equal the exact
+    product."""
+    a, b = block_worklist(seed, ints=True)
+    assert torch.equal(three_tf32(a, b).double(), a.double() @ b.double())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_pattern_counts_are_exact(seed):
+    """0/1 patterns in one bf16 pass, every m16n8k16 mma adding into the
+    accumulator with truncation (no k-step flush), count exactly."""
+    rng = np.random.default_rng(seed)
+    a, b = (torch.as_tensor(rng.random(shape) < 0.7, dtype=torch.float32)
+            for shape in ((4, 128, 6 * 128), (4, 6 * 128, 128)))
+    got = mma_sum([(bf16(a), bf16(b))], a.shape[-1], step=16, flush=False)
+    assert torch.equal(got.double(), a.double() @ b.double())
