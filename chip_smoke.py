@@ -12,7 +12,7 @@ Phases, each printing its own lines:
    ``nvcc`` per source, all started together; ``ptxas``'s registers and
    spills of every kernel instance, and the registers, shared memory and
    resident CTAs per SM of the tensor-core kernels at the path's shapes
-   (every ``block_spgemm`` instance);
+   (every ``block_spgemm`` instance, both flash instances);
 3. kernel against plain: the ``block_spgemm`` kernel, values only and
    fused with the structural counts, against its plain PyTorch version at
    block sizes 4, 8, 32, 48 and 128 (every instance), with zero-fill
@@ -22,8 +22,10 @@ Phases, each printing its own lines:
    n = 8192 block-sparse problem; the planner must elect the tile route
    at block size 128, the fused kernel must launch exactly once and no
    plain version run, the values must equal the dense product at the mask
-   and ``present`` the structural product; then timings of the fused and
-   the values-only replay, and the host steps of the call one by one;
+   and ``present`` the structural product; the call's peak device memory;
+   then timings of the fused and the values-only replay, and the steps of
+   the call one by one (uploads, block construction and gather on the
+   card; the schedule on the host);
 5. row route: triangle counting on R-MAT scale 14 (algorithm "auto"),
    checked against scipy;
 6. tile SDDMM: the ``masked_matmul`` kernel against its plain version over
@@ -32,20 +34,22 @@ Phases, each printing its own lines:
    equal to the plain version on integer data), the same call on
    standard-normal data (f32 accuracy: 2e-6 normwise); then timings;
 7. flash attention: the ``flash_mask`` kernel against its plain version
-   over the reference's test sweep (bf16 also within 2e-3 normwise), the
-   decode offset and the GQA op, then one full-width llama3.2-1b layer
-   (B 4, 32/8 heads, S 2048, D 64, causal, bf16); then timings beside
-   ``scaled_dot_product_attention``, and the f32 instance's at B 1 (the
-   f32 prefill's shape) and B 4;
+   over the reference's test sweep (bf16 also within 2e-3 normwise; every
+   case on tensor cores, the f32 ones on the 3xTF32 kernel), the decode
+   offset and the GQA op, then one full-width llama3.2-1b layer (B 4,
+   32/8 heads, S 2048, D 64, causal, bf16); then timings beside
+   ``scaled_dot_product_attention``; the f32 instance at the layer's shape
+   against its plain version and float64, and its times at B 1 (the f32
+   prefill's shape) and B 4 beside f32 ``scaled_dot_product_attention``;
 8. LM serving: llama3.2-1b at full width with ``attn_impl="flash_pallas"``
    and random weights from seed 0: a bf16 prefill of 4 x 2,048 tokens (the
-   tensor-core flash kernel must launch once per layer, 16 times; logits
-   finite and
-   close to the same forward with dense attention), a ``torch.profiler``
-   breakdown of one warm prefill by kernel with the device's idle share,
-   an f32 prefill of 2,048 tokens against dense attention, f32 prefill
-   against teacher-forced decode (the reference's decode-consistency
-   property), and ``generate``;
+   bf16 flash kernel must launch once per layer, 16 times; logits finite
+   and close to the same forward with dense attention), a
+   ``torch.profiler`` breakdown of one warm prefill by kernel with the
+   device's idle share, an f32 prefill of 2,048 tokens (the f32 tensor-core
+   flash kernel must launch once per layer) against dense attention, f32
+   prefill against teacher-forced decode (the reference's
+   decode-consistency property), and ``generate``;
 9. one JSON line with every kernel's numbers, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -98,6 +102,9 @@ PR12_MS = {"block_spgemm": 3.569, "masked_matmul": 1.057, "flash_mask": 5.268}
 #: replaced (its last run on an NVIDIA H100 80GB HBM3 at 700.00 W); the tile
 #: call ran it twice, once for values and once for counts
 CUDA_CORE_BLOCK_SPGEMM_MS = 3.564
+#: the CUDA-core f32 flash kernel that the 3xTF32 one replaced, at the
+#: layer's shape (its last run on the same card model and power limit)
+CUDA_CORE_F32_FLASH_MS = {"B1": 1.605, "B4": 4.979}
 
 #: the tile-route workload: A, B, M from ``block_sparse`` at n = 8192
 TILE_N = 8192
@@ -124,6 +131,7 @@ def reset_counts() -> None:
     kernel.MASKED_MATMUL_LAUNCHES = 0
     flash.LAUNCHES = 0
     flash.TC_LAUNCHES = 0
+    flash.F32_LAUNCHES = 0
 
 
 def device_ms(fn, dev, reps: int = 5, warm: int = 1) -> float:
@@ -248,6 +256,9 @@ def build(dev) -> None:
         for what, info in (
                 ("flash_mask bf16 128/128, D 64",
                  _build.kernel_info("flash_mask", "flash_mask_tc_info", 128,
+                                    128, 64)),
+                ("flash_mask f32 (3xTF32) 128/128, D 64",
+                 _build.kernel_info("flash_mask", "flash_mask_f32_info", 128,
                                     128, 64)),
                 ("masked_matmul f32 128x128",
                  _build.kernel_info("masked_matmul", "masked_matmul_info",
@@ -402,11 +413,21 @@ class count_plain:
             setattr(kernel, name, fn)
 
 
+#: the tile call's steps, as ``host_steps`` names them: its prep (uploads,
+#: block construction, schedule) and its gather
+PREP_STEPS = ("upload A", "upload B", "upload M (structure)",
+              "A values and pattern", "B values and pattern", "M rows",
+              "M block structure", "build_spgemm_schedule (host)",
+              "worklist check and upload")
+GATHER_STEPS = ("gather slots", "gather mask_cols",
+                "gather values and present")
+
+
 def host_steps(A, B, M, dev, bs: int):
     """The tile call's steps one by one, each on the host clock ended by a
-    synchronise, as ``_masked_spgemm_tile`` and ``gather_mask_aligned`` run
-    them: returns (milliseconds by step, the BCSR operands, the patterns,
-    the schedule)."""
+    synchronise, as ``_masked_spgemm_tile`` and ``_gather`` run them:
+    returns (milliseconds by step, the BCSR operands, the patterns, the
+    schedule)."""
     ms = {}
 
     def timed(name, fn):
@@ -416,50 +437,38 @@ def host_steps(A, B, M, dev, bs: int):
         ms[name] = ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
         return out
 
-    def pattern(x):
-        ones = F.CSR(x.indptr, x.indices, np.ones(x.nnz, np.float32),
-                     x.shape)
-        return F.bcsr_from_csr(ones, bs, dtype=torch.bfloat16,
-                               device=dev).blocks
-
-    Ab, Bb, Mb = (timed(f"bcsr_from_csr({name})",
-                        lambda x=x: F.bcsr_from_csr(x, bs, device=dev))
-                  for name, x in (("A", A), ("B", B), ("M", M)))
-    a_pat, b_pat = (timed(f"bcsr_from_csr(pattern {name})",
-                          lambda x=x: pattern(x))
-                    for name, x in (("A", A), ("B", B)))
-    sched = timed("build_spgemm_schedule",
+    Ad = timed("upload A", lambda: F._upload(A, dev))
+    Bd = timed("upload B", lambda: F._upload(B, dev))
+    Md = timed("upload M (structure)", lambda: F._upload(M, dev, data=False))
+    Ab, a_pat = timed("A values and pattern",
+                      lambda: F._bcsr_with_pattern(Ad, bs))
+    Bb, b_pat = timed("B values and pattern",
+                      lambda: F._bcsr_with_pattern(Bd, bs))
+    del Ad, Bd
+    m_rows = timed("M rows", Md.rows)
+    Mb, m_pos = timed("M block structure",
+                      lambda: F._bcsr_structure(Md, m_rows, bs))
+    sched = timed("build_spgemm_schedule (host)",
                   lambda: ops.build_spgemm_schedule(Ab, Bb, Mb))
     wl = timed("worklist check and upload", lambda: ops._worklist(
         Mb, sched, Ab.nnzb, Bb.nnzb, dev))
     cb, sb = timed("fused kernel", lambda: kernel.
                    block_spgemm_with_structure_kernel(
                        Ab.blocks, Bb.blocks, a_pat, b_pat, *wl, Mb.nnzb))
-    # gather_mask_aligned, step by step
-    m = M.shape[0]
-    M_p = timed("padded_from_csr(M)",
-                lambda: F.padded_from_csr(M, None, device=dev))
-
-    def addressing():
-        mr = F._expand_rows(M.indptr)
-        slots = np.arange(M.nnz, dtype=np.int64) - M.indptr[mr]
-        keep = slots < M_p.width
-        return mr[keep], M.indices[keep], slots[keep]
-
-    mr, mc, slots = timed("gather addressing (rows, slots)", addressing)
-    pos = timed("bcsr_block_positions", lambda: F.bcsr_block_positions(
-        Mb, mr // bs, mc // bs))
-    idx = timed("index stack and upload", lambda: torch.as_tensor(
-        np.stack([pos, mr % bs, mc % bs, mr, slots]), device=dev))
+    # _gather, step by step
+    m, width = M.shape[0], F._pad_width(M, None)
+    dest = timed("gather slots", lambda: F._slots(Md, m_rows, width))
+    timed("gather mask_cols", lambda: F._padded(Md, m_rows, width,
+                                                with_vals=False, dest=dest))
 
     def scatter():
-        pos_t, roff, coff, rows, slot_t = idx
-        vals = torch.zeros((m, M_p.width), dtype=cb.dtype, device=dev)
-        present = torch.zeros((m, M_p.width), dtype=torch.bool, device=dev)
-        vals[rows, slot_t] = cb[pos_t, roff, coff]
-        present[rows, slot_t] = sb[pos_t, roff, coff] > 0
+        src = (m_pos * bs + m_rows % bs) * bs + Md.indices % bs
+        vals = torch.zeros(m * width + 1, dtype=cb.dtype, device=dev)
+        present = torch.zeros(m * width + 1, dtype=torch.bool, device=dev)
+        vals[dest] = cb.reshape(-1)[src]
+        present[dest] = sb.reshape(-1)[src] > 0
 
-    timed("gather scatter (device)", scatter)
+    timed("gather values and present", scatter)
     return ms, (Ab, Bb, Mb), (a_pat, b_pat), sched
 
 
@@ -522,15 +531,13 @@ def tile_route(dev, n: int = TILE_N, bs: int = TILE_BS):
 
     # the call's host steps one by one, then the kernels at its shapes
     steps, (Ab, Bb, Mb), (a_pat, b_pat), sched = host_steps(A, B, M, dev, bs)
-    print("tile: host steps (ms): " + "; ".join(
-        f"{k} {v:.1f}" for k, v in steps.items()))
-    prep = [k for k in steps if k.startswith(("bcsr", "build", "worklist"))]
-    prep_ms = sum(steps[k] for k in prep)
-    bcsr_ms = sum(steps[k] for k in prep if k.startswith("bcsr"))
-    gather_steps_ms = sum(v for k, v in steps.items()
-                          if k not in prep and k != "fused kernel")
-    print(f"tile: host steps: prep {prep_ms:.1f} ms (bcsr_from_csr x5 "
-          f"{bcsr_ms:.1f}), gather {gather_steps_ms:.1f} ms")
+    print("tile: steps (ms): " + "; ".join(
+        f"{k} {v:.2f}" for k, v in steps.items()))
+    prep_ms = sum(steps[k] for k in PREP_STEPS)
+    upload_ms = sum(steps[k] for k in PREP_STEPS if k.startswith("upload"))
+    gather_steps_ms = sum(steps[k] for k in GATHER_STEPS)
+    print(f"tile: steps: prep {prep_ms:.1f} ms (uploads {upload_ms:.1f}), "
+          f"gather {gather_steps_ms:.1f} ms")
     wl = worklist(sched, dev)
     W = len(sched[0])
     real = int(((sched[3] >> 1) & 1).sum())
@@ -586,7 +593,10 @@ def tile_route(dev, n: int = TILE_N, bs: int = TILE_BS):
           f"{values_bound:.3f} ms "
           f"(by {values_by}); at {values_bound / values_ms:.1%} of it; the "
           f"counting CTAs add {fused_ms - values_ms:.3f} ms")
-    print(f"tile: gather {gather_ms:.1f} ms; end to end {e2e_ms:.1f} ms")
+    print(f"tile: gather_mask_aligned {gather_ms:.1f} ms; end to end "
+          f"{e2e_ms:.1f} ms per call (first {first_ms:.1f} ms, with "
+          f"planning); peak memory of the first call {peak / 2**20:.1f} "
+          f"MiB")
     print(f"tile: dense torch.matmul {n}^3 f32 (SpGEMM-then-mask "
           f"baseline, NOT the same function) {dense_ms:.3f} ms")
     mask_tiles = (np.repeat(np.arange(Mb.block_rows), np.diff(Mb.indptr)),
@@ -600,6 +610,8 @@ def tile_route(dev, n: int = TILE_N, bs: int = TILE_BS):
             "library_ms": None,
             "instance": block_instance(bs) + ", fused values and counts",
             "values_ms": values_ms, "values_bound_ms": values_bound,
+            "tile_call_ms": e2e_ms, "tile_peak_mib": peak / 2**20,
+            "tile_steps_ms": steps,
             "design": "mma.sync tensor cores: values 3xTF32 (hi + lo "
                       "splits, IEEE k-step adds), counts one bf16 pass over "
                       "bf16 patterns, in one grid of both CTA kinds; the "
@@ -865,7 +877,7 @@ def flash_vs_plain(dev) -> float:
     two, exceeds it at the layer's shape: test_torch_tc_numerics)."""
     err = rel_bf16 = 0.0
     d = 16
-    tc_before = flash.TC_LAUNCHES
+    tc_before, f32_before = flash.TC_LAUNCHES, flash.F32_LAUNCHES
     for pattern in FLASH_PATTERNS:
         for s_q, s_k, bq, bk in ((32, 32, 8, 8), (64, 64, 16, 16),
                                  (32, 64, 8, 16)):
@@ -881,8 +893,9 @@ def flash_vs_plain(dev) -> float:
                 err = max(err, e)
                 if dtype == torch.bfloat16:
                     rel_bf16 = max(rel_bf16, rel)
-    check(flash.TC_LAUNCHES - tc_before == 12, "the 12 bf16 cases ran the "
-          "tensor-core kernel, the f32 ones the CUDA-core kernel")
+    check(flash.TC_LAUNCHES - tc_before == 24
+          and flash.F32_LAUNCHES - f32_before == 12, "the 24 cases ran "
+          "tensor-core kernels, the 12 f32 ones the 3xTF32 kernel")
     rng = np.random.default_rng(9)
     q, k, v = (torch.as_tensor(rng.standard_normal((1, 1, s, d)) * 0.5,
                                dtype=torch.float32, device=dev)
@@ -951,19 +964,7 @@ def flash_layer(dev, b: int = LM_BATCH, s: int = LM_SEQ) -> dict:
     nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel()) + 12 * pairs
     bound_ms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
     f32_ms = bound(flops, nbytes, PEAK_F32_ACCURATE_FLOPS)[0]
-    # the f32 instance (CUDA cores) at the f32 prefill's shape (B 1) and at
-    # the layer's, each beside its bound as three TF32 passes
-    f32_times = {}
-    for bb in sorted({1, b}):
-        qf, kf, vf = (x[:bb].float() for x in (q, k, v))
-        t_ms = device_ms(lambda: flash.flash_mask_kernel(qf, kf, vf, *sched,
-                                                         **kw),
-                         dev, reps=5, warm=1)
-        f32_times[bb] = (t_ms, bound(
-            4.0 * bb * hq * allowed * d,
-            4 * (qf.numel() * 2 + kf.numel() + vf.numel()) + 12 * pairs,
-            PEAK_F32_ACCURATE_FLOPS)[0])
-        del qf, kf, vf
+    f32 = f32_instance(dev, q.shape, k.shape, sched, kw, allowed, pairs)
     print(f"flash: B={b} Hq={hq} Hkv={hkv} S={s} D={d} blocks {blk} causal "
           f"bf16: {pairs} pairs per (batch, head), {flops / 1e9:.2f} GFLOP "
           f"at the allowed elements ({tile_flops / 1e9:.1f} over whole "
@@ -977,22 +978,105 @@ def flash_layer(dev, b: int = LM_BATCH, s: int = LM_SEQ) -> dict:
           f"causal, GQA) {library_ms:.3f} ms; bound {bound_ms:.4f} ms (by "
           f"{by}, bf16 tensor cores; the f32 instance's, three TF32 passes: "
           f"{f32_ms:.3f} ms); kernel at {bound_ms / kernel_ms:.2%} of it")
-    print("flash: f32 instance (CUDA cores): " + "; ".join(
-        f"B={bb} {t_ms:.3f} ms against its 3xTF32 bound {bd:.3f} ms "
-        f"({bd / t_ms:.1%})" for bb, (t_ms, bd) in f32_times.items()))
     return {"name": "flash_mask", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_mask/csrc/flash_mask.cu",
             "replaces": "src/repro/kernels/flash_mask/kernel.py:121",
             "launches": 0, "max_abs_err": err, "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
             "library_ms": library_ms,
-            "f32_ms": {f"B{bb}": t for bb, (t, _) in f32_times.items()},
-            "f32_bound_ms": {f"B{bb}": bd for bb, (_, bd) in
-                             f32_times.items()},
-            "design": "bf16: mma.sync m16n8k16 tensor cores, q in registers, "
-                      "k/v in a 2-stage cp.async ring, online softmax in "
-                      "registers, p.v as two bf16 terms (p = hi + lo); "
-                      "f32: CUDA cores"}
+            **f32,
+            "design": "bf16: mma.sync m16n8k16 tensor cores, q tile in "
+                      "shared memory, k/v in a 2-stage cp.async ring, online "
+                      "softmax in registers, p.v as two bf16 terms (p = hi + "
+                      "lo); f32: mma.sync m16n8k8 tf32 tensor cores in "
+                      "3xTF32 (q.k^T and p.v; hi/lo splits rounded in "
+                      "integer arithmetic, IEEE k-step adds), k/v in a "
+                      "2-stage cp.async ring of 64-key chunks"}
+
+
+def f32_instance(dev, q_shape, kv_shape, sched, kw, allowed: int,
+                 pairs: int) -> dict:
+    """The f32 (3xTF32) flash instance at the layer's shape, on f32 inputs
+    of full precision (0.5 randn, seed 8): against its plain version (the
+    sweep's rtol = atol = 2e-5) at B 1 and float64 (2e-6 normwise) at B 1
+    and B 4; its times at B 1 (the f32 prefill's shape) and B 4 beside its
+    bound, the plain version and f32 ``scaled_dot_product_attention``
+    (causal, with the kv heads expanded to the query heads before the clock
+    starts), whose error from float64 is reported too.  Returns the f32
+    fields of the flash entry of the JSON line."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev) * 0.5
+               for shape in (q_shape, kv_shape, kv_shape))
+    b, hq, s, d = q.shape
+    g = hq // k.shape[1]
+    out = {"f32_ms": {}, "f32_bound_ms": {}, "f32_plain_ms": {},
+           "f32_library_ms": {}, "f32_vs_f64": {}, "f32_library_vs_f64": {}}
+    for bb in sorted({1, b}):
+        qf, kf, vf = (x[:bb] for x in (q, k, v))
+        ke, ve = (x.repeat_interleave(g, dim=1) for x in (kf, vf))
+        got = flash.flash_mask_kernel(qf, kf, vf, *sched, **kw)
+        lib = torch.nn.functional.scaled_dot_product_attention(
+            qf, ke, ve, is_causal=True)
+        # float64 one batch row at a time: the scores of all four are 4 GB
+        num = den = lib_num = 0.0
+        for i in range(bb):
+            sc = (qf[i].double() @ ke[i].double().transpose(-1, -2)) * kw[
+                "scale"]
+            sc.masked_fill_(torch.ones(s, s, dtype=torch.bool, device=dev)
+                            .triu_(1), float("-inf"))
+            exact = torch.softmax(sc, dim=-1) @ ve[i].double()
+            del sc
+            num += float((got[i].double() - exact).norm()) ** 2
+            lib_num += float((lib[i].double() - exact).norm()) ** 2
+            den += float(exact.norm()) ** 2
+            del exact
+        rel, lib_rel = (num / den) ** 0.5, (lib_num / den) ** 0.5
+        if bb == 1:
+            want = flash.flash_mask_plain(qf, kf, vf, *sched, **kw)
+            err = float((got - want).abs().max())
+            check(torch.allclose(got, want, rtol=2e-5, atol=2e-5),
+                  f"f32 flash at the layer's shape within 2e-5 of plain "
+                  f"(max err {err})")
+            out["f32_max_abs_err"] = err
+            del want
+        check(rel <= 2e-6, f"f32 flash at B {bb} within 2e-6 normwise of "
+              f"float64 (got {rel:.3g})")
+        t_ms = device_ms(lambda: flash.flash_mask_kernel(qf, kf, vf, *sched,
+                                                         **kw),
+                         dev, reps=7, warm=2)
+        plain_ms = device_ms(lambda: flash.flash_mask_plain(qf, kf, vf,
+                                                            *sched, **kw),
+                             dev, reps=3, warm=1)
+        lib_ms = device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qf, ke, ve, is_causal=True), dev, reps=7, warm=2)
+        bd = bound(4.0 * bb * hq * allowed * d,
+                   4 * (qf.numel() * 2 + kf.numel() + vf.numel())
+                   + 12 * pairs, PEAK_F32_ACCURATE_FLOPS)[0]
+        key = f"B{bb}"
+        out["f32_ms"][key], out["f32_bound_ms"][key] = t_ms, bd
+        out["f32_plain_ms"][key], out["f32_library_ms"][key] = (plain_ms,
+                                                                lib_ms)
+        out["f32_vs_f64"][key], out["f32_library_vs_f64"][key] = rel, lib_rel
+        print(f"flash: f32 instance (3xTF32 tensor cores) B={bb}: kernel "
+              f"{t_ms:.3f} ms against its 3xTF32 bound {bd:.3f} ms "
+              f"({bd / t_ms:.1%}; the CUDA-core kernel it replaced "
+              f"{CUDA_CORE_F32_FLASH_MS.get(key, float('nan')):.3f} ms); "
+              f"plain {plain_ms:.3f} ms; library (f32 "
+              f"scaled_dot_product_attention, causal, kv heads expanded) "
+              f"{lib_ms:.3f} ms; normwise from float64: kernel {rel:.3g}, "
+              f"library {lib_rel:.3g}")
+        del qf, kf, vf, ke, ve, got, lib
+    del q, k, v
+    info = _build.kernel_info("flash_mask", "flash_mask_f32_info", 128, 128,
+                              64)
+    out["f32_instance"] = (f"flash_mask_f32_tc_kernel<128, 64>: "
+                           f"{info['registers']} registers, "
+                           f"{info['local_bytes']} B local memory, "
+                           f"{info['ctas_per_sm']} CTAs per SM")
+    print(f"flash: f32 instance at the layer's shape within 2e-5 of plain "
+          f"(max err {out['f32_max_abs_err']:.3g}); {out['f32_instance']}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1047,8 +1131,9 @@ def prefill_breakdown(model, cfg, tokens, dev, top: int = 8) -> None:
 
 def lm_serving(dev, batch: int = LM_BATCH, seq: int = LM_SEQ,
                smoke: bool = False) -> int:
-    """Returns the flash kernel's launches in the main path's prefill.
-    ``smoke`` takes the reduced config (for a rehearsal on the CPU)."""
+    """Returns the flash kernel's launches in the main path's (bf16)
+    prefill and the f32 instance's in the f32 prefill.  ``smoke`` takes
+    the reduced config (for a rehearsal on the CPU)."""
     cfg = get_config("llama3_2_1b", smoke=smoke).replace(
         attn_impl="flash_pallas", dtype="bfloat16")
     t0 = time.perf_counter()
@@ -1077,9 +1162,11 @@ def lm_serving(dev, batch: int = LM_BATCH, seq: int = LM_SEQ,
           "prefill launches no masked product")
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else 0)
-    check(launches == flash.TC_LAUNCHES == cfg.n_layers, f"the tensor-core "
-          f"flash kernel launched once per layer ({cfg.n_layers}), got "
-          f"{flash.TC_LAUNCHES} of {launches} launches")
+    check(launches == flash.TC_LAUNCHES == cfg.n_layers
+          and flash.F32_LAUNCHES == 0, f"the bf16 tensor-core flash kernel "
+          f"launched once per layer ({cfg.n_layers}), got "
+          f"{flash.TC_LAUNCHES} of {launches} launches, "
+          f"{flash.F32_LAUNCHES} f32")
     check(logits.shape == (batch, seq, cfg.vocab_size)
           and logits.dtype == torch.bfloat16, "prefill logits shape, bf16")
     check(bool(torch.isfinite(logits).all()), "prefill logits are finite")
@@ -1112,17 +1199,22 @@ def lm_serving(dev, batch: int = LM_BATCH, seq: int = LM_SEQ,
     # size), so a bf16-noise bound cannot hide a wrong attention here
     f32 = cfg.replace(dtype="float32")
     one = tokens[:1]
-    tc_before = flash.TC_LAUNCHES
+    reset_counts()
     got = T.forward(model, f32, {"tokens": one})
-    check(flash.TC_LAUNCHES == tc_before, "f32 prefill runs the CUDA-core "
-          "flash kernel")
+    sync(dev)
+    f32_launches = flash.F32_LAUNCHES
+    check(f32_launches == flash.TC_LAUNCHES == flash.LAUNCHES
+          == cfg.n_layers, f"f32 prefill runs the tensor-core f32 flash "
+          f"kernel once per layer (got {f32_launches} f32 of "
+          f"{flash.LAUNCHES} launches)")
     dense = T.forward(model, f32.replace(attn_impl="dense_masked"),
                       {"tokens": one})
     diff = (got - dense).abs()
     rel32 = float(diff.norm() / dense.norm())
     print(f"lm: f32 prefill B=1 S={seq} vs dense_masked: max |diff| "
           f"{float(diff.max()):.3g} (max |logit| "
-          f"{float(dense.abs().max()):.4g}), normwise {rel32:.3g}")
+          f"{float(dense.abs().max()):.4g}), normwise {rel32:.3g}; "
+          f"{f32_launches} launches of the f32 tensor-core flash kernel")
     check(rel32 <= 1e-4 and float(diff.max()) <= 1e-3,
           "f32 flash prefill within 1e-4 normwise and 1e-3 of dense_masked")
     del got, dense, diff
@@ -1170,7 +1262,7 @@ def lm_serving(dev, batch: int = LM_BATCH, seq: int = LM_SEQ,
           f"({batch * 16 / gen_s:.1f} new tokens/s, "
           f"{batch * 48 / gen_s:.1f} tokens/s with the teacher-forced "
           f"prompt)")
-    return launches
+    return launches, f32_launches
 
 
 def main() -> int:
@@ -1191,7 +1283,7 @@ def main() -> int:
     flash_entry = flash_layer(dev)
     flash_entry["max_abs_err"] = max(flash_entry["max_abs_err"], err)
     t_lm = time.perf_counter()
-    flash_entry["launches"] = lm_serving(dev)
+    flash_entry["launches"], flash_entry["f32_launches"] = lm_serving(dev)
     t_end = time.perf_counter()
     print(f"phases: spgemm {t_sddmm - t_start:.1f} s, sddmm "
           f"{t_flash - t_sddmm:.1f} s, flash {t_lm - t_flash:.1f} s, lm "

@@ -21,6 +21,7 @@ from one seed.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -173,26 +174,141 @@ class PaddedCSR:
 def padded_from_csr(a: CSR, width: Optional[int] = None,
                     dtype: torch.dtype = torch.float32,
                     device="cuda") -> PaddedCSR:
-    a = a.sorted_rows()
-    m, n = a.shape
-    row_nnz = a.row_nnz()
-    w = int(width if width is not None
-            else max(1, int(row_nnz.max(initial=0))))
-    cols = np.full((m, w), n, dtype=np.int32)
-    vals = np.zeros((m, w), dtype=np.float32)
-    # slot of entry e is its offset within its row; entries beyond the
-    # requested width are dropped
-    rows = _expand_rows(a.indptr)
-    slots = np.arange(a.nnz, dtype=np.int64) - a.indptr[rows]
-    keep = slots < w
-    cols[rows[keep], slots[keep]] = a.indices[keep]
-    vals[rows[keep], slots[keep]] = a.data[keep]
-    return PaddedCSR(
-        torch.as_tensor(cols, device=device),
-        torch.as_tensor(vals, dtype=dtype, device=device),
-        torch.as_tensor(np.minimum(row_nnz, w).astype(np.int32),
-                        device=device),
-        (m, n))
+    """Pad ``a``'s rows to ``width`` (default: the widest row, at least 1)
+    on ``device``: columns sorted within each row, entries beyond the
+    width dropped.  One upload of ``a``; the sort and scatter run there."""
+    d = _upload(a, device)
+    w = _pad_width(a, width)
+    cols, vals = _padded(d, d.rows(), w, with_vals=True)
+    lens = torch.clamp(d.indptr[1:] - d.indptr[:-1], max=w).to(torch.int32)
+    return PaddedCSR(cols, vals.to(dtype), lens, a.shape)
+
+
+# --------------------------------------------------------------------------
+# Device-side construction from a host CSR (one upload per CSR)
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _DeviceCSR:
+    """A host CSR's arrays on a device: int64 ``indptr``/``indices`` and
+    ``data`` (None when only the structure was uploaded)."""
+
+    indptr: torch.Tensor
+    indices: torch.Tensor
+    data: Optional[torch.Tensor]
+    shape: Tuple[int, int]
+
+    @property
+    def nnz(self) -> int:
+        return int(self.indices.shape[0])
+
+    def rows(self) -> torch.Tensor:
+        """Row index of every entry (``_expand_rows`` on the device)."""
+        m = self.shape[0]
+        return torch.repeat_interleave(
+            torch.arange(m, device=self.indptr.device),
+            self.indptr[1:] - self.indptr[:-1], output_size=self.nnz)
+
+
+def _upload(a: CSR, device, data: bool = True) -> _DeviceCSR:
+    """Copy ``a``'s index arrays (and, with ``data``, its values, in their
+    host dtype) to ``device`` once."""
+    def put(x):
+        return _to_device(x, device)
+    return _DeviceCSR(put(a.indptr).long(), put(a.indices).long(),
+                      put(a.data) if data else None, a.shape)
+
+
+class _Staging:
+    """Copies host arrays to a CUDA device in ``chunk``-byte pieces through
+    two reused page-locked buffers, each piece's host copy overlapping the
+    previous piece's transfer.  On an NVIDIA H100 80GB HBM3 host this moved
+    20-26 GB/s where a copy from pageable memory moved 5.3-6.3
+    (``tools/upload_rates.py``)."""
+
+    def __init__(self, chunk: int = 32 << 20):
+        self.chunk = chunk
+        self.lock = threading.Lock()
+        self.bufs = None
+        self.done = [None, None]      # each buffer's last transfer
+
+    def __call__(self, x: np.ndarray, device: torch.device) -> torch.Tensor:
+        src = torch.from_numpy(x.reshape(-1).view(np.uint8))
+        out = torch.empty(x.shape, dtype=torch.from_numpy(x[:0]).dtype,
+                          device=device)
+        dst = out.view(-1).view(torch.uint8)
+        with self.lock, torch.cuda.device(device):
+            if self.bufs is None:
+                self.bufs = [torch.empty(self.chunk, dtype=torch.uint8,
+                                         pin_memory=True) for _ in range(2)]
+            for i, at in enumerate(range(0, src.numel(), self.chunk)):
+                part, j = src[at:at + self.chunk], i % 2
+                if self.done[j] is not None:
+                    self.done[j].synchronize()
+                buf = self.bufs[j][:part.numel()]
+                buf.copy_(part)
+                dst[at:at + part.numel()].copy_(buf, non_blocking=True)
+                self.done[j] = torch.cuda.Event()
+                self.done[j].record()
+        return out
+
+
+_STAGING = _Staging()
+#: host arrays at least this large go to a CUDA device through ``_STAGING``
+_STAGE_MIN_BYTES = 1 << 20
+
+
+def _to_device(x: np.ndarray, device) -> torch.Tensor:
+    """``torch.as_tensor(x, device=device)``, staged through page-locked
+    memory for large copies to a CUDA device."""
+    x = np.ascontiguousarray(x)
+    device = torch.device(device)
+    if device.type == "cuda" and x.nbytes >= _STAGE_MIN_BYTES:
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        return _STAGING(x, device)
+    return torch.as_tensor(x, device=device)
+
+
+def _pad_width(a: CSR, width: Optional[int]) -> int:
+    return int(width if width is not None
+               else max(1, int(a.row_nnz().max(initial=0))))
+
+
+def _slots(d: _DeviceCSR, rows: torch.Tensor, w: int) -> torch.Tensor:
+    """Flat position ``row * w + slot`` of every entry in a (m, w) padded
+    array, the slot being its offset within its row; entries at a slot
+    beyond ``w`` go to the spare position m * w, which callers drop."""
+    slot = torch.arange(d.nnz, device=rows.device) - d.indptr[rows]
+    return torch.where(slot < w, rows * w + slot, d.shape[0] * w)
+
+
+def _padded(d: _DeviceCSR, rows: torch.Tensor, w: int, *,
+            with_vals: bool, dest: Optional[torch.Tensor] = None):
+    """(cols, vals) of ``padded_from_csr``: (m, w) int32 columns, padded
+    with ncols, and, ``with_vals``, (m, w) float32 values (else None).
+    Rows whose columns are not ascending are sorted first, stably, which
+    is ``np.lexsort((indices, rows))``'s order; ``dest`` is ``_slots``'s
+    (computed here unless given)."""
+    m, n = d.shape
+    dev = rows.device
+    cols_in, vals_in = d.indices, d.data
+    key = rows * n + cols_in
+    if not bool((key[1:] >= key[:-1]).all()):
+        order = torch.sort(key, stable=True).indices
+        cols_in = cols_in[order]
+        vals_in = vals_in[order] if with_vals else None
+    if dest is None:
+        dest = _slots(d, rows, w)
+    cols = torch.full((m * w + 1,), n, dtype=torch.int32, device=dev)
+    cols[dest] = cols_in.to(torch.int32)
+    vals = None
+    if with_vals:
+        vals = torch.zeros(m * w + 1, dtype=torch.float32, device=dev)
+        vals[dest] = vals_in.to(torch.float32)
+        vals = vals[:-1].view(m, w)
+    return cols[:-1].view(m, w), vals
 
 
 # --------------------------------------------------------------------------
@@ -206,12 +322,13 @@ class BCSR:
 
     ``indptr``/``indices`` live on the host (numpy) because they drive
     schedule construction (the symbolic phase); ``blocks`` is a tensor on
-    the device the product runs on.
+    the device the product runs on, or None in a structure-only BCSR (the
+    tile route's mask, whose values nothing reads).
     """
 
     indptr: np.ndarray  # host
     indices: np.ndarray  # host, sorted per block-row
-    blocks: torch.Tensor  # (nnzb, bs, bs)
+    blocks: Optional[torch.Tensor]  # (nnzb, bs, bs), None: structure only
     shape: Tuple[int, int]  # element shape
     block_size: int
 
@@ -231,6 +348,8 @@ class BCSR:
         return self.indices[self.indptr[i]: self.indptr[i + 1]]
 
     def to_dense(self) -> np.ndarray:
+        if self.blocks is None:
+            raise ValueError("a structure-only BCSR has no values")
         bs = self.block_size
         mb, nb = self.block_rows, self.block_cols
         blocks = to_numpy(self.blocks)
@@ -272,24 +391,72 @@ def bcsr_from_csr(a: CSR, block_size: int, dtype=None,
     by the input's block structure.  Rows/cols beyond the last full block
     are padded into partial edge blocks (zero filled), same layout as
     ``bcsr_from_dense``.  Assumes ``a`` has no duplicate entries (every
-    ``csr_from_coo``-built CSR satisfies this).
+    ``csr_from_coo``-built CSR satisfies this).  The blocks are built on
+    ``device`` from one upload of ``a``; only the block structure
+    (``indptr``, ``indices``) comes back to the host.
     """
-    bs = block_size
-    m, n = a.shape
+    d = _upload(a, device)
+    rows = d.rows()
+    uniq, inv = _block_keys(d, rows, block_size)
+    dt = _canonical_dtype(a.data.dtype) if dtype is None else dtype
+    blocks = _scatter_blocks(len(uniq), block_size, dt, _block_offsets(
+        d, rows, inv, block_size), d.data.to(dt))
+    return _bcsr_of_keys(uniq, blocks, a.shape, block_size)
+
+
+def _block_keys(d: _DeviceCSR, rows: torch.Tensor, bs: int):
+    """(sorted unique block keys ``block_row * nb + block_col``, the
+    position of every entry's block among them)."""
+    nb = -(-d.shape[1] // bs)
+    key = (rows // bs) * nb + d.indices // bs
+    return torch.unique(key, sorted=True, return_inverse=True)
+
+
+def _block_offsets(d: _DeviceCSR, rows, inv, bs: int) -> torch.Tensor:
+    """Flat offset of every entry in a (nnzb, bs, bs) block array."""
+    return (inv * bs + rows % bs) * bs + d.indices % bs
+
+
+def _scatter_blocks(nnzb: int, bs: int, dtype, flat, src) -> torch.Tensor:
+    """Zero (nnzb, bs, bs) blocks with ``src`` (a tensor or a scalar) put
+    at the flat offsets (no accumulation: the entries are distinct)."""
+    blocks = torch.zeros(nnzb * bs * bs, dtype=dtype, device=flat.device)
+    blocks[flat] = src
+    return blocks.view(nnzb, bs, bs)
+
+
+def _bcsr_of_keys(uniq: torch.Tensor, blocks, shape, bs: int) -> BCSR:
+    """A BCSR whose host ``indptr``/``indices`` come from the sorted block
+    keys; ``blocks`` None makes it structure only."""
+    m, n = shape
     mb, nb = -(-m // bs), -(-n // bs)
-    rows = _expand_rows(a.indptr)
-    cols = a.indices
-    key = (rows // bs) * nb + cols // bs
-    uniq, inv = np.unique(key, return_inverse=True)
-    blocks = np.zeros((len(uniq), bs, bs), dtype=a.data.dtype)
-    blocks[inv, rows % bs, cols % bs] = a.data
-    ubr, ubc = uniq // nb, uniq % nb
-    indptr = np.zeros(mb + 1, dtype=np.int64)
-    np.add.at(indptr, ubr + 1, 1)
-    dev = torch.as_tensor(
-        blocks, dtype=_canonical_dtype(blocks.dtype) if dtype is None
-        else dtype, device=device)
-    return BCSR(np.cumsum(indptr), ubc.astype(np.int64), dev, (m, n), bs)
+    indptr = torch.searchsorted(
+        uniq, torch.arange(mb + 1, device=uniq.device) * nb)
+    return BCSR(indptr.cpu().numpy(), (uniq % nb).cpu().numpy(), blocks,
+                shape, bs)
+
+
+def _bcsr_with_pattern(d: _DeviceCSR, bs: int) -> Tuple[BCSR, torch.Tensor]:
+    """f32 ``bcsr_from_csr`` blocks of ``d`` and, from the same key pass,
+    its bf16 stored-entry pattern blocks: 1 at every CSR entry, an
+    explicitly stored 0.0 included (it is structural to the row
+    kernels)."""
+    rows = d.rows()
+    uniq, inv = _block_keys(d, rows, bs)
+    flat = _block_offsets(d, rows, inv, bs)
+    del rows, inv
+    values = _scatter_blocks(len(uniq), bs, torch.float32, flat,
+                             d.data.to(torch.float32))
+    pattern = _scatter_blocks(len(uniq), bs, torch.bfloat16, flat, 1)
+    return _bcsr_of_keys(uniq, values, d.shape, bs), pattern
+
+
+def _bcsr_structure(d: _DeviceCSR, rows: torch.Tensor, bs: int
+                    ) -> Tuple[BCSR, torch.Tensor]:
+    """The block structure of ``d`` without value blocks (a BCSR whose
+    ``blocks`` is None), and the position of every entry's block."""
+    uniq, inv = _block_keys(d, rows, bs)
+    return _bcsr_of_keys(uniq, None, d.shape, bs), inv
 
 
 def bcsr_to_csr(a: BCSR, prune_zero: bool = True) -> CSR:

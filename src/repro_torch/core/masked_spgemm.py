@@ -25,7 +25,8 @@ import torch
 
 from . import accumulators as acc
 from .formats import (CSR, PaddedCSR, padded_from_csr, csr_from_coo,
-                      bcsr_from_csr, bcsr_block_positions, _expand_rows)
+                      _bcsr_structure, _bcsr_with_pattern, _DeviceCSR,
+                      _pad_width, _padded, _slots, _upload)
 from .semiring import Semiring, PLUS_TIMES
 
 #: the batched row kernels; the BCSR tile route ("tile") runs the block
@@ -262,13 +263,19 @@ def _masked_spgemm_tile(A: CSR, B: CSR, M: CSR, *,
                         device="cuda") -> MaskedSpGEMMResult:
     """Execute C = M (.) (A B) on the BCSR tile pipeline.
 
-    Densify-free end to end: CSR operands scatter into occupied blocks
-    (``bcsr_from_csr``), the host schedule replays on the block product,
-    and the result is gathered straight from the output blocks into the
-    same mask-aligned layout the row kernels produce.  ``present`` comes
-    from a structural counting replay of the same schedule, so it is exact
-    element-level structure — the row kernels' semantics, including
-    numeric-cancellation cases.
+    Densify-free end to end: CSR operands scatter into occupied blocks,
+    the host schedule replays on the block product, and the result is
+    gathered straight from the output blocks into the same mask-aligned
+    layout the row kernels produce.  ``present`` comes from a structural
+    counting replay of the same schedule, so it is exact element-level
+    structure — the row kernels' semantics, including numeric-cancellation
+    cases.
+
+    Every CSR is uploaded to ``device`` once and everything derived from
+    it is built there: A's and B's value and pattern blocks from one key
+    pass each, M's block structure only (nothing reads mask values), and
+    the gather's addressing.  Only the block structures come back to the
+    host, for the schedule.
     """
     from repro_torch.kernels.masked_matmul.ops import \
         block_spgemm_with_structure
@@ -284,21 +291,16 @@ def _masked_spgemm_tile(A: CSR, B: CSR, M: CSR, *,
         from .planner import ring_block_candidates
         block_size = ring_block_candidates(m, k, n)[0]
     bs = block_size
-    Ab = bcsr_from_csr(A, bs, device=device)
-    Bb = bcsr_from_csr(B, bs, device=device)
-    Mb = bcsr_from_csr(M, bs, device=device)
-
-    def pattern(x: CSR) -> torch.Tensor:
-        """Stored-entry pattern blocks: 1 per CSR entry (an explicitly
-        stored 0.0 is structural to the row kernels), in bf16, the type
-        the block kernel counts in."""
-        ones = CSR(x.indptr, x.indices, np.ones(x.nnz, np.float32), x.shape)
-        return bcsr_from_csr(ones, bs, dtype=torch.bfloat16,
-                             device=device).blocks
-
-    Cb, Sb = block_spgemm_with_structure(
-        Ab, Bb, Mb, a_pattern=pattern(A), b_pattern=pattern(B))
-    return gather_mask_aligned(M, Mb, Cb.blocks, Sb.blocks, n=n, wm=wm)
+    Ab, a_pat = _bcsr_with_pattern(_upload(A, device), bs)
+    Bb, b_pat = _bcsr_with_pattern(_upload(B, device), bs)
+    Md = _upload(M, device, data=False)
+    m_rows = Md.rows()
+    Mb, m_pos = _bcsr_structure(Md, m_rows, bs)
+    Cb, Sb = block_spgemm_with_structure(Ab, Bb, Mb, a_pattern=a_pat,
+                                         b_pattern=b_pat)
+    del Ab, Bb, a_pat, b_pat
+    return _gather(Md, m_rows, m_pos, Cb.blocks, Sb.blocks, bs=bs, n=n,
+                   width=_pad_width(M, wm))
 
 
 def gather_mask_aligned(M: CSR, Mb_struct, c_blocks, s_blocks, *, n: int,
@@ -308,29 +310,43 @@ def gather_mask_aligned(M: CSR, Mb_struct, c_blocks, s_blocks, *, n: int,
     ``c_blocks``/``s_blocks`` are ``(nnzb, bs, bs)`` tensors laid out in
     ``Mb_struct``'s block order (the 1P allocation: output structure ==
     mask block structure).  Mask entries whose slot lies beyond the padded
-    width ``wm`` are dropped, as the reference's scatter drops them.
+    width ``wm`` are dropped, as the reference's scatter drops them.  Runs
+    on ``c_blocks``' device: M's index arrays are uploaded once and each
+    entry's block is found by a search over the mask's block keys.
     """
-    m = M.shape[0]
-    bs = Mb_struct.block_size
     dev = c_blocks.device
-    M_p = padded_from_csr(M, wm, device=dev)
-    pm = M_p.width
-    # host-side addressing: every mask element lives in a mask block by
-    # construction
-    mr = _expand_rows(M.indptr)
-    mc = M.indices
-    slots = np.arange(M.nnz, dtype=np.int64) - M.indptr[mr]
-    keep = slots < pm
-    mr, mc, slots = mr[keep], mc[keep], slots[keep]
-    pos = bcsr_block_positions(Mb_struct, mr // bs, mc // bs)
-    idx = torch.as_tensor(np.stack([pos, mr % bs, mc % bs, mr, slots]),
-                          device=dev)
-    pos_t, roff, coff, rows, slot_t = idx
-    vals = torch.zeros((m, pm), dtype=c_blocks.dtype, device=dev)
-    present = torch.zeros((m, pm), dtype=torch.bool, device=dev)
-    vals[rows, slot_t] = c_blocks[pos_t, roff, coff]
-    present[rows, slot_t] = s_blocks[pos_t, roff, coff] > 0
-    return MaskedSpGEMMResult(vals, present, M_p.cols, (m, n))
+    bs = Mb_struct.block_size
+    Md = _upload(M, dev, data=False)
+    rows = Md.rows()
+    brow = np.repeat(np.arange(Mb_struct.block_rows, dtype=np.int64),
+                     np.diff(Mb_struct.indptr))
+    keys = torch.as_tensor(brow * Mb_struct.block_cols + Mb_struct.indices,
+                           device=dev)
+    pos = torch.searchsorted(
+        keys, (rows // bs) * Mb_struct.block_cols + Md.indices // bs)
+    return _gather(Md, rows, pos, c_blocks, s_blocks, bs=bs, n=n,
+                   width=_pad_width(M, wm))
+
+
+def _gather(Md: _DeviceCSR, rows, pos, c_blocks, s_blocks, *, bs: int,
+            n: int, width: int) -> MaskedSpGEMMResult:
+    """``gather_mask_aligned`` from M's device arrays, the row of every
+    mask entry and the position of its block (every mask entry lies in a
+    mask block by construction).  Each entry's value and count go to its
+    row and slot in the given entry order, as the reference's gather puts
+    them; ``mask_cols`` is ``padded_from_csr(M).cols``."""
+    m = Md.shape[0]
+    dest = _slots(Md, rows, width)
+    mask_cols, _ = _padded(Md, rows, width, with_vals=False, dest=dest)
+    src = (pos * bs + rows % bs) * bs + Md.indices % bs
+    vals = torch.zeros(m * width + 1, dtype=c_blocks.dtype,
+                       device=c_blocks.device)
+    present = torch.zeros(m * width + 1, dtype=torch.bool,
+                          device=c_blocks.device)
+    vals[dest] = c_blocks.reshape(-1)[src]
+    present[dest] = s_blocks.reshape(-1)[src] > 0
+    return MaskedSpGEMMResult(vals[:-1].view(m, width),
+                              present[:-1].view(m, width), mask_cols, (m, n))
 
 
 # ---------------------------------------------------------------------------

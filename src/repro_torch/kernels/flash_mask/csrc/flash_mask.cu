@@ -19,7 +19,7 @@
 // in one CTA per (q-block, batch * head), which walks that q-block's
 // contiguous segment seg_ptr[qb] .. seg_ptr[qb + 1] of the worklist: no
 // atomics, one sum order, deterministic results.  The C entry point picks
-// the kernel by dtype.
+// the kernel by dtype; both run on tensor cores.
 //
 // bf16: tensor cores (flash_mask_tc_kernel).  Warps of 16 query rows each (8
 // warps at bq = 128).  The q tile is loaded once into shared memory and read
@@ -46,11 +46,27 @@
 // below 16 and head dims below the mma depth are zero-padded in shared memory,
 // the padding masked.
 //
-// f32: CUDA cores (flash_mask_f32_kernel), the first port's design.  A CTA
-// of 256 threads stages q (as f32) and then k and v through shared memory,
-// computes a 16 x 16 thread grid of scores with IEEE fmaf (no TF32), keeps
-// the masked score tile in shared memory for a warp-per-row softmax, and
-// adds p.v into registers.
+// f32: tensor cores in 3xTF32 (flash_mask_f32_tc_kernel), the bf16
+// kernel's structure on f32 data: warps of 16 query rows, the q tile in
+// shared memory, k and v in a 2-stage cp.async ring of 64-key chunks (two
+// chunks per 128-key tile; f32 tiles are twice the bf16 size, and 64-key
+// chunks keep two CTAs on an SM at bq = 128, D = 64), the online softmax in
+// registers once per chunk, longest q-blocks first.  Both products run on
+// m16n8k8 tf32 mma with each operand split into hi = tf32(x) and
+// lo = tf32(x - hi): a_lo b_hi + a_hi b_lo + a_hi b_hi per k-step of 8,
+// started from zero and added to the f32 accumulator with IEEE rounding,
+// because the mma's own f32 sums truncate; one TF32 pass would not keep
+// f32 accuracy (tests/test_torch_tc_numerics.py).  The m16n8 C fragment
+// holds keys 2t, 2t + 1 where the m16k8 A fragment wants k slots t, t + 4;
+// rather than move p between threads, p.v assigns keys 2t, 2t + 1 to slots
+// t, t + 4 and reads v's rows in that order, and q.k^T does the same with
+// head dims, so every operand pair of q and k is one 8-byte shared-memory
+// load.  The splits are most of the
+// kernel's non-mma instructions, so they round in integer arithmetic (the
+// same bits as cvt.rna.tf32.f32), and the exponentials use ex2.approx.ftz
+// directly; together these cut its time by 18-21 % on an NVIDIA H100 80GB
+// HBM3 at 700 W (tools/flash_f32_variants.py, which also holds the chunk
+// size and the register budget against their alternatives).
 //
 // Bound on an H100 SXM at the full-width llama3.2-1b layer (B = 4,
 // Hq = 32, Hkv = 8, S = 2048, D = 64, bq = bk = 128, causal): the allowed
@@ -64,7 +80,7 @@
 // CUDA cores between the two products, two barriers per tile, and a few
 // registers spilled at 128 per thread.  The f32
 // instance's bound is three TF32 passes, 3 * 68.75 GFLOP at 495 TFLOP/s =
-// 0.417 ms; it runs on f32 CUDA cores (67 TFLOP/s, 1.03 ms).
+// 0.417 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -337,205 +353,317 @@ flash_mask_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// f32 on CUDA cores
+// f32 on tensor cores: 3xTF32
 // ---------------------------------------------------------------------------
 
-constexpr int TS = 16;          // thread grid edge
-constexpr int NT = TS * TS;     // threads per CTA
+// BT: q tile rows (16 .. 128), DM: padded head dim (16, 64, 128).  The kv
+// tile streams through a ring of STAGES chunks of KC keys, so that two
+// CTAs of f32 tiles fit an SM at BT = 128, DM = 64.  Row strides: q and k
+// are read as 8-byte pairs (d 2t, 2t + 1) by the four threads of a quad and
+// eight rows, so their stride is 8 words past a multiple of 32 banks; v is
+// read as single words at rows 2t, 2t + 1 and eight columns, so its stride
+// is 4 words past one.  Both layouts are free of bank conflicts.
+template <int BT, int DM>
+struct F32Cfg {
+  static constexpr int NT = BT * 2;           // BT / 16 warps
+  static constexpr int KC = BT < 64 ? BT : 64;
+  static constexpr int STAGES = 2;
+  static constexpr int LDQ = DM + 8;          // q and k rows
+  static constexpr int LDV = DM + 4;          // v rows
+  static constexpr int STAGE = KC * (LDQ + LDV);
+  static constexpr size_t SMEM =
+      sizeof(float) * ((size_t)BT * LDQ + STAGES * (size_t)STAGE);
+};
 
-__device__ __forceinline__ float warp_max(float x) {
+// rows [0, rows) x cols [0, D) of a row-major (., D) f32 tile into an
+// (R, ld) shared tile zero-filled to DM columns; 16 B cp.async when `vec`,
+// else plain element copies (done when the caller's barrier passes)
+template <int R, int DM, int NT>
+__device__ __forceinline__ void load_f32(float* s, const float* g, int rows,
+                                         int D, int ld, bool vec, int tid) {
+  if (vec) {
+    for (int e = tid; e < R * (DM / 4); e += NT) {
+      const int r = e / (DM / 4), c = (e % (DM / 4)) * 4;
+      const bool in = r < rows && c < D;
+      tc::cp_async16(s + r * ld + c, in ? g + (size_t)r * D + c : g, in);
+    }
+  } else {
+    for (int e = tid; e < R * DM; e += NT) {
+      const int r = e / DM, c = e % DM;
+      s[r * ld + c] = (r < rows && c < D) ? g[(size_t)r * D + c] : 0.0f;
+    }
+  }
+}
+
+// tc::split_tf32 in integer arithmetic.  Adding 2^12 to the bit pattern and
+// clearing its low 13 bits rounds the magnitude to 10 mantissa bits, to
+// nearest with ties away from zero: cvt.rna.tf32.f32's result for every
+// finite x (the CPU tests emulate the same rounding), in fewer
+// instructions than the cvt takes on sm_90a.
+__device__ __forceinline__ uint32_t rna_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_rna(float x, uint32_t& hi,
+                                          uint32_t& lo) {
+  hi = rna_bits(x);
+  lo = rna_bits(x - __uint_as_float(hi));
+}
+
+// 2^x; results below 2^-126 flush to zero, which no sum of probabilities
+// (each row's largest is 1) can see
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the 3xTF32 product of one k-step of 8, started from zero:
+// a_lo b_hi + a_hi b_lo + a_hi b_hi, each an m16n8k8 mma
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+  for (int x = 0; x < 4; ++x) d[x] = 0.0f;
+  tc::mma_tf32(d, al, bh0, bh1);
+  tc::mma_tf32(d, ah, bl0, bl1);
+  tc::mma_tf32(d, ah, bh0, bh1);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
+template <int BT, int DM>
+__global__ void __launch_bounds__(BT * 2, (DM <= 64 ? 2 : 1))
+flash_mask_f32_tc_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const int* __restrict__ ki,
+                         const int* __restrict__ flags,
+                         const int* __restrict__ seg_ptr,
+                         float* __restrict__ out, int Hq, int Hkv, int S,
+                         int Tk, int D, int bq, int bk, float scale,
+                         int causal, int window, int prefix, int q_offset,
+                         int vec) {
+  using C = F32Cfg<BT, DM>;
+  constexpr int KC = C::KC;
+  constexpr int NB = KC / 8;                  // n8 score tiles per chunk
+  constexpr int ND = DM / 8;                  // n8 output tiles
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* KV = Qs + BT * C::LDQ;               // stage s at s * STAGE: k, v
 
-template <int RQ, int RD>
-constexpr size_t smem_bytes() {
-  // Qs [BQ][DM + 1], KVs [BK][DM + 1], Ss [BQ][BK + 1], m, l, alpha [BQ];
-  // BK == BQ == TS * RQ, DM == TS * RD
-  return sizeof(float) * ((size_t)TS * RQ * (TS * RD + 1) * 2 +
-                          (size_t)TS * RQ * (TS * RQ + 1) + 3 * TS * RQ);
-}
-
-template <int RQ, int RD>
-__global__ void __launch_bounds__(NT)
-flash_mask_f32_kernel(const float* __restrict__ q,
-                      const float* __restrict__ k,
-                      const float* __restrict__ v, const int* __restrict__ ki,
-                      const int* __restrict__ flags,
-                      const int* __restrict__ seg_ptr,
-                      float* __restrict__ out, int Hq, int Hkv, int S,
-                      int Tk, int D, int bq, int bk, float scale, int causal,
-                      int window, int prefix, int q_offset) {
-  constexpr int RK = RQ;
-  constexpr int BQ = TS * RQ, BK = TS * RK, DM = TS * RD;
-  constexpr int QLD = DM + 1, SLD = BK + 1;    // padded row strides
-  extern __shared__ float smem_f[];
-  float* Qs = smem_f;                    // [BQ][QLD]
-  float* KVs = Qs + BQ * QLD;            // [BK][QLD]: k tile, then v tile
-  float* Ss = KVs + BK * QLD;            // [BQ][SLD]: scores, then p
-  float* m_s = Ss + BQ * SLD;            // running max per row
-  float* l_s = m_s + BQ;                 // running normaliser per row
-  float* a_s = l_s + BQ;                 // this step's alpha per row
-
-  const int qb = blockIdx.x;
-  const int bh = blockIdx.y;             // b * Hq + h
+  const int qb = gridDim.y - 1 - blockIdx.y;  // longest segments first
+  const int bh = blockIdx.x;                  // b * Hq + h
+  const int w_beg = seg_ptr[qb], w_end = seg_ptr[qb + 1];
+  if (w_beg >= w_end) return;                 // never visited: stays zero
   const int kvh = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
   const float* Qg = q + ((size_t)bh * S + (size_t)qb * bq) * D;
   const float* Kg = k + (size_t)kvh * Tk * D;
   const float* Vg = v + (size_t)kvh * Tk * D;
   float* Og = out + ((size_t)bh * S + (size_t)qb * bq) * D;
   const int nkb = Tk / bk;
+  const int nc = (bk + KC - 1) / KC;          // chunks per kv-block
+  const int n_it = (w_end - w_beg) * nc;
 
-  const int tid = threadIdx.x;
-  const int ty = tid / TS, tx = tid % TS;
-  const int warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = warp * 16;                 // this warp's rows in the tile
+  const int q_lo = qb * bq + q_offset + row0;  // its first absolute query
 
-  for (int e = tid; e < BQ * DM; e += NT) {
-    const int i = e / DM, d = e % DM;
-    Qs[i * QLD + d] = (i < bq && d < D) ? Qg[(size_t)i * D + d] : 0.0f;
-  }
-  for (int i = tid; i < BQ; i += NT) {
-    m_s[i] = NEG_INF;
-    l_s[i] = 0.0f;
-  }
-
-  float acc[RQ][RD];
+  auto stage = [&](int it, int st) {          // chunk it of the stream
+    const int kb = ki[w_beg + it / nc], c0 = (it % nc) * KC;
+    if (kb < 0 || kb >= nkb) return;          // fully masked: no data
+    const size_t at = ((size_t)kb * bk + c0) * D;
+    const int rows = min(KC, bk - c0);
+    float* Ks = KV + st * C::STAGE;
+    load_f32<KC, DM, C::NT>(Ks, Kg + at, rows, D, C::LDQ, vec, tid);
+    load_f32<KC, DM, C::NT>(Ks + KC * C::LDQ, Vg + at, rows, D, C::LDV, vec,
+                            tid);
+  };
+  load_f32<BT, DM, C::NT>(Qs, Qg, bq, D, C::LDQ, vec, tid);
 #pragma unroll
-  for (int i = 0; i < RQ; ++i)
-#pragma unroll
-    for (int c = 0; c < RD; ++c) acc[i][c] = 0.0f;
+  for (int i = 0; i < C::STAGES - 1; ++i) {   // one group per chunk, q in
+    if (i < n_it) stage(i, i);                // the first
+    tc::cp_async_commit();
+  }
 
-  const int w_end = seg_ptr[qb + 1];
-  for (int w = seg_ptr[qb]; w < w_end; ++w) {
-    const int f = flags[w];              // uniform across the CTA
-    const bool first = f & 1;
+  float o[ND][4];                             // rows g, g + 8 of the warp
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) o[n][x] = 0.0f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % C::STAGES;
+    const int ahead = it + C::STAGES - 1;     // read ahead: overlaps below
+    if (ahead < n_it) stage(ahead, ahead % C::STAGES);
+    tc::cp_async_commit();
+    tc::cp_async_wait<C::STAGES - 1>();       // chunk it (and q) landed
+    __syncthreads();
+    const int w = w_beg + it / nc, c0 = (it % nc) * KC;
+    const int f = flags[w];                   // uniform across the CTA
     const int kb = ki[w];
-    const bool kb_ok = kb >= 0 && kb < nkb;
-    if (first) {
+    if ((f & 1) && c0 == 0) {
+      m_r[0] = m_r[1] = NEG_INF;
+      l_r[0] = l_r[1] = 0.0f;
 #pragma unroll
-      for (int i = 0; i < RQ; ++i)
+      for (int n = 0; n < ND; ++n)
 #pragma unroll
-        for (int c = 0; c < RD; ++c) acc[i][c] = 0.0f;
+        for (int x = 0; x < 4; ++x) o[n][x] = 0.0f;
     }
-    const float* Kt = Kg + (size_t)kb * bk * D;
-    const float* Vt = Vg + (size_t)kb * bk * D;
+    // an out-of-range kv-block is fully masked: m, l and acc keep their
+    // values (alpha = 1, p = 0), so only the flags act
+    if (kb >= 0 && kb < nkb) {
+      const float* Ks = KV + st * C::STAGE;
+      const float* Vs = Ks + KC * C::LDQ;
+      const int keys = min(KC, bk - c0);
 
-    __syncthreads();                     // last step's reads of KVs, Ss done
-    for (int e = tid; e < BK * DM; e += NT) {
-      const int j = e / DM, d = e % DM;
-      KVs[j * QLD + d] = (kb_ok && j < bk && d < D) ? Kt[(size_t)j * D + d]
-                                                     : 0.0f;
-    }
-    __syncthreads();
-
-    // scores: s = q . k^T over the tile, masked, into Ss
-    float s[RQ][RK];
+      // S = q . k^T for the warp's 16 rows x KC keys.  The mma's k slots
+      // t and t + 4 carry head dims 2t and 2t + 1 of each k-step of 8, in
+      // both operands, so each operand pair is one 8-byte load.
+      float s[NB][4];
 #pragma unroll
-    for (int i = 0; i < RQ; ++i)
+      for (int n = 0; n < NB; ++n)
 #pragma unroll
-      for (int j = 0; j < RK; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < DM; ++d) {
-      float qv[RQ], kv[RK];
+        for (int x = 0; x < 4; ++x) s[n][x] = 0.0f;
+#pragma unroll 2
+      for (int kk = 0; kk < DM / 8; ++kk) {
+        uint32_t ah[4], al[4];
+        {
+          const float2 r0 = *reinterpret_cast<const float2*>(
+              Qs + (row0 + g) * C::LDQ + 8 * kk + 2 * t);
+          const float2 r1 = *reinterpret_cast<const float2*>(
+              Qs + (row0 + g + 8) * C::LDQ + 8 * kk + 2 * t);
+          split_rna(r0.x, ah[0], al[0]);
+          split_rna(r1.x, ah[1], al[1]);
+          split_rna(r0.y, ah[2], al[2]);
+          split_rna(r1.y, ah[3], al[3]);
+        }
 #pragma unroll
-      for (int i = 0; i < RQ; ++i) qv[i] = Qs[(ty + TS * i) * QLD + d];
+        for (int j = 0; j < NB; ++j) {
+          const float2 kv = *reinterpret_cast<const float2*>(
+              Ks + (8 * j + g) * C::LDQ + 8 * kk + 2 * t);
+          uint32_t bh0, bl0, bh1, bl1;
+          split_rna(kv.x, bh0, bl0);
+          split_rna(kv.y, bh1, bl1);
+          float d[4];
+          mma_3xtf32(d, ah, al, bh0, bh1, bl0, bl1);
 #pragma unroll
-      for (int j = 0; j < RK; ++j) kv[j] = KVs[(tx + TS * j) * QLD + d];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int j = 0; j < RK; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int row = ty + TS * i;
-      const int qg = qb * bq + row + q_offset;
-#pragma unroll
-      for (int j = 0; j < RK; ++j) {
-        const int col = tx + TS * j;
-        const bool ok = kb_ok && row < bq && col < bk &&
-                        allowed(qg, kb * bk + col, causal, window, prefix);
-        Ss[row * SLD + col] = ok ? s[i][j] * scale : NEG_INF;
+          for (int x = 0; x < 4; ++x) s[j][x] += d[x];   // IEEE k-step add
+        }
       }
-    }
-    __syncthreads();
 
-    // stage the v tile where the k tile was
-    for (int e = tid; e < BK * DM; e += NT) {
-      const int j = e / DM, d = e % DM;
-      KVs[j * QLD + d] = (kb_ok && j < bk && d < D) ? Vt[(size_t)j * D + d]
-                                                     : 0.0f;
-    }
-    // online softmax: one warp per row
-    for (int row = warp; row < bq; row += NT / 32) {
-      float* Sr = Ss + row * SLD;
-      const int qg = qb * bq + row + q_offset;
-      const float m_prev = first ? NEG_INF : m_s[row];
-      const float l_prev = first ? 0.0f : l_s[row];
-      float m_cur = NEG_INF;
-      for (int c = lane; c < bk; c += 32) m_cur = fmaxf(m_cur, Sr[c]);
-      const float m_new = fmaxf(m_prev, warp_max(m_cur));
-      float sum = 0.0f;
-      for (int c = lane; c < bk; c += 32) {
-        const bool ok = kb_ok &&
-                        allowed(qg, kb * bk + c, causal, window, prefix);
-        const float p = ok ? expf(Sr[c] - m_new) : 0.0f;
-        Sr[c] = p;
-        sum += p;
+      // scale; mask only where the warp's rows straddle an edge
+      const int k_lo = kb * bk + c0, k_hi = k_lo + keys - 1;
+      const int q_hi = q_lo + 15;
+      const bool full =
+          keys == KC && (!causal || k_hi <= q_lo) &&
+          (window <= 0 || q_hi - k_lo < window || k_hi < prefix);
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) s[n][x] *= scale;
+      if (!full) {
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const int col = 8 * n + 2 * t + (x & 1);
+            const int qg = q_lo + g + (x >> 1) * 8;
+            if (col >= keys ||
+                !allowed(qg, k_lo + col, causal, window, prefix))
+              s[n][x] = NEG_INF;
+          }
       }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        m_s[row] = m_new;
-        l_s[row] = l_prev * alpha + sum;
-        a_s[row] = alpha;
+
+      // online softmax, rows g (h = 0) and g + 8 (h = 1)
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = NEG_INF;
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+          mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_r[h], mx);
+        const float mc = m_new * LOG2E;
+        alpha[h] = exp2_ftz((m_r[h] - m_new) * LOG2E);
+        float sum = 0.0f;
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+#pragma unroll
+          for (int x = 2 * h; x < 2 * h + 2; ++x) {
+            const bool ok = full || s[n][x] != NEG_INF;
+            const float p = ok ? exp2_ftz(fmaf(s[n][x], LOG2E, -mc)) : 0.0f;
+            s[n][x] = p;
+            sum += p;
+          }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        l_r[h] = l_r[h] * alpha[h] + sum;
+        m_r[h] = m_new;
       }
-    }
-    __syncthreads();
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
 
-    // acc = acc * alpha + p . v
+      // acc += p . v in 3xTF32.  The C fragment of score tile kk holds
+      // keys 2t and 2t + 1 of rows g and g + 8; they go to the A
+      // fragment's k slots t and t + 4 as they lie, and v's B fragment
+      // reads rows 2t and 2t + 1 to match, so p never moves between
+      // threads.
 #pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const float alpha = a_s[ty + TS * i];
+      for (int kk = 0; kk < NB; ++kk) {
+        uint32_t ph[4], pl[4];
+        split_rna(s[kk][0], ph[0], pl[0]);
+        split_rna(s[kk][2], ph[1], pl[1]);
+        split_rna(s[kk][1], ph[2], pl[2]);
+        split_rna(s[kk][3], ph[3], pl[3]);
+        const float* V0 = Vs + (8 * kk + 2 * t) * C::LDV + g;
 #pragma unroll
-      for (int c = 0; c < RD; ++c) acc[i][c] *= alpha;
-    }
-#pragma unroll 4
-    for (int j = 0; j < bk; ++j) {
-      float pv[RQ], vv[RD];
+        for (int j = 0; j < ND; ++j) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_rna(V0[8 * j], bh0, bl0);
+          split_rna(V0[C::LDV + 8 * j], bh1, bl1);
+          float d[4];
+          mma_3xtf32(d, ph, pl, bh0, bh1, bl0, bl1);
 #pragma unroll
-      for (int i = 0; i < RQ; ++i) pv[i] = Ss[(ty + TS * i) * SLD + j];
-#pragma unroll
-      for (int c = 0; c < RD; ++c) vv[c] = KVs[j * QLD + tx + TS * c];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int c = 0; c < RD; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-    }
-
-    if (f & 2) {                         // flush: acc / l, 0 where l == 0
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) {
-        const int row = ty + TS * i;
-        if (row >= bq) continue;
-        const float l = l_s[row];
-#pragma unroll
-        for (int c = 0; c < RD; ++c) {
-          const int col = tx + TS * c;
-          if (col < D)
-            Og[(size_t)row * D + col] =
-                l > 0.0f ? acc[i][c] / fmaxf(l, 1e-30f) : 0.0f;
+          for (int x = 0; x < 4; ++x) o[j][x] += d[x];   // IEEE k-step add
         }
       }
     }
+
+    if ((f & 2) && c0 + KC >= bk) {   // flush: acc / l, 0 where l == 0
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + g + 8 * h;
+        const float l = l_r[h];
+        if (row < bq) {
+          float* Or = Og + (size_t)row * D;
+#pragma unroll
+          for (int n = 0; n < ND; ++n) {
+            const int col = 8 * n + 2 * t;
+            const float x0 = l > 0.0f ? o[n][2 * h] / fmaxf(l, 1e-30f) : 0.0f;
+            const float x1 =
+                l > 0.0f ? o[n][2 * h + 1] / fmaxf(l, 1e-30f) : 0.0f;
+            if (vec) {
+              if (col < D) *reinterpret_cast<float2*>(Or + col) =
+                  make_float2(x0, x1);
+            } else {
+              if (col < D) Or[col] = x0;
+              if (col + 1 < D) Or[col + 1] = x1;
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();          // stage st is consumed before it is refilled
   }
 }
 
@@ -607,24 +735,36 @@ struct TcInfo {
   }
 };
 
-// the CUDA-core kernel: a 16 x 16 thread grid, BT / 16 rows and DM / 16
-// head-dim columns per thread
+// the f32 tensor-core kernel for tiles of BT rows and head dim padded to DM
 struct F32Launch {
   const Args& a;
   template <int BT, int DM>
   cudaError_t run() const {
-    constexpr int RQ = BT / 16, RD = DM / 16;
-    constexpr size_t smem = smem_bytes<RQ, RD>();
-    auto* fn = flash_mask_f32_kernel<RQ, RD>;
+    constexpr size_t smem = F32Cfg<BT, DM>::SMEM;
+    auto* fn = flash_mask_f32_tc_kernel<BT, DM>;
     cudaError_t err = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    fn<<<dim3(a.S / a.bq, a.BH), NT, smem, a.stream>>>(
+    const bool aligned = ((reinterpret_cast<uintptr_t>(a.q) |
+                           reinterpret_cast<uintptr_t>(a.k) |
+                           reinterpret_cast<uintptr_t>(a.v) |
+                           reinterpret_cast<uintptr_t>(a.out)) & 15) == 0;
+    fn<<<dim3(a.BH, a.S / a.bq), F32Cfg<BT, DM>::NT, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), a.ki, a.flags, a.seg_ptr,
         static_cast<float*>(a.out), a.Hq, a.Hkv, a.S, a.Tk, a.D, a.bq, a.bk,
-        a.scale, a.causal, a.window, a.prefix, a.q_offset);
+        a.scale, a.causal, a.window, a.prefix, a.q_offset,
+        aligned && a.D % 4 == 0);
     return cudaGetLastError();
+  }
+};
+
+struct F32Info {
+  int* info;
+  template <int BT, int DM>
+  cudaError_t run() const {
+    return query(flash_mask_f32_tc_kernel<BT, DM>, F32Cfg<BT, DM>::NT,
+                 F32Cfg<BT, DM>::SMEM, info);
   }
 };
 
@@ -654,9 +794,10 @@ cudaError_t by_tile(int bq, int bk, int D, const Op& op) {
 // (P,) int32 worklist entries sorted by q-block, seg_ptr (S / bq + 1,)
 // int32 segment offsets of each q-block.  BH = B * Hq.  Requires
 // S % bq == Tk % bk == Hq % Hkv == 0, 1 <= bq, bk <= 128, D <= 128 and
-// BH, S / bq <= 65535 (the wrapper checks).  dtype 1 runs the tensor-core
-// kernel, dtype 0 the CUDA-core one.  Returns the cudaError_t of the launch
-// (0 on success); an unknown dtype returns cudaErrorInvalidValue.
+// BH, S / bq <= 65535 (the wrapper checks).  dtype 1 runs the bf16
+// tensor-core kernel, dtype 0 the f32 (3xTF32) one.  Returns the
+// cudaError_t of the launch (0 on success); an unknown dtype returns
+// cudaErrorInvalidValue.
 extern "C" int flash_mask(const void* q, const void* k, const void* v,
                           const int* ki, const int* flags,
                           const int* seg_ptr, void* out, int BH, int Hq,
@@ -683,4 +824,9 @@ extern "C" int flash_mask(const void* q, const void* k, const void* v,
 // per SM on the current device.  Returns a cudaError_t.
 extern "C" int flash_mask_tc_info(int bq, int bk, int D, int* info) {
   return by_tile(bq, bk, D, TcInfo{info});
+}
+
+// The same for the f32 (3xTF32) tensor-core kernel.
+extern "C" int flash_mask_f32_info(int bq, int bk, int D, int* info) {
+  return by_tile(bq, bk, D, F32Info{info});
 }

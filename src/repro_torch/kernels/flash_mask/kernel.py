@@ -9,13 +9,14 @@ batch * head) walks that q-block's segment of the qi-sorted worklist
 q-block: reset; bit 2 = last visit: normalise and write).  The note at the
 top of the source gives its bound on an H100.
 
-The source holds two kernels, picked by dtype in its C entry point: bf16
-runs on tensor cores (``mma.sync``, k/v in a ``cp.async`` ring, p.v in two
-bf16 terms), f32 on CUDA cores.
+The source holds two kernels, picked by dtype in its C entry point, both on
+tensor cores (``mma.sync``, k/v in a ``cp.async`` ring): bf16 with p.v in
+two bf16 terms, f32 in 3xTF32 (each operand split into two tf32 terms).
 
 ``flash_mask_kernel`` launches the kernel for CUDA tensors (or raises) and
-runs ``flash_mask_plain`` for CPU tensors; ``LAUNCHES`` counts launches and
-``TC_LAUNCHES`` those of them that ran the tensor-core kernel.
+runs ``flash_mask_plain`` for CPU tensors; ``LAUNCHES`` counts launches,
+``TC_LAUNCHES`` those of them that ran a tensor-core kernel (all of them)
+and ``F32_LAUNCHES`` those that ran the f32 one.
 """
 from __future__ import annotations
 
@@ -33,8 +34,10 @@ MAX_HEAD_DIM = 128
 
 #: number of times the CUDA kernel was launched in this process
 LAUNCHES = 0
-#: of those, the launches of the tensor-core (bf16) kernel
+#: of those, the launches of a tensor-core kernel (bf16 or f32)
 TC_LAUNCHES = 0
+#: of those, the launches of the f32 (3xTF32) tensor-core kernel
+F32_LAUNCHES = 0
 
 #: C signature: 7 pointers, 8 ints, the scale, 5 ints, the stream
 _ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float]
@@ -177,11 +180,11 @@ def flash_mask_kernel(q, k, v, qi, ki, flags, *, bq: int, bk: int,
 
     CPU tensors run ``flash_mask_plain``.  CUDA tensors launch the kernel
     once for every (batch, head) on the current stream without
-    synchronising, or raise: the tensor-core kernel for bfloat16, the
-    CUDA-core one for float32.  A q-block the worklist never visits comes
+    synchronising, or raise: the bf16 tensor-core kernel for bfloat16, the
+    3xTF32 one for float32.  A q-block the worklist never visits comes
     out as zeros; a kv-block index out of range reads as fully masked.
     """
-    global LAUNCHES, TC_LAUNCHES
+    global LAUNCHES, TC_LAUNCHES, F32_LAUNCHES
     _check(q, k, v, qi, ki, flags, bq, bk)
     dev = q.device
     kw = dict(bq=bq, bk=bk, scale=scale, causal=causal, window=window,
@@ -215,6 +218,7 @@ def flash_mask_kernel(q, k, v, qi, ki, flags, *, bq: int, bk: int,
         raise RuntimeError(f"flash_mask kernel launch failed: CUDA error "
                            f"{err}")
     LAUNCHES += 1
-    if q.dtype == torch.bfloat16:
-        TC_LAUNCHES += 1
+    TC_LAUNCHES += 1
+    if q.dtype == torch.float32:
+        F32_LAUNCHES += 1
     return out

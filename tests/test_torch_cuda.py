@@ -17,9 +17,10 @@ version's ``index_add_`` and the reduction orders of heap/inner differ
 between devices); the reference's 1e-5 / 2e-2 (f32 / bf16) for
 masked_matmul and 2e-5 / 3e-2 for flash_mask.  The tensor-core schemes are
 also held where one tensor-core pass would fail: bf16 flash to 2e-3
-normwise (one bf16 term for p exceeds it at the layer's shape), and the
+normwise (one bf16 term for p exceeds it at the layer's shape), the
 f32 SDDMM at K = 256 to 2e-6 normwise (one TF32 pass misses it by over
-10x; tests/test_torch_tc_numerics.py emulates both).
+10x) and f32 flash (3xTF32) to the sweep's 2e-5, which one TF32 pass
+misses (tests/test_torch_tc_numerics.py emulates all three).
 """
 import numpy as np
 import pytest
@@ -175,6 +176,47 @@ def test_tile_route_matches_cpu(cuda_device):
     assert torch.equal(got.present.cpu(), want.present)
 
 
+@pytest.mark.parametrize("dtype", [np.int64, np.float32, np.float64,
+                                   np.bool_])
+def test_staged_upload_equals_the_host_array(cuda_device, dtype):
+    """Large host arrays reach the card in pieces through two page-locked
+    buffers: every byte arrives, with a piece size that divides neither
+    the array nor its element size."""
+    rng = np.random.default_rng(4)
+    x = (rng.random(300_001) < 0.5 if dtype is np.bool_
+         else rng.integers(-1000, 1000, 300_001).astype(dtype))
+    want = torch.from_numpy(x)
+    got = F._Staging(chunk=4100)(x, cuda_device)
+    assert got.is_cuda and got.dtype == want.dtype
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(F._to_device(x, cuda_device).cpu(), want)
+
+
+def test_staged_uploads_from_many_threads(cuda_device):
+    """The page-locked buffers are shared by the process: uploads from
+    more threads than cores, each of its own array, all arrive whole."""
+    import threading
+    rng = np.random.default_rng(5)
+    arrays = [rng.integers(0, 1 << 40, 150_000 + i) for i in range(16)]
+    staging = F._Staging(chunk=64 << 10)
+    got = [None] * len(arrays)
+
+    def upload(i):
+        with torch.cuda.device(cuda_device):
+            got[i] = staging(arrays[i], torch.device(
+                "cuda", torch.cuda.current_device())).cpu()
+
+    threads = [threading.Thread(target=upload, args=(i,))
+               for i in range(len(arrays))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    for x, g in zip(arrays, got):
+        assert torch.equal(g, torch.from_numpy(x))
+
+
 def test_default_device_is_cuda(cuda_device):
     A, B, M = (F.csr_from_dense(x) for x in
                dense_operands(9, 64, (0.2, 0.2, 0.3), True))
@@ -272,12 +314,13 @@ def test_flash_kernel_matches_plain(cuda_device, pattern, shape, dtype):
              flash.build_schedule(s_q, s_k, bq=bq, bk=bk, q_offset=q_off,
                                   **pattern)]
     kw = dict(bq=bq, bk=bk, scale=d ** -0.5, q_offset=q_off, **pattern)
-    before, tc_before = flash.LAUNCHES, flash.TC_LAUNCHES
+    before = flash.LAUNCHES, flash.TC_LAUNCHES, flash.F32_LAUNCHES
     got = flash.flash_mask_kernel(q, k, v, *sched, **kw)
     torch.cuda.synchronize()
-    assert flash.LAUNCHES == before + 1
     bf16 = dtype == torch.bfloat16
-    assert flash.TC_LAUNCHES == tc_before + bf16   # tensor cores for bf16
+    # tensor cores for both dtypes: bf16, or f32 in 3xTF32
+    assert (flash.LAUNCHES, flash.TC_LAUNCHES, flash.F32_LAUNCHES) == (
+        before[0] + 1, before[1] + 1, before[2] + (not bf16))
     want = flash.flash_mask_plain(q, k, v, *sched, **kw)
     tol = 3e-2 if bf16 else 2e-5
     assert got.dtype == dtype

@@ -3,8 +3,9 @@
 The SDDMM and block-product kernels compute f32 products as 3xTF32
 (``cvt.rna.tf32.f32`` splits each operand into hi + lo and three tf32 mma
 passes accumulate in f32), the block product counts structure over 0/1
-patterns in one bf16 pass, and the bf16 flash kernel computes p.v with p
-split into two bf16 terms.  The mma's f32 accumulation truncates (rounds toward zero) instead
+patterns in one bf16 pass, the bf16 flash kernel computes p.v with p
+split into two bf16 terms, and the f32 flash kernel computes q.k^T and p.v
+in 3xTF32.  The mma's f32 accumulation truncates (rounds toward zero) instead
 of rounding to nearest, as measured on NVIDIA tensor cores (Fasi, Higham,
 Mikaitis and Pranesh, "Numerical behavior of NVIDIA tensor cores", 2021);
 on an NVIDIA H100 80GB HBM3 at 700 W the SDDMM that accumulated all its
@@ -12,7 +13,8 @@ mma in one accumulator read 1.8e-6 normwise from IEEE f32.  So the kernel
 starts each k-step of 8 from zero and adds it to its f32 accumulator with
 IEEE rounding (3.2e-7 on that card).  The card's own checks hold these
 schemes to limits that one tensor-core pass would miss: the SDDMM at
-K = 256 to 2e-6 normwise, the full-width flash layer to 2e-3 normwise.
+K = 256 to 2e-6 normwise, the full-width flash layer to 2e-3 normwise,
+the f32 flash instance to rtol = atol = 2e-5 of its plain version.
 These tests emulate both schemes bit for bit where the hardware is
 specified (tf32 and bf16 rounding, exact products), each mma's sum
 truncated to f32, on seeded inputs, and show that each limit holds with
@@ -146,40 +148,53 @@ def test_3xtf32_is_exact_on_small_integers(seed):
 
 
 def flash_emulated(q, k, v, scheme, blk=128):
-    """Causal block flash attention with the reference's arithmetic (f32
-    scores and online softmax per tile), p.v taken as ``scheme``: "f32"
-    (the reference), "split" (p = hi + lo in bf16, the kernel's) or
-    "single" (bf16(p)); the output rounded to bf16."""
+    """Causal block flash attention with the reference's arithmetic (scores
+    and online softmax per tile).  For the bf16 layer, f32 scores and p.v
+    taken as ``scheme``: "f32" (the reference), "split" (p = hi + lo in
+    bf16, the kernel's) or "single" (bf16(p)), the output rounded to bf16.
+    For the f32 instance, both products as ``scheme``: "3xtf32" (the
+    kernel's: three tf32 mma per k-step of 8, each k-step added with IEEE
+    rounding), "1xtf32" (one tf32 pass) or "f64" (float64 throughout, the
+    exact value); these outputs are not rounded."""
+    def product(a, b):
+        if scheme == "3xtf32":
+            return three_tf32(a, b)
+        if scheme == "1xtf32":
+            return one_tf32(a, b)
+        return a @ b
+
+    if scheme == "f64":
+        q, k, v = q.double(), k.double(), v.double()
     s_len, d = q.shape[-2:]
     out = torch.empty_like(q)
     cols = torch.arange(blk)[None, :]
     for qb in range(s_len // blk):
         qs = q[..., qb * blk:(qb + 1) * blk, :]
-        m = torch.full(qs.shape[:-1] + (1,), -1e30)
+        m = torch.full(qs.shape[:-1] + (1,), -1e30, dtype=q.dtype)
         l = torch.zeros_like(m)
         acc = torch.zeros_like(qs)
         rows = torch.arange(blk)[:, None] + qb * blk
         for kb in range(qb + 1):
             ks = k[..., kb * blk:(kb + 1) * blk, :]
             vs = v[..., kb * blk:(kb + 1) * blk, :]
-            s = (qs @ ks.transpose(-1, -2)) * d ** -0.5
+            s = product(qs, ks.transpose(-1, -2)) * d ** -0.5
             ok = cols + kb * blk <= rows
             s = torch.where(ok, s, -1e30)
             m_new = torch.maximum(m, s.amax(-1, keepdim=True))
             alpha = torch.exp(m - m_new)
             p = torch.where(ok, torch.exp(s - m_new), 0.0)
             l = l * alpha + p.sum(-1, keepdim=True)
-            if scheme == "f32":
-                pv = p @ vs
-            elif scheme == "split":
+            if scheme == "split":
                 hi = bf16(p)
                 pv = bf16(p - hi) @ vs + hi @ vs
-            else:
+            elif scheme == "single":
                 pv = bf16(p) @ vs
+            else:
+                pv = product(p, vs)
             acc = acc * alpha + pv
             m = m_new
         out[..., qb * blk:(qb + 1) * blk, :] = acc / l
-    return bf16(out)
+    return out if scheme in ("3xtf32", "1xtf32", "f64") else bf16(out)
 
 
 @pytest.fixture(scope="module", params=[(1, 0), (2, 1)],
@@ -257,3 +272,34 @@ def test_bf16_pattern_counts_are_exact(seed):
             for shape in ((4, 128, 6 * 128), (4, 6 * 128, 128)))
     got = mma_sum([(bf16(a), bf16(b))], a.shape[-1], step=16, flush=False)
     assert torch.equal(got.double(), a.double() @ b.double())
+
+
+@pytest.fixture(scope="module", params=[(1, 0), (2, 1)],
+                ids=["1-head", "2-heads"])
+def f32_flash_case(request):
+    """The f32 instance's inputs per head (S 1024, D 64, causal, f32 q, k,
+    v of 0.5 randn, not rounded to any shorter type) and the exact output
+    (float64)."""
+    heads, seed = request.param
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.as_tensor(rng.standard_normal((heads, 1024, 64)) * 0.5,
+                               dtype=torch.float32) for _ in range(3))
+    return q, k, v, flash_emulated(q, k, v, "f64")
+
+
+def test_3xtf32_flash_stays_under_the_f32_limit(f32_flash_case):
+    """3xTF32 q.k^T and p.v with IEEE k-step adds hold the f32 sweep's
+    rtol = atol = 2e-5 against the exact output ten times over."""
+    q, k, v, want = f32_flash_case
+    got = flash_emulated(q, k, v, "3xtf32").double()
+    assert torch.allclose(got, want, rtol=2e-5 / 10, atol=2e-5 / 10)
+    assert float((got - want).norm() / want.norm()) <= 1e-6
+
+
+def test_1xtf32_flash_misses_the_f32_limit(f32_flash_case):
+    """One tf32 pass for each product misses the sweep's 2e-5 and 1e-4
+    normwise."""
+    q, k, v, want = f32_flash_case
+    got = flash_emulated(q, k, v, "1xtf32").double()
+    assert not torch.allclose(got, want, rtol=2e-5, atol=2e-5)
+    assert float((got - want).norm() / want.norm()) > 1e-4
