@@ -28,12 +28,27 @@ Phases, each printing its own lines:
    card; the schedule on the host);
 5. row route: triangle counting on R-MAT scale 14 (algorithm "auto"),
    checked against scipy;
-6. tile SDDMM: the ``masked_matmul`` kernel against its plain version over
+6. serving: ``QueryEngine`` on the card.  A tile bucket of four tile-8192
+   queries (A's structure with integer values from seeds 0-3, B and M
+   shared): planned once, tile at block size 128, the fused kernel
+   launched exactly four times and no plain version run, each result bit
+   for bit the one-shot call's; the same four again are result-cache hits
+   with no launch.  A burst bucket of 64 queries on bench_serve's burst
+   structure at n = 8192 (one burst program) and a shuffled async stream
+   of 64 queries over its four structures, every ticket bit for bit its
+   one-shot call.  ``submit_triangle`` on R-MAT scale 14 against
+   ``triangle_count``; ``ktruss`` (k = 5) on scale 12 against scipy's
+   k-truss and on scale 10 against the CPU port; ``betweenness_centrality``
+   (256 sources in 4 chunks) on scale 12, directly and through an engine,
+   within 1e-5 of the CPU port; then both applications timed at scale 14.
+   Prints bucket and per-query times, ``serve.submit`` (the fingerprints),
+   peak memory and the bytes of one cached result;
+7. tile SDDMM: the ``masked_matmul`` kernel against its plain version over
    the reference's test sweep, then ``ops.masked_matmul`` once at
    M = N = 8192, K = 256, 128-blocks on the tile-8192 mask (one launch,
    equal to the plain version on integer data), the same call on
    standard-normal data (f32 accuracy: 2e-6 normwise); then timings;
-7. flash attention: the ``flash_mask`` kernel against its plain version
+8. flash attention: the ``flash_mask`` kernel against its plain version
    over the reference's test sweep (bf16 also within 2e-3 normwise; every
    case on tensor cores, the f32 ones on the 3xTF32 kernel), the decode
    offset and the GQA op, then one full-width llama3.2-1b layer (B 4,
@@ -41,7 +56,7 @@ Phases, each printing its own lines:
    ``scaled_dot_product_attention``; the f32 instance at the layer's shape
    against its plain version and float64, and its times at B 1 (the f32
    prefill's shape) and B 4 beside f32 ``scaled_dot_product_attention``;
-8. LM serving: llama3.2-1b at full width with ``attn_impl="flash_pallas"``
+9. LM serving: llama3.2-1b at full width with ``attn_impl="flash_pallas"``
    and random weights from seed 0: a bf16 prefill of 4 x 2,048 tokens (the
    bf16 flash kernel must launch once per layer, 16 times; logits finite
    and close to the same forward with dense attention), a
@@ -50,7 +65,7 @@ Phases, each printing its own lines:
    flash kernel must launch once per layer) against dense attention, f32
    prefill against teacher-forced decode (the reference's
    decode-consistency property), and ``generate``;
-9. one JSON line with every kernel's numbers, then the result line
+10. one JSON line with every kernel's numbers, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the result line.
@@ -70,11 +85,13 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import caches  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import formats as F  # noqa: E402
 from repro_torch.core import planner  # noqa: E402
 from repro_torch.core.masked_spgemm import (  # noqa: E402
     gather_mask_aligned, masked_spgemm)
+from repro_torch.graphs import betweenness_centrality, ktruss  # noqa: E402
 from repro_torch.graphs.triangle_counting import (  # noqa: E402
     degree_relabel, triangle_count)
 from repro_torch.kernels import _build  # noqa: E402
@@ -85,6 +102,7 @@ from repro_torch.kernels.flash_mask.ref import mask_allowed  # noqa: E402
 from repro_torch.kernels.masked_matmul import kernel, ops  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.decode import generate  # noqa: E402
+from repro_torch.serving import QueryEngine, burst  # noqa: E402
 
 #: NVIDIA H100 SXM data sheet: f32 on CUDA cores, bf16 and TF32 on tensor
 #: cores (dense), HBM3 bandwidth
@@ -117,6 +135,23 @@ SDDMM_K = 256
 #: the flash layer and the LM: llama3.2-1b at full width
 LM_BATCH = 4
 LM_SEQ = 2048
+#: the serving path: a tile bucket of tile-8192 queries, a burst bucket
+#: and a mixed async stream on bench_serve's structures at n = 8192
+SERVE_TILE_QUERIES = 4
+SERVE_N = 8192
+SERVE_QUERIES = 64
+#: the graph applications: checked on R-MAT scale 12 (and against the CPU
+#: port at scale 10), timed at scale 14
+GRAPH_SCALE = 12
+GRAPH_CPU_SCALE = 10
+GRAPH_TIME_SCALE = 14
+BC_SOURCES = 256
+BC_TIME_SOURCES = 512
+BC_CHUNKS = 4
+
+#: the card's ``nvidia-smi`` name and power limit, printed beside every
+#: serving number (set by ``card()``)
+CARD = "not measured"
 
 
 def check(ok: bool, what: str) -> None:
@@ -196,6 +231,8 @@ def card() -> dict:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    global CARD
+    CARD = smi
     print(smi)
     print(f"card: torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device "
@@ -473,8 +510,8 @@ def host_steps(A, B, M, dev, bs: int):
 
 
 def tile_route(dev, n: int = TILE_N, bs: int = TILE_BS):
-    """Returns the mask's tile coordinates (block rows, block cols) and the
-    kernel's entry of the JSON line."""
+    """Returns the mask's tile coordinates (block rows, block cols), the
+    host CSR operands and the kernel's entry of the JSON line."""
     t0 = time.perf_counter()
     a, b, m = tile_problem(n, bs)
     A, B, M = (F.csr_from_dense(x) for x in (a, b, m))
@@ -601,23 +638,25 @@ def tile_route(dev, n: int = TILE_N, bs: int = TILE_BS):
           f"baseline, NOT the same function) {dense_ms:.3f} ms")
     mask_tiles = (np.repeat(np.arange(Mb.block_rows), np.diff(Mb.indptr)),
                   Mb.indices)
-    return mask_tiles, {"name": "block_spgemm", "route": "cuda",
-            "source": "src/repro_torch/kernels/masked_matmul/csrc/"
-                      "block_spgemm.cu",
-            "replaces": "src/repro/kernels/masked_matmul/kernel.py:105",
-            "launches": launches, "max_abs_err": err, "ms": fused_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": None,
-            "instance": block_instance(bs) + ", fused values and counts",
-            "values_ms": values_ms, "values_bound_ms": values_bound,
-            "tile_call_ms": e2e_ms, "tile_peak_mib": peak / 2**20,
-            "tile_steps_ms": steps,
-            "design": "mma.sync tensor cores: values 3xTF32 (hi + lo "
-                      "splits, IEEE k-step adds), counts one bf16 pass over "
-                      "bf16 patterns, in one grid of both CTA kinds; the "
-                      "(pair, k-chunk) stream in a 3-stage cp.async ring of "
-                      "32-deep chunks, ldmatrix fragments; 128x128 CTA "
-                      "tile, 8 warps of 64x32"}
+    del Ab, Bb, Mb, a_pat, b_pat, wl, Cb, Sb, Ad, Bd
+    return mask_tiles, (A, B, M), {
+        "name": "block_spgemm", "route": "cuda",
+        "source": "src/repro_torch/kernels/masked_matmul/csrc/"
+                  "block_spgemm.cu",
+        "replaces": "src/repro/kernels/masked_matmul/kernel.py:105",
+        "launches": launches, "max_abs_err": err, "ms": fused_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+        "library_ms": None,
+        "instance": block_instance(bs) + ", fused values and counts",
+        "values_ms": values_ms, "values_bound_ms": values_bound,
+        "tile_call_ms": e2e_ms, "tile_peak_mib": peak / 2**20,
+        "tile_steps_ms": steps,
+        "design": "mma.sync tensor cores: values 3xTF32 (hi + lo "
+                  "splits, IEEE k-step adds), counts one bf16 pass over "
+                  "bf16 patterns, in one grid of both CTA kinds; the "
+                  "(pair, k-chunk) stream in a 3-stage cp.async ring of "
+                  "32-deep chunks, ldmatrix fragments; 128x128 CTA "
+                  "tile, 8 warps of 64x32"}
 
 
 # ---------------------------------------------------------------------------
@@ -660,7 +699,323 @@ def row_route(dev, scale: int = RMAT_SCALE,
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: tile SDDMM (masked_matmul)
+# Phase 6: the query-serving path (QueryEngine) and the graph applications
+# ---------------------------------------------------------------------------
+
+
+def revalue(x, seed: int, ints: bool = False):
+    """Same structure as ``x``, fresh values from ``seed``: small integers
+    (1-4) or uniform in [0.5, 1.5)."""
+    rng = np.random.default_rng(seed)
+    data = (rng.integers(1, 5, x.nnz) if ints
+            else rng.uniform(0.5, 1.5, x.nnz)).astype(np.float32)
+    return F.CSR(x.indptr, x.indices, data, x.shape)
+
+
+def same_result(got, want) -> bool:
+    return all(torch.equal(g, w) for g, w in (
+        (got.vals, want.vals), (got.present, want.present),
+        (got.mask_cols, want.mask_cols)))
+
+
+def result_bytes(res) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in (res.vals, res.present, res.mask_cols))
+
+
+def burst_structure(n: int):
+    """``benchmarks/bench_serve.py``'s burst structure: sparse inputs and a
+    dense mask (the mca regime), fresh A values per query."""
+    return (F.erdos_renyi(n, 2, seed=100), F.erdos_renyi(n, 2, seed=200),
+            F.er_mask(n, max(8, n // 8), seed=300))
+
+
+def mixed_structures(n: int):
+    """``bench_serve``'s four mixed structures: the burst one and three
+    inner-elected ER points."""
+    return [burst_structure(n)] + [
+        (F.erdos_renyi(n, 2 + 2 * s, seed=100 + s),
+         F.erdos_renyi(n, 2 + 2 * s, seed=200 + s),
+         F.er_mask(n, 8 * s, seed=300 + s)) for s in range(1, 4)]
+
+
+def serving_tile_bucket(dev, ops, bs: int = TILE_BS,
+                        queries: int = SERVE_TILE_QUERIES) -> dict:
+    """A tile bucket: ``queries`` tile-8192 queries (A's structure with
+    integer values from seeds 0..queries-1, B and M shared) through one
+    engine.  Returns the bucket's numbers."""
+    A, B, M = ops
+    As = [revalue(A, s, ints=True) for s in range(queries)]
+    planner.clear_plan_cache()
+    eng = QueryEngine(max_batch=queries, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    misses = planner.plan_cache_info()["misses"]
+    reset_counts()
+    submit_ms = []
+    with count_plain() as plain:
+        t_start = time.perf_counter()
+        tickets = []
+        for a in As:     # the last submit fills the bucket and runs it
+            t0 = time.perf_counter()
+            tickets.append(eng.submit(a, B, M))
+            submit_ms.append((time.perf_counter() - t0) * 1e3)
+        got = [t.result() for t in tickets]
+        sync(dev)
+        bucket_ms = (time.perf_counter() - t_start) * 1e3
+    launches = kernel.FUSED_LAUNCHES
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else 0)
+    (row,) = eng.metrics.bucket_log()
+    p = planner.plan(A, B, M, device=dev)
+    check(planner.plan_cache_info()["misses"] == misses + 1,
+          "the bucket planned once")
+    check(row["route"] == "tile" and row["size"] == queries
+          and p.algorithm == "tile" and p.tile_block == bs,
+          f"the bucket elects the tile route at block {bs} (got "
+          f"{row['route']}, {p.algorithm}, {p.tile_block})")
+    check(launches == queries and kernel.LAUNCHES == 0, f"the fused kernel "
+          f"launched once per query ({queries}), got {launches} (values "
+          f"only: {kernel.LAUNCHES})")
+    check(plain.calls == 0, f"no plain version ran (got {plain.calls})")
+    for a, g in zip(As, got):
+        check(same_result(g, masked_spgemm(a, B, M, device=dev)),
+              "each tile-bucket result equals its one-shot call bit for bit")
+
+    # the same four again: result-cache hits, no launch
+    hits = eng.metrics.snapshot()["result_cache_hits"]
+    reset_counts()
+    t0 = time.perf_counter()
+    again = [eng.submit(a, B, M) for a in As]
+    replay_ms = (time.perf_counter() - t0) * 1e3
+    check(all(t.done() for t in again)
+          and eng.metrics.snapshot()["result_cache_hits"] == hits + queries
+          and kernel.FUSED_LAUNCHES == 0,
+          "the replayed bucket is served from the result cache, no launch")
+    check(all(t.result() is g for t, g in zip(again, got)),
+          "a hit returns the cached result")
+    per_result = result_bytes(got[0])
+    eng.close()
+    exec_ms = row["exec_s"] * 1e3
+    # what each element repeats: B's upload and its value and pattern blocks
+    b_ms = host_ms(lambda: F._bcsr_with_pattern(F._upload(B, dev), bs), dev,
+                   reps=3)
+    print(f"serving [{CARD}]: tile bucket {queries} x tile-{A.shape[0]}: "
+          f"{bucket_ms:.1f} ms submit to results ({bucket_ms / queries:.1f} "
+          f"ms per query), serve.exec {exec_ms:.1f} ms; serve.submit "
+          f"(fingerprints) "
+          + ", ".join(f"{x:.1f}" for x in submit_ms[:-1])
+          + f" ms (the last submit ran the bucket: {submit_ms[-1]:.1f} ms); "
+          f"B's upload and blocks {b_ms:.1f} ms per element (median of "
+          f"3), "
+          f"{queries * b_ms / exec_ms:.1%} of serve.exec; peak memory "
+          f"{peak / 2**20:.1f} MiB; {launches} fused launches, no plain "
+          f"version; all bitwise the one-shot call")
+    print(f"serving [{CARD}]: tile replay {queries} result-cache hits in "
+          f"{replay_ms:.1f} ms, no launch; one cached tile-{A.shape[0]} "
+          f"result holds {per_result / 2**20:.1f} MiB on the card (vals, "
+          f"present, mask_cols), the default 256 entries "
+          f"{256 * per_result / 2**30:.1f} GiB")
+    del got, again
+    return {"launches": launches, "bucket_ms": bucket_ms,
+            "exec_ms": exec_ms, "submit_ms": submit_ms[:-1],
+            "replay_ms": replay_ms, "peak_mib": peak / 2**20,
+            "result_mib": per_result / 2**20,
+            "b_repeat_share": queries * b_ms / exec_ms}
+
+
+def serving_burst(dev, n: int = SERVE_N, queries: int = SERVE_QUERIES
+                  ) -> dict:
+    """A burst bucket: ``queries`` fresh-valued queries on bench_serve's
+    burst structure, one bucket, one burst program."""
+    A0, B0, M0 = burst_structure(n)
+    qs = [(revalue(A0, 1000 + q), B0, M0) for q in range(queries)]
+    eng = QueryEngine(max_batch=queries, queue_cap=4 * queries,
+                      cache_results=False, device=dev)
+    programs = len(burst._programs)
+    reset_counts()
+    t0 = time.perf_counter()
+    eng.serve(qs)                 # cold: plan and program build included
+    sync(dev)
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    (row,) = eng.metrics.bucket_log()
+    check(row["route"] == "burst" and row["size"] == queries
+          and len(burst._programs) == programs + 1,
+          f"one burst program serves the bucket (got {row['route']}, "
+          f"{len(burst._programs) - programs} programs)")
+    check(kernel.LAUNCHES == kernel.FUSED_LAUNCHES == 0,
+          "the burst route launches no block kernel")
+    t0 = time.perf_counter()
+    got = eng.serve(qs)
+    sync(dev)
+    engine_ms = (time.perf_counter() - t0) * 1e3
+    eng.close()
+    t0 = time.perf_counter()
+    want = [masked_spgemm(*q, device=dev) for q in qs]
+    sync(dev)
+    seq_ms = (time.perf_counter() - t0) * 1e3
+    check(all(same_result(g, w) for g, w in zip(got, want)),
+          "every burst result equals its one-shot call bit for bit")
+    print(f"serving [{CARD}]: burst bucket {queries} x n={n} (A, B "
+          f"erdos_renyi(2), M er_mask({max(8, n // 8)})): engine "
+          f"{engine_ms:.1f} ms ({queries / engine_ms * 1e3:.0f} queries/s; "
+          f"cold, with plan and program build, {cold_ms:.1f} ms) against a "
+          f"warm sequential one-shot loop {seq_ms:.1f} ms "
+          f"({queries / seq_ms * 1e3:.0f} queries/s, "
+          f"{row['algorithm']}); all bitwise")
+    del got, want
+    return {"engine_ms": engine_ms, "cold_ms": cold_ms, "seq_ms": seq_ms,
+            "queries": queries}
+
+
+def serving_mixed(dev, n: int = SERVE_N, queries: int = SERVE_QUERIES
+                  ) -> dict:
+    """A mixed stream in async mode: bench_serve's four structures,
+    shuffled, fresh values per query, ``max_wait_ms=2``."""
+    structs = mixed_structures(n)
+    rng = np.random.default_rng(0)
+    mix = []
+    for q in range(queries):
+        A, B, M = structs[int(rng.integers(len(structs)))]
+        mix.append((revalue(A, 2000 + q), B, M))
+    eng = QueryEngine(async_mode=True, max_wait_ms=2.0, max_batch=queries,
+                      queue_cap=4 * queries, cache_results=False,
+                      device=dev)
+    t0 = time.perf_counter()
+    tickets = [eng.submit(*q) for q in mix]
+    got = [t.result(timeout=600) for t in tickets]
+    stream_ms = (time.perf_counter() - t0) * 1e3
+    eng.close()
+    log = eng.metrics.bucket_log()
+    check(sum(row["size"] for row in log) == queries,
+          "the async engine served every query")
+    check(all(same_result(g, masked_spgemm(*q, device=dev))
+              for g, q in zip(got, mix)),
+          "every async ticket equals its one-shot call bit for bit")
+    buckets = [f"{row['size']} {row['route']}/{row['algorithm']}"
+               for row in log]
+    print(f"serving [{CARD}]: mixed async stream {queries} queries over "
+          f"{len(structs)} structures in {stream_ms:.1f} ms (first plans "
+          f"included); buckets: " + ", ".join(buckets) + "; all bitwise")
+    del got
+    return {"stream_ms": stream_ms, "buckets": buckets}
+
+
+def scipy_ktruss(adj, k: int) -> set:
+    """The k-truss edge set by scipy: prune edges whose support (common
+    neighbours, ``(A @ A) .* A``) is below k - 2 until a fixed point."""
+    import scipy.sparse as sp
+    a = sp.csr_matrix((np.ones(adj.nnz), adj.indices, adj.indptr),
+                      shape=adj.shape)
+    while True:
+        s = (a @ a).multiply(a).tocsr()
+        s.data = (s.data >= k - 2).astype(np.float64)
+        s.eliminate_zeros()
+        if s.nnz == a.nnz:
+            break
+        a = s
+    rows, cols = a.nonzero()
+    return set(zip(rows.tolist(), cols.tolist()))
+
+
+def edge_set(x) -> set:
+    return set(zip(F._expand_rows(x.indptr).tolist(), x.indices.tolist()))
+
+
+def serving_composites(dev) -> dict:
+    """submit_triangle, k-truss and betweenness on the card, checked, then
+    the two applications timed at scale 14."""
+    import scipy.sparse as sp
+    g14 = F.rmat(GRAPH_TIME_SCALE, RMAT_EDGE_FACTOR, seed=GRAPH_TIME_SCALE)
+    with QueryEngine(device=dev) as eng:
+        t0 = time.perf_counter()
+        tri = eng.submit_triangle(g14).result()
+        tri_ms = (time.perf_counter() - t0) * 1e3
+    want, _ = triangle_count(g14, device=dev)
+    check(tri == want, f"submit_triangle {tri} equals triangle_count "
+          f"{want}")
+
+    g = F.rmat(GRAPH_SCALE, RMAT_EDGE_FACTOR, seed=GRAPH_SCALE)
+    truss, _, iters, _ = ktruss(g, 5, device=dev)
+    check(edge_set(truss) == scipy_ktruss(g, 5), "ktruss on the card keeps "
+          "scipy's 5-truss edge set")
+    t = sp.csr_matrix((np.ones(truss.nnz), truss.indices, truss.indptr),
+                      shape=truss.shape)
+    support = (t @ t).multiply(t).tocsr()
+    check(support.nnz == truss.nnz and bool((support.data >= 3).all()),
+          "every kept edge has support >= 3")
+    small = F.rmat(GRAPH_CPU_SCALE, RMAT_EDGE_FACTOR, seed=GRAPH_CPU_SCALE)
+    check(edge_set(ktruss(small, 5, device=dev)[0])
+          == edge_set(ktruss(small, 5, device="cpu")[0]),
+          f"ktruss at scale {GRAPH_CPU_SCALE} on the card equals the CPU's")
+
+    srcs = range(BC_SOURCES)
+    bc, _, calls = betweenness_centrality(g, sources=srcs,
+                                          source_chunks=BC_CHUNKS, device=dev)
+    t0 = time.perf_counter()
+    bc_cpu, _, _ = betweenness_centrality(g, sources=srcs,
+                                          source_chunks=BC_CHUNKS,
+                                          device="cpu")
+    cpu_s = time.perf_counter() - t0
+    with QueryEngine(max_batch=2 * BC_CHUNKS, device=dev) as eng:
+        bc_eng, _, _ = betweenness_centrality(g, sources=srcs,
+                                              source_chunks=BC_CHUNKS,
+                                              engine=eng)
+    for what, x in (("directly", bc), ("through the engine", bc_eng)):
+        err = float(np.abs(x - bc_cpu).max())
+        check(np.allclose(x, bc_cpu, rtol=1e-5, atol=1e-5),
+              f"betweenness on the card {what} within 1e-5 of the CPU's "
+              f"(max err {err:.3g})")
+    print(f"serving [{CARD}]: submit_triangle on rmat {GRAPH_TIME_SCALE}: "
+          f"{tri} triangles (= triangle_count) in {tri_ms:.1f} ms; ktruss "
+          f"rmat {GRAPH_SCALE} k=5: {truss.nnz} of {g.nnz} entries kept in "
+          f"{iters} iterations (= scipy; scale {GRAPH_CPU_SCALE} = the CPU "
+          f"port); betweenness rmat {GRAPH_SCALE}, {BC_SOURCES} sources in "
+          f"{BC_CHUNKS} chunks, {calls} products: direct and engine within "
+          f"1e-5 of the CPU port ({cpu_s:.1f} s on the host)")
+
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    truss, kt_s, kt_iters, kt_flops = ktruss(g14, 5, device=dev)
+    kt_wall = time.perf_counter() - t0
+    print(f"serving [{CARD}]: ktruss rmat {GRAPH_TIME_SCALE} k=5: "
+          f"{kt_wall:.2f} s ({kt_s:.2f} s in masked products), {kt_iters} "
+          f"iterations, {truss.nnz} of {g14.nnz} entries kept, "
+          f"{kt_flops / kt_s / 1e9:.2f} GFLOP/s", flush=True)
+    t0 = time.perf_counter()
+    _, bc_s, bc_calls = betweenness_centrality(
+        g14, sources=range(BC_TIME_SOURCES), source_chunks=BC_CHUNKS,
+        device=dev)
+    bc_wall = time.perf_counter() - t0
+    print(f"serving [{CARD}]: betweenness rmat {GRAPH_TIME_SCALE}, "
+          f"{BC_TIME_SOURCES} sources in {BC_CHUNKS} chunks: {bc_wall:.2f} "
+          f"s ({bc_s:.2f} s in {bc_calls} masked products, "
+          f"{BC_TIME_SOURCES * g14.nnz / bc_s / 1e6:.1f} M TEPS)")
+    return {"tri_ms": tri_ms, "ktruss_s": kt_wall, "ktruss_spgemm_s": kt_s,
+            "bc_s": bc_wall, "bc_spgemm_s": bc_s}
+
+
+def serving_path(dev, ops) -> dict:
+    """Phase 6: the engine's tile, burst and mixed async buckets, then the
+    composites; returns the block_spgemm launches of the tile bucket and
+    the phase's numbers."""
+    reset_counts()
+    tile = serving_tile_bucket(dev, ops)
+    del ops
+    caches.clear_all()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out = {"tile": tile, "burst": serving_burst(dev),
+           "mixed": serving_mixed(dev)}
+    caches.clear_all()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["graphs"] = serving_composites(dev)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: tile SDDMM (masked_matmul)
 # ---------------------------------------------------------------------------
 
 
@@ -831,7 +1186,7 @@ def sddmm_path(dev, mask_tiles, n: int = TILE_N, bs: int = TILE_BS,
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: flash attention (flash_mask)
+# Phase 8: flash attention (flash_mask)
 # ---------------------------------------------------------------------------
 
 
@@ -1080,7 +1435,7 @@ def f32_instance(dev, q_shape, kv_shape, sched, kw, allowed: int,
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: LM serving at full width (llama3.2-1b, flash_pallas)
+# Phase 9: LM serving at full width (llama3.2-1b, flash_pallas)
 # ---------------------------------------------------------------------------
 
 
@@ -1271,9 +1626,14 @@ def main() -> int:
     build(dev)
     t_start = time.perf_counter()
     err = kernel_vs_plain(dev)
-    mask_tiles, entry = tile_route(dev)
+    mask_tiles, ops, entry = tile_route(dev)
     entry["max_abs_err"] = max(entry["max_abs_err"], err)
     row_route(dev)
+    t_serving = time.perf_counter()
+    serving = serving_path(dev, ops)
+    del ops
+    entry["serving_launches"] = serving["tile"]["launches"]
+    entry["serving"] = serving
     t_sddmm = time.perf_counter()
     err = sddmm_vs_plain(dev)
     sddmm = sddmm_path(dev, mask_tiles)
@@ -1285,9 +1645,9 @@ def main() -> int:
     t_lm = time.perf_counter()
     flash_entry["launches"], flash_entry["f32_launches"] = lm_serving(dev)
     t_end = time.perf_counter()
-    print(f"phases: spgemm {t_sddmm - t_start:.1f} s, sddmm "
-          f"{t_flash - t_sddmm:.1f} s, flash {t_lm - t_flash:.1f} s, lm "
-          f"{t_end - t_lm:.1f} s")
+    print(f"phases: spgemm {t_serving - t_start:.1f} s, serving "
+          f"{t_sddmm - t_serving:.1f} s, sddmm {t_flash - t_sddmm:.1f} s, "
+          f"flash {t_lm - t_flash:.1f} s, lm {t_end - t_lm:.1f} s")
     print(json.dumps({"kernels": [entry, sddmm, flash_entry]}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

@@ -3,7 +3,8 @@ introspectable.
 
 Long-running processes must not grow memory without bound as the
 structure stream drifts, so every cache in the package — today the
-planner's plan cache and its trial memo — is either an ``LRUCache`` from
+planner's plan cache, its trial memo and explain memo, the serving
+result caches and burst programs — is either an ``LRUCache`` from
 this module or registered here with clear/size handles:
 
     from repro_torch import caches
@@ -35,6 +36,13 @@ def register(name: str, *, clear: Callable[[], None],
     with _registry_lock:
         _registry[name] = dict(clear=clear, size=size, capacity=capacity,
                                set_capacity=set_capacity, stats=stats)
+
+
+def unregister(name: str) -> None:
+    """Drop ``name`` from the registry (the cache keeps working; the
+    registry stops referencing it)."""
+    with _registry_lock:
+        _registry.pop(name, None)
 
 
 def clear_all() -> None:

@@ -23,6 +23,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
+
 from . import accumulators as acc
 from .formats import (CSR, PaddedCSR, padded_from_csr, csr_from_coo,
                       _bcsr_structure, _bcsr_with_pattern, _DeviceCSR,
@@ -207,17 +209,12 @@ def masked_spgemm(A, B, M, *, algorithm: str = "auto",
         return _masked_spgemm_tile(A, B, M, block_size=tile_block, wm=wm,
                                    device=device)
 
-    A_p = A if isinstance(A, PaddedCSR) else padded_from_csr(A, wa,
-                                                            device=device)
-    M_p = M if isinstance(M, PaddedCSR) else padded_from_csr(M, wm,
-                                                            device=device)
-    if algorithm == "inner":
-        Bt = B.transpose() if isinstance(B, CSR) else B
-        B_p = (Bt if isinstance(Bt, PaddedCSR)
-               else padded_from_csr(Bt, wb, device=device))
-    else:
-        B_p = (B if isinstance(B, PaddedCSR)
-               else padded_from_csr(B, wb, device=device))
+    with obs.span("spgemm.host_prep", algorithm=algorithm):
+        A_p = (A if isinstance(A, PaddedCSR)
+               else padded_from_csr(A, wa, device=device))
+        M_p = (M if isinstance(M, PaddedCSR)
+               else padded_from_csr(M, wm, device=device))
+        B_p = _padded_b(B, algorithm, wb, device)
 
     if two_phase:
         # symbolic pass: exact output structure (counts).  It always walks
@@ -230,12 +227,23 @@ def masked_spgemm(A, B, M, *, algorithm: str = "auto",
             B_sym = B_p
         symbolic_phase(A_p, M_p, B_sym, shape=(m, n), kdim=k)
 
-    vals, present = _masked_spgemm_padded(
-        M_p, A_p, B_p, algorithm=algorithm, sr=semiring,
-        complement=complement, n_inspect=n_inspect, shape=(m, n), kdim=k)
+    # host clock: on a CUDA device this times the kernels' dispatch
+    with obs.span("spgemm.row", algorithm=algorithm, m=m, n=n):
+        vals, present = _masked_spgemm_padded(
+            M_p, A_p, B_p, algorithm=algorithm, sr=semiring,
+            complement=complement, n_inspect=n_inspect, shape=(m, n),
+            kdim=k)
     if complement:
         return vals, present
     return MaskedSpGEMMResult(vals, present, M_p.cols, (m, n))
+
+
+def _padded_b(B, algorithm: str, wb: Optional[int], device) -> PaddedCSR:
+    """B as the row kernels read it: B^T for inner, else B itself."""
+    if algorithm == "inner":
+        B = B.transpose() if isinstance(B, CSR) else B
+    return (B if isinstance(B, PaddedCSR)
+            else padded_from_csr(B, wb, device=device))
 
 
 def symbolic_phase(A: PaddedCSR, M: PaddedCSR, B: PaddedCSR, *,
@@ -291,16 +299,20 @@ def _masked_spgemm_tile(A: CSR, B: CSR, M: CSR, *,
         from .planner import ring_block_candidates
         block_size = ring_block_candidates(m, k, n)[0]
     bs = block_size
-    Ab, a_pat = _bcsr_with_pattern(_upload(A, device), bs)
-    Bb, b_pat = _bcsr_with_pattern(_upload(B, device), bs)
-    Md = _upload(M, device, data=False)
-    m_rows = Md.rows()
-    Mb, m_pos = _bcsr_structure(Md, m_rows, bs)
-    Cb, Sb = block_spgemm_with_structure(Ab, Bb, Mb, a_pattern=a_pat,
-                                         b_pattern=b_pat)
-    del Ab, Bb, a_pat, b_pat
-    return _gather(Md, m_rows, m_pos, Cb.blocks, Sb.blocks, bs=bs, n=n,
-                   width=_pad_width(M, wm))
+    # the host schedule waits for the device prep, so spgemm.tile covers
+    # the prep; the kernel and the gather are only dispatched inside it
+    with obs.span("spgemm.tile", block=bs, m=m, n=n):
+        with obs.span("spgemm.host_prep", algorithm="tile"):
+            Ab, a_pat = _bcsr_with_pattern(_upload(A, device), bs)
+            Bb, b_pat = _bcsr_with_pattern(_upload(B, device), bs)
+            Md = _upload(M, device, data=False)
+            m_rows = Md.rows()
+            Mb, m_pos = _bcsr_structure(Md, m_rows, bs)
+        Cb, Sb = block_spgemm_with_structure(Ab, Bb, Mb, a_pattern=a_pat,
+                                             b_pattern=b_pat)
+        del Ab, Bb, a_pat, b_pat
+        return _gather(Md, m_rows, m_pos, Cb.blocks, Sb.blocks, bs=bs, n=n,
+                       width=_pad_width(M, wm))
 
 
 def gather_mask_aligned(M: CSR, Mb_struct, c_blocks, s_blocks, *, n: int,
@@ -347,6 +359,102 @@ def _gather(Md: _DeviceCSR, rows, pos, c_blocks, s_blocks, *, bs: int,
     present[dest] = s_blocks.reshape(-1)[src] > 0
     return MaskedSpGEMMResult(vals[:-1].view(m, width),
                               present[:-1].view(m, width), mask_cols, (m, n))
+
+
+# ---------------------------------------------------------------------------
+# Batched driver: one plan and one row program for same-shape operands
+# ---------------------------------------------------------------------------
+
+
+def _stack_padded(mats, width: int, device) -> PaddedCSR:
+    """Pad each operand to ``width`` and stack them along the rows: b
+    operands of shape (m, n) give one (b * m)-row PaddedCSR whose rows
+    ``i * m .. i * m + m - 1`` are operand i's.
+
+    A batch of host CSRs becomes one host CSR and is uploaded and padded
+    once; each row comes out as ``padded_from_csr`` pads it alone, so
+    every row kernel reads the same row it would in a one-shot call."""
+    b = len(mats)
+    m, n = mats[0].shape
+    if all(isinstance(x, CSR) for x in mats):
+        offsets = np.cumsum([0] + [x.nnz for x in mats])
+        indptr = np.concatenate(
+            [x.indptr[:-1].astype(np.int64) + o
+             for x, o in zip(mats, offsets)] + [offsets[-1:]])
+        stacked = CSR(indptr, np.concatenate([x.indices for x in mats]),
+                      np.concatenate([x.data for x in mats]), (b * m, n))
+        return padded_from_csr(stacked, width, device=device)
+    padded = [x if isinstance(x, PaddedCSR)
+              else padded_from_csr(x, width, device=device) for x in mats]
+    if len({p.width for p in padded}) != 1:
+        raise ValueError("padded operands of one batch must share a width, "
+                         f"got {sorted({p.width for p in padded})}")
+    return PaddedCSR(torch.cat([p.cols for p in padded]),
+                     torch.cat([p.vals for p in padded]),
+                     torch.cat([p.lens for p in padded]), (b * m, n))
+
+
+def masked_spgemm_batched(As, B, Ms, *, algorithm: str = "auto",
+                          semiring: Semiring = PLUS_TIMES,
+                          complement: bool = False, plan=None,
+                          device="cuda"):
+    """Batch of C_i = M_i (.) (A_i B) with ONE plan and ONE row program.
+
+    ``As``/``Ms``: equal-length sequences of same-shape operands (CSR or
+    PaddedCSR); ``B`` is shared.  This is the multi-source traversal case
+    (betweenness centrality): per-element structures differ, but one plan,
+    with pad widths widened to the batch maxima, serves every element.
+    Every row kernel computes one output row from (A row, M row, B), so
+    the batch is folded into the row dimension: the b operands stack into
+    one (b * m)-row problem that runs as one launch sequence.
+
+    Returns a list of MaskedSpGEMMResult (mask case), or stacked dense
+    ``(vals, present)`` of shape (batch, m, n) under ``complement``.  A
+    tile plan runs the tile route once per element.
+    """
+    As, Ms = list(As), list(Ms)
+    if len(As) != len(Ms) or not As:
+        raise ValueError("As/Ms must be equal-length, non-empty")
+    m, k = As[0].shape
+    _, n = B.shape
+    if plan is None and algorithm == "auto":
+        from .planner import plan_batch
+        plan = plan_batch(As, B, Ms, complement=complement,
+                          semiring=semiring)
+    if plan is not None and plan.algorithm == "tile":
+        from repro_torch.kernels.masked_matmul.ops import tile_path_supported
+        if not tile_path_supported(semiring.name, complement):
+            raise NotImplementedError(
+                "tile route requires plus_times and an explicit mask")
+        return [_masked_spgemm_tile(a, B, mm,
+                                    block_size=plan.tile_block or None,
+                                    wm=plan.widths[2], device=device)
+                for a, mm in zip(As, Ms)]
+    if plan is not None:
+        algorithm = plan.algorithm
+        wa, wb, wm = plan.widths
+    else:
+        def width(x):
+            return (x.width if isinstance(x, PaddedCSR)
+                    else int(x.row_nnz().max(initial=0)))
+
+        wa = max(1, max(width(a) for a in As))
+        wm = max(1, max(width(mm) for mm in Ms))
+        wb = None
+
+    b = len(As)
+    A_b = _stack_padded(As, wa, device)
+    M_b = _stack_padded(Ms, wm, device)
+    B_p = _padded_b(B, algorithm, wb, device)
+    vals, present = _masked_spgemm_padded(
+        M_b, A_b, B_p, algorithm=algorithm, sr=semiring,
+        complement=complement, n_inspect=None, shape=(b * m, n), kdim=k)
+    if complement:
+        return vals.view(b, m, n), present.view(b, m, n)
+    return [MaskedSpGEMMResult(vals[i * m:(i + 1) * m],
+                               present[i * m:(i + 1) * m],
+                               M_b.cols[i * m:(i + 1) * m], (m, n))
+            for i in range(b)]
 
 
 # ---------------------------------------------------------------------------

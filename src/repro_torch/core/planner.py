@@ -26,14 +26,15 @@ cache miss for large non-complemented problems.
 from __future__ import annotations
 
 import dataclasses
+import math
 import threading
 import zlib
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch import caches
+from repro_torch import caches, obs
 from repro_torch.tuning import profile as tuning_profile
 
 from . import accumulators as acc
@@ -536,8 +537,16 @@ def plan(A, B, M, *, complement: bool = False,
             p = _refine_with_trial(A, B, M, p, semiring, device)
         return p
 
+    def traced_build() -> Plan:
+        # the cold path only: cache hits stay span-free
+        with obs.span("plan.build") as sp:
+            p = build()
+            if obs.enabled():
+                sp.set(algorithm=p.algorithm, explain=explain_cached(p))
+        return p
+
     if not use_cache:
-        return build()
+        return traced_build()
     key = (structure_signature(A), structure_signature(B),
            structure_signature(M), complement, semiring.name,
            cost_model_token())
@@ -550,6 +559,128 @@ def plan(A, B, M, *, complement: bool = False,
         hit = _cache.peek(key)
         if hit is not None:
             return hit
-        p = build()
+        p = traced_build()
         _cache.put(key, p)
+    return p
+
+
+def explain(p: Plan) -> Dict:
+    """Why the planner elected what it elected, as one JSON-safe record:
+    the elected algorithm, every candidate's modeled cost (ms), the
+    per-candidate ``COST_FEATURES`` decomposition the linear model dotted
+    with its constants (so each cost can be recomputed from the record),
+    the driving statistics, and the ``cost_model_token()`` the decision
+    was made under.  Attached to every ``plan.build`` span."""
+    s = p.stats
+    stats_d = {f.name: getattr(s, f.name)
+               for f in dataclasses.fields(PlanStats)}
+    stats_d["compression"] = float(s.compression)
+    stats_d["mask_density"] = float(s.mask_density)
+    costs = {name: float(c) for name, c in p.costs}
+    features: Dict[str, Dict[str, float]] = {}
+    for name in costs:
+        if name in acc.COST_FEATURES:
+            feats = acc.COST_FEATURES[name](
+                n=s.n, wa=s.wa, wb=s.wb, wbt=s.wbt, pm=s.pm)
+            features[name] = {k: float(v) for k, v in feats.items()}
+    if "tile" in costs and p.tile_block:
+        features["tile"] = {
+            k: float(v)
+            for k, v in tile_cost_features(s, p.tile_block).items()}
+    return {
+        "costs_ms": costs,
+        "cost_scale_rows": float(s.m / 1024.0),
+        "features": features,
+        "stats": stats_d,
+        "cost_model_token": cost_model_token(),
+        "elected": p.algorithm,
+        "algorithm": p.algorithm,
+        "widths": list(p.widths),
+        "two_phase": p.two_phase,
+        "tile": {"eligible": p.tile_eligible, "block": p.tile_block},
+        "trialed": list(p.trialed),
+        "elected_cost_ms": costs.get(p.algorithm),
+    }
+
+
+#: memo for per-bucket span attachment: explain() recomputes every
+#: candidate's features, and serving re-emits it on every bucket of the
+#: same immutable plan; bounded, $REPRO_EXPLAIN_MEMO_CAP overrides
+_explain_memo = caches.LRUCache("planner-explain", 256,
+                                env_var="REPRO_EXPLAIN_MEMO_CAP")
+
+
+def explain_cached(p: Plan) -> Dict:
+    """:func:`explain` memoized by plan identity.  Safe because plans are
+    frozen and the memo entry pins the plan object, so its id cannot be
+    recycled while the record is held."""
+    hit = _explain_memo.get(id(p))
+    if hit is not None and hit[0] is p:
+        return hit[1]
+    info = explain(p)
+    _explain_memo.put(id(p), (p, info))
+    return info
+
+
+def feature_regime(p: Plan) -> str:
+    """Coarse log-bucketed feature signature of a plan's operands: log2
+    buckets for sizes and widths, log10 for densities."""
+    s = p.stats
+
+    def b2(x) -> int:
+        return int(math.log2(max(1, int(x))))
+
+    def b10(d: float) -> int:
+        return int(math.floor(math.log10(max(d, 1e-9))))
+
+    dens_a = s.nnz_a / max(1, s.m * s.k)
+    dens_m = s.nnz_m / max(1, s.m * s.n)
+    return (f"m{b2(s.m)}n{b2(s.n)}w{b2(s.pm)}"
+            f"da{b10(dens_a)}dm{b10(dens_m)}")
+
+
+def plan_batch(As: Sequence, B, Ms: Sequence, *, complement: bool = False,
+               semiring: Semiring = PLUS_TIMES,
+               allow_tile: bool = False) -> Plan:
+    """One Plan for a batch of same-shape operands sharing B.
+
+    Statistics come from the first (A, M) pair; pad widths are widened to
+    the batch maxima so one row program fits every element.  The cache key
+    covers the whole batch's structure.  ``allow_tile=True`` lets the tile
+    route into the ranking (the batched driver then runs it per element);
+    the default keeps batches on the row kernels.  No measured trial runs,
+    so no device is needed.
+    """
+    if not As or len(As) != len(Ms):
+        raise ValueError("batch needs equal-length non-empty As/Ms")
+    key = (tuple(structure_signature(a) for a in As),
+           structure_signature(B),
+           tuple(structure_signature(m) for m in Ms),
+           complement, semiring.name, "batch", allow_tile,
+           cost_model_token())
+    hit = _cache.get(key)
+    if hit is not None:
+        return hit
+
+    def width(x):
+        return x.width if isinstance(x, PaddedCSR) else _max_row_nnz(x)
+
+    if (isinstance(As[0], CSR) and isinstance(B, CSR)
+            and isinstance(Ms[0], CSR)):
+        stats = collect_stats(As[0], B, Ms[0], complement=complement,
+                              semiring=semiring)
+    else:
+        m, k = As[0].shape
+        _, n = B.shape
+        stats = PlanStats(
+            m=m, k=k, n=n, nnz_a=m * width(As[0]),
+            nnz_b=B.shape[0] * width(B), nnz_m=m * width(Ms[0]),
+            wa=width(As[0]), wb=width(B),
+            wbt=width(B) if isinstance(B, PaddedCSR) else _max_col_nnz(B),
+            pm=width(Ms[0]), complement=complement, semiring=semiring.name)
+    stats = dataclasses.replace(
+        stats, wa=max(width(a) for a in As), pm=max(width(m) for m in Ms),
+        b_transposable=not isinstance(B, PaddedCSR))
+    p = decide(stats, allow_tile=allow_tile)
+    _cache.put(key, p)
     return p

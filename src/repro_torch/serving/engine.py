@@ -1,0 +1,612 @@
+"""Masked-SpGEMM query engine: submit/flush serving over the planner.
+
+The paper's lesson is that structure-dependent decisions (accumulator
+choice, mask layout) must be amortized; a serving layer amortizes them
+across *queries*.  ``QueryEngine`` accepts a stream of masked-SpGEMM
+requests, buckets them by structural signature (``batcher``), serves each
+bucket through ONE cached plan, consults a bounded content-keyed result
+cache first (``cache``), and records per-bucket latency/throughput
+counters (``metrics``).  A bucket runs on ``device`` by one of four
+routes:
+
+* ``burst`` — a same-structure bucket on an msa/hash/mca plan replays a
+  structure-compiled gather program over the whole bucket (``burst``);
+* ``batched`` — the batched row driver (``masked_spgemm_batched``): the
+  bucket's operands stacked along the rows, one row program;
+* ``tile`` — a tile-elected (or tile-forced) bucket runs the tile route
+  once per element;
+* ``single`` — a one-request bucket goes through ``masked_spgemm``.
+
+Every route ends in ``torch.cuda.synchronize`` on a CUDA device, so
+``serve.exec`` and the metrics time the device work, not its dispatch.
+
+Modes:
+
+* sync — ``submit()`` queues, ``flush()`` (or ``Ticket.result()``) drains.
+* async — a worker thread flushes full buckets immediately and partial
+  buckets after ``max_wait_ms``; ``submit()`` returns a future-like
+  ``Ticket`` at once.
+
+Backpressure: at most ``queue_cap`` requests may be pending.  The async
+engine blocks the submitter until the worker drains; the sync engine
+flushes inline.
+
+Not ported yet (each raises ``NotImplementedError``): the incremental
+delta path (``submit_delta``), trace capture (``recorder=``), the health
+and metrics exposition layer (``expose_port=``, ``monitor=``,
+``health()``) and distributed requests (``mesh=``).
+"""
+from __future__ import annotations
+
+import threading
+import time
+from typing import Callable, List, Optional, Sequence
+
+import torch
+
+from repro_torch import obs
+from repro_torch.core import planner
+from repro_torch.core.formats import CSR, tril
+from repro_torch.core.masked_spgemm import (masked_spgemm,
+                                            masked_spgemm_batched)
+from repro_torch.core.semiring import PLUS_TIMES, Semiring
+
+from . import burst
+from .batcher import Batcher, Request, merge_planned
+from .cache import ResultCache, content_fingerprint, value_fingerprint
+from .clock import SystemClock
+from .metrics import ServeMetrics
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md, Queue 1: "
+        f"{item})")
+
+
+class Ticket:
+    """Future for one submitted request."""
+
+    __slots__ = ("_engine", "_event", "_value", "_error")
+
+    def __init__(self, engine: "QueryEngine"):
+        self._engine = engine
+        self._event = threading.Event()
+        self._value = None
+        self._error: Optional[BaseException] = None
+
+    def done(self) -> bool:
+        return self._event.is_set()
+
+    def result(self, timeout: Optional[float] = None):
+        """The served result; blocks until available.
+
+        In sync mode an unserved ticket triggers ``engine.flush()``; in
+        async mode the worker's max-wait policy bounds the wait.
+        """
+        if not self._event.is_set() and not self._engine.async_mode:
+            self._engine.flush()
+        if not self._event.wait(timeout):
+            raise TimeoutError("request not served within timeout")
+        if self._error is not None:
+            raise self._error
+        return self._value
+
+    def _complete(self, value) -> None:
+        self._value = value
+        self._event.set()
+
+    def _fail(self, error: BaseException) -> None:
+        self._error = error
+        self._event.set()
+
+
+class QueryEngine:
+    """Serving front-end for ``masked_spgemm`` and its graph composites,
+    on ``device`` (default ``"cuda"``)."""
+
+    # NOTE: engines register their result cache in ``repro_torch.caches``;
+    # use the context manager (or call ``close()``) so a dropped engine
+    # does not leave the registry referencing its cached results.
+    def __init__(self, *, max_batch: int = 32, max_wait_ms: float = 2.0,
+                 queue_cap: int = 1024, async_mode: bool = False,
+                 merge_same_shape: bool = True, pad_factor: float = 4.0,
+                 result_cache: Optional[ResultCache] = None,
+                 cache_results: bool = True, use_burst: bool = True,
+                 clock=None, recorder=None,
+                 expose_port: Optional[int] = None,
+                 monitor=None, device="cuda"):
+        if max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        if queue_cap < max_batch:
+            raise ValueError(f"queue_cap ({queue_cap}) must be >= "
+                             f"max_batch ({max_batch})")
+        if max_wait_ms < 0:
+            raise ValueError(f"max_wait_ms must be >= 0, got {max_wait_ms}")
+        if pad_factor < 1:
+            raise ValueError(f"pad_factor must be >= 1, got {pad_factor} "
+                             f"(1 disables width merging, it cannot shrink "
+                             f"widths)")
+        if recorder is not None:
+            raise _not_ported("trace capture (recorder=)",
+                              "serving/trace.py")
+        if expose_port is not None or monitor is not None:
+            raise _not_ported("the health and metrics exposition layer "
+                              "(expose_port=, monitor=)", "obs/ health layer")
+        self.device = torch.device(device)
+        if (self.device.type == "cuda" and self.device.index is None
+                and torch.cuda.is_available()):
+            # pinned here, so the async worker runs on the caller's card
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.async_mode = async_mode
+        self.max_wait_s = max_wait_ms / 1e3
+        self.queue_cap = queue_cap
+        self.merge_same_shape = merge_same_shape
+        self.pad_factor = pad_factor
+        self.cache_results = cache_results
+        self.use_burst = use_burst
+        #: every time-dependent decision reads this clock; a VirtualClock
+        #: here makes the flush schedule a pure function of the submissions
+        self.clock = clock if clock is not None else SystemClock()
+        self.metrics = ServeMetrics()
+        self._owns_results = result_cache is None
+        self.results = (result_cache if result_cache is not None
+                        else ResultCache())
+        self._batcher = Batcher(max_batch=max_batch)
+        self._exec_lock = threading.Lock()
+        # RLock: the worker holds _space while draining ready + aged work in
+        # one atomic step (quiesce() must never observe the half-taken state)
+        self._space = threading.Condition(threading.RLock())
+        self.clock.attach(self._space)
+        self._busy = False
+        #: full buckets awaiting the worker (async mode only): kept out of
+        #: the batcher so new same-key requests start a fresh bucket, but
+        #: still counted against queue_cap for backpressure
+        self._ready: List[List[Request]] = []
+        self._ready_count = 0
+        self._stop = False
+        self._worker: Optional[threading.Thread] = None
+        if async_mode:
+            self._worker = threading.Thread(target=self._worker_loop,
+                                            name="repro-torch-serve-worker",
+                                            daemon=True)
+            self._worker.start()
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def close(self) -> None:
+        """Drain outstanding work, stop the worker, and drop the engine's
+        own result cache from the process registry."""
+        self.flush()
+        with self._space:
+            self._stop = True
+            self._space.notify_all()
+        if self._worker is not None:
+            self._worker.join(timeout=5.0)
+            self._worker = None
+        self.clock.detach(self._space)
+        if self._owns_results:
+            self.results.unregister()
+
+    def __enter__(self) -> "QueryEngine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def health(self):
+        raise _not_ported("health()", "obs/ health layer")
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- submission ---------------------------------------------------------
+
+    def submit(self, A, B, M, *, semiring: Semiring = PLUS_TIMES,
+               complement: bool = False, algorithm: Optional[str] = None,
+               mesh=None, axis: str = "data",
+               post: Optional[Callable] = None) -> Ticket:
+        """Queue C = M (.) (A B); returns a future-like ``Ticket``.
+
+        ``algorithm=None`` lets the planner decide (bucket-wide); a string
+        forces that algorithm (``"tile"`` or a row kernel).  ``post``
+        transforms the raw result before it reaches ``Ticket.result()``
+        (composites use it).
+        """
+        if mesh is not None:
+            raise _not_ported("distributed serving (mesh=)",
+                              "core/distributed.py")
+        ticket = Ticket(self)
+        self.metrics.record_submit()
+        submitted_at = self.clock.now()
+        # measurement, not scheduling: hit latency must be real elapsed
+        # time even under a frozen virtual clock
+        t_sub = time.perf_counter()
+        trace_id = obs.new_trace()   # None while tracing is disabled
+        if trace_id is not None:
+            obs.event("serve.submit", trace=trace_id,
+                      shape=list(M.shape), complement=complement,
+                      algorithm=algorithm, mesh=False)
+        key = bkey = None
+        if (isinstance(A, CSR) and isinstance(B, CSR)
+                and isinstance(M, CSR)):
+            # one fingerprint pass feeds BOTH keys: the bucket key (A/M by
+            # structure, B by content) and the result key (all by content)
+            sa = planner.structure_signature(A)
+            sm = planner.structure_signature(M)
+            cb = content_fingerprint(B)
+            bkey = (sa, cb, sm, semiring.name, complement, algorithm)
+            if self.cache_results and not complement:
+                # only host-CSR, mask-bounded results are cached: device
+                # operands hash by id (GC could recycle it) and complement
+                # results are dense (m, n) pairs
+                key = ((sa,) + value_fingerprint(A), cb,
+                       (sm,) + value_fingerprint(M), semiring.name,
+                       complement, algorithm, str(self.device),
+                       planner.cost_model_token())
+                hit = self.results.get(key)
+                if hit is not None:
+                    hit_s = time.perf_counter() - t_sub
+                    self.metrics.record_cache_hit(latency_s=hit_s)
+                    obs.event("serve.cache_hit", dur_s=hit_s,
+                              trace=trace_id)
+                    obs.counter("serve.cache_hit_rate",
+                                self.metrics.hit_rate())
+                    ticket._complete(post(hit) if post is not None else hit)
+                    return ticket
+        req = Request(A=A, B=B, M=M, semiring=semiring,
+                      complement=complement, algorithm=algorithm, mesh=None,
+                      axis=axis, ticket=ticket, post=post, cache_key=key,
+                      key=bkey, submitted_at=submitted_at,
+                      trace_id=trace_id)
+        self._admit(req)
+        if trace_id is not None:
+            obs.counter("serve.queue_depth", self._pending())
+        return ticket
+
+    def submit_triangle(self, adj: CSR, *, relabel: bool = True,
+                        algorithm: Optional[str] = None) -> Ticket:
+        """Triangle count of an undirected graph as a served query
+        (paper §8.2: #tri = sum(L .* (L @ L))).  ``Ticket.result()`` is the
+        integer count, summed in float64 as ``triangle_count`` sums it; the
+        underlying product batches/caches like any other request with
+        A = B = M = L."""
+        from repro_torch.graphs.triangle_counting import degree_relabel
+        a = degree_relabel(adj) if relabel else adj
+        L = tril(a, strict=True)
+
+        def count(res) -> int:
+            return int(round(float(torch.where(res.present, res.vals, 0)
+                                   .sum(dtype=torch.float64))))
+
+        return self.submit(L, L, L, algorithm=algorithm, post=count)
+
+    def submit_delta(self, *args, **kwargs):
+        raise _not_ported("the incremental delta path (submit_delta)",
+                          "the PR 8 delta path")
+
+    def serve(self, requests: Sequence[tuple]) -> List:
+        """Sync convenience: submit ``(A, B, M)`` (or ``(A, B, M, kwargs)``)
+        tuples, flush once, return results in order."""
+        tickets = []
+        for r in requests:
+            kwargs = r[3] if len(r) > 3 else {}
+            tickets.append(self.submit(r[0], r[1], r[2], **kwargs))
+        self.flush()
+        return [t.result() for t in tickets]
+
+    def _pending(self) -> int:
+        # _space (RLock) also orders _ready_count against the worker's
+        # _take_ready decrement
+        with self._space:
+            return self._batcher.pending + self._ready_count
+
+    def _admit(self, req: Request) -> None:
+        """Bounded-queue admission: block (async) or flush inline (sync)
+        while the queue is at capacity, then enqueue.  A bucket filled to
+        max_batch executes at once in sync mode; in async mode it is
+        handed to the worker so submit() stays non-blocking."""
+        while True:
+            if self._pending() < self.queue_cap:
+                break
+            if self.async_mode:
+                with self._space:
+                    if self._pending() >= self.queue_cap and not self._stop:
+                        self._space.wait(timeout=0.05)
+            else:
+                self.flush()
+        full = self._batcher.add(req)
+        if full is not None:
+            if self.async_mode:
+                with self._space:
+                    self._ready.append(full)
+                    self._ready_count += len(full)
+                    self._space.notify_all()
+            else:
+                self._execute_bucket(full)
+        elif self.async_mode:
+            with self._space:
+                self._space.notify_all()
+
+    def _take_ready(self) -> List[List[Request]]:
+        with self._space:
+            out, self._ready = self._ready, []
+            self._ready_count = 0
+        return out
+
+    # -- flushing -----------------------------------------------------------
+
+    def flush(self) -> None:
+        """Execute every queued bucket (one plan each; mergeable
+        same-shape row buckets fuse into wider batches first)."""
+        buckets = self._take_ready() + self._batcher.pop_all()
+        if not buckets:
+            return
+        self._execute_many(buckets)
+        with self._space:
+            self._space.notify_all()
+
+    def flush_due(self) -> int:
+        """Execute exactly the work the async worker's policy would execute
+        NOW: full buckets plus buckets older than ``max_wait_ms`` at the
+        clock's current time.  Returns the number of requests served."""
+        work = self._take_ready() + self._batcher.pop_aged(
+            self.max_wait_s, now=self.clock.now())
+        if not work:
+            return 0
+        self._execute_many(work)
+        with self._space:
+            self._space.notify_all()
+        return sum(len(b) for b in work)
+
+    def next_flush_deadline(self) -> Optional[float]:
+        """Clock time at which the oldest queued bucket becomes due
+        (None when nothing is queued)."""
+        d = self._batcher.next_deadline()
+        return None if d is None else d + self.max_wait_s
+
+    def quiesce(self, timeout: float = 30.0) -> None:
+        """Block until no *due* work remains: the ready queue is empty, the
+        worker is idle, and no bucket has outlived ``max_wait_ms`` at the
+        clock's current time.  Pending-but-not-due buckets stay queued.
+        Sync engines serve due work inline."""
+        if not self.async_mode:
+            self.flush_due()
+            return
+        # the watchdog deadline is real time by design: it bounds how long
+        # we wait for the worker thread, even under a frozen virtual clock
+        end = time.perf_counter() + timeout
+        with self._space:
+            while (self._ready or self._busy
+                   or self._batcher.has_aged(self.max_wait_s,
+                                             now=self.clock.now())):
+                if time.perf_counter() >= end:
+                    raise TimeoutError(
+                        "engine did not quiesce within "
+                        f"{timeout}s (worker stuck or stopped?)")
+                self._space.wait(timeout=0.05)
+
+    def _worker_loop(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        while True:
+            with self._space:
+                if self._stop:
+                    return
+                deadline = self._batcher.next_deadline()
+                # full buckets are ready now; empty queue sleeps until a
+                # submit notifies; otherwise wake at the oldest bucket's
+                # max-wait deadline
+                wait = (None if deadline is None else
+                        max(0.0, deadline + self.max_wait_s
+                            - self.clock.now()))
+                if not self._ready and (wait is None or wait > 0):
+                    self.clock.wait_on(self._space, wait)
+                if self._stop:
+                    return
+                # take ready + aged work and mark busy in ONE _space
+                # critical section: quiesce() must never see the gap
+                work = self._take_ready() + self._batcher.pop_aged(
+                    self.max_wait_s, now=self.clock.now())
+                if work:
+                    self._busy = True
+            if work:
+                try:
+                    self._execute_many(work)
+                finally:
+                    with self._space:
+                        self._busy = False
+                        self._space.notify_all()
+
+    # -- execution ----------------------------------------------------------
+
+    def _plan(self, r: Request) -> planner.Plan:
+        return planner.plan(r.A, r.B, r.M, complement=r.complement,
+                            semiring=r.semiring, device=self.device)
+
+    def _execute_many(self, buckets: List[List[Request]]) -> None:
+        if not self.merge_same_shape:
+            for bucket in buckets:
+                self._execute_bucket(bucket)
+            return
+        planned, direct, forced_row = [], [], []
+        for bucket in buckets:
+            r = bucket[0]
+            if r.algorithm is None:
+                t0 = time.perf_counter()
+                try:
+                    plan = self._plan(r)
+                except Exception as e:
+                    self._fail_bucket(bucket, e)
+                    continue
+                planned.append(((bucket, plan), time.perf_counter() - t0))
+                if obs.enabled():
+                    # explain() rides every plan event so traces carry
+                    # modeled costs next to measured exec durations
+                    obs.event("serve.plan", dur_s=planned[-1][1],
+                              algorithm=plan.algorithm,
+                              explain=planner.explain_cached(plan),
+                              traces=[q.trace_id for q in bucket])
+            elif r.algorithm != "tile":
+                forced_row.append(bucket)
+            else:
+                direct.append(bucket)
+        for bucket in direct:
+            self._execute_bucket(bucket)
+        # forced row-kernel buckets sharing B/shape/options fuse without a
+        # plan: the batched driver widens pad widths to the batch maxima
+        groups: dict = {}
+        for bucket in forced_row:
+            r = bucket[0]
+            b_fp = (r.key[1] if r.key is not None
+                    else content_fingerprint(r.B))
+            sig = (b_fp, r.A.shape, r.M.shape, r.semiring.name,
+                   r.complement, r.algorithm)
+            groups.setdefault(sig, []).append(bucket)
+        for members in groups.values():
+            self._execute_bucket([q for b in members for q in b],
+                                 merged_from=len(members))
+        merged = merge_planned([g for g, _ in planned],
+                               pad_factor=self.pad_factor)
+        plan_s = sum(dt for _, dt in planned) / max(1, len(merged))
+        for reqs, plan, merged_from in merged:
+            self._execute_bucket(reqs, plan=plan, plan_s=plan_s,
+                                 merged_from=merged_from)
+
+    def _fail_bucket(self, reqs: List[Request], err: BaseException) -> None:
+        self.metrics.record_failure(len(reqs))
+        if obs.enabled():
+            # one serve.error per request: errors count per request, not
+            # per bucket
+            for r in reqs:
+                obs.event("serve.error", trace=r.trace_id,
+                          error=type(err).__name__)
+            obs.counter("serve.inflight", 0)
+        for r in reqs:
+            r.ticket._fail(err)
+
+    def _execute_bucket(self, reqs: List[Request],
+                        plan: Optional[planner.Plan] = None,
+                        plan_s: float = 0.0, merged_from: int = 1) -> None:
+        """Serve one bucket: every request shares structure (or, merged,
+        shape + algorithm), so one plan covers all of them."""
+        # queue wait is CLOCK time (virtual under a VirtualClock);
+        # execution is always a real duration
+        t_in = self.clock.now()
+        queue_wait = t_in - min(r.submitted_at for r in reqs)
+        if obs.enabled():
+            obs.counter("serve.inflight", len(reqs))
+        t_exec = time.perf_counter()
+        with self._exec_lock:
+            try:
+                results, route, algo, plan = self._run_local(
+                    reqs, plan, uniform=(merged_from == 1))
+            except Exception as e:
+                self._fail_bucket(reqs, e)
+                return
+            exec_s = time.perf_counter() - t_exec
+        if obs.enabled():
+            traces = [r.trace_id for r in reqs]
+            obs.event("serve.queue_wait", dur_s=queue_wait, traces=traces)
+            modeled = regime = None
+            if plan is not None:
+                by_name = dict(plan.costs)
+                if algo in by_name:
+                    modeled = float(by_name[algo])
+                regime = planner.feature_regime(plan)
+            obs.event("serve.exec", dur_s=exec_s, route=route,
+                      algorithm=algo, size=len(reqs),
+                      merged_from=merged_from, modeled_ms=modeled,
+                      regime=regime, traces=traces)
+            obs.counter("serve.inflight", 0)
+            obs.counter("serve.cache_hit_rate", self.metrics.hit_rate())
+        self.metrics.record_bucket(
+            size=len(reqs), algorithm=algo, route=route,
+            queue_wait_s=queue_wait, plan_s=plan_s, exec_s=exec_s,
+            merged_from=merged_from,
+            latencies_s=[(t_in - r.submitted_at) + exec_s for r in reqs])
+        # Only uniform buckets' results are cached: width-merged buckets
+        # return results padded to the MERGED width, not the shape a fresh
+        # one-shot call produces, and a hit must be byte-exact.  The token
+        # re-check guards the submit->execute window.
+        cacheable = self.cache_results and merged_from == 1
+        token = planner.cost_model_token() if cacheable else None
+        cache_puts = 0
+        for r, res in zip(reqs, results):
+            if (cacheable and r.cache_key is not None
+                    and r.cache_key[-1] == token):
+                self.results.put(r.cache_key, res)
+                cache_puts += 1
+            # a raising post callback must fail ONLY its own ticket
+            try:
+                value = res if r.post is None else r.post(res)
+            except Exception as e:
+                self.metrics.record_failure(1)
+                obs.event("serve.error", trace=r.trace_id,
+                          error=type(e).__name__)
+                r.ticket._fail(e)
+                continue
+            r.ticket._complete(value)
+        if cache_puts:
+            obs.event("serve.result_cache_put", count=cache_puts)
+
+    def _run_local(self, reqs: List[Request],
+                   plan: Optional[planner.Plan], uniform: bool = True):
+        rep = reqs[0]
+        forced = rep.algorithm
+        dev = self.device
+        if plan is None and forced is None:
+            plan = self._plan(rep)
+        algo = forced if forced is not None else plan.algorithm
+
+        if (uniform and forced is None and self.use_burst
+                and burst.burst_eligible(algo, rep.complement, rep.A,
+                                         rep.B, rep.M)):
+            # same-structure bucket on a sequential-scatter plan: the
+            # structure-compiled replay serves the whole bucket at once,
+            # bitwise the plan's row kernel (run() synchronises)
+            prog = burst.get_program(rep.A, rep.B, rep.M, rep.semiring,
+                                     wm=plan.widths[2], device=dev)
+            if prog is not None:
+                out = prog.run([r.A for r in reqs])
+                return out, "burst", algo, plan
+
+        if algo == "tile":
+            # tile-elected: the batched driver runs the plan per element.
+            # Forced tile (plan None) goes through the one-shot driver,
+            # complement passing through so it raises like a direct call
+            if plan is not None and not rep.complement:
+                out = masked_spgemm_batched(
+                    [r.A for r in reqs], rep.B, [r.M for r in reqs],
+                    semiring=rep.semiring, plan=plan, device=dev)
+            else:
+                out = [masked_spgemm(r.A, r.B, r.M, algorithm="tile",
+                                     semiring=r.semiring,
+                                     complement=r.complement, plan=plan,
+                                     device=dev)
+                       for r in reqs]
+            self._sync()
+            return out, "tile", "tile", plan
+
+        if len(reqs) == 1:
+            out = [masked_spgemm(rep.A, rep.B, rep.M,
+                                 algorithm=forced or "auto",
+                                 semiring=rep.semiring,
+                                 complement=rep.complement, plan=plan,
+                                 device=dev)]
+            route = "single"
+        else:
+            raw = masked_spgemm_batched(
+                [r.A for r in reqs], rep.B, [r.M for r in reqs],
+                algorithm=forced or "auto", semiring=rep.semiring,
+                complement=rep.complement, plan=plan, device=dev)
+            if rep.complement:
+                vals, present = raw
+                out = [(vals[i], present[i]) for i in range(len(reqs))]
+            else:
+                out = raw
+            route = "batched"
+        self._sync()
+        return out, route, algo, plan
+

@@ -1,8 +1,9 @@
 """The port on a CUDA device: the block_spgemm (values only and fused with
 the structural counts), masked_matmul and flash_mask kernels against their
 plain versions, both routes of
-masked_spgemm against the same calls on the CPU, and the LM forward with
-the flash kernel against dense attention.  Every test needs a GPU and
+masked_spgemm, the batched driver, the serving engine's burst, batched and
+tile buckets and the graph applications against the same calls on the
+CPU, and the LM forward with the flash kernel against dense attention.  Every test needs a GPU and
 skips without one.
 
 This file imports neither JAX nor the reference package, so it runs where
@@ -222,6 +223,109 @@ def test_default_device_is_cuda(cuda_device):
                dense_operands(9, 64, (0.2, 0.2, 0.3), True))
     res = masked_spgemm(A, B, M)
     assert res.vals.is_cuda and res.present.is_cuda
+
+
+def _revalue(x, seed, ints=False):
+    rng = np.random.default_rng(seed)
+    data = (rng.integers(1, 5, x.nnz) if ints
+            else rng.uniform(0.5, 1.5, x.nnz)).astype(np.float32)
+    return F.CSR(x.indptr, x.indices, data, x.shape)
+
+
+def _same(got, want):
+    for g, w in ((got.vals, want.vals), (got.present, want.present),
+                 (got.mask_cols, want.mask_cols)):
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+def _serving_case(route):
+    """Operands whose bucket the engine serves by ``route``: a burst
+    (mca-elected ER with a dense mask), a batched row program (inner
+    elected), or the tile route (block-sparse)."""
+    if route == "tile":
+        mats = [F.block_sparse(256, 32, 0.4, 0.9, seed=s) for s in (1, 2)]
+        mats.append(F.block_sparse(256, 32, 0.6, 1.0, seed=3, mask=True))
+        return tuple(F.csr_from_dense(x) for x in mats)
+    if route == "burst":
+        return (F.erdos_renyi(192, 2, seed=100),
+                F.erdos_renyi(192, 2, seed=200), F.er_mask(192, 24, seed=300))
+    return (F.erdos_renyi(192, 6, seed=101), F.erdos_renyi(192, 6, seed=201),
+            F.er_mask(192, 16, seed=301))
+
+
+@pytest.mark.parametrize("route", ["burst", "batched", "tile"])
+def test_engine_buckets_match_cpu(cuda_device, route):
+    """Each route of the serving engine on the card: integer data equal to
+    the same engine on the CPU, float data bitwise the one-shot call on
+    the card; a tile bucket launches the fused kernel once per element."""
+    from repro_torch.serving import QueryEngine
+    A, B, M = _serving_case(route)
+    for ints in (True, False):
+        qs = [(_revalue(A, s, ints), B, M) for s in range(4)]
+        with QueryEngine(device=cuda_device, cache_results=False) as eng:
+            before = kernel.FUSED_LAUNCHES
+            got = eng.serve(qs)
+            launches = kernel.FUSED_LAUNCHES - before
+            log = eng.metrics.bucket_log()
+        assert [row["route"] for row in log] == [route]
+        assert launches == (4 if route == "tile" else 0)
+        assert all(g.vals.device.type == cuda_device.type for g in got)
+        if ints:
+            with QueryEngine(device="cpu", cache_results=False) as eng:
+                want = eng.serve(qs)
+        else:
+            want = [masked_spgemm(*q, device=cuda_device) for q in qs]
+        for g, w in zip(got, want):
+            _same(g, w)
+
+
+def test_async_engine_on_cuda_matches_one_shot(cuda_device):
+    from repro_torch.serving import QueryEngine
+    A, B, M = _serving_case("burst")
+    qs = [(_revalue(A, s), B, M) for s in range(6)]
+    with QueryEngine(device=cuda_device, async_mode=True, max_batch=4,
+                     max_wait_ms=1.0, cache_results=False) as eng:
+        tickets = [eng.submit(*q) for q in qs]
+        got = [t.result(timeout=120) for t in tickets]
+    for q, g in zip(qs, got):
+        _same(g, masked_spgemm(*q, device=cuda_device))
+
+
+@pytest.mark.parametrize("alg, complement", [
+    (alg, False) for alg in ("auto", "msa", "hash", "mca", "heap", "inner")
+] + [(alg, True) for alg in ("auto", "msa", "heap")])
+def test_batched_driver_matches_cpu(cuda_device, alg, complement):
+    from repro_torch.core.masked_spgemm import masked_spgemm_batched
+    B = _revalue(F.erdos_renyi(96, 4, seed=11), 1, ints=True)
+    As = [_revalue(F.erdos_renyi(96, 3 + i, seed=12 + i), i, ints=True)
+          for i in range(3)]
+    Ms = [F.er_mask(96, 8 + 4 * i, seed=20 + i) for i in range(3)]
+    got = masked_spgemm_batched(As, B, Ms, algorithm=alg,
+                                complement=complement, device=cuda_device)
+    want = masked_spgemm_batched(As, B, Ms, algorithm=alg,
+                                 complement=complement, device="cpu")
+    if complement:
+        assert got[0].device.type == cuda_device.type
+        assert got[0].shape == (3, 96, 96)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+        return
+    for g, w in zip(got, want):
+        assert g.vals.device.type == cuda_device.type
+        _same(g, w)
+
+
+def test_graph_applications_on_cuda_match_cpu(cuda_device):
+    from repro_torch.graphs import betweenness_centrality, ktruss
+    g = F.rmat(8, 8, seed=12)
+    truss, _, _, _ = ktruss(g, 4, device=cuda_device)
+    want, _, _, _ = ktruss(g, 4, device="cpu")
+    assert np.array_equal(truss.to_dense(), want.to_dense())
+    bc, _, _ = betweenness_centrality(g, sources=range(32), source_chunks=4,
+                                      device=cuda_device)
+    bc_cpu, _, _ = betweenness_centrality(g, sources=range(32),
+                                          source_chunks=4, device="cpu")
+    np.testing.assert_allclose(bc, bc_cpu, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("blocks", [(8, 8, 8), (16, 16, 16), (32, 32, 16),
