@@ -40,15 +40,37 @@ Phases, each printing its own lines:
    ``triangle_count``; ``ktruss`` (k = 5) on scale 12 against scipy's
    k-truss and on scale 10 against the CPU port; ``betweenness_centrality``
    (256 sources in 4 chunks) on scale 12, directly and through an engine,
-   within 1e-5 of the CPU port; then both applications timed at scale 14.
+   within 1e-5 of the CPU port; then k-truss timed at scale 13 and
+   betweenness at scale 14.
    Prints bucket and per-query times, ``serve.submit`` (the fingerprints),
    peak memory and the bytes of one cached result;
-7. tile SDDMM: the ``masked_matmul`` kernel against its plain version over
+7. delta: incremental serving on the card.  delta-burst-8192: the burst
+   structure, 8 rounds of one upsert delta to A touching 82 rows (1 %)
+   then 64 fresh-valued queries, through ``submit_delta`` (plan
+   revalidated, lanes patched on the card) and through a recompute stream
+   (apply the delta, drop the plan cache and every burst program, patch
+   and lineage, re-plan and rebuild); per delta the time until the program
+   is ready (median of the rounds, ended by a synchronise), the lanes
+   patched, the bytes a patch uploads and the device bytes a patched
+   program holds; 8 of each round's 64 results of both streams bit for bit
+   their one-shot calls.  delta-tile-8192: tile-8192's operands served as
+   the tile bucket serves them, a delta of 64 upserts in 16 rows of A: the
+   tile plan survives ``revalidate``, a 4-query bucket on the post-delta
+   operands launches the fused kernel 4 times, each result bit for bit its
+   one-shot call and exact against the dense product at the mask;
+   ``submit_delta``'s time beside a cold plan, the result-cache entries it
+   evicted and the cache's device bytes before and after.  replay: the
+   golden trace (``results/traces/golden_v1.jsonl``) replayed sync and
+   async on the card (equal digests, the committed counters, every result
+   bit for bit its one-shot call); serve-mixed-8192 captured by
+   ``TraceRecorder`` (generator specs only) and replayed twice to one
+   digest, its replay queries/s beside the captured run's;
+8. tile SDDMM: the ``masked_matmul`` kernel against its plain version over
    the reference's test sweep, then ``ops.masked_matmul`` once at
    M = N = 8192, K = 256, 128-blocks on the tile-8192 mask (one launch,
    equal to the plain version on integer data), the same call on
    standard-normal data (f32 accuracy: 2e-6 normwise); then timings;
-8. flash attention: the ``flash_mask`` kernel against its plain version
+9. flash attention: the ``flash_mask`` kernel against its plain version
    over the reference's test sweep (bf16 also within 2e-3 normwise; every
    case on tensor cores, the f32 ones on the 3xTF32 kernel), the decode
    offset and the GQA op, then one full-width llama3.2-1b layer (B 4,
@@ -56,7 +78,7 @@ Phases, each printing its own lines:
    ``scaled_dot_product_attention``; the f32 instance at the layer's shape
    against its plain version and float64, and its times at B 1 (the f32
    prefill's shape) and B 4 beside f32 ``scaled_dot_product_attention``;
-9. LM serving: llama3.2-1b at full width with ``attn_impl="flash_pallas"``
+10. LM serving: llama3.2-1b at full width with ``attn_impl="flash_pallas"``
    and random weights from seed 0: a bf16 prefill of 4 x 2,048 tokens (the
    bf16 flash kernel must launch once per layer, 16 times; logits finite
    and close to the same forward with dense attention), a
@@ -65,7 +87,7 @@ Phases, each printing its own lines:
    flash kernel must launch once per layer) against dense attention, f32
    prefill against teacher-forced decode (the reference's
    decode-consistency property), and ``generate``;
-10. one JSON line with every kernel's numbers, then the result line
+11. one JSON line with every kernel's numbers, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the result line.
@@ -85,7 +107,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch import caches  # noqa: E402
+from repro_torch import caches, obs  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import formats as F  # noqa: E402
 from repro_torch.core import planner  # noqa: E402
@@ -102,7 +124,9 @@ from repro_torch.kernels.flash_mask.ref import mask_allowed  # noqa: E402
 from repro_torch.kernels.masked_matmul import kernel, ops  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.decode import generate  # noqa: E402
+from repro_torch.core.semiring import PLUS_TIMES  # noqa: E402
 from repro_torch.serving import QueryEngine, burst  # noqa: E402
+from repro_torch.serving import trace as serve_trace  # noqa: E402
 
 #: NVIDIA H100 SXM data sheet: f32 on CUDA cores, bf16 and TF32 on tensor
 #: cores (dense), HBM3 bandwidth
@@ -140,11 +164,23 @@ LM_SEQ = 2048
 SERVE_TILE_QUERIES = 4
 SERVE_N = 8192
 SERVE_QUERIES = 64
+#: the delta phase: 8 rounds of a 1 % upsert delta to A, then a bucket of
+#: 64 queries, at n = 8192 (``bench_incremental``'s structure); a delta of
+#: 64 upserts in 16 rows of tile-8192's A
+DELTA_ROUNDS = 8
+DELTA_ROWS = 82
+DELTA_QUERIES = 64
+DELTA_CHECKED = 8
+TILE_DELTA_ROWS = 16
+TILE_DELTA_UPSERTS = 64
 #: the graph applications: checked on R-MAT scale 12 (and against the CPU
-#: port at scale 10), timed at scale 14
+#: port at scale 10), timed at scale 14 (k-truss at 13)
 GRAPH_SCALE = 12
 GRAPH_CPU_SCALE = 10
 GRAPH_TIME_SCALE = 14
+#: k-truss is timed one scale lower: at scale 14 it took 104 s of the
+#: script, whose whole run must stay within its time limit
+KTRUSS_TIME_SCALE = 13
 BC_SOURCES = 256
 BC_TIME_SOURCES = 512
 BC_CHUNKS = 4
@@ -924,7 +960,7 @@ def edge_set(x) -> set:
 
 def serving_composites(dev) -> dict:
     """submit_triangle, k-truss and betweenness on the card, checked, then
-    the two applications timed at scale 14."""
+    k-truss timed at scale 13 and betweenness at scale 14."""
     import scipy.sparse as sp
     g14 = F.rmat(GRAPH_TIME_SCALE, RMAT_EDGE_FACTOR, seed=GRAPH_TIME_SCALE)
     with QueryEngine(device=dev) as eng:
@@ -975,12 +1011,13 @@ def serving_composites(dev) -> dict:
           f"1e-5 of the CPU port ({cpu_s:.1f} s on the host)")
 
     sys.stdout.flush()
+    g13 = F.rmat(KTRUSS_TIME_SCALE, RMAT_EDGE_FACTOR, seed=KTRUSS_TIME_SCALE)
     t0 = time.perf_counter()
-    truss, kt_s, kt_iters, kt_flops = ktruss(g14, 5, device=dev)
+    truss, kt_s, kt_iters, kt_flops = ktruss(g13, 5, device=dev)
     kt_wall = time.perf_counter() - t0
-    print(f"serving [{CARD}]: ktruss rmat {GRAPH_TIME_SCALE} k=5: "
+    print(f"serving [{CARD}]: ktruss rmat {KTRUSS_TIME_SCALE} k=5: "
           f"{kt_wall:.2f} s ({kt_s:.2f} s in masked products), {kt_iters} "
-          f"iterations, {truss.nnz} of {g14.nnz} entries kept, "
+          f"iterations, {truss.nnz} of {g13.nnz} entries kept, "
           f"{kt_flops / kt_s / 1e9:.2f} GFLOP/s", flush=True)
     t0 = time.perf_counter()
     _, bc_s, bc_calls = betweenness_centrality(
@@ -1015,7 +1052,405 @@ def serving_path(dev, ops) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: tile SDDMM (masked_matmul)
+# Phase 7: incremental serving (submit_delta) and trace replay
+# ---------------------------------------------------------------------------
+
+
+def drop_structure_artifacts() -> None:
+    """What a delta invalidates where there is no incremental path: every
+    structure-keyed artifact (plans, burst programs, patches, lineage)."""
+    planner.clear_plan_cache()
+    burst._programs.clear()
+    burst._patches.clear()
+    burst._lineage.clear()
+
+
+def delta_stream(n: int, rounds: int, k: int):
+    """``bench_incremental``'s stream: one upsert batch per round, each
+    touching k distinct rows of A."""
+    rng = np.random.default_rng(11)
+    out = []
+    for _ in range(rounds):
+        rows = rng.choice(n, size=k, replace=False).astype(np.int64)
+        cols = rng.integers(n, size=k).astype(np.int64)
+        vals = rng.uniform(0.5, 1.5, k).astype(np.float32)
+        out.append(F.CSRDelta.upserts(rows, cols, vals))
+    return out
+
+
+def timed_ready(fn, dev):
+    """(fn's value, host ms of fn ended by a synchronise)."""
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def delta_burst(dev, n: int = SERVE_N, rounds: int = DELTA_ROUNDS,
+                k: int = DELTA_ROWS, queries: int = DELTA_QUERIES) -> dict:
+    """delta-burst-8192: the incremental stream against the recompute
+    stream on the same deltas, every round's results checked."""
+    A0, B, M = burst_structure(n)
+    deltas = delta_stream(n, rounds, k)
+
+    def round_queries(a, r):
+        return [(revalue(a, 100_000 * r + i), B, M) for i in range(queries)]
+
+    def serve_checked(eng, a, r, stream):
+        qs = round_queries(a, r)
+        got = eng.serve(qs)
+        check(eng.metrics.bucket_log()[-1]["route"] == "burst",
+              f"{stream} round {r}: the bucket runs the burst route")
+        for i in range(0, queries, queries // DELTA_CHECKED):
+            check(same_result(got[i], masked_spgemm(*qs[i], device=dev)),
+                  f"{stream} round {r}: result {i} equals its one-shot "
+                  f"call bit for bit")
+
+    # incremental: submit_delta keeps the serving state warm
+    drop_structure_artifacts()
+    eng = QueryEngine(max_batch=queries, queue_cap=4 * queries, device=dev)
+    serve_checked(eng, A0, 0, "incremental")
+    builds = len(burst._programs)
+    root = burst.peek_program(A0, B, M, PLUS_TIMES, planner.plan(
+        A0, B, M, device=dev).widths[2], dev)
+    root_cold = storage_bytes(program_tensors(root))
+    a = A0
+    inc_ms, lanes, up_bytes, prog_bytes, evicted = [], [], [], [], []
+    for r, d in enumerate(deltas, start=1):
+        with obs.tracing() as tr:
+            out, ms = timed_ready(
+                lambda: eng.submit_delta(a, B, M, delta_a=d), dev)
+        steps = delta_steps(tr)
+        inc_ms.append(ms)
+        check(out.plan_survived and out.lanes_patched > 0,
+              f"round {r}: the plan survives and lanes are patched (got "
+              f"{out.plan_survived}, {out.lanes_patched})")
+        prog = burst.peek_program(out.A, B, M, PLUS_TIMES,
+                                  out.plan.widths[2], dev)
+        check(prog is not None and prog.patch_bytes is not None,
+              f"round {r}: the post-delta program is a patched one")
+        parent = burst._lineage.peek(burst._program_key(
+            out.A, B, M, PLUS_TIMES, out.plan.widths[2], dev))[0]
+        lanes.append(out.lanes_patched)
+        up_bytes.append(prog.patch_bytes)
+        # what the patch added on the card (a mask layout it shares with
+        # its parent is the parent's)
+        prog_bytes.append(storage_bytes(program_tensors(prog))
+                          - (storage_bytes([prog.mask_cols])
+                             if prog.mask_cols is parent.mask_cols else 0))
+        evicted.append(out.entries_evicted)
+        a = out.A
+        serve_checked(eng, a, r, "incremental")
+    check(len(burst._programs) == builds, "the incremental stream built no "
+          "program cold after its first")
+    root_patched = storage_bytes(program_tensors(root))
+    del root
+    patches = burst._patches.values()
+    parents = [v[0] for v in burst._lineage.values()]
+    held_bytes = storage_bytes([t for p in patches + parents
+                                for t in program_tensors(p)])
+    patch_held = storage_bytes([t for p in patches
+                                for t in program_tensors(p)])
+    snap = eng.metrics.snapshot()
+    eng.close()
+    last = prog
+
+    # recompute: the same deltas, every structure artifact dropped
+    drop_structure_artifacts()
+    eng = QueryEngine(max_batch=queries, queue_cap=4 * queries,
+                      cache_results=False, device=dev)
+    serve_checked(eng, A0, 0, "recompute")
+    a = A0
+    cold_ms = []
+    for r, d in enumerate(deltas, start=1):
+        def recompute():
+            res = F.apply_csr_delta(a, d)
+            drop_structure_artifacts()
+            p = planner.plan(res.csr, B, M, device=dev)
+            burst.get_program(res.csr, B, M, PLUS_TIMES, p.widths[2],
+                              device=dev)
+            return res.csr
+
+        a, ms = timed_ready(recompute, dev)
+        cold_ms.append(ms)
+        serve_checked(eng, a, r, "recompute")
+    eng.close()
+
+    inc, cold = statistics.median(inc_ms), statistics.median(cold_ms)
+    tables = last._IA.nbytes + last._BV.nbytes + last._BG.nbytes
+    print(f"delta [{CARD}]: delta-burst-{n}: {rounds} rounds of a {k}-row "
+          f"upsert delta to A ({k / n:.2%} of rows) then {queries} queries; "
+          f"time until the program is ready: incremental (submit_delta) "
+          f"median {inc:.2f} ms (" + ", ".join(f"{x:.2f}" for x in inc_ms)
+          + f"), recompute (apply, re-plan, rebuild) median {cold:.2f} ms ("
+          + ", ".join(f"{x:.1f}" for x in cold_ms) + f"): {cold / inc:.1f}x "
+          f"(the last delta: {steps}); "
+          f"all {2 * rounds * DELTA_CHECKED + 2 * DELTA_CHECKED} checked "
+          f"results bitwise their one-shot calls")
+    print(f"delta [{CARD}]: per patch {lanes[0]} lane columns "
+          f"({last._IA.shape[0]} lanes deep), uploads "
+          + ", ".join(f"{b / 2**10:.1f}" for b in up_bytes)
+          + f" KiB (the whole IA, BV, BG tables: {tables / 2**20:.1f} MiB; "
+          f"the first patch also uploads the cold program's BG, which "
+          f"took it from {root_cold / 2**20:.1f} to "
+          f"{root_patched / 2**20:.1f} MiB on the card); "
+          f"each patched program adds "
+          + ", ".join(f"{b / 2**20:.1f}" for b in prog_bytes)
+          + f" MiB on the card (its IA, BV, BG and present; the mask "
+          f"columns it shares with its parent), "
+          f"{last.device_bytes() / 2**20:.1f} MiB referenced in all; "
+          f"{len(patches)} patches hold {patch_held / 2**20:.1f} MiB and "
+          f"with the {len(parents)} lineage entries' parents "
+          f"{held_bytes / 2**20:.1f} MiB; result entries evicted per delta "
+          + ", ".join(str(e) for e in evicted)
+          + "; counters " + ", ".join(f"{key}={snap[key]}" for key in (
+              "delta_applied", "plans_revalidated", "lanes_patched",
+              "rows_invalidated")))
+    drop_structure_artifacts()
+    return {"incremental_ms": inc_ms, "recompute_ms": cold_ms,
+            "median_incremental_ms": inc, "median_recompute_ms": cold,
+            "speedup": cold / inc, "lanes": lanes, "upload_bytes": up_bytes,
+            "program_bytes": prog_bytes, "held_bytes": held_bytes,
+            "patch_held_bytes": patch_held, "cold_program_bytes": root_cold,
+            "patched_root_bytes": root_patched,
+            "evicted": evicted}
+
+
+def delta_tile(dev, ops, bs: int = TILE_BS,
+               queries: int = SERVE_TILE_QUERIES) -> dict:
+    """delta-tile-8192: a delta to tile-8192's A under a warm engine; the
+    tile plan survives and the post-delta bucket runs the fused kernel."""
+    A, B, M = ops
+    n = A.shape[0]
+    planner.clear_plan_cache()
+    eng = QueryEngine(max_batch=queries, device=dev)
+    eng.serve([(revalue(A, s, ints=True), B, M) for s in range(queries)])
+    check(eng.metrics.bucket_log()[-1]["route"] == "tile",
+          "the pre-delta bucket runs the tile route")
+    sync(dev)
+    before_bytes = eng.results.device_bytes()
+    before_entries = len(eng.results)
+    rng = np.random.default_rng(17)
+    rows = np.repeat(rng.choice(n, TILE_DELTA_ROWS, replace=False),
+                     TILE_DELTA_UPSERTS // TILE_DELTA_ROWS)
+    d = F.CSRDelta.upserts(rows, rng.integers(0, n, len(rows)),
+                           rng.integers(1, 5, len(rows)).astype(np.float32))
+    with obs.tracing() as tr:
+        out, delta_ms = timed_ready(
+            lambda: eng.submit_delta(A, B, M, delta_a=d), dev)
+    steps = delta_steps(tr)
+    gc_collect(dev)
+    after_bytes = eng.results.device_bytes()
+    check(out.plan_survived and out.plan.algorithm == "tile"
+          and out.plan.tile_block == bs,
+          f"revalidate keeps the tile plan (got {out.plan_survived}, "
+          f"{out.plan.algorithm}, {out.plan.tile_block})")
+    A1 = out.A
+
+    As = [revalue(A1, 10 + s, ints=True) for s in range(queries)]
+    reset_counts()
+    with count_plain() as plain:
+        got = eng.serve([(a, B, M) for a in As])
+        sync(dev)
+    launches = kernel.FUSED_LAUNCHES
+    check(launches == queries and kernel.LAUNCHES == 0,
+          f"the post-delta bucket launches the fused kernel {queries} times "
+          f"(got {launches}, values only {kernel.LAUNCHES})")
+    check(plain.calls == 0, "no plain version ran")
+    check(eng.metrics.bucket_log()[-1]["route"] == "tile",
+          "the post-delta bucket runs the tile route")
+    eng.close()
+    mr = F._expand_rows(M.indptr)
+    idx = torch.as_tensor(np.stack([mr, M.indices,
+                                    np.arange(M.nnz) - M.indptr[mr]]),
+                          device=dev)
+    Bd = torch.as_tensor(B.to_dense(), device=dev)
+    for a, g in zip(As, got):
+        check(same_result(g, masked_spgemm(a, B, M, device=dev)),
+              "each post-delta result equals its one-shot call bit for bit")
+        C = torch.as_tensor(a.to_dense(), device=dev) @ Bd
+        check(torch.equal(g.vals[idx[0], idx[2]], C[idx[0], idx[1]]),
+              "each post-delta result is exact against the dense product "
+              "at the mask")
+        del C
+    del Bd, got
+
+    # what the surviving plan saved: a plan of the post-delta operands,
+    # with the measured trial's winner memoized and with nothing cached
+    _, warm_plan_ms = timed_ready(
+        lambda: planner.plan(A1, B, M, use_cache=False, device=dev), dev)
+    planner.clear_plan_cache()
+    p, cold_plan_ms = timed_ready(
+        lambda: planner.plan(A1, B, M, device=dev), dev)
+    check(p.algorithm == "tile", "the cold plan elects tile too")
+
+    print(f"delta [{CARD}]: delta-tile-{n}: {len(rows)} upserts in "
+          f"{TILE_DELTA_ROWS} rows of A; submit_delta {delta_ms:.1f} ms "
+          f"(plan survived: tile at {bs}; " + steps + ") against a cold "
+          f"plan of the post-delta operands {cold_plan_ms:.1f} ms (trial "
+          f"among {list(p.trialed)}; {warm_plan_ms:.1f} ms with the trial's "
+          f"winner memoized); it evicted "
+          f"{out.entries_evicted} of {before_entries} result-cache entries: "
+          f"the cache held {before_bytes / 2**20:.1f} MiB on the card "
+          f"before, {after_bytes / 2**20:.1f} MiB after; the post-delta "
+          f"bucket of {queries}: {launches} fused launches, each result "
+          f"bitwise its one-shot call and exact against the dense product "
+          f"at the mask")
+    return {"launches": launches, "submit_delta_ms": delta_ms,
+            "cold_plan_ms": cold_plan_ms, "warm_plan_ms": warm_plan_ms,
+            "evicted": out.entries_evicted,
+            "submit_delta_steps": steps,
+            "cache_mib_before": before_bytes / 2**20,
+            "cache_mib_after": after_bytes / 2**20}
+
+
+def delta_steps(tr) -> str:
+    """``submit_delta``'s four spans, in ms, from a tracer's records."""
+    durs = {r["name"]: r["dur"] * 1e3 for r in tr.sink.spans()
+            if r["name"].startswith("delta.")}
+    return ", ".join(f"{k} {v:.1f} ms" for k, v in durs.items())
+
+
+def program_tensors(prog) -> list:
+    """A burst program's device tensors (a cold program's ``BG`` is on the
+    host until its first patch)."""
+    return [t for t in (prog._IA, prog._BV, prog._BG, prog.present,
+                        prog.mask_cols) if isinstance(t, torch.Tensor)]
+
+
+def storage_bytes(tensors) -> int:
+    """Bytes of the distinct device storages behind ``tensors``."""
+    seen = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+            for t in tensors}
+    return sum(seen.values())
+
+
+def gc_collect(dev) -> None:
+    import gc
+    gc.collect()
+    sync(dev)
+
+
+def one_shot(A, B, M, kw, dev):
+    return masked_spgemm(A, B, M, semiring=kw["semiring"],
+                         complement=kw["complement"],
+                         algorithm=kw.get("algorithm") or "auto", device=dev)
+
+
+def same_any(got, want) -> bool:
+    if isinstance(got, tuple):
+        return all(torch.equal(g, w) for g, w in zip(got, want))
+    return same_result(got, want)
+
+
+def replay_golden(dev) -> dict:
+    """The committed golden trace, sync and async, on the card."""
+    path = serve_trace.golden_trace_path()
+    trace = serve_trace.Trace.load(path)
+    grid = json.loads((Path(path).parent.parent / "bench"
+                       / "replay_grid.json").read_text())
+    sync_rep = serve_trace.replay_trace(trace, device=dev, keep_results=True)
+    async_rep = serve_trace.replay_trace(trace, device=dev, async_mode=True)
+    check(sync_rep.digest == async_rep.digest
+          and sync_rep.schedule == async_rep.schedule,
+          f"golden replay: sync and async digests equal ({sync_rep.digest}, "
+          f"{async_rep.digest})")
+    for key, want in grid["counters"].items():
+        check(sync_rep.counters[key] == want,
+              f"golden replay counter {key} = {sync_rep.counters[key]} "
+              f"equals the committed {want}")
+    for (_t, A, B, M, kw), got in zip(trace.materialized(),
+                                      sync_rep.results):
+        check(same_any(got, one_shot(A, B, M, kw, dev)),
+              "every golden replay result equals its one-shot call bit for "
+              "bit")
+    c = sync_rep.counters
+    print(f"replay [{CARD}]: golden_v1 ({trace.n_requests} requests): sync "
+          f"and async digest {sync_rep.digest}; {c['submitted']} submitted, "
+          f"{c['buckets_executed']} buckets, {c['result_cache_hits']} "
+          f"result-cache hits (= results/bench/replay_grid.json); "
+          f"{sync_rep.qps:.0f} / {async_rep.qps:.0f} queries/s (sync / "
+          f"async); every result bitwise its one-shot call")
+    return {"digest": sync_rep.digest, "qps_sync": sync_rep.qps,
+            "qps_async": async_rep.qps}
+
+
+def replay_capture(dev, n: int = SERVE_N, queries: int = SERVE_QUERIES
+                   ) -> dict:
+    """serve-mixed-8192 captured by a TraceRecorder (every operand a
+    generator spec), then replayed twice."""
+    st = serve_trace
+    rec = st.TraceRecorder(name=f"serve-mixed-{n}")
+    # mixed_structures' generators, as specs
+    specs = [(st.spec_er(n, 2, 100), st.spec_er(n, 2, 200),
+              st.spec_er_mask(n, max(8, n // 8), 300))] + [
+        (st.spec_er(n, 2 + 2 * s, 100 + s), st.spec_er(n, 2 + 2 * s, 200 + s),
+         st.spec_er_mask(n, 8 * s, 300 + s)) for s in range(1, 4)]
+    structs = mixed_structures(n)
+    for (A, B, M), (sa, sb, sm) in zip(structs, specs):
+        rec.register_operand(B, sb)
+        rec.register_operand(M, sm)
+    rng = np.random.default_rng(0)
+    mix = []
+    for q in range(queries):
+        i = int(rng.integers(len(structs)))
+        A, B, M = structs[i]
+        a = rec.register_operand(revalue(A, 2000 + q),
+                                 st.spec_revalue(specs[i][0], 2000 + q))
+        mix.append((a, B, M))
+    knobs = dict(max_wait_ms=2.0, max_batch=queries, queue_cap=4 * queries,
+                 cache_results=False)
+    with QueryEngine(async_mode=True, device=dev, **knobs) as eng:
+        t0 = time.perf_counter()     # cold: plans and burst programs built
+        for t in [eng.submit(*q) for q in mix]:
+            t.result(timeout=600)
+        cold_s = time.perf_counter() - t0
+    eng = QueryEngine(async_mode=True, recorder=rec, device=dev, **knobs)
+    t0 = time.perf_counter()
+    tickets = [eng.submit(*q) for q in mix]
+    for t in tickets:
+        t.result(timeout=600)
+    captured_s = time.perf_counter() - t0
+    eng.close()
+    trace = serve_trace.Trace.loads(rec.trace().dumps())
+    kinds = {ev[op].get("kind") for ev in trace.events for op in "ABM"}
+    check("inline" not in kinds, f"the capture holds generator specs only "
+          f"(kinds {sorted(kinds)})")
+    r1 = serve_trace.replay_trace(trace, knobs=knobs, device=dev)
+    r2 = serve_trace.replay_trace(trace, knobs=knobs, device=dev)
+    check(r1.digest == r2.digest and r1.counters["completed"] == queries,
+          f"the captured trace replays twice to one digest ({r1.digest}, "
+          f"{r2.digest})")
+    print(f"replay [{CARD}]: serve-mixed-{n} captured ({queries} queries, "
+          f"async, warm, {queries / captured_s:.0f} queries/s as captured; "
+          f"the same stream cold {queries / cold_s:.0f}) and "
+          f"replayed twice to digest {r1.digest}: {r1.qps:.0f} / "
+          f"{r2.qps:.0f} queries/s in {r1.counters['buckets_executed']} "
+          f"buckets")
+    return {"digest": r1.digest, "captured_qps": queries / captured_s,
+            "replay_qps": [r1.qps, r2.qps]}
+
+
+def delta_path(dev, ops) -> dict:
+    """Phase 7: the delta cells and the replays; returns their numbers."""
+    out = {"burst": delta_burst(dev)}
+    caches.clear_all()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["tile"] = delta_tile(dev, ops)
+    caches.clear_all()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["golden"] = replay_golden(dev)
+    out["capture"] = replay_capture(dev)
+    caches.clear_all()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: tile SDDMM (masked_matmul)
 # ---------------------------------------------------------------------------
 
 
@@ -1186,7 +1621,7 @@ def sddmm_path(dev, mask_tiles, n: int = TILE_N, bs: int = TILE_BS,
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: flash attention (flash_mask)
+# Phase 9: flash attention (flash_mask)
 # ---------------------------------------------------------------------------
 
 
@@ -1435,7 +1870,7 @@ def f32_instance(dev, q_shape, kv_shape, sched, kw, allowed: int,
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: LM serving at full width (llama3.2-1b, flash_pallas)
+# Phase 10: LM serving at full width (llama3.2-1b, flash_pallas)
 # ---------------------------------------------------------------------------
 
 
@@ -1631,9 +2066,13 @@ def main() -> int:
     row_route(dev)
     t_serving = time.perf_counter()
     serving = serving_path(dev, ops)
-    del ops
     entry["serving_launches"] = serving["tile"]["launches"]
     entry["serving"] = serving
+    t_delta = time.perf_counter()
+    delta = delta_path(dev, ops)
+    del ops
+    entry["delta_launches"] = delta["tile"]["launches"]
+    entry["delta"] = delta
     t_sddmm = time.perf_counter()
     err = sddmm_vs_plain(dev)
     sddmm = sddmm_path(dev, mask_tiles)
@@ -1646,7 +2085,8 @@ def main() -> int:
     flash_entry["launches"], flash_entry["f32_launches"] = lm_serving(dev)
     t_end = time.perf_counter()
     print(f"phases: spgemm {t_serving - t_start:.1f} s, serving "
-          f"{t_sddmm - t_serving:.1f} s, sddmm {t_flash - t_sddmm:.1f} s, "
+          f"{t_delta - t_serving:.1f} s, delta {t_sddmm - t_delta:.1f} s, "
+          f"sddmm {t_flash - t_sddmm:.1f} s, "
           f"flash {t_lm - t_flash:.1f} s, lm {t_end - t_lm:.1f} s")
     print(json.dumps({"kernels": [entry, sddmm, flash_entry]}))
     print(json.dumps({"ok": True, "device": device}))

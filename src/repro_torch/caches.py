@@ -153,6 +153,11 @@ class LRUCache:
             while len(self._data) > self._capacity:
                 self._data.popitem(last=False)
 
+    def values(self) -> list:
+        """A snapshot of the cached values, least recently used first."""
+        with self._lock:
+            return list(self._data.values())
+
     def pop(self, key, default=None):
         """Remove and return one entry (scoped invalidation: evicting a
         stale key must not flush the rest of the cache)."""

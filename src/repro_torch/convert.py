@@ -15,7 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.formats import BCSR, CSR, PaddedCSR
+from repro_torch.core.formats import BCSR, CSR, CSRDelta, PaddedCSR
 from repro_torch.core.planner import Plan, PlanStats
 
 
@@ -23,6 +23,13 @@ def csr_from_reference(obj) -> CSR:
     """A host CSR (``indptr``, ``indices``, ``data``, ``shape``)."""
     return CSR(np.asarray(obj.indptr).copy(), np.asarray(obj.indices).copy(),
                np.asarray(obj.data).copy(), tuple(obj.shape))
+
+
+def delta_from_reference(obj) -> CSRDelta:
+    """An edge-delta batch (``rows``, ``cols``, ``vals``, ``delete``)."""
+    return CSRDelta(np.asarray(obj.rows).copy(), np.asarray(obj.cols).copy(),
+                    np.asarray(obj.vals).copy(),
+                    np.asarray(obj.delete).copy())
 
 
 def padded_from_reference(obj, device="cuda") -> PaddedCSR:

@@ -22,7 +22,8 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Optional, Tuple
+import zlib
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -108,6 +109,200 @@ def csr_from_coo(rows, cols, vals, shape, sum_dups: bool = True) -> CSR:
 def csr_from_dense(a: np.ndarray) -> CSR:
     rows, cols = np.nonzero(a)
     return csr_from_coo(rows, cols, a[rows, cols], a.shape, sum_dups=False)
+
+
+# --------------------------------------------------------------------------
+# Edge-batch deltas: incremental CSR updates for dynamic graphs
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class CSRDelta:
+    """A batch of edge mutations against one CSR operand.
+
+    Records are applied in order (last write to a coordinate wins):
+    ``delete[e]`` removes ``(rows[e], cols[e])`` if present (``vals[e]`` is
+    ignored), otherwise the record upserts — overwriting an existing entry's
+    value or inserting a new structural nonzero.
+    """
+
+    rows: np.ndarray      # (e,) int64
+    cols: np.ndarray      # (e,) int64
+    vals: np.ndarray      # (e,) value per record (ignored for deletes)
+    delete: np.ndarray    # (e,) bool
+
+    def __post_init__(self):
+        object.__setattr__(self, "rows", np.asarray(self.rows, np.int64))
+        object.__setattr__(self, "cols", np.asarray(self.cols, np.int64))
+        object.__setattr__(self, "vals", np.asarray(self.vals))
+        object.__setattr__(self, "delete", np.asarray(self.delete, bool))
+        n = len(self.rows)
+        if not (len(self.cols) == len(self.vals) == len(self.delete) == n):
+            raise ValueError("CSRDelta fields must have equal length")
+
+    @classmethod
+    def upserts(cls, rows, cols, vals) -> "CSRDelta":
+        rows = np.asarray(rows, np.int64)
+        return cls(rows, cols, vals, np.zeros(len(rows), bool))
+
+    @classmethod
+    def deletes(cls, rows, cols) -> "CSRDelta":
+        rows = np.asarray(rows, np.int64)
+        return cls(rows, cols, np.zeros(len(rows), np.float32),
+                   np.ones(len(rows), bool))
+
+    @classmethod
+    def concat(cls, deltas: Sequence["CSRDelta"]) -> "CSRDelta":
+        return cls(np.concatenate([d.rows for d in deltas]),
+                   np.concatenate([d.cols for d in deltas]),
+                   np.concatenate([d.vals for d in deltas]),
+                   np.concatenate([d.delete for d in deltas]))
+
+    @property
+    def changed_rows(self) -> np.ndarray:
+        return np.unique(self.rows)
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeltaResult:
+    """Outcome of ``apply_csr_delta``: the post-delta CSR, which rows
+    changed, whether the sparsity structure survived (values-only delta),
+    and the incrementally maintained delta signature."""
+
+    csr: CSR
+    changed_rows: np.ndarray   # sorted unique rows any record touched
+    values_only: bool          # True iff no row's column set changed
+    signature: tuple           # incremental_signature(csr), updated in O(Δ)
+
+
+_ISIG_MASK = (1 << 64) - 1
+
+
+def _row_sig(i: int, cols: np.ndarray) -> int:
+    """Salted 64-bit hash of one row's column set: the CRC of the columns,
+    seeded with the CRC of the row index, spread to 64 bits by a splitmix
+    finalizer (so the order-insensitive XOR across rows stays
+    collision-resistant)."""
+    crc = zlib.crc32(np.ascontiguousarray(cols, dtype=np.int64).tobytes(),
+                     zlib.crc32(np.int64(i).tobytes()))
+    z = (crc + 0x9E3779B97F4A7C15) & _ISIG_MASK
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _ISIG_MASK
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _ISIG_MASK
+    return (z ^ (z >> 31)) & _ISIG_MASK
+
+
+def incremental_signature(x: CSR) -> tuple:
+    """Delta-maintainable structural identity: XOR of salted per-row hashes.
+
+    Unlike ``planner.structure_signature`` (a whole-array CRC that any
+    change recomputes from scratch), this form updates in O(changed rows):
+    ``new = old ^ H(old changed rows) ^ H(new changed rows)``.  Equal
+    signatures => equal sparsity structure (up to hash collision).
+    """
+    acc = 0
+    for i in range(x.shape[0]):
+        s, e = x.indptr[i], x.indptr[i + 1]
+        acc ^= _row_sig(i, x.indices[s:e])
+    return ("icsr", x.shape, x.nnz, acc)
+
+
+def _rows_ascending(x: CSR) -> bool:
+    """True when every row's columns are non-decreasing (the layout
+    ``csr_from_coo`` builds): the columns may fall only where a row
+    starts."""
+    falls = np.flatnonzero(x.indices[1:] < x.indices[:-1]) + 1
+    return bool(np.isin(falls, x.indptr).all())
+
+
+def apply_csr_delta(a: CSR, delta: CSRDelta,
+                    old_signature: Optional[tuple] = None) -> DeltaResult:
+    """Apply an edge batch functionally: a new CSR with the unchanged rows'
+    entries, the changed-row set, and the delta signature updated
+    incrementally from ``old_signature`` (recomputed when absent).
+
+    The result's arrays are ``csr_from_coo``'s (rows sorted by column).
+    When ``a``'s rows already are, the changed rows are spliced into a copy
+    of ``a`` in O(nnz) instead of re-sorting every entry.
+    """
+    m, n = a.shape
+    if len(delta) and (delta.rows.min() < 0 or delta.rows.max() >= m
+                       or delta.cols.min() < 0 or delta.cols.max() >= n):
+        raise ValueError(f"delta coordinates outside shape {a.shape}")
+    changed = delta.changed_rows
+    if old_signature is not None and old_signature[:2] != ("icsr", a.shape):
+        raise ValueError("old_signature does not match the operand")
+
+    # per changed row: fold the record stream into the existing entries
+    new_cols: dict = {}
+    new_vals: dict = {}
+    values_only = True
+    for r in changed:
+        cols0, vals0 = a.row(int(r))
+        entries = dict(zip(cols0.tolist(), vals0.tolist()))
+        sel = delta.rows == r
+        for c, v, dele in zip(delta.cols[sel].tolist(),
+                              delta.vals[sel].tolist(),
+                              delta.delete[sel].tolist()):
+            if dele:
+                entries.pop(c, None)
+            else:
+                entries[c] = v
+        cols1 = np.fromiter(sorted(entries), dtype=np.int64,
+                            count=len(entries))
+        new_cols[int(r)] = cols1
+        new_vals[int(r)] = np.array([entries[c] for c in cols1],
+                                    dtype=a.data.dtype)
+        if values_only and not np.array_equal(cols0, cols1):
+            values_only = False
+
+    if _rows_ascending(a):
+        counts = np.diff(a.indptr)
+        counts[changed] = [len(new_cols[int(r)]) for r in changed]
+        indptr = np.zeros(m + 1, np.int64)
+        np.cumsum(counts, out=indptr[1:])
+        indices = np.empty(int(indptr[-1]), np.int64)
+        data = np.empty(int(indptr[-1]), a.data.dtype)
+        # the unchanged rows in runs between changed rows, then each
+        # changed row
+        for r0, r1 in zip(np.concatenate([[0], changed + 1]),
+                          np.concatenate([changed, [m]])):
+            s0, e0, s1 = a.indptr[r0], a.indptr[r1], indptr[r0]
+            indices[s1:s1 + e0 - s0] = a.indices[s0:e0]
+            data[s1:s1 + e0 - s0] = a.data[s0:e0]
+        for r in changed:
+            s, e = indptr[r], indptr[r + 1]
+            indices[s:e] = new_cols[int(r)]
+            data[s:e] = new_vals[int(r)]
+        out = CSR(indptr, indices, data, a.shape)
+    else:
+        er = _expand_rows(a.indptr)
+        touched = np.zeros(m, bool)
+        touched[changed] = True
+        keep = ~touched[er]
+        all_rows = np.concatenate(
+            [er[keep]] + [np.full(len(new_cols[int(r)]), r, np.int64)
+                          for r in changed])
+        all_cols = np.concatenate(
+            [a.indices[keep]] + [new_cols[int(r)] for r in changed])
+        all_vals = np.concatenate(
+            [a.data[keep]] + [new_vals[int(r)] for r in changed])
+        out = csr_from_coo(all_rows, all_cols, all_vals, a.shape,
+                           sum_dups=False)
+        out.data = out.data.astype(a.data.dtype, copy=False)
+
+    if old_signature is not None:
+        acc = old_signature[3]
+        for r in changed:
+            acc ^= _row_sig(int(r), a.row(int(r))[0])
+            acc ^= _row_sig(int(r), new_cols[int(r)])
+        sig = ("icsr", a.shape, out.nnz, acc)
+    else:
+        sig = incremental_signature(out)
+    return DeltaResult(csr=out, changed_rows=changed,
+                       values_only=values_only, signature=sig)
 
 
 def _canonical_dtype(dtype: np.dtype) -> torch.dtype:
@@ -457,6 +652,26 @@ def _bcsr_structure(d: _DeviceCSR, rows: torch.Tensor, bs: int
     ``blocks`` is None), and the position of every entry's block."""
     uniq, inv = _block_keys(d, rows, bs)
     return _bcsr_of_keys(uniq, None, d.shape, bs), inv
+
+
+def bcsr_apply_delta(b: BCSR, new: CSR, changed_rows: np.ndarray) -> BCSR:
+    """Update a BCSR mirror of ``new`` after a delta touching
+    ``changed_rows``, on the device ``b.blocks`` lives on.  The result is
+    ``bcsr_from_csr(new)`` (the reference rebuilds only the affected block
+    rows; on the card one key pass over every entry is faster than
+    splicing the changed block rows into the old blocks).  A
+    structure-only ``b`` (``blocks`` None) stays structure only.
+    """
+    if b.shape != new.shape:
+        raise ValueError("BCSR/CSR shape mismatch")
+    if len(changed_rows) == 0:
+        return b
+    bs = b.block_size
+    if b.blocks is None:
+        d = _upload(new, "cpu", data=False)
+        return _bcsr_structure(d, d.rows(), bs)[0]
+    return bcsr_from_csr(new, bs, dtype=b.blocks.dtype,
+                         device=b.blocks.device)
 
 
 def bcsr_to_csr(a: BCSR, prune_zero: bool = True) -> CSR:

@@ -564,6 +564,100 @@ def plan(A, B, M, *, complement: bool = False,
     return p
 
 
+#: relative drift in nnz / pad widths a revalidation tolerates before
+#: falling back to a cold plan: small deltas move the cost-model inputs a
+#: little, and re-planning inside the band would thrash (delta -> cold
+#: plan -> delta -> cold plan) for exactly the streams the delta path
+#: exists for
+REVALIDATE_HYSTERESIS = 0.25
+
+
+def _within_band(new: float, old: float, band: float) -> bool:
+    lo = old / (1.0 + band)
+    hi = old * (1.0 + band)
+    return lo <= max(new, 1e-12) <= hi if old > 0 else new <= 1
+
+
+def revalidate(old: Plan, A: CSR, B: CSR, M: CSR, *,
+               complement: bool = False,
+               semiring: Semiring = PLUS_TIMES,
+               use_cache: bool = True, device="cuda") -> Tuple[Plan, bool]:
+    """Cheap plan refresh after a delta: ``(plan, survived)``.
+
+    Re-checks the elected kernel's cost-model inputs (pad widths, nnz,
+    tile-gate densities) against the post-delta operands WITHOUT the
+    symbolic probe or a measured trial.  While every input stays inside
+    the ``REVALIDATE_HYSTERESIS`` band and the elected kernel is still
+    ranked within ``TRIAL_RATIO`` of the cheapest, the old plan survives,
+    widths widened to cover the new operands, stamped into the plan cache
+    under the post-delta structure signatures with the same
+    ``cost_model_token()``.  Anything else falls back to a cold ``plan()``
+    (``survived=False``), whose measured trial runs on ``device``.
+    """
+    def cold() -> Tuple[Plan, bool]:
+        obs.event("plan.revalidate", survived=False,
+                  algorithm=old.algorithm)
+        return (plan(A, B, M, complement=complement, semiring=semiring,
+                     use_cache=use_cache, device=device), False)
+
+    if not (isinstance(A, CSR) and isinstance(B, CSR) and isinstance(M, CSR)):
+        return cold()
+    s0 = old.stats
+    if ((s0.m, s0.k, s0.n) != (A.shape[0], A.shape[1], B.shape[1])
+            or s0.complement != complement or s0.semiring != semiring.name):
+        return cold()
+
+    s1 = collect_stats(A, B, M, complement=complement, semiring=semiring,
+                       probe=False)
+    band = REVALIDATE_HYSTERESIS
+    drifted = not all((
+        _within_band(s1.nnz_a, s0.nnz_a, band),
+        _within_band(s1.nnz_b, s0.nnz_b, band),
+        _within_band(s1.nnz_m, s0.nnz_m, band),
+        _within_band(s1.wa, s0.wa, band),
+        _within_band(s1.wb, s0.wb, band),
+        _within_band(s1.wbt, s0.wbt, band),
+        _within_band(s1.pm, s0.pm, band),
+    ))
+    if drifted:
+        return cold()
+
+    # carry the probe estimates forward, scaled by the nnz drift (the only
+    # consumer below is the tile gate's hit-rate test; the row-kernel cost
+    # hooks read widths alone): a re-probe is exactly what this avoids
+    fa = s1.nnz_a / max(1, s0.nnz_a)
+    fb = s1.nnz_b / max(1, s0.nnz_b)
+    fm = s1.nnz_m / max(1, s0.nnz_m)
+    s1 = dataclasses.replace(s1, flops=s0.flops * fa * fb,
+                             out_nnz=s0.out_nnz * fm)
+
+    costs = rank_algorithms(s1)
+    tile_eligible, tile_block = _tile_path(s1)
+    if tile_eligible and s1.flops > 0:
+        costs = tuple(sorted(costs + (("tile", tile_cost(s1, tile_block)),),
+                             key=lambda kv: (kv[1], kv[0])))
+    by_name = dict(costs)
+    if old.algorithm == "tile":
+        if not tile_eligible:
+            return cold()
+    elif (old.algorithm not in by_name
+          or by_name[old.algorithm] > costs[0][1] * TRIAL_RATIO):
+        return cold()
+
+    wb = s1.wbt if old.algorithm == "inner" else s1.wb
+    kept = dataclasses.replace(
+        old, widths=(s1.wa, wb, s1.pm), stats=s1, costs=costs,
+        tile_eligible=tile_eligible,
+        tile_block=tile_block if tile_eligible else old.tile_block)
+    if use_cache:
+        key = (structure_signature(A), structure_signature(B),
+               structure_signature(M), complement, semiring.name,
+               cost_model_token())
+        _cache.put(key, kept)
+    obs.event("plan.revalidate", survived=True, algorithm=kept.algorithm)
+    return kept, True
+
+
 def explain(p: Plan) -> Dict:
     """Why the planner elected what it elected, as one JSON-safe record:
     the elected algorithm, every candidate's modeled cost (ms), the

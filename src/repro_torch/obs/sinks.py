@@ -2,29 +2,27 @@
 
 * :class:`InMemorySink` — a bounded ring for tests and inspection.  O(1)
   emit, oldest spans evicted.
-* :class:`JsonlSpanSink` — rotating JSONL capture: size-capped segments
-  (``path`` → ``path.1`` → … → ``path.N``), each starting with a header
-  line, and seeded ``sample_rate`` shedding.
+* :class:`JsonlSpanSink` — rotating JSONL capture: a thin adapter over
+  ``repro_torch.serving.trace.RotatingTraceSink``, inheriting its
+  size-capped rotation (``path`` → ``path.1`` → … → ``path.N``, each
+  segment starting with a header line) and seeded ``sample_rate``
+  shedding.
 
 Both expose ``emit(record)``; the tracer calls nothing else.
 """
 from __future__ import annotations
 
 import json
-import os
 import threading
 from collections import deque
 from pathlib import Path
 from typing import Dict, List, Optional
 
-import numpy as np
-
 __all__ = ["InMemorySink", "JsonlSpanSink", "load_spans"]
 
-#: header ``kind`` of span capture files
+#: header ``kind`` distinguishing span capture files from the serving
+#: request traces RotatingTraceSink was built for
 SPAN_TRACE_KIND = "repro-span-trace"
-#: header schema version of span capture files
-SCHEMA_VERSION = 1
 
 
 class InMemorySink:
@@ -58,82 +56,44 @@ class InMemorySink:
 class JsonlSpanSink:
     """Rotating JSONL span capture.
 
-    Records append to ``path``; when a segment would exceed ``max_bytes``
-    the files shift ``path`` → ``path.1`` → ... → ``path.N`` (``N =
-    rotate``; the oldest falls off) and a fresh segment opens with its own
-    header.  ``sample_rate`` keeps that fraction of records, decided by a
-    generator seeded with ``seed``, never the wall clock, so two captures
-    of one stream sample the same records.  A record larger than
-    ``max_bytes`` on its own still writes.
+    Delegates the file policy (size-capped segments, rotation, seeded
+    sampling) to ``RotatingTraceSink``, so span capture and request capture
+    behave identically on disk; only the header ``kind`` differs, so the
+    two file families cannot be confused on load.  ``emit`` holds a lock:
+    spans arrive from the submitting threads and the async worker alike.
     """
 
     def __init__(self, path, *, max_bytes: int = 1 << 20, rotate: int = 4,
                  sample_rate: float = 1.0, seed: int = 0,
                  name: str = "spans", meta: Optional[Dict] = None):
-        if max_bytes < 1:
-            raise ValueError(f"max_bytes must be >= 1, got {max_bytes}")
-        if rotate < 1:
-            raise ValueError(f"rotate must be >= 1, got {rotate}")
-        if not 0.0 <= sample_rate <= 1.0:
-            raise ValueError(f"sample_rate must be in [0, 1], "
-                             f"got {sample_rate}")
-        self.path = str(path)
-        self.max_bytes = int(max_bytes)
-        self.rotate = int(rotate)
-        self.sample_rate = float(sample_rate)
-        self._header = json.dumps(
-            {"schema": SCHEMA_VERSION, "kind": SPAN_TRACE_KIND,
-             "name": name, "meta": dict(meta or {})},
-            sort_keys=True) + "\n"
-        self.written = 0        # records persisted (all segments)
-        self.sampled_out = 0    # records dropped by the sampler
-        self._rng = np.random.default_rng(seed)
-        self._f = None
-        self._size = 0
+        # deferred import: obs stays importable without the serving stack
+        from repro_torch.serving.trace import RotatingTraceSink
+        self._sink = RotatingTraceSink(
+            str(path), max_bytes=max_bytes, rotate=rotate,
+            sample_rate=sample_rate, seed=seed, name=name, meta=meta,
+            kind=SPAN_TRACE_KIND)
+        self.path = self._sink.path
         self._lock = threading.Lock()
-        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
-
-    def _open(self) -> None:
-        self._f = open(self.path, "w", encoding="utf-8")
-        self._f.write(self._header)
-        self._size = len(self._header)
-
-    def _shift(self) -> None:
-        self._f.close()
-        self._f = None
-        for i in range(self.rotate, 0, -1):
-            src = self.path if i == 1 else f"{self.path}.{i - 1}"
-            if os.path.exists(src):
-                os.replace(src, f"{self.path}.{i}")
 
     def emit(self, record: Dict) -> None:
         with self._lock:
-            if (self.sample_rate < 1.0
-                    and float(self._rng.random()) >= self.sample_rate):
-                self.sampled_out += 1
-                return
-            if self._f is None:
-                self._open()
-            line = json.dumps(record, sort_keys=True) + "\n"
-            if (self._size + len(line) > self.max_bytes
-                    and self._size > len(self._header)):
-                self._shift()
-                self._open()
-            self._f.write(line)
-            self._size += len(line)
-            self.written += 1
+            self._sink.write(record)
+
+    @property
+    def written(self) -> int:
+        return self._sink.written
+
+    @property
+    def sampled_out(self) -> int:
+        return self._sink.sampled_out
 
     def segments(self) -> List[Path]:
         """Existing segment paths, oldest first (``path.N`` ... ``path``)."""
-        out = [f"{self.path}.{i}" for i in range(self.rotate, 0, -1)]
-        out.append(self.path)
-        return [Path(p) for p in out if os.path.exists(p)]
+        return [Path(p) for p in self._sink.segments()]
 
     def close(self) -> None:
         with self._lock:
-            if self._f is not None:
-                self._f.close()
-                self._f = None
+            self._sink.close()
 
     def __enter__(self) -> "JsonlSpanSink":
         return self

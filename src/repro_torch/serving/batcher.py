@@ -92,6 +92,32 @@ class Batcher:
                 return bucket
         return None
 
+    def rekey(self, old_key: tuple, new_key: tuple,
+              rewrite=None) -> int:
+        """Remap a still-queued bucket onto a new key (the delta path: a
+        delta'd structure whose plan survived revalidation keeps its prior
+        bucket, so pre-delta stragglers and post-delta arrivals flush as
+        ONE batch).  ``rewrite``, when given, is applied to each moved
+        request under the lock; the engine uses it to swap the shared
+        operand references (B/M) onto the post-delta objects so a moved
+        request really is a member of the new bucket.  The caller owns the
+        safety argument: only requests whose payload (per-query A values)
+        stays valid under the new key may be moved.  Returns the number of
+        requests moved (0 when nothing was queued or the keys are equal).
+        """
+        if old_key == new_key:
+            return 0
+        with self._lock:
+            bucket = self._buckets.pop(old_key, None)
+            if bucket is None:
+                return 0
+            for r in bucket:
+                r.key = new_key
+                if rewrite is not None:
+                    rewrite(r)
+            self._buckets.setdefault(new_key, []).extend(bucket)
+            return len(bucket)
+
     def pop_all(self) -> List[List[Request]]:
         """Drain every bucket, oldest-created first."""
         with self._lock:

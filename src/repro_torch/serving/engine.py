@@ -31,37 +31,74 @@ Backpressure: at most ``queue_cap`` requests may be pending.  The async
 engine blocks the submitter until the worker drains; the sync engine
 flushes inline.
 
-Not ported yet (each raises ``NotImplementedError``): the incremental
-delta path (``submit_delta``), trace capture (``recorder=``), the health
-and metrics exposition layer (``expose_port=``, ``monitor=``,
-``health()``) and distributed requests (``mesh=``).
+``submit_delta`` folds edge-delta batches into the served operands
+incrementally: plan revalidation, burst lane patching and row-scoped
+result-cache invalidation instead of a cold restart.  ``recorder=`` (a
+``trace.TraceRecorder``) captures every submit for deterministic replay.
+
+Not ported yet (each raises ``NotImplementedError``): the health and
+metrics exposition layer (``expose_port=``, ``monitor=``, ``health()``)
+and distributed requests (``mesh=``).
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
-from repro_torch import obs
+from repro_torch import caches, obs
 from repro_torch.core import planner
-from repro_torch.core.formats import CSR, tril
+from repro_torch.core.formats import CSR, CSRDelta, apply_csr_delta, tril
 from repro_torch.core.masked_spgemm import (masked_spgemm,
                                             masked_spgemm_batched)
 from repro_torch.core.semiring import PLUS_TIMES, Semiring
 
 from . import burst
 from .batcher import Batcher, Request, merge_planned
-from .cache import ResultCache, content_fingerprint, value_fingerprint
+from .cache import (ResultCache, content_fingerprint, row_bitmap,
+                    value_fingerprint)
 from .clock import SystemClock
 from .metrics import ServeMetrics
+
+#: changed-row scratch for the delta path: incremental signatures memoized
+#: per structure signature, so a chain of deltas updates each signature in
+#: O(changed rows) instead of an O(m) recompute per step;
+#: $REPRO_DELTA_SCRATCH_CAP overrides the capacity
+_delta_scratch = caches.LRUCache("serve-delta-scratch", 64,
+                                 env_var="REPRO_DELTA_SCRATCH_CAP")
+
+#: full row coverage (every ``cache.ROW_BITMAP_BUCKETS`` bucket set): the
+#: tag recorded for operands whose deltas cannot be row-scoped (B: one B
+#: row feeds every output row)
+_FULL_COVERAGE = (1 << 64) - 1
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP.md, Queue 1: "
         f"{item})")
+
+
+@dataclasses.dataclass(frozen=True)
+class DeltaOutcome:
+    """What ``QueryEngine.submit_delta`` did, and the operands to query
+    with from now on."""
+
+    A: CSR
+    B: CSR
+    M: CSR
+    plan: planner.Plan
+    plan_survived: bool          # revalidated in place (no cold re-plan)
+    changed_rows: np.ndarray     # output rows the delta can affect
+    lanes_patched: int           # burst lane columns re-emitted (0 = none)
+    rows_invalidated: int        # affected output rows used to scope eviction
+    entries_evicted: int         # result-cache entries actually evicted
+    rekeyed: int                 # queued requests remapped onto the bucket
+    signatures: Dict[str, tuple]  # per delta'd operand: incremental sig
 
 
 class Ticket:
@@ -127,9 +164,6 @@ class QueryEngine:
             raise ValueError(f"pad_factor must be >= 1, got {pad_factor} "
                              f"(1 disables width merging, it cannot shrink "
                              f"widths)")
-        if recorder is not None:
-            raise _not_ported("trace capture (recorder=)",
-                              "serving/trace.py")
         if expose_port is not None or monitor is not None:
             raise _not_ported("the health and metrics exposition layer "
                               "(expose_port=, monitor=)", "obs/ health layer")
@@ -148,6 +182,9 @@ class QueryEngine:
         #: every time-dependent decision reads this clock; a VirtualClock
         #: here makes the flush schedule a pure function of the submissions
         self.clock = clock if clock is not None else SystemClock()
+        #: trace recorder (``serving.trace.TraceRecorder``): observes every
+        #: submit; None = no capture
+        self.recorder = recorder
         self.metrics = ServeMetrics()
         self._owns_results = result_cache is None
         self.results = (result_cache if result_cache is not None
@@ -228,6 +265,10 @@ class QueryEngine:
             obs.event("serve.submit", trace=trace_id,
                       shape=list(M.shape), complement=complement,
                       algorithm=algorithm, mesh=False)
+        if self.recorder is not None:
+            self.recorder.on_submit(A, B, M, t=submitted_at,
+                                    semiring=semiring, complement=complement,
+                                    algorithm=algorithm, axis=axis)
         key = bkey = None
         if (isinstance(A, CSR) and isinstance(B, CSR)
                 and isinstance(M, CSR)):
@@ -282,9 +323,153 @@ class QueryEngine:
 
         return self.submit(L, L, L, algorithm=algorithm, post=count)
 
-    def submit_delta(self, *args, **kwargs):
-        raise _not_ported("the incremental delta path (submit_delta)",
-                          "the PR 8 delta path")
+    def submit_delta(self, A: CSR, B: CSR, M: CSR, *,
+                     delta_a: Optional[CSRDelta] = None,
+                     delta_b: Optional[CSRDelta] = None,
+                     delta_m: Optional[CSRDelta] = None,
+                     semiring: Semiring = PLUS_TIMES,
+                     complement: bool = False,
+                     algorithm: Optional[str] = None,
+                     rebase_queued: bool = False) -> DeltaOutcome:
+        """Fold edge-delta batches into served operands without restarting
+        the serving state from cold.
+
+        ``A``/``B``/``M`` are the current (pre-delta) operands; each
+        ``delta_*`` is a :class:`repro_torch.core.formats.CSRDelta` (or
+        None).  The engine:
+
+        * applies the deltas (``apply_csr_delta``), maintaining each
+          operand's incremental structure signature in O(changed rows)
+          through a memo keyed by structure signature;
+        * revalidates the operands' plan (``planner.revalidate``): a
+          row-local delta keeps the plan, stamped into the plan cache
+          under the post-delta key, so later ``submit`` calls hit;
+        * patches the burst program's lane columns instead of rebuilding
+          it when the plan survived and a pre-delta program is cached
+          (``burst.patch_program``), and records the lineage so an evicted
+          patch can be re-derived later;
+        * invalidates result-cache entries scoped to the delta'd
+          structures AND the affected row coverage: entries of unrelated
+          structures sharing this engine stay cached;
+        * optionally (``rebase_queued=True``) remaps still-queued requests
+          of the pre-delta bucket onto the post-delta bucket, swapping the
+          shared B/M references so those queries are answered against the
+          post-delta operands (read-your-writes).  Only taken when A's
+          structure is unchanged, so per-query A payloads stay valid under
+          the new bucket key.  Rebased requests drop their result key (it
+          fingerprinted the pre-delta operands).
+
+        Counters land in ``metrics.snapshot()``: ``delta_applied``,
+        ``plans_revalidated``, ``lanes_patched``, ``rows_invalidated``.
+        Returns a :class:`DeltaOutcome`; query with its ``A``/``B``/``M``
+        from now on.
+        """
+        if not (isinstance(A, CSR) and isinstance(B, CSR)
+                and isinstance(M, CSR)):
+            raise TypeError("submit_delta requires host-CSR operands")
+        if delta_a is None and delta_b is None and delta_m is None:
+            raise ValueError("submit_delta needs at least one delta")
+        old_ops = {"A": A, "B": B, "M": M}
+        deltas = {"A": delta_a, "B": delta_b, "M": delta_m}
+        sig_old = {k: planner.structure_signature(v)
+                   for k, v in old_ops.items()}
+        new_ops = dict(old_ops)
+        signatures: Dict[str, tuple] = {}
+        changed: Dict[str, np.ndarray] = {}
+        values_only = {"A": True, "B": True, "M": True}
+        applied = 0
+        with obs.span("delta.apply") as sp:
+            for name in ("A", "B", "M"):
+                d = deltas[name]
+                if d is None:
+                    changed[name] = np.zeros(0, np.int64)
+                    continue
+                isig = _delta_scratch.get(("isig", sig_old[name]))
+                res = apply_csr_delta(old_ops[name], d, old_signature=isig)
+                new_ops[name] = res.csr
+                changed[name] = res.changed_rows
+                values_only[name] = res.values_only
+                signatures[name] = res.signature
+                _delta_scratch.put(
+                    ("isig", planner.structure_signature(res.csr)),
+                    res.signature)
+                applied += 1
+            sp.set(applied=applied)
+        A1, B1, M1 = new_ops["A"], new_ops["B"], new_ops["M"]
+        dev = self.device
+
+        # plan lifecycle: revalidate the pre-delta plan onto the post-delta
+        # operands; a surviving plan is stamped under the post-delta cache
+        # key inside revalidate(), so the serve path's plan() call hits
+        with obs.span("delta.revalidate") as sp:
+            old_plan = planner.plan(A, B, M, complement=complement,
+                                    semiring=semiring, device=dev)
+            new_plan, survived = planner.revalidate(
+                old_plan, A1, B1, M1, complement=complement,
+                semiring=semiring, device=dev)
+            sp.set(survived=survived, algorithm=new_plan.algorithm)
+
+        # burst lifecycle: patch the program's changed lane columns instead
+        # of rebuilding it, when the delta is row-local on A/M and B's
+        # structure is intact (a values-only B change regathers)
+        lanes = 0
+        union = np.union1d(changed["A"], changed["M"]).astype(np.int64)
+        if (survived and algorithm is None and self.use_burst
+                and values_only["B"]
+                and burst.burst_eligible(new_plan.algorithm, complement,
+                                         A1, B1, M1)):
+            with obs.span("delta.lane_patch") as sp:
+                parent = burst.peek_program(A, B, M, semiring,
+                                            old_plan.widths[2], dev)
+                if parent is not None:
+                    prog, lanes = burst.patch_program(
+                        parent, A1, B1, M1, semiring, new_plan.widths[2],
+                        union, dev)
+                    if prog is not None:
+                        burst.record_lineage(A1, B1, M1, semiring,
+                                             new_plan.widths[2], parent,
+                                             union, dev)
+                sp.set(lanes=int(lanes), had_parent=parent is not None)
+
+        # result-cache lifecycle: evict by (structure, row coverage); a B
+        # delta can affect every output row, so it is never row-scoped
+        m_rows = A.shape[0]
+        evicted = 0
+        with obs.span("delta.invalidate") as sp:
+            if delta_a is not None:
+                evicted += self.results.invalidate(
+                    sig_old["A"], row_bitmap(changed["A"], m_rows))
+            if delta_m is not None:
+                evicted += self.results.invalidate(
+                    sig_old["M"], row_bitmap(changed["M"], m_rows))
+            if delta_b is not None:
+                evicted += self.results.invalidate(sig_old["B"], None)
+            sp.set(evicted=int(evicted))
+        rows = int(m_rows if delta_b is not None else len(union))
+        self.metrics.record_delta(applied=applied,
+                                  revalidated=int(survived),
+                                  lanes=int(lanes), rows=rows)
+
+        rekeyed = 0
+        if rebase_queued and survived and values_only["A"]:
+            old_bkey = (sig_old["A"], content_fingerprint(B), sig_old["M"],
+                        semiring.name, complement, algorithm)
+            new_bkey = (sig_old["A"], content_fingerprint(B1),
+                        planner.structure_signature(M1), semiring.name,
+                        complement, algorithm)
+
+            def _rebase(r):
+                r.B = B1
+                r.M = M1
+                r.cache_key = None
+
+            rekeyed = self._batcher.rekey(old_bkey, new_bkey, _rebase)
+
+        return DeltaOutcome(
+            A=A1, B=B1, M=M1, plan=new_plan, plan_survived=survived,
+            changed_rows=union, lanes_patched=int(lanes),
+            rows_invalidated=rows, entries_evicted=int(evicted),
+            rekeyed=int(rekeyed), signatures=signatures)
 
     def serve(self, requests: Sequence[tuple]) -> List:
         """Sync convenience: submit ``(A, B, M)`` (or ``(A, B, M, kwargs)``)
@@ -532,11 +717,23 @@ class QueryEngine:
         # re-check guards the submit->execute window.
         cacheable = self.cache_results and merged_from == 1
         token = planner.cost_model_token() if cacheable else None
+        # scoped-invalidation tags: the entry depends on A and M only where
+        # the mask has entries (a delta confined to mask-empty rows cannot
+        # change the result), and on EVERY row of B (one B row feeds any
+        # output row).  cache_key components [0][0]/[1][0]/[2][0] are the
+        # operands' structure signatures, shared across the bucket.
+        rep = reqs[0]
+        cover = (row_bitmap(np.nonzero(np.diff(rep.M.indptr))[0],
+                            rep.M.shape[0])
+                 if cacheable and rep.cache_key is not None else 0)
         cache_puts = 0
         for r, res in zip(reqs, results):
             if (cacheable and r.cache_key is not None
                     and r.cache_key[-1] == token):
-                self.results.put(r.cache_key, res)
+                self.results.put(r.cache_key, res, tags=(
+                    (r.cache_key[0][0], cover),
+                    (r.cache_key[1][0], _FULL_COVERAGE),
+                    (r.cache_key[2][0], cover)))
                 cache_puts += 1
             # a raising post callback must fail ONLY its own ticket
             try:

@@ -48,6 +48,13 @@ class ServeMetrics:
             self.plan_s = 0.0
             self.exec_s = 0.0
             self.merged_groups = 0
+            # delta-path counters, not in DETERMINISTIC_KEYS: deltas arrive
+            # outside the request stream, so a replay of a request trace is
+            # not held to them
+            self.delta_applied = 0
+            self.plans_revalidated = 0
+            self.lanes_patched = 0
+            self.rows_invalidated = 0
             self._bucket_log: deque = deque(maxlen=BUCKET_LOG_CAPACITY)
             self._latencies: deque = deque(maxlen=LATENCY_RESERVOIR_CAPACITY)
             self._hit_latencies: deque = deque(
@@ -72,6 +79,18 @@ class ServeMetrics:
     def record_failure(self, n: int = 1) -> None:
         with self._lock:
             self.failed += n
+
+    def record_delta(self, *, applied: int = 0, revalidated: int = 0,
+                     lanes: int = 0, rows: int = 0) -> None:
+        """One ``submit_delta`` outcome: ``applied`` operand deltas folded
+        in, ``revalidated`` plans kept without a cold re-plan, ``lanes``
+        burst lane columns re-emitted by a patch (instead of a program
+        rebuild), ``rows`` result-cache row coverage invalidated."""
+        with self._lock:
+            self.delta_applied += applied
+            self.plans_revalidated += revalidated
+            self.lanes_patched += lanes
+            self.rows_invalidated += rows
 
     def record_bucket(self, *, size: int, algorithm: str, route: str,
                       queue_wait_s: float, plan_s: float, exec_s: float,
@@ -141,6 +160,10 @@ class ServeMetrics:
                 "mean_batch": (self.batched_requests / done) if done else 0.0,
                 "max_batch": self.max_batch_seen,
                 "merged_groups": self.merged_groups,
+                "delta_applied": self.delta_applied,
+                "plans_revalidated": self.plans_revalidated,
+                "lanes_patched": self.lanes_patched,
+                "rows_invalidated": self.rows_invalidated,
                 "queue_wait_s": self.queue_wait_s,
                 "plan_s": self.plan_s,
                 "exec_s": self.exec_s,

@@ -2,8 +2,10 @@
 the structural counts), masked_matmul and flash_mask kernels against their
 plain versions, both routes of
 masked_spgemm, the batched driver, the serving engine's burst, batched and
-tile buckets and the graph applications against the same calls on the
-CPU, and the LM forward with the flash kernel against dense attention.  Every test needs a GPU and
+tile buckets, lane patching, ``bcsr_apply_delta`` and scoped invalidation
+(device memory released), the golden trace's replay, and the graph
+applications against the same calls on the CPU, and the LM forward with
+the flash kernel against dense attention.  Every test needs a GPU and
 skips without one.
 
 This file imports neither JAX nor the reference package, so it runs where
@@ -313,6 +315,109 @@ def test_batched_driver_matches_cpu(cuda_device, alg, complement):
     for g, w in zip(got, want):
         assert g.vals.device.type == cuda_device.type
         _same(g, w)
+
+
+def _burst_delta_case():
+    A, B, M = _serving_case("burst")
+    rng = np.random.default_rng(3)
+    rows = rng.choice(A.shape[0], 4, replace=False).astype(np.int64)
+    d = F.CSRDelta.upserts(rows, rng.integers(0, A.shape[1], 4),
+                           rng.uniform(0.5, 1.5, 4).astype(np.float32))
+    return A, B, M, F.apply_csr_delta(A, d)
+
+
+@pytest.mark.parametrize("which", ["A", "M", "B values"])
+def test_patched_program_on_cuda_equals_cold_rebuild(cuda_device, which):
+    """A lane patch on the card: its device tables and results bit for bit
+    a cold rebuild's, the parent's tables untouched."""
+    from repro_torch.core.planner import plan
+    from repro_torch.core.semiring import PLUS_TIMES
+    from repro_torch.serving import burst
+    A, B, M, res = _burst_delta_case()
+    A1, B1, M1, changed = A, B, M, res.changed_rows
+    if which == "A":
+        A1 = res.csr
+    elif which == "M":
+        M1 = F.apply_csr_delta(M, F.CSRDelta.upserts(
+            changed, (changed * 7) % M.shape[1],
+            np.ones(len(changed), np.float32))).csr
+    else:
+        B1 = _revalue(B, 5)
+        changed = np.zeros(0, np.int64)
+    wm = plan(A, B, M, device=cuda_device).widths[2]
+    parent = burst.BurstProgram(A, B, M, PLUS_TIMES, wm, device=cuda_device)
+    assert isinstance(parent._BG, np.ndarray)     # host until patched
+    before = [torch.as_tensor(t).clone() for t in (
+        parent._IA, parent._BV, parent._BG, parent.present,
+        parent.mask_cols)]
+    prog, lanes = parent.patched(A1, B1, M1, changed)
+    assert (lanes > 0) == (which != "B values")
+    cold = burst.BurstProgram(A1, B1, M1, PLUS_TIMES, wm, device=cuda_device)
+    for got, want in ((prog._IA, cold._IA), (prog._BV, cold._BV),
+                      (prog._BG, cold._BG), (prog.present, cold.present),
+                      (prog.mask_cols, cold.mask_cols)):
+        assert got.device.type == cuda_device.type
+        assert torch.equal(got.cpu(), torch.as_tensor(want).cpu())
+    for t, b in zip((parent._IA, parent._BV, parent._BG, parent.present,
+                     parent.mask_cols), before):
+        assert torch.equal(t.cpu(), b.cpu())
+    qs = [_revalue(A1, s) for s in range(3)]
+    for g, w in zip(prog.run(qs), cold.run(qs)):
+        _same(g, w)
+
+
+def test_bcsr_apply_delta_on_cuda_equals_rebuild(cuda_device):
+    x = F.csr_from_dense(F.block_sparse(256, 32, 0.4, 0.9, seed=4))
+    b0 = F.bcsr_from_csr(x, 32, device=cuda_device)
+    rng = np.random.default_rng(6)
+    d = F.CSRDelta(rng.integers(0, 256, 16), rng.integers(0, 256, 16),
+                   rng.integers(1, 5, 16).astype(np.float32),
+                   rng.random(16) < 0.3)
+    res = F.apply_csr_delta(x, d)
+    got = F.bcsr_apply_delta(b0, res.csr, res.changed_rows)
+    want = F.bcsr_from_csr(res.csr, 32, device=cuda_device)
+    assert np.array_equal(got.indptr, want.indptr)
+    assert np.array_equal(got.indices, want.indices)
+    assert got.blocks.device.type == cuda_device.type
+    assert torch.equal(got.blocks, want.blocks)
+
+
+def test_invalidation_releases_device_memory(cuda_device):
+    """An entry evicted by a delta frees its device tensors: the device
+    bytes allocated fall by one result's bytes.  (No burst program, so the
+    delta allocates no patched tables.)"""
+    from repro_torch.serving import QueryEngine
+    A, B, M, res = _burst_delta_case()
+    with QueryEngine(device=cuda_device, use_burst=False) as eng:
+        eng.submit(A, B, M).result()      # warm: the plan
+        eng.results.clear()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(cuda_device)
+        got = eng.submit(_revalue(A, 1), B, M).result()
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (got.vals, got.present, got.mask_cols))
+        del got
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(cuda_device)
+        assert held - base >= nbytes                   # the cached result
+        d = F.CSRDelta.upserts(res.changed_rows, res.changed_rows,
+                               np.ones(len(res.changed_rows), np.float32))
+        out = eng.submit_delta(A, B, M, delta_a=d)
+        assert out.entries_evicted == 1
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated(cuda_device)
+        assert held - after >= nbytes
+
+
+def test_golden_trace_replay_on_cuda_is_deterministic(cuda_device):
+    from repro_torch.serving import Trace, replay_trace
+    from repro_torch.serving.trace import golden_trace_path
+    trace = Trace.load(golden_trace_path())
+    r1 = replay_trace(trace, device=cuda_device)
+    r2 = replay_trace(trace, device=cuda_device, async_mode=True)
+    assert r1.digest == r2.digest and r1.schedule == r2.schedule
+    assert (r1.counters["submitted"], r1.counters["buckets_executed"],
+            r1.counters["result_cache_hits"]) == (48, 22, 7)
 
 
 def test_graph_applications_on_cuda_match_cpu(cuda_device):

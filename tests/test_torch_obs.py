@@ -312,11 +312,16 @@ def test_request_lifecycle_spans_cover_the_pipeline():
     assert execs[0]["attrs"]["regime"] is not None
 
 
-def _lifecycle(module, engine_cls, ops, **kw):
+def _lifecycle(module, engine_cls, ops, delta_cls, **kw):
     """Spans of one request stream: a burst bucket, a tile bucket, a
     complemented single request, a forced-algorithm pair, a failing
-    request and a cache-hit replay."""
+    request and a cache-hit replay, then an edge delta to the burst
+    structure's mask (revalidation, lane patch, scoped invalidation) and a
+    query on the post-delta operands."""
     A, B, M, bA, bB, bM = ops
+    col = next(c for c in range(M.shape[1])
+               if c not in set(M.indices[M.indptr[3]:M.indptr[4]].tolist()))
+    delta = delta_cls.upserts([3], [col], [1.0])
     stream = ([(_revalue(A, s), B, M) for s in range(3)]
               + [(_revalue(bA, s), bB, bM) for s in range(2)]
               + [(A, B, M, {"complement": True}),
@@ -329,6 +334,8 @@ def _lifecycle(module, engine_cls, ops, **kw):
                        for q in stream]
             eng.flush()
             eng.serve(stream[:2])
+            out = eng.submit_delta(A, B, M, delta_m=delta)
+            eng.serve([(_revalue(A, 9), out.B, out.M)])
     for t in tickets[:-1]:
         t.result()
     return tr.sink.spans()
@@ -343,15 +350,24 @@ def test_stream_spans_equal_reference_names_parents_and_order():
     from repro_torch import caches
     caches.clear_all()
     ref_caches.clear_all()
-    got = _lifecycle(obs, QueryEngine, (A, B, M, bA, bB, bM), device=CPU)
+    from repro.core.formats import CSRDelta as RefCSRDelta
+    from repro_torch.core.formats import CSRDelta
+    got = _lifecycle(obs, QueryEngine, (A, B, M, bA, bB, bM), CSRDelta,
+                     device=CPU)
     want = _lifecycle(ref_obs, RefQueryEngine,
-                      tuple(map(ref, (A, B, M, bA, bB, bM))))
+                      tuple(map(ref, (A, B, M, bA, bB, bM))), RefCSRDelta)
 
     def shape(recs):
         return [(r["name"], r["span"], r.get("parent"), r["trace"])
                 for r in recs]
 
     assert shape(got) == shape(want)
+    assert {"delta.apply", "delta.revalidate", "delta.lane_patch",
+            "delta.invalidate", "plan.revalidate", "burst.patch",
+            "cache.invalidate"} <= {r["name"] for r in got}
+    revalidated = [r["attrs"] for r in got if r["name"] == "plan.revalidate"]
+    assert revalidated == [r["attrs"] for r in want
+                           if r["name"] == "plan.revalidate"]
     routes = [r["attrs"]["route"] for r in got if r["name"] == "serve.exec"]
     assert {"burst", "tile", "single", "batched"} <= set(routes)
     assert [r["attrs"].get("route") for r in want

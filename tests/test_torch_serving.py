@@ -387,22 +387,22 @@ def test_engine_rejects_invalid_knobs():
 
 
 def test_unported_features_raise_not_implemented():
-    """The delta path, trace capture, the health/exposition layer and
-    distributed requests are not ported; each says so instead of falling
-    back."""
+    """The health/exposition layer and distributed requests are not
+    ported; each says so instead of falling back, a recording engine's
+    ``mesh=`` requests included."""
+    from repro_torch.serving import TraceRecorder
     A, B, M = POOL[0]
-    for kw in ({"recorder": object()}, {"expose_port": 0},
-               {"monitor": object()}):
+    for kw in ({"expose_port": 0}, {"monitor": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             engine(**kw)
-    with engine() as eng:
-        with pytest.raises(NotImplementedError, match="delta"):
-            eng.submit_delta(A, B, M, delta_a=None)
+    rec = TraceRecorder()
+    with engine(recorder=rec) as eng:
         with pytest.raises(NotImplementedError, match="mesh"):
             eng.submit(A, B, M, mesh=object())
         with pytest.raises(NotImplementedError, match="health"):
             eng.health()
         assert eng.metrics.snapshot()["submitted"] == 0
+    assert rec.events == []
 
 
 def test_engine_defaults_to_cuda():
