@@ -87,14 +87,30 @@ Phases, each printing its own lines:
    flash kernel must launch once per layer) against dense attention, f32
    prefill against teacher-forced decode (the reference's
    decode-consistency property), and ``generate``;
-11. one JSON line with every kernel's numbers, then the result line
+11. tuning (runs after phase 7, on tile-8192's operands): the committed
+   H100 cost profile found in the registry (``tuning.lookup()``, exact)
+   and validated; the probes of ``repro_torch.tuning`` on their smoke
+   grids on the card (the tile probes launch the fused kernel once per
+   call, warm-ups included, and no plain version runs) and ``fit_profile``
+   on them (finite residuals); the planner's elections at tile-8192,
+   tc-rmat14's triangle product, serve-burst-8192's and serve-mixed-8192's
+   structures (small-integer values) under the builtin constants and
+   under the H100 profile: each elected route, its model ms under both,
+   its measured warm ms (median of 3), and where the two elect different
+   routes, their results bit for bit equal; the serving-knob search on
+   the golden trace (smoke grid, winner no slower than the default), the
+   committed H100 knobs loaded under the H100 profile and stale under the
+   builtin constants, which the phase leaves active;
+12. one JSON line with every kernel's numbers, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the result line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -109,6 +125,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import caches, obs  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch import tuning  # noqa: E402
+from repro_torch.core import accumulators as acc  # noqa: E402
 from repro_torch.core import formats as F  # noqa: E402
 from repro_torch.core import planner  # noqa: E402
 from repro_torch.core.masked_spgemm import (  # noqa: E402
@@ -127,6 +145,7 @@ from repro_torch.serve.decode import generate  # noqa: E402
 from repro_torch.core.semiring import PLUS_TIMES  # noqa: E402
 from repro_torch.serving import QueryEngine, burst  # noqa: E402
 from repro_torch.serving import trace as serve_trace  # noqa: E402
+from repro_torch.tuning import autotune, fit, probes  # noqa: E402
 
 #: NVIDIA H100 SXM data sheet: f32 on CUDA cores, bf16 and TF32 on tensor
 #: cores (dense), HBM3 bandwidth
@@ -1450,6 +1469,217 @@ def delta_path(dev, ops) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: planner calibration (repro_torch.tuning) on the card
+# ---------------------------------------------------------------------------
+
+#: a row route whose padded operands and result would exceed this many
+#: bytes is reckoned, not run
+ROW_ROUTE_BYTES_LIMIT = 20e9
+#: timed runs of each elected route (after one warm-up), median kept
+ELECTION_REPS = 3
+
+
+def builtin_profile(dev):
+    """The shipped constants as a profile whose version is the builtin
+    token: activating it restores ``cost_model_token()`` exactly."""
+    snap = tuning.snapshot(name="builtin",
+                           backend=tuning.backend_signature(dev))
+    return dataclasses.replace(snap, version=tuning.BUILTIN_VERSION)
+
+
+def tuning_cells(ops, n: int = SERVE_N, scale: int = RMAT_SCALE) -> dict:
+    """The operands the cells' planners elect on, with small-integer values
+    so that every route's result is exact: tile-8192's, tc-rmat14's
+    triangle product (0/1 data), serve-burst-8192's structure (mixed
+    structure 0) and serve-mixed-8192's other three structures."""
+    g = F.rmat(scale, RMAT_EDGE_FACTOR, seed=scale)
+    L = F.tril(degree_relabel(g), strict=True)
+    cells = {"tile-8192": ops, "tc-rmat14": (L, L, L)}
+    for s, (A, B, M) in enumerate(mixed_structures(n)):
+        name = "serve-burst-8192" if s == 0 else f"serve-mixed-8192 s{s}"
+        cells[name] = (revalue(A, 2 * s, ints=True),
+                       revalue(B, 2 * s + 1, ints=True), M)
+    return cells
+
+
+def route_of(p) -> tuple:
+    return (p.algorithm, p.tile_block if p.algorithm == "tile" else 0)
+
+
+def route_name(route) -> str:
+    return f"tile/{route[1]}" if route[0] == "tile" else route[0]
+
+
+def model_ms(stats, route) -> float:
+    """The live cost model's ms for ``route`` on ``stats``."""
+    alg, bs = route
+    if alg == "tile":
+        return planner.tile_cost(stats, bs)
+    return acc.COST_HOOKS[alg](n=stats.n, wa=stats.wa, wb=stats.wb,
+                               wbt=stats.wbt, pm=stats.pm) * stats.m / 1024
+
+
+def row_route_bytes(stats, alg: str) -> float:
+    """Bytes of a row route's padded operands and result: A (m x wa) and B
+    (k x wb; B^T n x wbt for inner) as f32 values and int32 columns, M's
+    int32 columns and the f32 / bool result (m x pm)."""
+    rows_b, wb = ((stats.n, stats.wbt) if alg == "inner"
+                  else (stats.k, stats.wb))
+    return 8.0 * (stats.m * stats.wa + rows_b * wb) + 9.0 * stats.m * stats.pm
+
+
+def elections(dev, cells: dict, profiles: dict) -> dict:
+    """Per cell: the plan under each profile (a cold ``planner.plan``,
+    measured trial included), each elected route's model ms under every
+    profile and its measured warm ms (median of ``ELECTION_REPS`` host-
+    clock runs ended by a synchronise); where the elections differ, the
+    routes' results must be equal bit for bit.  Restores nothing: the
+    caller activates what it needs next."""
+    out = {}
+    for name, (A, B, M) in cells.items():
+        routes = {}
+        for pname, prof in profiles.items():
+            tuning.activate(prof)
+            planner.clear_plan_cache()
+            p = planner.plan(A, B, M, device=dev)
+            routes[pname] = route_of(p)
+        stats = p.stats
+        distinct = list(dict.fromkeys(routes.values()))
+        model = {}
+        for pname, prof in profiles.items():
+            tuning.activate(prof)
+            model[pname] = {route_name(r): model_ms(stats, r)
+                            for r in distinct}
+        measured, results = {}, {}
+        for r in distinct:
+            if r[0] != "tile" and (
+                    row_route_bytes(stats, r[0]) > ROW_ROUTE_BYTES_LIMIT):
+                print(f"tuning [{CARD}]: {name}: {route_name(r)} would pad "
+                      f"{row_route_bytes(stats, r[0]) / 1e9:.1f} GB (over "
+                      f"{ROW_ROUTE_BYTES_LIMIT / 1e9:.0f}): not run; its "
+                      f"comparison is skipped")
+                measured[route_name(r)] = None
+                continue
+
+            def call(r=r):
+                res = masked_spgemm(A, B, M, algorithm=r[0],
+                                    tile_block=r[1] or None, device=dev)
+                sync(dev)
+                return res
+
+            res = call()
+            times = []
+            for _ in range(ELECTION_REPS):
+                t0 = time.perf_counter()
+                res = call()
+                times.append((time.perf_counter() - t0) * 1e3)
+            measured[route_name(r)] = statistics.median(times)
+            results[r] = res
+        got = list(results.values())
+        for r, other in zip(list(results)[1:], got[1:]):
+            check(torch.equal(got[0].vals, other.vals)
+                  and torch.equal(got[0].present, other.present),
+                  f"{name}: {route_name(r)} equals "
+                  f"{route_name(distinct[0])} bit for bit")
+        for pname in profiles:
+            r = route_name(routes[pname])
+            ms = measured[r]
+            print(f"tuning [{CARD}]: {name} under {pname}: elects {r}; "
+                  "model " + ", ".join(
+                      f"{q} {model[q][r]:.4g}" for q in profiles)
+                  + " ms; measured "
+                  + (f"{ms:.2f} ms" if ms is not None else "not run"))
+        if len(results) > 1:
+            print(f"tuning [{CARD}]: {name}: "
+                  + " and ".join(route_name(r) for r in results)
+                  + " agree bit for bit (values and present)")
+        out[name] = {"elected": {q: route_name(r) for q, r in routes.items()},
+                     "model_ms": model, "measured_ms": measured}
+    return out
+
+
+def tuning_phase(dev, ops) -> dict:
+    """Phase 11: the committed H100 profile from the registry, the probe
+    and fit pipeline on the card (smoke grids), the cells' elections
+    under the builtin constants and the H100 profile, and the serving
+    knobs.  Ends with the builtin constants active again."""
+    check(tuning.active_profile() is None, "the phase starts under the "
+          "shipped constants (no profile active)")
+    builtin = builtin_profile(dev)
+    try:
+        h100, exact = tuning.lookup()
+        check(exact, f"the registry holds a profile for "
+              f"{tuning.backend_signature(dev)} (got {h100.name!r})")
+        h100.validate()
+        print(f"tuning [{CARD}]: registry: {h100.name} version "
+              f"{h100.version}, residuals {h100.residuals}, meta "
+              f"{json.dumps(h100.meta, sort_keys=True)}")
+
+        reset_counts()
+        t0 = time.perf_counter()
+        with count_plain() as plain:
+            ms = probes.run_probes(("row", "tile"), smoke=True, device=dev,
+                                   log=lambda line: None)
+        probe_s = time.perf_counter() - t0
+        launches = kernel.FUSED_LAUNCHES
+        check(launches == probes.tile_calls(smoke=True)
+              and kernel.LAUNCHES == 0,
+              f"the tile probes launched the fused kernel "
+              f"{probes.tile_calls(smoke=True)} times and the values-only "
+              f"one never (got {launches}, {kernel.LAUNCHES})")
+        check(plain.calls == 0, f"no plain version ran (got {plain.calls})")
+        smoke_fit = fit.fit_profile(ms, builtin, families=("row", "tile"),
+                                    name="smoke",
+                                    backend=tuning.backend_signature(dev))
+        check(set(smoke_fit.residuals) == {"row", "tile"}
+              and all(math.isfinite(v) for v in smoke_fit.residuals.values()),
+              f"the smoke fit validates with finite row and tile residuals "
+              f"({smoke_fit.residuals})")
+        print(f"tuning [{CARD}]: smoke probes: {len(ms)} measurements in "
+              f"{probe_s:.2f} s, {launches} fused launches, no plain "
+              f"version; fit residuals {smoke_fit.residuals}, tile cost "
+              f"{smoke_fit.tile_cost}")
+
+        cells = tuning_cells(ops)
+        elected = elections(dev, cells,
+                            {"builtin": builtin, "H100": h100})
+
+        tuning.activate(h100)
+        golden = serve_trace.Trace.load(serve_trace.golden_trace_path())
+        tuned = autotune.autotune(golden, smoke=True, rounds=1, device=dev,
+                                  verbose=False)
+        check(tuned["winner"]["qps"] >= tuned["default"]["qps"],
+              "the knob search's winner is no slower than the default")
+        committed = autotune.load_serving_profile()
+        check(Path(committed["path"]).name == "serving_"
+              + tuning.profile_key(h100.backend) + ".json",
+              f"the registry holds the H100 serving knobs (got "
+              f"{committed['path']})")
+        knobs = autotune.load_serving_knobs()
+        check(knobs == committed["knobs"], "load_serving_knobs() returns "
+              "the committed H100 knobs under the H100 profile")
+        tuning.activate(builtin)
+        try:
+            autotune.load_serving_knobs()
+            stale = False
+        except autotune.ServingProfileError:
+            stale = True
+        check(stale, "under the builtin constants the H100 knobs are stale")
+        print(f"tuning [{CARD}]: knobs: smoke search on the golden trace "
+              f"{tuned['winner']['qps']:.0f} queries/s "
+              f"{tuned['winner']['knobs']} against the default's "
+              f"{tuned['default']['qps']:.0f}; committed H100 knobs "
+              f"{knobs} load under the H100 profile and are stale under "
+              f"the builtin constants")
+    finally:
+        tuning.activate(builtin)
+        planner.clear_plan_cache()
+    return {"launches": launches, "measurements": len(ms),
+            "probe_s": probe_s, "residuals": smoke_fit.residuals,
+            "elections": elected}
+
+
+# ---------------------------------------------------------------------------
 # Phase 8: tile SDDMM (masked_matmul)
 # ---------------------------------------------------------------------------
 
@@ -2070,9 +2300,13 @@ def main() -> int:
     entry["serving"] = serving
     t_delta = time.perf_counter()
     delta = delta_path(dev, ops)
-    del ops
     entry["delta_launches"] = delta["tile"]["launches"]
     entry["delta"] = delta
+    t_tuning = time.perf_counter()
+    tuned = tuning_phase(dev, ops)
+    del ops
+    entry["tuning_launches"] = tuned["launches"]
+    entry["tuning"] = tuned
     t_sddmm = time.perf_counter()
     err = sddmm_vs_plain(dev)
     sddmm = sddmm_path(dev, mask_tiles)
@@ -2085,7 +2319,8 @@ def main() -> int:
     flash_entry["launches"], flash_entry["f32_launches"] = lm_serving(dev)
     t_end = time.perf_counter()
     print(f"phases: spgemm {t_serving - t_start:.1f} s, serving "
-          f"{t_delta - t_serving:.1f} s, delta {t_sddmm - t_delta:.1f} s, "
+          f"{t_delta - t_serving:.1f} s, delta {t_tuning - t_delta:.1f} s, "
+          f"tuning {t_sddmm - t_tuning:.1f} s, "
           f"sddmm {t_flash - t_sddmm:.1f} s, "
           f"flash {t_lm - t_flash:.1f} s, lm {t_end - t_lm:.1f} s")
     print(json.dumps({"kernels": [entry, sddmm, flash_entry]}))

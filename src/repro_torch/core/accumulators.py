@@ -397,8 +397,9 @@ def symbolic_rows(m_cols, a_cols, a_lens, B_cols, B_lens, n: int, kdim: int):
 # Copied unchanged from the reference.  The planner (``planner.py``) ranks
 # the accumulators by evaluating these models on cheap structural
 # statistics; only the *ranking* matters.  Units: estimated milliseconds
-# per 1024 output rows on the host the reference was calibrated on (a CPU);
-# no GPU calibration exists yet.
+# per 1024 output rows on the host the reference was calibrated on (a CPU).
+# A fitted profile (``repro_torch.tuning``) overwrites the constants in
+# place for another backend.
 
 #: Calibration constants — the reference's shipped CPU defaults.  The
 #: planner keys its plan caches on a fingerprint of these tables, so any

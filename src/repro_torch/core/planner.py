@@ -14,8 +14,11 @@ repeated shapes skip re-planning entirely.  ``decide`` ranks algorithms
 with the per-algorithm cost hooks exported by ``accumulators.py``, plus the
 BCSR tile route when the operands' block occupancy makes it eligible.
 
-The cost constants are the reference's, calibrated on a CPU; no GPU
-calibration exists yet, so the elections on a GPU follow the CPU model.
+The shipped cost constants are the reference's, calibrated on a CPU.  A
+profile fitted on another backend (``repro_torch.tuning``; one for the
+H100 is committed under ``results/profiles/``) replaces them through
+``tuning.activate`` or ``$REPRO_TUNE_PROFILE``; nothing activates one by
+default.
 
 When the model ranks two candidates within ``TRIAL_RATIO`` of each other
 the tie is resolved empirically: ``plan()`` times the contenders once on
@@ -74,7 +77,8 @@ TILE_BLOCK_SIZES = (128, 32, 8)
 #: the product for the tile path to stay eligible
 TILE_MIN_HIT_RATE = 0.05
 
-#: tile-route cost model constants (ms), the reference's CPU calibration:
+#: tile-route cost model constants (ms), the reference's CPU calibration
+#: (a fitted profile overwrites them in place):
 #: host covers the bcsr_from_csr scatters + schedule build (per element /
 #: worklist entry), mac the block products of the two replays (values +
 #: structure), gather the per-mask-element result extraction
@@ -82,7 +86,8 @@ TILE_COST = dict(base=3.0, per_host=2.5e-4, per_mac=1.6e-7,
                  per_gather=3.0e-4)
 
 #: distributed cost-model constants (ms), the reference's; part of the
-#: cost-model fingerprint until the distributed planner is ported
+#: cost-model fingerprint and of every profile (the distributed planner
+#: is not ported yet)
 DIST_COST = dict(per_bcast_elem=1.5e-6, per_ring_byte=2.0e-7,
                  stage_base=0.15)
 
@@ -337,6 +342,35 @@ def decide(stats: PlanStats, *, allow_tile: bool = True) -> Plan:
         tile_block=tile_block,
         costs=costs,
         stats=stats)
+
+
+def ring_cost_features(stats: PlanStats, p: int, bs: int
+                       ) -> Tuple[Dict[str, float], Dict[str, float]]:
+    """``(tile_features, comm_features)`` of the reference's sparse-ring
+    model: the ring's cost dots the first with ``TILE_COST`` and the
+    second with ``DIST_COST`` (the calibration fit and the profile's
+    required keys use both; the ring itself is not ported yet).
+
+    The tile part is the tile route's host/mac/gather decomposition with
+    the MACs split ``p`` ways; the comm part is ``p`` stages of the padded
+    value+pattern B slab panel, the last one peeled (``p - 1`` rotations).
+    """
+    m_blocks, b_blocks, pair = _block_counts(stats, bs)
+    worklist = m_blocks * pair + p * m_blocks  # + zero-fills/stage
+    tile_f = _tile_feature_dict(stats, worklist, bs, float(p))
+    slab_bytes = (b_blocks / p) * bs * bs * 4.0 * 2.0
+    comm_f = {"per_ring_byte": slab_bytes * (p - 1),
+              "stage_base": float(p)}
+    return tile_f, comm_f
+
+
+def row_replication_elems(stats: PlanStats, row_alg: str) -> float:
+    """Elements of B the distributed row route replicates to every device:
+    padded B (k x wb) for the row-major kernels, padded B^T (n x wbt) when
+    the elected row kernel is Inner (the fit's ``per_bcast_elem``
+    feature)."""
+    return float(stats.n * stats.wbt if row_alg == "inner"
+                 else stats.k * stats.wb)
 
 
 def ring_block_candidates(m: int, k: int, n: int) -> Tuple[int, ...]:
@@ -778,3 +812,11 @@ def plan_batch(As: Sequence, B, Ms: Sequence, *, complement: bool = False,
     p = decide(stats, allow_tile=allow_tile)
     _cache.put(key, p)
     return p
+
+
+# A fitted calibration profile named by $REPRO_TUNE_PROFILE is installed
+# as soon as the planner exists (this module's tables are the ones it
+# overwrites), so child processes plan under the same fitted constants
+# without code changes.  Errors propagate: a calibration that silently
+# failed to apply would invalidate every measurement made under it.
+tuning_profile.activate_from_env()

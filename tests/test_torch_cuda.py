@@ -4,8 +4,10 @@ plain versions, both routes of
 masked_spgemm, the batched driver, the serving engine's burst, batched and
 tile buckets, lane patching, ``bcsr_apply_delta`` and scoped invalidation
 (device memory released), the golden trace's replay, and the graph
-applications against the same calls on the CPU, and the LM forward with
-the flash kernel against dense attention.  Every test needs a GPU and
+applications against the same calls on the CPU, the calibration probes
+(smoke grids) and auto results under the committed H100 profile against
+the builtin constants, and the LM forward with the flash kernel against
+dense attention.  Every test needs a GPU and
 skips without one.
 
 This file imports neither JAX nor the reference package, so it runs where
@@ -431,6 +433,65 @@ def test_graph_applications_on_cuda_match_cpu(cuda_device):
     bc_cpu, _, _ = betweenness_centrality(g, sources=range(32),
                                           source_chunks=4, device="cpu")
     np.testing.assert_allclose(bc, bc_cpu, rtol=1e-5, atol=1e-5)
+
+
+def test_smoke_probes_on_cuda_fit_and_launch_the_fused_kernel(cuda_device):
+    import math
+    from repro_torch.tuning import fit, probes, snapshot
+    from repro_torch.tuning import backend_signature
+    base = snapshot(name="builtin", backend=backend_signature(cuda_device))
+    kernel.FUSED_LAUNCHES = kernel.LAUNCHES = 0
+    ms = probes.run_probes(("row", "tile"), smoke=True, device=cuda_device,
+                           log=lambda line: None)
+    assert kernel.FUSED_LAUNCHES == probes.tile_calls(smoke=True) == 8
+    assert kernel.LAUNCHES == 0
+    p = fit.fit_profile(ms, base, families=("row", "tile"), name="smoke",
+                        backend=backend_signature(cuda_device))
+    assert set(p.residuals) == {"row", "tile"}
+    assert all(math.isfinite(v) for v in p.residuals.values())
+    assert p.backend["platform"] == "gpu"
+
+
+def int_valued(x, seed):
+    rng = np.random.default_rng(seed)
+    return F.CSR(x.indptr, x.indices,
+                 rng.integers(1, 5, x.nnz).astype(np.float32), x.shape)
+
+
+@pytest.mark.parametrize("kind", ["rmat", "block"])
+def test_auto_results_equal_under_h100_profile_and_builtin(cuda_device,
+                                                           kind):
+    """The committed H100 profile changes which route runs, never what it
+    returns: integer-valued operands, bit for bit."""
+    import dataclasses
+    from repro_torch import tuning
+    from repro_torch.core import planner
+    h100, exact = tuning.lookup()
+    assert exact
+    builtin = dataclasses.replace(
+        tuning.snapshot(name="builtin",
+                        backend=tuning.backend_signature(cuda_device)),
+        version=tuning.BUILTIN_VERSION)
+    if kind == "rmat":
+        g = F.rmat(10, 8, seed=5)
+        A, B, M = int_valued(g, 1), int_valued(g, 2), g
+    else:
+        A, B, M = (F.csr_from_dense(x) for x in (
+            F.block_sparse(1024, 32, 0.3, 0.9, seed=1),
+            F.block_sparse(1024, 32, 0.3, 0.9, seed=2),
+            F.block_sparse(1024, 32, 0.6, 1.0, seed=3, mask=True)))
+    try:
+        tuning.activate(builtin)
+        planner.clear_plan_cache()
+        base = masked_spgemm(A, B, M, device=cuda_device)
+        tuning.activate(h100)
+        planner.clear_plan_cache()
+        other = masked_spgemm(A, B, M, device=cuda_device)
+    finally:
+        tuning.activate(builtin)
+        planner.clear_plan_cache()
+    assert torch.equal(base.vals, other.vals)
+    assert torch.equal(base.present, other.present)
 
 
 @pytest.mark.parametrize("blocks", [(8, 8, 8), (16, 16, 16), (32, 32, 16),
