@@ -101,7 +101,24 @@ Phases, each printing its own lines:
    the golden trace (smoke grid, winner no slower than the default), the
    committed H100 knobs loaded under the H100 profile and stale under the
    builtin constants, which the phase leaves active;
-12. one JSON line with every kernel's numbers, then the result line
+12. health (runs after phase 11, on tile-8192's operands and the
+   committed H100 profile): serve-mixed-8192's 64-query stream served by
+   one engine 11 times plain-traced (``InMemorySink``) and as often under
+   a ``HealthMonitor``, in turns: every ticket bit for bit equal, equal
+   span names, equal ``deterministic_snapshot()``, the monitored share of
+   the time; a monitored engine with ``expose_port=0``: ``/health`` 200
+   after one tile-8192 query (one fused launch, no plain version), 503
+   with the serve-errors reason after 16 hash + complement requests,
+   ``/metrics`` parsed with ``repro_health_status`` 2; a
+   ``DriftDetector(band=8)`` over one-query buckets (no burst, no result
+   cache) of 8 tile-8192 queries and 8 on each serve-mixed-8192 structure
+   under the builtin constants (row and tile flagged, the
+   ``repro_torch.tune --only row,tile`` command), the H100 profile (token
+   changed, statistics reset) and that profile x256 (both families
+   flagged), each run's statistics equal to ``export.residuals`` on its
+   spans and one fused launch per tile query; the residuals of phase 6's
+   async serve-mixed-8192 stream; the builtin constants left active;
+13. one JSON line with every kernel's numbers, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the result line.
@@ -116,6 +133,8 @@ import statistics
 import subprocess
 import sys
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -923,16 +942,23 @@ def serving_burst(dev, n: int = SERVE_N, queries: int = SERVE_QUERIES
             "queries": queries}
 
 
-def serving_mixed(dev, n: int = SERVE_N, queries: int = SERVE_QUERIES
-                  ) -> dict:
-    """A mixed stream in async mode: bench_serve's four structures,
-    shuffled, fresh values per query, ``max_wait_ms=2``."""
+def mixed_stream(n: int, queries: int) -> list:
+    """serve-mixed-8192's stream: ``queries`` draws from bench_serve's four
+    structures (seed 0), fresh values per query."""
     structs = mixed_structures(n)
     rng = np.random.default_rng(0)
     mix = []
     for q in range(queries):
         A, B, M = structs[int(rng.integers(len(structs)))]
         mix.append((revalue(A, 2000 + q), B, M))
+    return mix
+
+
+def serving_mixed(dev, n: int = SERVE_N, queries: int = SERVE_QUERIES
+                  ) -> dict:
+    """A mixed stream in async mode: bench_serve's four structures,
+    shuffled, fresh values per query, ``max_wait_ms=2``."""
+    mix = mixed_stream(n, queries)
     eng = QueryEngine(async_mode=True, max_wait_ms=2.0, max_batch=queries,
                       queue_cap=4 * queries, cache_results=False,
                       device=dev)
@@ -950,7 +976,7 @@ def serving_mixed(dev, n: int = SERVE_N, queries: int = SERVE_QUERIES
     buckets = [f"{row['size']} {row['route']}/{row['algorithm']}"
                for row in log]
     print(f"serving [{CARD}]: mixed async stream {queries} queries over "
-          f"{len(structs)} structures in {stream_ms:.1f} ms (first plans "
+          f"4 structures in {stream_ms:.1f} ms (first plans "
           f"included); buckets: " + ", ".join(buckets) + "; all bitwise")
     del got
     return {"stream_ms": stream_ms, "buckets": buckets}
@@ -1680,6 +1706,362 @@ def tuning_phase(dev, ops) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: health (repro_torch.obs) on the card
+# ---------------------------------------------------------------------------
+
+#: timed pairs of serve-mixed-8192's stream, plain-traced against monitored
+HEALTH_PAIRS = 11
+#: re-emissions of one monitored run's records that time the monitor alone
+EMIT_REPS = 51
+#: requests of the error storm (the serve-errors objective needs 4)
+STORM_REQUESTS = 16
+#: queries of each structure per drift run, the detector's band (the
+#: reference bench's) and the warp of the third run's constants
+DRIFT_QUERIES = 8
+DRIFT_BAND = 8.0
+DRIFT_WARP = 256.0
+
+
+def http_get(url: str):
+    """``(status, body)`` of a GET on the engine's loopback endpoint."""
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def health_overhead(dev, n: int = SERVE_N, queries: int = SERVE_QUERIES,
+                    pairs: int = HEALTH_PAIRS) -> dict:
+    """serve-mixed-8192's stream served by one sync engine ``pairs`` times
+    under an ``InMemorySink`` and as often under a ``HealthMonitor``
+    teeing into one, in turns (which side goes first alternates): results
+    bit for bit equal, equal span names, and a plain-traced and a
+    monitored engine's ``deterministic_snapshot()`` equal.  Then the
+    monitor's own host cost: one monitored run's records emitted again
+    into a fresh sink and into a fresh monitor, ``EMIT_REPS`` times each
+    (the serve's run-to-run spread is wider than that cost)."""
+    stream = mixed_stream(n, queries)
+    kw = dict(max_batch=queries, queue_cap=4 * queries, cache_results=False,
+              device=dev)
+
+    def serve(eng, sink):
+        t0 = time.perf_counter()
+        with obs.tracing(sink):
+            got = eng.serve(stream)
+        sync(dev)
+        return got, (time.perf_counter() - t0) * 1e3
+
+    snaps = []
+    for make in (lambda: obs.InMemorySink(capacity=1 << 16),
+                 lambda: obs.HealthMonitor(
+                     inner=obs.InMemorySink(capacity=1 << 16))):
+        with QueryEngine(**kw) as fresh:
+            serve(fresh, make())
+            snaps.append(fresh.metrics.deterministic_snapshot())
+    check(snaps[0] == snaps[1], "a monitored engine's deterministic_snapshot"
+          "() equals a plain-traced one's")
+    eng = QueryEngine(**kw)
+    want, _ = serve(eng, obs.InMemorySink(capacity=1 << 16))   # warm
+    shares, plain_ms, mon_ms = [], [], []
+    for i in range(pairs):
+        sink = obs.InMemorySink(capacity=1 << 16)
+        mon = obs.HealthMonitor(inner=obs.InMemorySink(capacity=1 << 16))
+        if i % 2 == 0:
+            got_p, t_p = serve(eng, sink)
+            got_m, t_m = serve(eng, mon)
+        else:
+            got_m, t_m = serve(eng, mon)
+            got_p, t_p = serve(eng, sink)
+        check(all(same_result(a, w) and same_result(b, w)
+                  for a, b, w in zip(got_p, got_m, want)),
+              "every ticket bit for bit equal plain-traced and monitored")
+        names_p = [r["name"] for r in sink.spans()]
+        names_m = [r["name"] for r in mon.spans()]
+        check(names_p == names_m and "serve.exec" in names_p,
+              "plain-traced and monitored runs emit the same spans")
+        check(mon.aggregator.window(60).count("serve.exec")
+              == names_m.count("serve.exec"),
+              "the monitor's window saw every exec span")
+        plain_ms.append(t_p)
+        mon_ms.append(t_m)
+        shares.append(t_m / t_p - 1.0)
+    eng.close()
+    q = statistics.quantiles(shares, n=4)
+    med = statistics.median(shares)
+    records = mon.spans()
+    execs = sum(1 for r in records if r["name"] == "serve.exec")
+
+    def emit_ms(make) -> float:
+        times = []
+        for _ in range(EMIT_REPS):
+            target = make()
+            t0 = time.perf_counter()
+            for r in records:
+                target.emit(r)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    sink_ms = emit_ms(lambda: obs.InMemorySink(capacity=1 << 16))
+    monitor_ms = emit_ms(lambda: obs.HealthMonitor(
+        inner=obs.InMemorySink(capacity=1 << 16)))
+    added_ms = monitor_ms - sink_ms
+    added_share = added_ms / statistics.median(plain_ms)
+    print(f"health [{CARD}]: overhead, serve-mixed-8192 ({queries} queries, "
+          f"sync, {pairs} pairs, order alternating): plain-traced "
+          f"{statistics.median(plain_ms):.2f} ms, monitored "
+          f"{statistics.median(mon_ms):.2f} ms (medians); monitored share "
+          f"median {med:+.2%}, quartiles {q[0]:+.2%} / {q[2]:+.2%}, range "
+          f"{min(shares):+.2%} .. {max(shares):+.2%}; spans "
+          f"{len(names_p)} a run, bitwise and span names equal, "
+          f"deterministic_snapshot equal")
+    print(f"health [{CARD}]: overhead, the monitor alone: one run's "
+          f"{len(records)} records ({execs} exec spans) emitted into a sink "
+          f"in {sink_ms * 1e3:.1f} us and into a monitor in "
+          f"{monitor_ms * 1e3:.1f} us (medians of {EMIT_REPS}): "
+          f"{added_ms * 1e3:.1f} us added a serve, {added_share:.3%} of the "
+          f"plain-traced serve")
+    return {"pairs": pairs, "share_median": med, "share_q1": q[0],
+            "share_q3": q[2], "shares": shares,
+            "plain_ms": statistics.median(plain_ms),
+            "monitored_ms": statistics.median(mon_ms),
+            "records": len(records), "exec_records": execs,
+            "emit_sink_ms": sink_ms, "emit_monitor_ms": monitor_ms,
+            "monitor_share": added_share}
+
+
+def health_pressure(dev, ops, n: int = SERVE_N) -> dict:
+    """A monitored engine with ``expose_port=0``: ``/health`` 200 "ok"
+    after one tile-8192 query (one fused launch, no plain version), 503
+    with the serve-errors reason after an error storm of hash +
+    complement requests (``NotImplementedError`` in the port), and
+    ``/metrics`` parsed with ``repro_health_status`` 2 and both windows'
+    burn rates."""
+    A, B, M = ops
+    sA, sB, sM = mixed_structures(n)[1]
+    mon = obs.HealthMonitor()
+    eng = QueryEngine(monitor=mon, expose_port=0, device=dev)
+    try:
+        base = eng.obs_server.url
+        with obs.tracing(mon):
+            reset_counts()
+            with count_plain() as plain:
+                eng.serve([(revalue(A, 0, ints=True), B, M)])
+            launches = kernel.FUSED_LAUNCHES
+            check(launches == 1 and kernel.LAUNCHES == 0 and plain.calls == 0,
+                  f"the tile query launched the fused kernel once and no "
+                  f"plain version ran (got {launches}, {kernel.LAUNCHES}, "
+                  f"{plain.calls})")
+            code, body = http_get(f"{base}/health")
+            healthy = json.loads(body)
+            check(code == 200 and healthy["status"] == "ok"
+                  and healthy["completed"] == 1,
+                  f"/health answers 200 ok after the tile query (got {code} "
+                  f"{body.strip()})")
+            t0 = time.perf_counter()
+            storm = [eng.submit(sA, sB, sM, algorithm="hash",
+                                complement=True)
+                     for _ in range(STORM_REQUESTS)]
+            eng.flush()
+            failures = 0
+            for t in storm:
+                try:
+                    t.result()
+                except NotImplementedError:
+                    failures += 1
+            storm_ms = (time.perf_counter() - t0) * 1e3
+            check(failures == STORM_REQUESTS, f"every storm request failed "
+                  f"with NotImplementedError ({failures})")
+            code, body = http_get(f"{base}/health")
+            failing = json.loads(body)
+            check(code == 503 and failing["status"] == "failing"
+                  and any("serve-errors" in r for r in failing["reasons"]),
+                  f"/health answers 503 failing with the serve-errors reason "
+                  f"(got {code} {body.strip()})")
+            code, text = http_get(f"{base}/metrics")
+            samples = obs.parse_prometheus(text)
+            burn = {w: samples.get(("repro_slo_burn_rate",
+                                    (("slo", "serve-errors"), ("window", w))))
+                    for w in ("short", "long")}
+            check(code == 200
+                  and samples.get(("repro_health_status", ())) == 2.0
+                  and all(v is not None and v >= 2.0 for v in burn.values()),
+                  f"/metrics parses with repro_health_status 2 and both "
+                  f"windows' burn rates (got {code}, "
+                  f"{samples.get(('repro_health_status', ()))}, {burn})")
+    finally:
+        eng.close()
+    check(eng.obs_server is None, "close() stopped the server")
+    print(f"health [{CARD}]: pressure: /health 200 ok after one tile-8192 "
+          f"query (1 fused launch, no plain version), then {failures} "
+          f"hash+complement requests failed in {storm_ms:.1f} ms: /health "
+          f"503 {failing['reasons']}; /metrics {len(samples)} samples, "
+          f"repro_health_status 2, serve-errors burn short "
+          f"{burn['short']:.1f} long {burn['long']:.1f}")
+    return {"launches": launches, "failures": failures, "burn": burn,
+            "metrics_samples": len(samples)}
+
+
+def rebuilt_stats(spans) -> dict:
+    """Per-key (count, mean, ewma) of the log residuals that
+    ``export.residuals`` recomputes from captured spans (burst skipped),
+    folded as the detector folds them."""
+    stats = {}
+    for r in obs.residuals(spans):
+        if r["route"] == "burst":
+            continue
+        key = (obs.drift.family_of(r["algorithm"]), str(r["algorithm"]),
+               str(r["regime"] or "-"))
+        stats.setdefault(key, obs.drift.KernelStats()).update(
+            math.log(r["residual"]))
+    return {k: (v.count, v.mean, v.ewma) for k, v in stats.items()}
+
+
+def warped_profile(prof, factor: float):
+    """``prof`` with every cost constant times ``factor`` (a new token)."""
+    return dataclasses.replace(
+        prof, name=f"{prof.name} x{factor:g}", version="",
+        cost_constants={a: {k: v * factor for k, v in t.items()}
+                        for a, t in prof.cost_constants.items()},
+        tile_cost={k: v * factor for k, v in prof.tile_cost.items()},
+        dist_cost={k: v * factor for k, v in prof.dist_cost.items()})
+
+
+def health_drift(dev, ops, n: int = SERVE_N,
+                 queries: int = DRIFT_QUERIES) -> dict:
+    """One ``DriftDetector(band=8)`` over three runs of an engine with
+    ``max_batch=1, use_burst=False, cache_results=False``, each serving
+    ``queries`` tile-8192 queries and as many on each serve-mixed-8192
+    structure: under the builtin constants (row and tile flagged), the
+    committed H100 profile (token changed, statistics reset) and that
+    profile warped x256 (both families flagged).  Each run: the
+    detector's statistics equal those rebuilt from the spans, one fused
+    launch per tile query and no plain version.  Ends under the builtin
+    constants."""
+    A, B, M = ops
+    structs = [(A, B, M)] + mixed_structures(n)
+    builtin = builtin_profile(dev)
+    h100, exact = tuning.lookup()
+    check(exact, "the registry holds the card's profile")
+    det = obs.DriftDetector(band=DRIFT_BAND)
+    runs = {}
+    try:
+        for label, prof in (("builtin", builtin), ("H100", h100),
+                            (f"H100 x{DRIFT_WARP:g}",
+                             warped_profile(h100, DRIFT_WARP))):
+            tuning.activate(prof)
+            planner.clear_plan_cache()
+            before = det.token
+            inner = obs.InMemorySink(capacity=1 << 16)
+            mon = obs.HealthMonitor(drift=det, inner=inner)
+            eng = QueryEngine(max_batch=1, use_burst=False,
+                              cache_results=False, monitor=mon, device=dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            with count_plain() as plain, obs.tracing(mon):
+                for q in range(queries):
+                    for a, b, m in structs:
+                        eng.submit(revalue(a, 3000 + q, ints=True), b,
+                                   m).result()
+            run_s = time.perf_counter() - t0
+            eng.close()
+            check(kernel.FUSED_LAUNCHES == queries and kernel.LAUNCHES == 0
+                  and plain.calls == 0, f"{label}: the tile queries launched "
+                  f"the fused kernel once each and no plain version ran (got "
+                  f"{kernel.FUSED_LAUNCHES}, {kernel.LAUNCHES}, "
+                  f"{plain.calls})")
+            check(det.token == planner.cost_model_token()
+                  and (label == "builtin" or det.token != before),
+                  f"{label}: the detector follows the cost model's token "
+                  f"({before} -> {det.token})")
+            got = {k: (v.count, v.mean, v.ewma)
+                   for k, v in det.stats().items()}
+            check(got == rebuilt_stats(inner.spans()),
+                  f"{label}: the detector's residuals equal "
+                  f"export.residuals on the captured spans")
+            check(sum(c for c, _, _ in got.values())
+                  == queries * len(structs),
+                  f"{label}: the statistics hold this run's "
+                  f"{queries * len(structs)} queries only (reset)")
+            rep = det.report()
+            flagged = {(f.family, f.algorithm, f.regime) for f in rep.flags}
+            for key, st in det.snapshot().items():
+                mark = (" FLAGGED" if (st["family"], st["algorithm"],
+                                       st["regime"]) in flagged else "")
+                print(f"health [{CARD}]: drift under {label} ({det.token}): "
+                      f"{key}: ewma residual {st['ewma_residual']:.4g}, mean "
+                      f"{st['mean_residual']:.4g}, log stddev "
+                      f"{st['log_stddev']:.3f}, count {st['count']}{mark}")
+            print(f"health [{CARD}]: drift under {label}: "
+                  f"{len(rep.flags)} flags, families {list(rep.families)}, "
+                  f"{rep.command or 'no command'}; {run_s:.1f} s")
+            if label == "builtin":
+                check(rep.families == ("row", "tile")
+                      and "python -m repro_torch.tune --only row,tile"
+                      in rep.command, f"builtin: row and tile flagged with "
+                      f"the port's tune command (got {rep.families}, "
+                      f"{rep.command!r})")
+            elif label != "H100":
+                check(rep.families == ("row", "tile")
+                      and {k[0] for k in got} == {"row", "tile"},
+                      f"{label}: every family served is flagged (got "
+                      f"{rep.families})")
+            runs[label] = {"token": det.token, "families": rep.families,
+                           "flags": len(rep.flags), "stats": det.snapshot(),
+                           "launches": kernel.FUSED_LAUNCHES}
+    finally:
+        tuning.activate(builtin)
+        planner.clear_plan_cache()
+    check(planner.cost_model_token() == runs["builtin"]["token"],
+          "the builtin constants are active again")
+    return runs
+
+
+def health_async_residuals(dev, n: int = SERVE_N,
+                           queries: int = SERVE_QUERIES) -> dict:
+    """serve-mixed-8192's async stream (as phase 6 serves it) under a
+    monitor: the residuals of its exec spans, one line each."""
+    stream = mixed_stream(n, queries)
+    det = obs.DriftDetector(band=DRIFT_BAND)
+    inner = obs.InMemorySink(capacity=1 << 16)
+    mon = obs.HealthMonitor(drift=det, inner=inner)
+    eng = QueryEngine(async_mode=True, max_wait_ms=2.0, max_batch=queries,
+                      queue_cap=4 * queries, cache_results=False,
+                      monitor=mon, device=dev)
+    with obs.tracing(mon):
+        tickets = [eng.submit(*q) for q in stream]
+        got = [t.result(timeout=600) for t in tickets]
+    eng.close()
+    check(len(got) == queries, "the async stream served every query")
+    rows = obs.residuals(inner.spans())
+    for r in rows:
+        print(f"health [{CARD}]: async serve-mixed-8192 under the builtin "
+              f"constants: {r['route']}/{r['algorithm']} size {r['size']} "
+              f"regime {r['regime']}: measured {r['measured_ms']:.3f} ms, "
+              f"modeled {r['modeled_ms']:.4g} ms a query, residual "
+              f"{r['residual']:.4g}"
+              + (" (burst: not folded)" if r["route"] == "burst" else ""))
+    print(f"health [{CARD}]: async serve-mixed-8192: {len(rows)} exec spans "
+          f"with a modeled cost, {len(det.flags())} drift flags")
+    return {"residuals": [{k: r[k] for k in ("route", "algorithm", "size",
+                                             "regime", "residual")}
+                          for r in rows]}
+
+
+def health_phase(dev, ops) -> dict:
+    """Phase 12: the monitor's overhead on serve-mixed-8192, the error
+    storm behind /health and /metrics, drift under the builtin, H100 and
+    warped constants, and an async stream's residuals."""
+    out = {"overhead": health_overhead(dev),
+           "pressure": health_pressure(dev, ops),
+           "drift": health_drift(dev, ops),
+           "async": health_async_residuals(dev)}
+    out["launches"] = out["pressure"]["launches"] + sum(
+        run["launches"] for run in out["drift"].values())
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 8: tile SDDMM (masked_matmul)
 # ---------------------------------------------------------------------------
 
@@ -2304,9 +2686,13 @@ def main() -> int:
     entry["delta"] = delta
     t_tuning = time.perf_counter()
     tuned = tuning_phase(dev, ops)
-    del ops
     entry["tuning_launches"] = tuned["launches"]
     entry["tuning"] = tuned
+    t_health = time.perf_counter()
+    healthy = health_phase(dev, ops)
+    del ops
+    entry["health_launches"] = healthy["launches"]
+    entry["health"] = {k: healthy[k] for k in ("overhead", "pressure")}
     t_sddmm = time.perf_counter()
     err = sddmm_vs_plain(dev)
     sddmm = sddmm_path(dev, mask_tiles)
@@ -2320,7 +2706,8 @@ def main() -> int:
     t_end = time.perf_counter()
     print(f"phases: spgemm {t_serving - t_start:.1f} s, serving "
           f"{t_delta - t_serving:.1f} s, delta {t_tuning - t_delta:.1f} s, "
-          f"tuning {t_sddmm - t_tuning:.1f} s, "
+          f"tuning {t_health - t_tuning:.1f} s, "
+          f"health {t_sddmm - t_health:.1f} s, "
           f"sddmm {t_flash - t_sddmm:.1f} s, "
           f"flash {t_lm - t_flash:.1f} s, lm {t_end - t_lm:.1f} s")
     print(json.dumps({"kernels": [entry, sddmm, flash_entry]}))

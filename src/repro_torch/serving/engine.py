@@ -36,9 +36,13 @@ incrementally: plan revalidation, burst lane patching and row-scoped
 result-cache invalidation instead of a cold restart.  ``recorder=`` (a
 ``trace.TraceRecorder``) captures every submit for deterministic replay.
 
-Not ported yet (each raises ``NotImplementedError``): the health and
-metrics exposition layer (``expose_port=``, ``monitor=``, ``health()``)
-and distributed requests (``mesh=``).
+Health: ``monitor=`` (a ``repro_torch.obs.HealthMonitor``) folds the span
+stream into SLO burn rates and cost-model drift, and ``health()`` returns
+its verdict; ``expose_port=`` serves ``/metrics`` and ``/health`` from a
+daemon HTTP thread that reads host state only.
+
+Not ported yet (raises ``NotImplementedError``): distributed requests
+(``mesh=``).
 """
 from __future__ import annotations
 
@@ -164,9 +168,6 @@ class QueryEngine:
             raise ValueError(f"pad_factor must be >= 1, got {pad_factor} "
                              f"(1 disables width merging, it cannot shrink "
                              f"widths)")
-        if expose_port is not None or monitor is not None:
-            raise _not_ported("the health and metrics exposition layer "
-                              "(expose_port=, monitor=)", "obs/ health layer")
         self.device = torch.device(device)
         if (self.device.type == "cuda" and self.device.index is None
                 and torch.cuda.is_available()):
@@ -185,6 +186,12 @@ class QueryEngine:
         #: trace recorder (``serving.trace.TraceRecorder``): observes every
         #: submit; None = no capture
         self.recorder = recorder
+        #: health intelligence (``repro_torch.obs.health.HealthMonitor``):
+        #: ``health()`` consults it and the exposition renders its
+        #: repro_slo_* / repro_drift_* families.  The monitor only SEES
+        #: spans while it is (or tees behind) the active tracing sink:
+        #: ``with obs.tracing(monitor): ...``
+        self.monitor = monitor
         self.metrics = ServeMetrics()
         self._owns_results = result_cache is None
         self.results = (result_cache if result_cache is not None
@@ -208,13 +215,25 @@ class QueryEngine:
                                             name="repro-torch-serve-worker",
                                             daemon=True)
             self._worker.start()
+        #: /metrics + /health exposition (``repro_torch.obs.serve``); port
+        #: 0 binds an ephemeral port: read ``engine.obs_server.port``
+        self.obs_server = None
+        if expose_port is not None:
+            from repro_torch.obs.serve import start_server
+            self.obs_server = start_server(self, port=expose_port)
 
     # -- lifecycle ----------------------------------------------------------
 
     def close(self) -> None:
-        """Drain outstanding work, stop the worker, and drop the engine's
-        own result cache from the process registry."""
+        """Shut the exposition down, drain outstanding work, stop the
+        worker, and drop the engine's own result cache from the process
+        registry."""
+        if self.obs_server is not None:
+            self.obs_server.close()
+            self.obs_server = None
         self.flush()
+        # a sync engine has no worker to stop, but a closed engine must
+        # still read as stopped (basic_verdict and /health key off it)
         with self._space:
             self._stop = True
             self._space.notify_all()
@@ -232,7 +251,16 @@ class QueryEngine:
         self.close()
 
     def health(self):
-        raise _not_ported("health()", "obs/ health layer")
+        """This engine's :class:`repro_torch.obs.health.HealthVerdict`.
+
+        With a :class:`~repro_torch.obs.health.HealthMonitor` attached the
+        verdict folds liveness, every SLO's multi-window burn rate and
+        cost-model drift; without one it is liveness only.  ``/health``
+        serves exactly this (503 while ``failing``)."""
+        from repro_torch.obs.health import basic_verdict
+        if self.monitor is not None:
+            return self.monitor.verdict(engine=self)
+        return basic_verdict(self)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -253,7 +281,7 @@ class QueryEngine:
         """
         if mesh is not None:
             raise _not_ported("distributed serving (mesh=)",
-                              "core/distributed.py")
+                              "item 8, core/distributed.py")
         ticket = Ticket(self)
         self.metrics.record_submit()
         submitted_at = self.clock.now()

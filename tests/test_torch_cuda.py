@@ -6,9 +6,10 @@ tile buckets, lane patching, ``bcsr_apply_delta`` and scoped invalidation
 (device memory released), the golden trace's replay, and the graph
 applications against the same calls on the CPU, the calibration probes
 (smoke grids) and auto results under the committed H100 profile against
-the builtin constants, and the LM forward with the flash kernel against
-dense attention.  Every test needs a GPU and
-skips without one.
+the builtin constants, the LM forward with the flash kernel against
+dense attention, and a monitored engine's ``/metrics`` and ``/health``
+answering while its async worker launches the fused kernel.  Every test
+needs a GPU and skips without one.
 
 This file imports neither JAX nor the reference package, so it runs where
 only PyTorch is installed:
@@ -646,3 +647,51 @@ def test_lm_forward_flash_matches_dense(cuda_device):
     want = T.forward(model, cfg.replace(attn_impl="dense_masked"),
                      {"tokens": tokens})
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_monitored_engine_answers_while_the_async_worker_serves(cuda_device):
+    """A monitored async engine on the card serving tile queries
+    (tile-8192's generator, block 128, at n = 2048): ``/metrics`` and
+    ``/health`` answer while the worker launches the fused kernel, every
+    scrape parses and its completed count never runs backwards, every
+    query launches the fused kernel once and equals its one-shot call."""
+    import json
+    import urllib.request
+
+    from repro_torch import obs
+    from repro_torch.serving import QueryEngine
+    mats = [F.block_sparse(2048, 128, 0.3, 0.9, seed=s) for s in (1, 2)]
+    mats.append(F.block_sparse(2048, 128, 0.6, 1.0, seed=3, mask=True))
+    A, B, M = (F.csr_from_dense(x) for x in mats)
+    qs = [(_revalue(A, s, ints=True), B, M) for s in range(8)]
+    mon = obs.HealthMonitor(inner=obs.InMemorySink(capacity=4096))
+    scrapes = []
+    before = kernel.FUSED_LAUNCHES
+    with QueryEngine(device=cuda_device, async_mode=True, max_batch=2,
+                     max_wait_ms=1.0, cache_results=False, monitor=mon,
+                     expose_port=0) as eng:
+        base = eng.obs_server.url
+        with obs.tracing(mon):
+            tickets = [eng.submit(*q) for q in qs]
+            while not all(t.done() for t in tickets) or len(scrapes) < 2:
+                with urllib.request.urlopen(f"{base}/metrics",
+                                            timeout=30) as r:
+                    samples = obs.parse_prometheus(r.read().decode())
+                with urllib.request.urlopen(f"{base}/health",
+                                            timeout=30) as r:
+                    status = (r.status, json.loads(r.read())["status"])
+                scrapes.append(
+                    (samples[("repro_serve_completed_total", ())], status))
+            got = [t.result(timeout=120) for t in tickets]
+        launches = kernel.FUSED_LAUNCHES - before
+        assert eng.health().status in ("ok", "degraded")
+    assert launches == len(qs)
+    counts = [c for c, _ in scrapes]
+    assert counts == sorted(counts) and counts[-1] <= len(qs)
+    assert all(code == 200 and s in ("ok", "degraded")
+               for _, (code, s) in scrapes)
+    execs = [r for r in mon.spans() if r["name"] == "serve.exec"]
+    assert {r["attrs"]["route"] for r in execs} == {"tile"}
+    assert sum(r["attrs"]["size"] for r in execs) == len(qs)
+    for q, g in zip(qs, got):
+        _same(g, masked_spgemm(*q, device=cuda_device))

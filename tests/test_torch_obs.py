@@ -1,7 +1,8 @@
 """Port parity for the span layer: ``repro_torch.obs`` spans and sinks,
-``planner.explain`` / ``explain_cached`` / ``feature_regime``, and the
-spans of the serving path, against the reference's ``repro.obs`` and
-``tests/test_obs.py``.
+``planner.explain`` / ``explain_cached`` / ``feature_regime``, the spans
+of the serving path, the Chrome-trace and residual exports, the
+Prometheus exposition and the ``/metrics`` / ``/health`` endpoint,
+against the reference's ``repro.obs`` and ``tests/test_obs.py``.
 
 The contracts: span sites cost one branch when tracing is off and never
 feed scheduling (a traced engine gives the same
@@ -429,3 +430,252 @@ def test_engine_records_hit_latency():
     assert snap["result_cache_hits"] == 1
     assert snap["hit_lat_count"] == 1
     assert snap["lat_count"] == snap["miss_lat_count"] + 1
+
+
+# ---------------------------------------------------------------------------
+# export: Chrome trace events and modeled-vs-measured residuals
+# ---------------------------------------------------------------------------
+
+
+def _captured():
+    """One capture with slices, nesting, an error, a counter track and
+    exec spans with and without a modeled cost."""
+    with obs.tracing() as tr:
+        with obs.span("serve.exec", algorithm="msa", route="row",
+                      modeled_ms=1.0, size=2):
+            obs.event("spgemm.row", dur_s=1e-3)
+            obs.counter("serve.inflight", 2.5)
+        obs.event("serve.exec", dur_s=4e-3, algorithm="tile", route="tile",
+                  modeled_ms=2.0, regime="r")
+        obs.event("serve.exec", dur_s=1e-3, route="burst")      # no model
+        obs.counter("serve.queue_depth", 3)
+        with pytest.raises(ValueError):
+            with obs.span("boom", obj=object()):
+                raise ValueError("x")
+    return tr.sink.spans()
+
+
+def test_chrome_trace_export_equals_reference():
+    spans = _captured()
+    doc = obs.chrome_trace(spans)
+    assert doc == ref_obs.chrome_trace(spans)
+    evs = doc["traceEvents"]
+    assert {e["ph"] for e in evs} == {"X", "C"}
+    by_name = {e["name"]: e for e in evs if e["ph"] == "X"}
+    assert by_name["spgemm.row"]["dur"] == pytest.approx(1e3)
+    assert by_name["serve.exec"]["cat"] == "serve"
+    assert by_name["boom"]["args"]["error"] == "ValueError"
+    assert min(e["ts"] for e in evs) == 0.0
+    counters = {e["name"]: e for e in evs if e["ph"] == "C"}
+    assert counters["serve.queue_depth"]["args"] == {"value": 3.0}
+    assert all("dur" not in e for e in counters.values())
+    json.dumps(doc)
+    assert obs.chrome_trace([]) == {"traceEvents": [],
+                                    "displayTimeUnit": "ms"}
+
+
+def test_save_chrome_trace_writes_loadable_json(tmp_path):
+    spans = _captured()
+    p = tmp_path / "trace.json"
+    obs.save_chrome_trace(str(p), spans)
+    assert json.load(open(p)) == json.loads(json.dumps(
+        ref_obs.chrome_trace(spans)))
+
+
+def test_residuals_equal_reference():
+    spans = _captured()
+    rows = obs.residuals(spans)
+    assert rows == ref_obs.residuals(spans)
+    assert [r["algorithm"] for r in rows] == ["msa", "tile"]
+    assert rows[1]["residual"] == pytest.approx(2.0)
+    assert rows[0]["size"] == 2
+    summary = obs.export.residual_summary(spans)
+    assert summary == ref_obs.export.residual_summary(spans)
+    assert set(summary) == {"msa", "tile"}
+
+
+@pytest.mark.parametrize("records", [
+    [], None,
+    [{"name": "serve.exec", "dur": 0.01},
+     {"name": "serve.queue_wait", "dur": 0.0},
+     {"name": "serve.exec", "counter": 1.0}]])
+def test_residuals_tolerate_empty_and_planless_captures(records):
+    assert obs.residuals(records) == []
+    assert obs.export.residual_summary(records) == {}
+
+
+@pytest.mark.parametrize("rec, residual", [
+    ({"name": "serve.exec", "dur": 4e-3,
+      "attrs": {"modeled_ms": 2.0, "size": 2, "algorithm": "msa",
+                "route": "batched", "regime": "r"}}, 1.0),
+    ({"name": "other", "dur": 1.0}, None),
+    ({"name": "serve.exec", "counter": 2.0}, None),
+    ({"name": "serve.exec", "dur": 1.0, "attrs": {"modeled_ms": "x"}}, None),
+    ({"name": "serve.exec", "dur": 1.0, "attrs": {"modeled_ms": 0.0}}, None),
+    ({"name": "serve.exec", "dur": 1.0,                # size 0 counts 1
+      "attrs": {"modeled_ms": 1.0, "size": 0}}, 1000.0),
+    ("not a record", None)])
+def test_residual_record_filters_and_normalizes(rec, residual):
+    from repro.obs.export import residual_record as ref_residual_record
+    from repro_torch.obs.export import residual_record
+    r = residual_record(rec)
+    assert r == ref_residual_record(rec)
+    if residual is None:
+        assert r is None
+    else:
+        assert r["residual"] == pytest.approx(residual)
+
+
+# ---------------------------------------------------------------------------
+# exposition and the HTTP endpoint
+# ---------------------------------------------------------------------------
+
+
+def test_render_parse_roundtrip_with_histograms():
+    from repro_torch.obs.exposition import HISTOGRAM_BUCKETS
+    with obs.tracing():
+        obs.event("serve.exec", dur_s=5e-4)
+        obs.event("serve.exec", dur_s=2e-2)
+        text = obs.render_prometheus()
+    samples = obs.parse_prometheus(text)
+    assert samples == ref_obs.parse_prometheus(text)
+    name = "repro_span_duration_seconds"
+    count = samples[(f"{name}_count", (("phase", "serve.exec"),))]
+    total = samples[(f"{name}_sum", (("phase", "serve.exec"),))]
+    inf = samples[(f"{name}_bucket",
+                   (("le", "+Inf"), ("phase", "serve.exec")))]
+    assert count == inf == 2.0
+    assert total == pytest.approx(5e-4 + 2e-2)
+    counts = [samples[(f"{name}_bucket",
+                       (("le", repr(le)), ("phase", "serve.exec")))]
+              for le in HISTOGRAM_BUCKETS]
+    assert counts == sorted(counts) and counts[-1] == 2.0
+    # the port's registry caches appear with labels
+    assert samples[("repro_cache_capacity", (("cache", "planner-plans"),))]
+
+
+def test_render_prometheus_without_a_tracer_skips_histograms():
+    text = obs.render_prometheus()
+    assert "repro_span_duration_seconds" not in text
+    assert "repro_cache_size" in text
+
+
+@pytest.mark.parametrize("text", [
+    "not a sample line at all with {\n",
+    "metric{label=unquoted} 1\n",
+    "bad-name 1\n",
+    "novalue\n"])
+def test_parse_prometheus_rejects_malformed(text):
+    with pytest.raises(ValueError):
+        obs.parse_prometheus(text)
+    with pytest.raises(ValueError):
+        ref_obs.parse_prometheus(text)
+
+
+def test_parse_prometheus_nonfinite_values_and_escapes():
+    import math
+    text = ('b_bucket{le="+Inf"} 7\n'
+            'q{quantile="0.99"} NaN\n'
+            'lo -Inf\n'
+            'hi +Inf\n'
+            'm{v="a\\nb\\"c\\\\d"} 1\n'
+            'm{v="x,y"} 2\n'
+            'm{v="tail\\\\"} 3\n'
+            '# a comment\n\n')
+    s = obs.parse_prometheus(text)
+    assert s[("b_bucket", (("le", "+Inf"),))] == 7.0
+    assert math.isnan(s[("q", (("quantile", "0.99"),))])
+    assert s[("lo", ())] == float("-inf") and s[("hi", ())] == float("inf")
+    assert s[("m", (("v", 'a\nb"c\\d'),))] == 1.0
+    assert s[("m", (("v", "x,y"),))] == 2.0
+    assert s[("m", (("v", "tail\\"),))] == 3.0
+    ref = ref_obs.parse_prometheus(text)
+    assert {k: v for k, v in s.items() if k[0] != "q"} == \
+        {k: v for k, v in ref.items() if k[0] != "q"}
+
+
+def test_render_parse_round_trip_is_lossless():
+    import math
+    from repro.obs.exposition import _Writer as RefWriter
+    from repro_torch.obs.exposition import _Writer
+    texts = []
+    for cls in (_Writer, RefWriter):
+        w = cls()
+        w.sample("rt_nan", float("nan"))
+        w.sample("rt_inf", float("inf"))
+        w.sample("rt_bool", True, kind="counter", help_text="a flag")
+        w.sample("rt_esc", 1.5, {"path": 'a\\b"c\nd', "tail": "z\\"})
+        texts.append(w.render())
+    assert texts[0] == texts[1]
+    s = obs.parse_prometheus(texts[0])
+    assert math.isnan(s[("rt_nan", ())])
+    assert s[("rt_inf", ())] == float("inf") and s[("rt_bool", ())] == 1.0
+    assert s[("rt_esc", (("path", 'a\\b"c\nd'), ("tail", "z\\")))] == 1.5
+
+
+def test_counter_records_skipped_by_span_histograms():
+    with obs.tracing() as tr:
+        obs.counter("serve.queue_depth", 4)
+        obs.event("serve.exec", dur_s=0.01)
+        text = obs.render_prometheus(tracer=tr)
+    samples = obs.parse_prometheus(text)
+    assert ("repro_span_duration_seconds_count",
+            (("phase", "serve.exec"),)) in samples
+    assert not any("queue_depth" in name for name, _ in samples)
+
+
+def test_http_endpoint_serves_metrics_and_health():
+    import urllib.error
+    import urllib.request
+    A, B, M = _operands()
+    with QueryEngine(expose_port=0, device=CPU) as engine:
+        engine.serve([(A, B, M)])
+        engine.serve([(A, B, M)])                   # result-cache hit
+        base = engine.obs_server.url
+        assert engine.obs_server.port > 0
+        with urllib.request.urlopen(f"{base}/metrics", timeout=10) as r:
+            assert r.headers["Content-Type"].startswith("text/plain")
+            samples = obs.parse_prometheus(r.read().decode())
+        with urllib.request.urlopen(f"{base}/health?verbose=1",
+                                    timeout=10) as r:
+            assert r.headers["Content-Type"] == "application/json"
+            health = json.loads(r.read().decode())
+        with pytest.raises(urllib.error.HTTPError):
+            urllib.request.urlopen(f"{base}/nope", timeout=10)
+    assert samples[("repro_serve_completed_total", ())] == 2.0
+    assert samples[("repro_serve_result_cache_hits_total", ())] == 1.0
+    assert samples[("repro_serve_queue_depth", ())] == 0.0
+    assert health == {"status": "ok", "reasons": [], "queue_depth": 0,
+                      "async_mode": False, "stopped": False,
+                      "completed": 2, "failed": 0}
+
+
+def test_engine_close_shuts_exposition_down():
+    import urllib.request
+    engine = QueryEngine(expose_port=0, device=CPU)
+    url = engine.obs_server.url
+    engine.close()
+    assert engine.obs_server is None
+    with pytest.raises(Exception):
+        urllib.request.urlopen(f"{url}/health", timeout=2)
+
+
+def test_obs_server_standalone_context_manager():
+    """``start_server`` on an engine that lacks ``health()`` answers with
+    the liveness verdict, and the context manager closes it."""
+    import urllib.request
+    from repro_torch.obs.serve import ObsServer, start_server
+
+    class Bare:
+        metrics = ServeMetrics()
+        _stop = False
+
+        def _pending(self):
+            return 0
+
+    with start_server(Bare()) as srv:
+        assert isinstance(srv, ObsServer)
+        with urllib.request.urlopen(f"{srv.url}/health", timeout=10) as r:
+            assert json.loads(r.read().decode())["status"] == "ok"
+    with pytest.raises(Exception):
+        urllib.request.urlopen(f"{srv.url}/health", timeout=2)

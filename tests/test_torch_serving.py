@@ -29,7 +29,7 @@ from repro.core.planner import plan_batch as ref_plan_batch
 from repro.core.semiring import REGISTRY as REF_SR
 from repro.serving import QueryEngine as RefQueryEngine
 from repro.serving.burst import get_program as ref_get_program
-from repro_torch import caches
+from repro_torch import caches, obs
 from repro_torch.convert import plan_from_reference
 from repro_torch.core import formats as F
 from repro_torch.core.formats import CSR
@@ -387,22 +387,22 @@ def test_engine_rejects_invalid_knobs():
 
 
 def test_unported_features_raise_not_implemented():
-    """The health/exposition layer and distributed requests are not
-    ported; each says so instead of falling back, a recording engine's
-    ``mesh=`` requests included."""
+    """Distributed requests are not ported; ``mesh=`` says so (naming its
+    ROADMAP item) instead of falling back, a recording engine's included.
+    The health layer is ported: ``monitor=``, ``expose_port=`` and
+    ``health()`` no longer raise."""
     from repro_torch.serving import TraceRecorder
     A, B, M = POOL[0]
-    for kw in ({"expose_port": 0}, {"monitor": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            engine(**kw)
     rec = TraceRecorder()
-    with engine(recorder=rec) as eng:
-        with pytest.raises(NotImplementedError, match="mesh"):
+    with engine(recorder=rec, expose_port=0,
+                monitor=obs.HealthMonitor()) as eng:
+        with pytest.raises(NotImplementedError,
+                           match="mesh.*ROADMAP.*item 8"):
             eng.submit(A, B, M, mesh=object())
-        with pytest.raises(NotImplementedError, match="health"):
-            eng.health()
+        assert eng.health().status == "ok"
+        assert eng.obs_server is not None
         assert eng.metrics.snapshot()["submitted"] == 0
-    assert rec.events == []
+    assert rec.events == [] and eng.obs_server is None
 
 
 def test_engine_defaults_to_cuda():
