@@ -118,7 +118,28 @@ Phases, each printing its own lines:
    flagged), each run's statistics equal to ``export.residuals`` on its
    spans and one fused launch per tile query; the residuals of phase 6's
    async serve-mixed-8192 stream; the builtin constants left active;
-13. one JSON line with every kernel's numbers, then the result line
+13. distributed (runs after phase 12, on tile-8192's operands revalued to
+   integers 1-4): the sparse ring (``core.distributed``) on
+   ``make_mesh(p)`` at p = 2, 4 and 8 (one card: every shard on it),
+   ``algorithm="ring"`` at block 128: bit for bit the single-device tile
+   call and the dense product at the mask, the fused kernel launched p²
+   times per call and no plain version; the first call (ring prep built)
+   and the ring-prep hit's warm time (median of 5) and peak memory
+   beside the single-device call's; shard 0's stage-0 kernel time (CUDA
+   events), W and bound; the bytes a real ring would put on its links.
+   Standard-normal values at p = 4 within 2e-6 normwise of float64. The
+   row route at p = 4 on tc-rmat14's (L, L, L), bit for bit the
+   single-device row kernel; ``algorithm="auto"`` at p = 4 on tc-rmat14
+   and tile-8192 (elected route, the model ms of each candidate from
+   ``explain``, both routes measured and bit for bit equal). The dense
+   ``ring_masked_matmul`` at p = 4, (8192, 256) x (256, 8192) f32 on the
+   tile-8192 mask, within 2e-6 normwise of masked ``torch.matmul`` and
+   float64. ``QueryEngine.submit(mesh=make_mesh(4))``: a bucket of 4
+   tile-8192 queries, one dist plan and one ring prep, 4 x 16 fused
+   launches, each bit for bit its one-shot call. The dist probes (smoke
+   grid) on the card and ``fit_dist`` on them (finite; printed, not
+   registered: one card's rotations cross no link);
+14. one JSON line with every kernel's numbers, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the result line.
@@ -146,6 +167,9 @@ from repro_torch import caches, obs  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch import tuning  # noqa: E402
 from repro_torch.core import accumulators as acc  # noqa: E402
+from repro_torch.core import distributed as dist  # noqa: E402
+from repro_torch.core.distributed import (  # noqa: E402
+    distributed_masked_spgemm, make_mesh, ring_masked_matmul)
 from repro_torch.core import formats as F  # noqa: E402
 from repro_torch.core import planner  # noqa: E402
 from repro_torch.core.masked_spgemm import (  # noqa: E402
@@ -2062,6 +2086,431 @@ def health_phase(dev, ops) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: the distributed routes (core.distributed) on the card
+# ---------------------------------------------------------------------------
+
+#: ring sizes of the phase; p = DIST_P for the other checks
+DIST_MESH_SIZES = (2, 4, 8)
+DIST_P = 4
+#: warm ring calls timed (median kept), each ended by a synchronise
+DIST_REPS = 5
+#: the dense ring's K: (n, K) x (K, n) on the tile-8192 mask
+DIST_DENSE_K = 256
+#: a distributed row route whose first call takes longer than this many
+#: seconds is not timed again
+DIST_ROW_REPEAT_S = 5.0
+
+
+def mesh_on(dev, p: int):
+    """``make_mesh(p)`` on the card (the shards cycle over the visible
+    cards; with one card all share it), every shard on ``dev`` elsewhere."""
+    return make_mesh(p) if dev.type == "cuda" else make_mesh(p, device=dev)
+
+
+def masked_entries(res, M, dev):
+    """(row, column, slot) of every mask entry, as device index tensors."""
+    mr = F._expand_rows(M.indptr)
+    slots = np.arange(M.nnz) - M.indptr[mr]
+    return torch.as_tensor(np.stack([mr, M.indices, slots]), device=dev)
+
+
+def dense_on(x, dev, dtype=torch.float32) -> torch.Tensor:
+    """A host CSR as a dense tensor on ``dev`` (scattered there)."""
+    d = torch.zeros(x.shape, dtype=dtype, device=dev)
+    rows = torch.as_tensor(F._expand_rows(x.indptr), device=dev)
+    d[rows, torch.as_tensor(x.indices.astype(np.int64), device=dev)] = \
+        torch.as_tensor(x.data, device=dev).to(dtype)
+    return d
+
+
+def ring_stage(st, A, B, bs: int, dev):
+    """Shard 0's stage-0 operands of a cached ring state: its A panel and
+    B slab (values and patterns) and its stage-0 worklist."""
+    sh = st.shards[0]
+    a = dist._panel_values(F._to_device(A.data[sh.a_rows[0]:sh.a_rows[1]],
+                                        dev), sh.a_flat, st.wa, bs)
+    b = dist._panel_values(F._to_device(B.data[sh.b_rows[0]:sh.b_rows[1]],
+                                        dev), sh.b_flat, st.wb, bs)
+    return a, b, sh.a_pat, sh.b_pat, sh.sched[0]
+
+
+def ring_sizes(dev, ops, single, bs: int = TILE_BS) -> dict:
+    """The sparse ring at every p of ``DIST_MESH_SIZES`` on tile-8192's
+    integer operands: bit for bit the single-device tile call and the
+    dense product at the mask, p² fused launches per call and no plain
+    version; first and warm times and peak memory beside the single
+    device's; shard 0's stage-0 kernel time, W and bound; link bytes."""
+    A, B, M = ops
+    out = {}
+    for p in DIST_MESH_SIZES:
+        mesh = mesh_on(dev, p)
+        dist.clear_ring_prep_cache()
+        gc_collect(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        with count_plain() as plain:
+            t0 = time.perf_counter()
+            res = distributed_masked_spgemm(A, B, M, mesh, algorithm="ring",
+                                            block_size=bs)
+            sync(dev)
+            first_ms = (time.perf_counter() - t0) * 1e3
+        launches = kernel.FUSED_LAUNCHES
+        peak_first = (torch.cuda.max_memory_allocated(dev)
+                      if dev.type == "cuda" else 0)
+        check(launches == p * p and kernel.LAUNCHES == 0,
+              f"ring p={p}: {p * p} fused launches and no values-only one "
+              f"(got {launches}, {kernel.LAUNCHES})")
+        check(plain.calls == 0, f"ring p={p}: no plain version ran (got "
+              f"{plain.calls})")
+        check(same_result(res, single["res"]), f"ring p={p} equals the "
+              f"single-device tile call bit for bit")
+        check(res.vals.device == torch.device(mesh.devices[0]),
+              f"ring p={p}: the result lies on mesh.devices[0]")
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        times = []
+        for _ in range(DIST_REPS):
+            t0 = time.perf_counter()
+            res = distributed_masked_spgemm(A, B, M, mesh, algorithm="ring",
+                                            block_size=bs)
+            sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        warm_ms = statistics.median(times)
+        peak_warm = (torch.cuda.max_memory_allocated(dev)
+                     if dev.type == "cuda" else 0)
+        check(kernel.FUSED_LAUNCHES == DIST_REPS * p * p,
+              f"ring p={p}: {p * p} fused launches per warm call")
+        check(same_result(res, single["res"]), f"ring p={p}: a warm call "
+              f"(ring-prep hit) equals the single-device call bit for bit")
+        info = dist.ring_prep_cache_info()
+        check(info["misses"] == 1 and info["hits"] == DIST_REPS,
+              f"ring p={p}: one prep, then {DIST_REPS} hits (got {info})")
+
+        # shard 0's stage-0 replay: the per-stage kernel time and its bound
+        st = dist._ring_state(A, B, M, bs, mesh, "data", None)
+        link, prep_bytes = st.link_bytes(), st.nbytes()
+        a, b, a_pat, b_pat, wl = ring_stage(st, A, B, bs, dev)
+        W = int(wl.shape[1])
+        wl_host = wl.cpu().numpy()
+        on = ((wl_host[3] >> 1) & 1).astype(bool)
+        real = int(on.sum())
+        # the A and B blocks the stage's real products read (values and
+        # patterns), not the whole panel and slab
+        read_blocks = (len(np.unique(wl_host[1][on]))
+                       + len(np.unique(wl_host[2][on])))
+
+        def stage():
+            return kernel.block_spgemm_with_structure_kernel(
+                a, b, a_pat, b_pat, wl[0], wl[1], wl[2], wl[3],
+                st.wm_blocks)
+
+        def stage_plain():
+            return kernel.block_spgemm_with_structure_plain(
+                a, b, a_pat, b_pat, wl[0], wl[1], wl[2], wl[3],
+                st.wm_blocks)
+
+        stage_ms = device_ms(stage, dev, reps=7, warm=2)
+        stage_plain_ms = device_ms(stage_plain, dev, reps=3, warm=1)
+        sv, sc = stage()
+        pv, pc = stage_plain()
+        err = float((sv - pv).abs().max())
+        check(torch.equal(sc, pc) and err == 0.0, f"ring p={p}: the stage "
+              f"replay equals its plain version (integer data)")
+        flops = 2.0 * real * bs ** 3
+        out_bytes = st.wm_blocks * bs * bs * 4
+        t_ops = flops / PEAK_F32_ACCURATE_FLOPS + flops / PEAK_BF16_FLOPS
+        t_bytes = (read_blocks * bs * bs * (4 + 2) + 2 * out_bytes
+                   + 16 * W) / PEAK_BYTES_PER_S
+        stage_bound = max(t_ops, t_bytes) * 1e3
+        stage_by = "operations" if t_ops >= t_bytes else "bytes"
+        slab = st.wb * bs * bs * 6
+        print(f"dist [{CARD}]: ring p={p}: first {first_ms:.1f} ms (prep "
+              f"built), warm {warm_ms:.2f} ms (median of {DIST_REPS}, "
+              f"ring-prep hit) against the single-device tile call "
+              f"{single['warm_ms']:.2f} ms; peak memory first "
+              f"{peak_first / 2**20:.1f} MiB, warm {peak_warm / 2**20:.1f} "
+              f"MiB (single {single['peak_mib']:.1f} MiB); {p * p} fused "
+              f"launches per call, no plain version; bit for bit the single "
+              f"device and the dense product; the cached prep holds "
+              f"{prep_bytes / 2**20:.1f} MiB on the card")
+        print(f"dist [{CARD}]: ring p={p}: shard 0 stage 0: W={W} (real "
+              f"{real}), {st.wm_blocks} output blocks, kernel {stage_ms:.3f} "
+              f"ms (plain {stage_plain_ms:.3f}), bound {stage_bound:.4f} ms "
+              f"(by {stage_by}); slab {slab / 2**20:.1f} MiB (wb {st.wb}); a "
+              f"real ring would move {link / p / 2**20:.1f} MiB per link "
+              f"per call ({link / 2**20:.1f} MiB over {p} links; one card: "
+              f"no copy made)")
+        out[p] = {"first_ms": first_ms, "warm_ms": warm_ms,
+                  "warm_runs_ms": times, "peak_first_mib": peak_first / 2**20,
+                  "peak_warm_mib": peak_warm / 2**20, "launches": launches,
+                  "stage_ms": stage_ms, "stage_plain_ms": stage_plain_ms,
+                  "stage_bound_ms": stage_bound, "stage_bound_by": stage_by,
+                  "W": W, "real": real, "read_blocks": read_blocks,
+                  "wm_blocks": st.wm_blocks, "link_bytes": link,
+                  "slab_bytes": slab, "prep_bytes": prep_bytes}
+        del res, st, a, b, a_pat, b_pat, wl, sv, sc, pv, pc
+    dist.clear_ring_prep_cache()
+    return out
+
+
+def ring_normal(dev, ops, single, bs: int = TILE_BS) -> dict:
+    """The same structure on standard-normal values at p = DIST_P: within
+    2e-6 normwise of float64 and 1e-4 of the single-device call."""
+    A, B, M = ops
+    rng = np.random.default_rng(21)
+    An = F.CSR(A.indptr, A.indices,
+               rng.standard_normal(A.nnz).astype(np.float32), A.shape)
+    Bn = F.CSR(B.indptr, B.indices,
+               rng.standard_normal(B.nnz).astype(np.float32), B.shape)
+    mesh = mesh_on(dev, DIST_P)
+    reset_counts()
+    res = distributed_masked_spgemm(An, Bn, M, mesh, algorithm="ring",
+                                    block_size=bs)
+    sync(dev)
+    check(kernel.FUSED_LAUNCHES == DIST_P ** 2, "normal data: p² fused "
+          "launches")
+    one = masked_spgemm(An, Bn, M, algorithm="tile", tile_block=bs,
+                        device=dev)
+    idx = masked_entries(res, M, dev)
+    C = dense_on(An, dev, torch.float64) @ dense_on(Bn, dev, torch.float64)
+    want = C[idx[0], idx[1]]
+    got = res.vals[idx[0], idx[2]].double()
+    err = float((got - want).norm() / want.norm())
+    check(err <= 2e-6, f"normal data: the ring within 2e-6 normwise of "
+          f"float64 (got {err:.3g})")
+    one_err = float((res.vals - one.vals).abs().max())
+    check(torch.allclose(res.vals, one.vals, rtol=1e-4, atol=1e-4)
+          and torch.equal(res.present, one.present),
+          "normal data: the ring within 1e-4 of the single-device call")
+    print(f"dist [{CARD}]: normal data p={DIST_P}: {err:.3g} normwise from "
+          f"float64 (limit 2e-6); max |ring - single device| {one_err:.3g}")
+    del C, want, got, res, one
+    dist.clear_ring_prep_cache()
+    return {"normwise_f64": err, "max_abs_vs_single": one_err}
+
+
+def timed_route(call, dev) -> tuple:
+    """(first ms, warm ms or None, result): the warm time is the median of
+    3 calls, taken when the first took under ``DIST_ROW_REPEAT_S``."""
+    t0 = time.perf_counter()
+    res = call()
+    sync(dev)
+    first = (time.perf_counter() - t0) * 1e3
+    if first > DIST_ROW_REPEAT_S * 1e3:
+        return first, None, res
+    return first, host_ms(call, dev, reps=3), res
+
+
+def row_and_auto(dev, ops, scale: int = RMAT_SCALE) -> dict:
+    """The row route at p = DIST_P on tc-rmat14's (L, L, L), bit for bit
+    the single-device row kernel; then ``algorithm="auto"`` at p = DIST_P
+    on tc-rmat14 and tile-8192: the elected route, every candidate's model
+    ms from ``explain``, and both routes measured (ring and row agree bit
+    for bit)."""
+    g = F.rmat(scale, RMAT_EDGE_FACTOR, seed=scale)
+    L = F.tril(degree_relabel(g), strict=True)
+    mesh = mesh_on(dev, DIST_P)
+    cells = {f"tc-rmat{scale}": (L, L, L), f"tile-{ops[2].shape[0]}": ops}
+    planner.clear_plan_cache()
+    alg = planner.decide(planner.collect_stats(L, L, L),
+                         allow_tile=False).algorithm
+    reset_counts()
+    first, warm, res = timed_route(lambda: distributed_masked_spgemm(
+        L, L, L, mesh, algorithm="row"), dev)
+    check(kernel.FUSED_LAUNCHES == kernel.LAUNCHES == 0,
+          "the row route launches no block kernel")
+    one = masked_spgemm(L, L, L, algorithm=alg, device=dev)
+    check(same_result(res, one), f"row p={DIST_P} on tc-rmat14 equals the "
+          f"single-device {alg} call bit for bit")
+    warm_s = f"{warm:.1f} ms" if warm is not None else "not timed"
+    print(f"dist [{CARD}]: row p={DIST_P} tc-rmat{scale} ({alg}): first "
+          f"{first:.1f} ms, warm {warm_s}; bit for bit the single device")
+    out = {"row_tc": {"algorithm": alg, "first_ms": first, "warm_ms": warm}}
+    for name, (A, B, M) in cells.items():
+        dplan = planner.plan_distributed(A, B, M, DIST_P)
+        info = planner.explain(dplan)
+        reset_counts()
+        auto = distributed_masked_spgemm(A, B, M, mesh, algorithm="auto")
+        sync(dev)
+        check(kernel.FUSED_LAUNCHES == (
+            DIST_P ** 2 if dplan.route == "ring" else 0),
+            f"{name}: auto ran the elected {dplan.route} route")
+        measured, results = {}, {}
+        for route in ("ring", "row"):
+            first, warm, results[route] = timed_route(
+                lambda route=route: distributed_masked_spgemm(
+                    A, B, M, mesh, algorithm=route), dev)
+            measured[route] = {"first_ms": first, "warm_ms": warm}
+        check(same_result(results["ring"], results["row"])
+              and same_result(auto, results[dplan.route]),
+              f"{name}: ring, row and auto agree bit for bit")
+        print(f"dist [{CARD}]: auto p={DIST_P} {name}: elects {dplan.route} "
+              f"(block {dplan.tile_block}, row kernel {dplan.row_algorithm});"
+              f" model " + ", ".join(f"{k} {v:.4g}" for k, v in
+                                     info["costs_ms"].items())
+              + " ms; measured " + ", ".join(
+                  f"{k} first {v['first_ms']:.1f} warm "
+                  + (f"{v['warm_ms']:.1f}" if v["warm_ms"] is not None
+                     else "not timed") + " ms"
+                  for k, v in measured.items()))
+        out[name] = {"elected": dplan.route, "model_ms": info["costs_ms"],
+                     "measured": measured}
+        del auto, results
+    dist.clear_ring_prep_cache()
+    return out
+
+
+def dense_ring(dev, ops, k: int = DIST_DENSE_K) -> dict:
+    """``ring_masked_matmul`` at p = DIST_P: (n, K) x (K, n) f32 on the
+    tile-8192 mask against ``torch.matmul`` masked once (TF32 off) and
+    float64, within 2e-6 normwise."""
+    _, _, M = ops
+    n = M.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    a = torch.randn((n, k), generator=gen, device=dev)
+    b = torch.randn((k, n), generator=gen, device=dev)
+    mask = dense_on(M, dev)
+    mesh = mesh_on(dev, DIST_P)
+    got = ring_masked_matmul(a, b, mask, mesh)
+    # every shard sends its f32 (K / p, n) B panel on p - 1 times
+    link = DIST_P * (DIST_P - 1) * (k // DIST_P) * n * 4
+    want = torch.where(mask != 0, a @ b, 0.0)
+    want64 = torch.where(mask != 0, a.double() @ b.double(), 0.0)
+    err = float((got - want).norm() / want.norm())
+    err64 = float((got.double() - want64).norm() / want64.norm())
+    check(err <= 2e-6 and err64 <= 2e-6, f"the dense ring within 2e-6 "
+          f"normwise of masked torch.matmul ({err:.3g}) and float64 "
+          f"({err64:.3g})")
+    ring_ms = device_ms(lambda: ring_masked_matmul(a, b, mask, mesh), dev,
+                        reps=3, warm=1)
+    mm_ms = device_ms(lambda: torch.where(mask != 0, a @ b, 0.0), dev,
+                      reps=5, warm=1)
+    print(f"dist [{CARD}]: dense ring p={DIST_P} ({n}, {k}) x ({k}, {n}) "
+          f"f32: {err:.3g} normwise from masked torch.matmul, {err64:.3g} "
+          f"from float64; {ring_ms:.2f} ms against masked torch.matmul "
+          f"{mm_ms:.2f} ms; a real ring would move "
+          f"{link / DIST_P / 2**20:.1f} MiB per link")
+    del a, b, mask, got, want, want64
+    return {"normwise": err, "normwise_f64": err64, "ms": ring_ms,
+            "matmul_ms": mm_ms, "link_bytes": link}
+
+
+def dist_serving(dev, ops, queries: int = SERVE_TILE_QUERIES) -> dict:
+    """``QueryEngine.submit(mesh=make_mesh(DIST_P))``: a bucket of
+    ``queries`` tile-8192 queries, each bit for bit its one-shot
+    ``distributed_masked_spgemm``; the dist plan and the ring prep built
+    once for the bucket; p² fused launches per query."""
+    A, B, M = ops
+    As = [revalue(A, s, ints=True) for s in range(queries)]
+    mesh = mesh_on(dev, DIST_P)
+    planner.clear_plan_cache()
+    dist.clear_ring_prep_cache()
+    plans0, prep0 = planner.plan_cache_info(), dist.ring_prep_cache_info()
+    eng = QueryEngine(max_batch=queries, cache_results=False, device=dev)
+    reset_counts()
+    with count_plain() as plain:
+        t0 = time.perf_counter()
+        tickets = [eng.submit(a, B, M, mesh=mesh) for a in As]
+        got = [t.result() for t in tickets]
+        sync(dev)
+        bucket_ms = (time.perf_counter() - t0) * 1e3
+    launches = kernel.FUSED_LAUNCHES
+    plans1, prep1 = planner.plan_cache_info(), dist.ring_prep_cache_info()
+    (row,) = eng.metrics.bucket_log()
+    eng.close()
+    check(row["route"] == "distributed" and row["algorithm"] == "ring"
+          and row["size"] == queries, f"the mesh bucket runs the ring (got "
+          f"{row['route']}, {row['algorithm']}, {row['size']})")
+    check(plans1["misses"] - plans0["misses"] == 1
+          and prep1["misses"] - prep0["misses"] == 1
+          and prep1["hits"] - prep0["hits"] == queries - 1,
+          f"the bucket built one dist plan and one ring prep (plans "
+          f"{plans0} -> {plans1}, prep {prep0} -> {prep1})")
+    check(launches == queries * DIST_P ** 2 and plain.calls == 0,
+          f"{queries} x {DIST_P ** 2} fused launches and no plain version "
+          f"(got {launches}, plain {plain.calls})")
+    for a, g in zip(As, got):
+        check(same_result(g, distributed_masked_spgemm(a, B, M, mesh)),
+              "each mesh-bucket result equals its one-shot call bit for bit")
+    print(f"dist [{CARD}]: engine mesh bucket {queries} x "
+          f"tile-{M.shape[0]} at p={DIST_P}: {bucket_ms:.1f} ms submit to results, serve.exec "
+          f"{row['exec_s'] * 1e3:.1f} ms; plan cache {plans0['misses']} -> "
+          f"{plans1['misses']} misses, ring prep {prep0} -> {prep1}; "
+          f"{launches} fused launches, no plain version; bitwise one-shot")
+    del got
+    dist.clear_ring_prep_cache()
+    return {"launches": launches, "bucket_ms": bucket_ms,
+            "exec_ms": row["exec_s"] * 1e3}
+
+
+def dist_fit(dev) -> dict:
+    """The dist probes on their smoke grid on the card (one ring call
+    launches p² fused kernels) and ``fit_dist`` on them: finite residual.
+    The fit is printed, never registered: on one card the rotations cross
+    no link."""
+    reset_counts()
+    ms = probes.probe_dist(smoke=True, device=dev, log=lambda line: None)
+    calls = probes.dist_calls(smoke=True)
+    check(kernel.FUSED_LAUNCHES == calls, f"the dist probes launched the "
+          f"fused kernel {calls} times (got {kernel.FUSED_LAUNCHES})")
+    fitted, resid = fit.fit_dist(ms, acc.COST_CONSTANTS, planner.TILE_COST,
+                                 planner.DIST_COST)
+    check(math.isfinite(resid) and all(
+        math.isfinite(v) and v >= 0 for v in fitted.values()),
+        f"fit_dist gives finite constants and residual ({fitted}, {resid})")
+    print(f"dist [{CARD}]: dist probes (smoke): {len(ms)} points, "
+          f"{calls} fused launches; " + "; ".join(
+              f"{m.point} {m.target} {m.seconds * 1e3:.2f} ms" for m in ms))
+    print(f"dist [{CARD}]: fit_dist on them: {fitted}, residual "
+          f"{resid:.3f} (builtin {planner.DIST_COST}); one card, so the "
+          f"rotations crossed no link: not registered")
+    dist.clear_ring_prep_cache()
+    return {"fitted": fitted, "residual": resid, "launches": calls}
+
+
+def dist_phase(dev, ops) -> dict:
+    """Phase 13: the distributed routes on tile-8192's operands revalued
+    to integers 1-4, the row route and auto on tc-rmat14, the dense ring,
+    a mesh bucket of the engine and the dist probes and fit."""
+    A, B, M = ops
+    ops = (revalue(A, 0, ints=True), revalue(B, 1, ints=True), M)
+    A, B, M = ops
+    gc_collect(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    res = masked_spgemm(A, B, M, algorithm="tile", tile_block=TILE_BS,
+                        device=dev)
+    sync(dev)
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else 0)
+    warm_ms = host_ms(lambda: masked_spgemm(
+        A, B, M, algorithm="tile", tile_block=TILE_BS, device=dev), dev,
+        reps=DIST_REPS)
+    idx = masked_entries(res, M, dev)
+    C = dense_on(A, dev) @ dense_on(B, dev)
+    check(torch.equal(res.vals[idx[0], idx[2]], C[idx[0], idx[1]]),
+          "the single-device call equals the dense product at the mask")
+    del C, idx
+    single = {"res": res, "warm_ms": warm_ms, "peak_mib": peak / 2**20}
+    print(f"dist [{CARD}]: single-device tile call on the integer "
+          f"tile-{M.shape[0]}: warm {warm_ms:.2f} ms (median of "
+          f"{DIST_REPS}), peak {peak / 2**20:.1f} MiB")
+    out = {"single": {"warm_ms": warm_ms, "peak_mib": peak / 2**20}}
+    out["ring"] = ring_sizes(dev, ops, single)
+    out["normal"] = ring_normal(dev, ops, single)
+    del single, res
+    out["auto"] = row_and_auto(dev, ops)
+    out["dense"] = dense_ring(dev, ops)
+    out["serving"] = dist_serving(dev, ops)
+    out["fit"] = dist_fit(dev)
+    planner.clear_plan_cache()
+    gc_collect(dev)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 8: tile SDDMM (masked_matmul)
 # ---------------------------------------------------------------------------
 
@@ -2690,9 +3139,22 @@ def main() -> int:
     entry["tuning"] = tuned
     t_health = time.perf_counter()
     healthy = health_phase(dev, ops)
-    del ops
     entry["health_launches"] = healthy["launches"]
     entry["health"] = {k: healthy[k] for k in ("overhead", "pressure")}
+    t_dist = time.perf_counter()
+    distributed = dist_phase(dev, ops)
+    del ops
+    ring = distributed["ring"]
+    entry["ring_launches"] = {p: r["launches"] for p, r in ring.items()}
+    entry["ring_stage_ms"] = {p: r["stage_ms"] for p, r in ring.items()}
+    entry["ring_stage_W"] = {p: r["W"] for p, r in ring.items()}
+    entry["ring_stage_bound_ms"] = {p: r["stage_bound_ms"]
+                                    for p, r in ring.items()}
+    entry["ring_stage_plain_ms"] = {p: r["stage_plain_ms"]
+                                    for p, r in ring.items()}
+    entry["dist_serving_launches"] = distributed["serving"]["launches"]
+    entry["dist_probe_launches"] = distributed["fit"]["launches"]
+    entry["distributed"] = distributed
     t_sddmm = time.perf_counter()
     err = sddmm_vs_plain(dev)
     sddmm = sddmm_path(dev, mask_tiles)
@@ -2707,7 +3169,8 @@ def main() -> int:
     print(f"phases: spgemm {t_serving - t_start:.1f} s, serving "
           f"{t_delta - t_serving:.1f} s, delta {t_tuning - t_delta:.1f} s, "
           f"tuning {t_health - t_tuning:.1f} s, "
-          f"health {t_sddmm - t_health:.1f} s, "
+          f"health {t_dist - t_health:.1f} s, "
+          f"distributed {t_sddmm - t_dist:.1f} s, "
           f"sddmm {t_flash - t_sddmm:.1f} s, "
           f"flash {t_lm - t_flash:.1f} s, lm {t_end - t_lm:.1f} s")
     print(json.dumps({"kernels": [entry, sddmm, flash_entry]}))

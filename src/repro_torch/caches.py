@@ -96,17 +96,32 @@ class LRUCache:
 
     Self-registers under ``name`` (env var ``env_var``, when given, sets the
     initial capacity).  The unit of accounting is the entry — callers cache
-    similarly-sized objects per cache, so entry count bounds memory.
+    similarly-sized objects per cache, so entry count bounds memory.  A
+    cache whose entries vary widely in size (device-resident prep, sized
+    by the operands) also passes ``nbytes`` (an entry's bytes) and
+    ``max_bytes`` (``bytes_env_var`` overrides it): least recently used
+    entries go until the total fits, though the newest entry always
+    stays.
     """
 
     def __init__(self, name: str, capacity: int,
-                 env_var: Optional[str] = None):
+                 env_var: Optional[str] = None, *,
+                 nbytes: Optional[Callable[[Any], int]] = None,
+                 max_bytes: Optional[int] = None,
+                 bytes_env_var: Optional[str] = None):
         if env_var is not None:
             capacity = env_capacity(env_var, capacity)
         if capacity < 1:
             raise ValueError(f"{name}: capacity must be >= 1, got {capacity}")
+        if (nbytes is None) != (max_bytes is None):
+            raise ValueError(f"{name}: nbytes and max_bytes go together")
+        if bytes_env_var is not None and max_bytes is not None:
+            max_bytes = env_capacity(bytes_env_var, max_bytes)
         self.name = name
         self._capacity = capacity
+        self._nbytes = nbytes
+        self._max_bytes = max_bytes
+        self._sizes: Dict[Any, int] = {}
         self._data: "OrderedDict[Any, Any]" = OrderedDict()
         self._lock = threading.RLock()
         self._hits = 0
@@ -128,8 +143,19 @@ class LRUCache:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         with self._lock:
             self._capacity = capacity
-            while len(self._data) > capacity:
-                self._data.popitem(last=False)
+            self._evict()
+
+    def _bytes(self) -> int:
+        return sum(self._sizes.values())
+
+    def _evict(self) -> None:
+        """Drop least recently used entries past the entry capacity, then
+        past the byte bound (never the newest entry)."""
+        while len(self._data) > self._capacity or (
+                self._max_bytes is not None and len(self._data) > 1
+                and self._bytes() > self._max_bytes):
+            key, _ = self._data.popitem(last=False)
+            self._sizes.pop(key, None)
 
     def get(self, key, default=None):
         """Lookup; a hit refreshes recency.  Misses count only here (``peek``
@@ -150,8 +176,9 @@ class LRUCache:
         with self._lock:
             self._data[key] = value
             self._data.move_to_end(key)
-            while len(self._data) > self._capacity:
-                self._data.popitem(last=False)
+            if self._nbytes is not None:
+                self._sizes[key] = int(self._nbytes(value))
+            self._evict()
 
     def values(self) -> list:
         """A snapshot of the cached values, least recently used first."""
@@ -162,19 +189,24 @@ class LRUCache:
         """Remove and return one entry (scoped invalidation: evicting a
         stale key must not flush the rest of the cache)."""
         with self._lock:
+            self._sizes.pop(key, None)
             return self._data.pop(key, default)
 
     def clear(self) -> None:
         with self._lock:
             self._data.clear()
+            self._sizes.clear()
             self._hits = 0
             self._misses = 0
 
     def stats(self) -> Dict[str, int]:
         with self._lock:
-            return {"hits": self._hits, "misses": self._misses}
+            out = {"hits": self._hits, "misses": self._misses}
+            if self._max_bytes is not None:
+                out.update(bytes=self._bytes(), max_bytes=self._max_bytes)
+            return out
 
     def info(self) -> Dict[str, int]:
         with self._lock:
-            return {"hits": self._hits, "misses": self._misses,
-                    "size": len(self._data), "capacity": self._capacity}
+            return {**self.stats(), "size": len(self._data),
+                    "capacity": self._capacity}

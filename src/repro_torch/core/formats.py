@@ -739,6 +739,79 @@ def bcsr_structure_transpose(a: BCSR
 
 
 # --------------------------------------------------------------------------
+# BCSR panel helpers (the distributed ring: row panels and K-slabs)
+# --------------------------------------------------------------------------
+
+
+def bcsr_pad_block_rows(a: BCSR, target_block_rows: int) -> BCSR:
+    """Append empty block rows so ``a`` has exactly ``target_block_rows``.
+
+    The element shape grows with the padding (the new rows are structurally
+    empty), so downstream panel splits see equal shards.
+    """
+    mb = a.block_rows
+    if target_block_rows < mb:
+        raise ValueError(f"cannot shrink {mb} block rows to "
+                         f"{target_block_rows}")
+    if target_block_rows == mb:
+        return a
+    indptr = np.concatenate([
+        a.indptr,
+        np.full(target_block_rows - mb, a.indptr[-1], dtype=a.indptr.dtype)])
+    return BCSR(indptr, a.indices, a.blocks,
+                (target_block_rows * a.block_size, a.shape[1]), a.block_size)
+
+
+def bcsr_row_panels(a: BCSR, nparts: int) -> Tuple[BCSR, ...]:
+    """Split ``a`` into ``nparts`` equal block-row panels.
+
+    Requires ``a.block_rows % nparts == 0`` (pad first via
+    ``bcsr_pad_block_rows``).  Each panel's ``indptr`` is rebased to start
+    at 0 and stays on the host; its ``blocks`` is a view (slice) of the
+    parent's device tensor (None for a structure-only BCSR), so
+    panel-local schedule positions index the panel directly.
+    """
+    mb = a.block_rows
+    if mb % nparts:
+        raise ValueError(f"{mb} block rows do not split into {nparts} panels")
+    rows_per = mb // nparts
+    out = []
+    for d in range(nparts):
+        lo, hi = d * rows_per, (d + 1) * rows_per
+        s, e = int(a.indptr[lo]), int(a.indptr[hi])
+        out.append(BCSR(a.indptr[lo:hi + 1] - a.indptr[lo],
+                        a.indices[s:e],
+                        None if a.blocks is None else a.blocks[s:e],
+                        (rows_per * a.block_size, a.shape[1]),
+                        a.block_size))
+    return tuple(out)
+
+
+def bcsr_concat_row_panels(panels: Sequence[BCSR]) -> BCSR:
+    """Inverse of ``bcsr_row_panels``: stack block-row panels vertically
+    (the blocks concatenated on the first panel's device; None when the
+    panels are structure only)."""
+    if not panels:
+        raise ValueError("no panels")
+    bs = panels[0].block_size
+    ncols = panels[0].shape[1]
+    indptrs = [panels[0].indptr]
+    offset = panels[0].indptr[-1]
+    for p in panels[1:]:
+        if p.block_size != bs or p.shape[1] != ncols:
+            raise ValueError("panels differ in block size or columns")
+        indptrs.append(p.indptr[1:] + offset)
+        offset = offset + p.indptr[-1]
+    blocks = None
+    if panels[0].blocks is not None:
+        dev = panels[0].blocks.device
+        blocks = torch.cat([p.blocks.to(dev) for p in panels])
+    return BCSR(np.concatenate(indptrs),
+                np.concatenate([p.indices for p in panels]),
+                blocks, (sum(p.shape[0] for p in panels), ncols), bs)
+
+
+# --------------------------------------------------------------------------
 # Random sparse generators (paper Sec. 7: Erdos-Renyi and R-MAT/Graph500)
 # --------------------------------------------------------------------------
 

@@ -85,9 +85,12 @@ TILE_MIN_HIT_RATE = 0.05
 TILE_COST = dict(base=3.0, per_host=2.5e-4, per_mac=1.6e-7,
                  per_gather=3.0e-4)
 
-#: distributed cost-model constants (ms), the reference's; part of the
-#: cost-model fingerprint and of every profile (the distributed planner
-#: is not ported yet)
+#: distributed cost-model constants (ms), the reference's:
+#: ``per_bcast_elem`` prices replicating one padded B element to every
+#: device (the row route's set-up traffic), ``per_ring_byte`` the bytes of
+#: one rotating value+pattern slab per stage, ``stage_base`` the fixed
+#: cost of one ring stage.  ``python -m repro_torch.tune --only dist``
+#: refits them on a mesh
 DIST_COST = dict(per_bcast_elem=1.5e-6, per_ring_byte=2.0e-7,
                  stage_base=0.15)
 
@@ -151,6 +154,21 @@ class Plan:
 
     def cost(self, algorithm: str) -> float:
         return dict(self.costs)[algorithm]
+
+
+@dataclasses.dataclass(frozen=True)
+class DistPlan:
+    """Executable distributed decision for ``distributed_masked_spgemm``."""
+
+    route: str                    # "row" | "ring"
+    p: int                        # ring/mesh axis size
+    tile_block: int               # BCSR block size for the ring (0 = n/a)
+    row_algorithm: str            # row kernel if route == "row"
+    costs: Tuple[Tuple[str, float], ...]
+    stats: PlanStats
+
+    def cost(self, route: str) -> float:
+        return dict(self.costs)[route]
 
 
 def _max_row_nnz(x: CSR) -> int:
@@ -346,10 +364,9 @@ def decide(stats: PlanStats, *, allow_tile: bool = True) -> Plan:
 
 def ring_cost_features(stats: PlanStats, p: int, bs: int
                        ) -> Tuple[Dict[str, float], Dict[str, float]]:
-    """``(tile_features, comm_features)`` of the reference's sparse-ring
-    model: the ring's cost dots the first with ``TILE_COST`` and the
-    second with ``DIST_COST`` (the calibration fit and the profile's
-    required keys use both; the ring itself is not ported yet).
+    """``(tile_features, comm_features)`` of the sparse-ring model:
+    ``ring_cost`` dots the first with ``TILE_COST`` and the second with
+    ``DIST_COST`` (the calibration fit reuses both).
 
     The tile part is the tile route's host/mac/gather decomposition with
     the MACs split ``p`` ways; the comm part is ``p`` stages of the padded
@@ -373,12 +390,78 @@ def row_replication_elems(stats: PlanStats, row_alg: str) -> float:
                  else stats.k * stats.wb)
 
 
+def ring_cost(stats: PlanStats, p: int, bs: int) -> float:
+    """Modeled total ms of the sparse BCSR ring at ``p`` devices, block
+    size ``bs``."""
+    tile_f, comm_f = ring_cost_features(stats, p, bs)
+    return (sum(TILE_COST[k] * tile_f[k] for k in tile_f)
+            + sum(DIST_COST[k] * comm_f[k] for k in comm_f))
+
+
 def ring_block_candidates(m: int, k: int, n: int) -> Tuple[int, ...]:
-    """BCSR block sizes the tile route may use for an (m, k, n) product,
-    largest first."""
+    """BCSR block sizes the ring and tile routes may use for an (m, k, n)
+    product, largest first."""
     lo = max(8, min(m, k, n))
     return (tuple(bs for bs in TILE_BLOCK_SIZES if bs <= lo)
             or (TILE_BLOCK_SIZES[-1],))
+
+
+def _distributed_decision(stats: PlanStats, p: int
+                          ) -> Tuple[Tuple[Tuple[str, float], ...], str, int]:
+    """(costs, row_algorithm, ring tile_block), each modeled once."""
+    from repro_torch.kernels.masked_matmul.ops import tile_path_supported
+    row_alg, row_compute = rank_algorithms(stats)[0]
+    costs = [("row", row_compute / p + DIST_COST["per_bcast_elem"]
+              * row_replication_elems(stats, row_alg))]
+    tile_block = 0
+    if tile_path_supported(stats.semiring, stats.complement):
+        by_bs = {bs: ring_cost(stats, p, bs)
+                 for bs in ring_block_candidates(stats.m, stats.k, stats.n)}
+        tile_block = min(by_bs, key=by_bs.get)
+        costs.append(("ring", by_bs[tile_block]))
+    return (tuple(sorted(costs, key=lambda kv: (kv[1], kv[0]))),
+            row_alg, tile_block)
+
+
+def distributed_costs(stats: PlanStats, p: int
+                      ) -> Tuple[Tuple[str, float], ...]:
+    """(route, modeled ms) pairs for the mesh, cheapest first.  The ring
+    entry reports the best block size's cost; when the block product
+    cannot express the product only the row route is listed."""
+    return _distributed_decision(stats, p)[0]
+
+
+def decide_distributed(stats: PlanStats, p: int) -> DistPlan:
+    """Pure distributed decision: statistics + mesh size -> DistPlan."""
+    costs, row_alg, tile_block = _distributed_decision(stats, p)
+    return DistPlan(
+        route=costs[0][0], p=p, tile_block=tile_block,
+        row_algorithm=row_alg, costs=costs, stats=stats)
+
+
+def plan_distributed(A: CSR, B: CSR, M: CSR, p: int, *,
+                     complement: bool = False,
+                     semiring: Semiring = PLUS_TIMES,
+                     use_cache: bool = True) -> DistPlan:
+    """Cached distributed decision: the mesh counterpart of ``plan``.
+
+    Keyed on the operands' structural signatures, the ring size and the
+    cost-model token, in the planner's LRU, so repeated structures (the
+    serving case) skip the symbolic probe and the cost model.
+    """
+    key = None
+    if use_cache:
+        key = (structure_signature(A), structure_signature(B),
+               structure_signature(M), p, complement, semiring.name, "dist",
+               cost_model_token())
+        hit = _cache.get(key)
+        if hit is not None:
+            return hit
+    stats = collect_stats(A, B, M, complement=complement, semiring=semiring)
+    d = decide_distributed(stats, p)
+    if use_cache:
+        _cache.put(key, d)
+    return d
 
 
 # ---------------------------------------------------------------------------
@@ -692,13 +775,14 @@ def revalidate(old: Plan, A: CSR, B: CSR, M: CSR, *,
     return kept, True
 
 
-def explain(p: Plan) -> Dict:
-    """Why the planner elected what it elected, as one JSON-safe record:
-    the elected algorithm, every candidate's modeled cost (ms), the
-    per-candidate ``COST_FEATURES`` decomposition the linear model dotted
-    with its constants (so each cost can be recomputed from the record),
-    the driving statistics, and the ``cost_model_token()`` the decision
-    was made under.  Attached to every ``plan.build`` span."""
+def explain(p) -> Dict:
+    """Why the planner elected what it elected, as one JSON-safe record,
+    for a :class:`Plan` or a :class:`DistPlan`: the elected algorithm or
+    route, every candidate's modeled cost (ms), the per-candidate
+    ``COST_FEATURES`` decomposition the linear model dotted with its
+    constants (so each cost can be recomputed from the record), the
+    driving statistics, and the ``cost_model_token()`` the decision was
+    made under.  Attached to every ``plan.build`` span."""
     s = p.stats
     stats_d = {f.name: getattr(s, f.name)
                for f in dataclasses.fields(PlanStats)}
@@ -711,24 +795,37 @@ def explain(p: Plan) -> Dict:
             feats = acc.COST_FEATURES[name](
                 n=s.n, wa=s.wa, wb=s.wb, wbt=s.wbt, pm=s.pm)
             features[name] = {k: float(v) for k, v in feats.items()}
-    if "tile" in costs and p.tile_block:
-        features["tile"] = {
-            k: float(v)
-            for k, v in tile_cost_features(s, p.tile_block).items()}
-    return {
+    out: Dict = {
         "costs_ms": costs,
         "cost_scale_rows": float(s.m / 1024.0),
         "features": features,
         "stats": stats_d,
         "cost_model_token": cost_model_token(),
-        "elected": p.algorithm,
-        "algorithm": p.algorithm,
-        "widths": list(p.widths),
-        "two_phase": p.two_phase,
-        "tile": {"eligible": p.tile_eligible, "block": p.tile_block},
-        "trialed": list(p.trialed),
-        "elected_cost_ms": costs.get(p.algorithm),
     }
+    if isinstance(p, DistPlan):
+        out["elected"] = p.route
+        out["route"] = p.route
+        out["p"] = p.p
+        out["row_algorithm"] = p.row_algorithm
+        if p.tile_block:
+            tile_f, comm_f = ring_cost_features(s, p.p, p.tile_block)
+            features["ring"] = {
+                **{k: float(v) for k, v in tile_f.items()},
+                **{k: float(v) for k, v in comm_f.items()}}
+        out["elected_cost_ms"] = costs.get(p.route)
+    else:
+        out["elected"] = p.algorithm
+        out["algorithm"] = p.algorithm
+        out["widths"] = list(p.widths)
+        out["two_phase"] = p.two_phase
+        out["tile"] = {"eligible": p.tile_eligible, "block": p.tile_block}
+        out["trialed"] = list(p.trialed)
+        if "tile" in costs and p.tile_block:
+            features["tile"] = {
+                k: float(v)
+                for k, v in tile_cost_features(s, p.tile_block).items()}
+        out["elected_cost_ms"] = costs.get(p.algorithm)
+    return out
 
 
 #: memo for per-bucket span attachment: explain() recomputes every
@@ -738,7 +835,7 @@ _explain_memo = caches.LRUCache("planner-explain", 256,
                                 env_var="REPRO_EXPLAIN_MEMO_CAP")
 
 
-def explain_cached(p: Plan) -> Dict:
+def explain_cached(p) -> Dict:
     """:func:`explain` memoized by plan identity.  Safe because plans are
     frozen and the memo entry pins the plan object, so its id cannot be
     recycled while the record is held."""
@@ -750,9 +847,10 @@ def explain_cached(p: Plan) -> Dict:
     return info
 
 
-def feature_regime(p: Plan) -> str:
-    """Coarse log-bucketed feature signature of a plan's operands: log2
-    buckets for sizes and widths, log10 for densities."""
+def feature_regime(p) -> str:
+    """Coarse log-bucketed feature signature of a plan's operands (a
+    ``Plan`` or a ``DistPlan``): log2 buckets for sizes and widths, log10
+    for densities."""
     s = p.stats
 
     def b2(x) -> int:

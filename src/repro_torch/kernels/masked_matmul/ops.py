@@ -5,7 +5,9 @@ Building the schedule is the paper's symbolic phase: because the mask's block
 structure bounds the output (paper §6, the 1P insight), the output
 allocation and the worklist are fully determined on the host before any
 device compute, so the device program is a single numeric phase.  The
-construction is vectorized numpy, identical to the reference's.
+construction is vectorized numpy, identical to the reference's, and so
+are the distributed ring's per-stage K-slab worklists
+(``build_spgemm_schedule_slab``, ``build_ring_schedules``).
 
 ``_run_schedule`` replays a worklist on the device its blocks lie on, and
 ``block_spgemm_with_structure`` replays it for values and structural
@@ -26,7 +28,8 @@ from .kernel import (_XLA_CHUNK_ELEMS, block_spgemm_kernel,
                      block_spgemm_with_structure_kernel, masked_matmul_kernel)
 
 __all__ = ["Schedule", "tile_path_supported", "masked_matmul",
-           "build_spgemm_schedule",
+           "build_spgemm_schedule", "build_spgemm_schedule_slab",
+           "build_ring_schedules",
            "block_spgemm", "block_spgemm_with_structure",
            "block_spgemm_from_csr", "_XLA_CHUNK_ELEMS"]
 
@@ -142,6 +145,91 @@ def build_spgemm_schedule(A: BCSR, B: BCSR, M: BCSR) -> Schedule:
     flags = first * 1 + real * 2 + last * 4
     return (rank.astype(np.int32), pa.astype(np.int32),
             pb.astype(np.int32), flags.astype(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# K-slab schedules (the distributed sparse ring): one worklist per stage
+# ---------------------------------------------------------------------------
+
+
+def build_spgemm_schedule_slab(A: BCSR, B_slab: BCSR, M: BCSR,
+                               k0_blocks: int) -> Schedule:
+    """Worklist for C = M (.) (A[:, slab] @ B_slab), one ring stage.
+
+    ``B_slab`` holds block rows [k0_blocks, k0_blocks + B_slab.block_rows)
+    of the full B, rebased to start at 0 (its ``pb`` positions index the
+    slab's own blocks).  ``pa`` positions index the full panel ``A.blocks``.
+    Zero-fill semantics match ``build_spgemm_schedule``: every mask block
+    gets at least one entry, so a per-stage replay's output is fully
+    defined even for stages whose slab contributes nothing.
+    """
+    rows_slab = B_slab.block_rows
+    in_slab = (A.indices >= k0_blocks) & (A.indices < k0_blocks + rows_slab)
+    pos_map = np.nonzero(in_slab)[0]
+    brow = np.repeat(np.arange(A.block_rows, dtype=np.int64),
+                     np.diff(A.indptr))[in_slab]
+    indptr_sub = np.zeros(A.block_rows + 1, dtype=np.int64)
+    np.add.at(indptr_sub, brow + 1, 1)
+    A_sub = BCSR(np.cumsum(indptr_sub), A.indices[in_slab] - k0_blocks,
+                 A.blocks, (A.shape[0], rows_slab * A.block_size),
+                 A.block_size)
+    rank, pa, pb, flags = build_spgemm_schedule(A_sub, B_slab, M)
+    # remap pa from slab-filtered positions back to the full panel's blocks
+    # (zero-fill entries keep position 0: they never contribute)
+    real = (flags >> 1) & 1
+    if len(pos_map):
+        pa = np.where(real == 1, pos_map[np.minimum(pa, len(pos_map) - 1)],
+                      0).astype(np.int32)
+    else:
+        pa = np.zeros_like(pa)
+    return rank, pa, pb, flags
+
+
+def build_ring_schedules(A_panels, B_slabs, M_panels, *, out_pad: int
+                         ) -> np.ndarray:
+    """Stacked per-shard, per-stage worklists for the sparse ring.
+
+    Returns int32 ``(p, p, 4, Ws)``: ``[d, s]`` is the worklist
+    ``(rank, pa, pb, flags)`` shard ``d`` replays at ring stage ``s``,
+    when it holds B K-slab ``(d - s) % p``.  All worklists are padded to
+    one length ``Ws``:
+
+    * ranks ``[nnzb(M_panel), out_pad)`` (the ring-wide output padding) get
+      zero-fill entries (flags first|last, real off), so every output rank
+      of a stage's replay is written;
+    * trailing padding entries carry ``rank = out_pad - 1`` with all flags
+      off (no write, no contribution), so rank-sortedness is preserved.
+    """
+    p = len(A_panels)
+    if not len(B_slabs) == len(M_panels) == p:
+        raise ValueError(f"{p} A panels, {len(B_slabs)} B slabs and "
+                         f"{len(M_panels)} M panels do not form one ring")
+    slab_rows = B_slabs[0].block_rows
+    scheds = {}
+    ws = 1
+    for d in range(p):
+        for s in range(p):
+            src = (d - s) % p
+            rank, pa, pb, flags = build_spgemm_schedule_slab(
+                A_panels[d], B_slabs[src], M_panels[d], src * slab_rows)
+            nloc = M_panels[d].nnzb
+            if out_pad > nloc:
+                extra = np.arange(nloc, out_pad, dtype=np.int32)
+                z = np.zeros(len(extra), np.int32)
+                rank = np.concatenate([rank, extra])
+                pa = np.concatenate([pa, z])
+                pb = np.concatenate([pb, z])
+                flags = np.concatenate([flags, np.full(len(extra), 5,
+                                                       np.int32)])
+            scheds[d, s] = (rank, pa, pb, flags)
+            ws = max(ws, len(rank))
+    out = np.zeros((p, p, 4, ws), np.int32)
+    out[:, :, 0, :] = max(0, out_pad - 1)
+    for (d, s), parts in scheds.items():
+        L = len(parts[0])
+        for i, arr in enumerate(parts):
+            out[d, s, i, :L] = arr
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -65,7 +65,7 @@ def attention(q, k, v, *, impl="block_masked", causal=True, window=0,
     if impl == "block_masked":
         raise NotImplementedError(
             "attention impl 'block_masked' is not ported yet (ROADMAP.md "
-            "queue 1, item 7); use 'flash_pallas' or 'dense_masked'")
+            "queue 1, item 9); use 'flash_pallas' or 'dense_masked'")
     if impl == "flash_pallas":
         from repro_torch.kernels.flash_mask.ops import flash_mask_attention
         return flash_mask_attention(q, k, v, causal=causal, window=window,

@@ -31,7 +31,7 @@ def _require_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"model family {cfg.family!r} (moe={cfg.moe is not None}, "
             f"mla={cfg.mla is not None}) is not ported yet; the port runs "
-            f"the dense family (ROADMAP.md queue 1, item 8)")
+            f"the dense family (ROADMAP.md queue 1, item 11)")
 
 
 class Block(nn.Module):

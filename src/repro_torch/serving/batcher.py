@@ -40,7 +40,7 @@ class Request:
     semiring: object
     complement: bool
     algorithm: Optional[str]          # None = planner's auto
-    mesh: Optional[object]            # distributed serving: always None here
+    mesh: Optional[object]            # core.distributed.Mesh => distributed
     axis: str
     ticket: object
     post: Optional[Callable]          # applied to the raw result
@@ -54,10 +54,21 @@ class Request:
     trace_id: Optional[int] = None
 
 
+def mesh_key(mesh, axis: str) -> Optional[tuple]:
+    """Stable mesh identity: the axis, the axis sizes and the devices
+    (never ``id()``, which a recycled address could alias inside a
+    persistent cache key)."""
+    if mesh is None:
+        return None
+    import numpy as _np
+    return (axis, tuple(mesh.shape.items()),
+            tuple(str(d) for d in _np.ravel(mesh.devices)))
+
+
 def bucket_key(req: Request) -> tuple:
     return (structure_signature(req.A), content_fingerprint(req.B),
             structure_signature(req.M), req.semiring.name, req.complement,
-            req.algorithm)
+            req.algorithm, mesh_key(req.mesh, req.axis))
 
 
 class Batcher:
@@ -83,6 +94,7 @@ class Batcher:
         with self._lock:
             # bucket keys are transient routing: every bucket drains within
             # one flush; the PLAN is looked up token-keyed at execute time
+            # lint: plan-key-ok(transient routing, drains within one flush)
             bucket = self._buckets.setdefault(key, [])
             bucket.append(req)
             self._pending += 1

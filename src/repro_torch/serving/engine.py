@@ -17,7 +17,12 @@ routes:
   once per element;
 * ``single`` — a one-request bucket goes through ``masked_spgemm``.
 
-Every route ends in ``torch.cuda.synchronize`` on a CUDA device, so
+A request with ``mesh=`` (a ``core.distributed.Mesh``) is served by the
+``distributed`` route instead, on the mesh's devices: the bucket's
+requests go through ``distributed_masked_spgemm``, whose dist plan and ring
+prep are signature-cached, so the bucket builds them once.
+
+Every route ends in ``torch.cuda.synchronize`` on its CUDA devices, so
 ``serve.exec`` and the metrics time the device work, not its dispatch.
 
 Modes:
@@ -40,9 +45,6 @@ Health: ``monitor=`` (a ``repro_torch.obs.HealthMonitor``) folds the span
 stream into SLO burn rates and cost-model drift, and ``health()`` returns
 its verdict; ``expose_port=`` serves ``/metrics`` and ``/health`` from a
 daemon HTTP thread that reads host state only.
-
-Not ported yet (raises ``NotImplementedError``): distributed requests
-(``mesh=``).
 """
 from __future__ import annotations
 
@@ -62,7 +64,7 @@ from repro_torch.core.masked_spgemm import (masked_spgemm,
 from repro_torch.core.semiring import PLUS_TIMES, Semiring
 
 from . import burst
-from .batcher import Batcher, Request, merge_planned
+from .batcher import Batcher, Request, merge_planned, mesh_key
 from .cache import (ResultCache, content_fingerprint, row_bitmap,
                     value_fingerprint)
 from .clock import SystemClock
@@ -79,12 +81,6 @@ _delta_scratch = caches.LRUCache("serve-delta-scratch", 64,
 #: tag recorded for operands whose deltas cannot be row-scoped (B: one B
 #: row feeds every output row)
 _FULL_COVERAGE = (1 << 64) - 1
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, Queue 1: "
-        f"{item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -275,28 +271,27 @@ class QueryEngine:
         """Queue C = M (.) (A B); returns a future-like ``Ticket``.
 
         ``algorithm=None`` lets the planner decide (bucket-wide); a string
-        forces that algorithm (``"tile"`` or a row kernel).  ``post``
-        transforms the raw result before it reaches ``Ticket.result()``
-        (composites use it).
+        forces that algorithm (``"tile"``, a row kernel, or, with ``mesh``,
+        ``"row"``/``"ring"``).  ``mesh`` (a ``core.distributed.Mesh``)
+        serves the request across the mesh's devices along ``axis``.
+        ``post`` transforms the raw result before it reaches
+        ``Ticket.result()`` (composites use it).
         """
-        if mesh is not None:
-            raise _not_ported("distributed serving (mesh=)",
-                              "item 8, core/distributed.py")
         ticket = Ticket(self)
         self.metrics.record_submit()
         submitted_at = self.clock.now()
         # measurement, not scheduling: hit latency must be real elapsed
         # time even under a frozen virtual clock
-        t_sub = time.perf_counter()
+        t_sub = time.perf_counter()  # lint: clock-ok(hit latency measurement)
         trace_id = obs.new_trace()   # None while tracing is disabled
         if trace_id is not None:
             obs.event("serve.submit", trace=trace_id,
                       shape=list(M.shape), complement=complement,
-                      algorithm=algorithm, mesh=False)
+                      algorithm=algorithm, mesh=mesh is not None)
         if self.recorder is not None:
             self.recorder.on_submit(A, B, M, t=submitted_at,
                                     semiring=semiring, complement=complement,
-                                    algorithm=algorithm, axis=axis)
+                                    algorithm=algorithm, mesh=mesh, axis=axis)
         key = bkey = None
         if (isinstance(A, CSR) and isinstance(B, CSR)
                 and isinstance(M, CSR)):
@@ -305,17 +300,21 @@ class QueryEngine:
             sa = planner.structure_signature(A)
             sm = planner.structure_signature(M)
             cb = content_fingerprint(B)
-            bkey = (sa, cb, sm, semiring.name, complement, algorithm)
+            mk = mesh_key(mesh, axis)
+            bkey = (sa, cb, sm, semiring.name, complement, algorithm, mk)
             if self.cache_results and not complement:
                 # only host-CSR, mask-bounded results are cached: device
                 # operands hash by id (GC could recycle it) and complement
-                # results are dense (m, n) pairs
+                # results are dense (m, n) pairs.  A result lives on the
+                # engine's device, or on the mesh's first device
                 key = ((sa,) + value_fingerprint(A), cb,
                        (sm,) + value_fingerprint(M), semiring.name,
-                       complement, algorithm, str(self.device),
+                       complement, algorithm,
+                       str(self.device) if mesh is None else mk,
                        planner.cost_model_token())
                 hit = self.results.get(key)
                 if hit is not None:
+                    # lint: clock-ok(hit latency measurement)
                     hit_s = time.perf_counter() - t_sub
                     self.metrics.record_cache_hit(latency_s=hit_s)
                     obs.event("serve.cache_hit", dur_s=hit_s,
@@ -325,7 +324,7 @@ class QueryEngine:
                     ticket._complete(post(hit) if post is not None else hit)
                     return ticket
         req = Request(A=A, B=B, M=M, semiring=semiring,
-                      complement=complement, algorithm=algorithm, mesh=None,
+                      complement=complement, algorithm=algorithm, mesh=mesh,
                       axis=axis, ticket=ticket, post=post, cache_key=key,
                       key=bkey, submitted_at=submitted_at,
                       trace_id=trace_id)
@@ -480,11 +479,12 @@ class QueryEngine:
 
         rekeyed = 0
         if rebase_queued and survived and values_only["A"]:
+            mk = None
             old_bkey = (sig_old["A"], content_fingerprint(B), sig_old["M"],
-                        semiring.name, complement, algorithm)
+                        semiring.name, complement, algorithm, mk)
             new_bkey = (sig_old["A"], content_fingerprint(B1),
                         planner.structure_signature(M1), semiring.name,
-                        complement, algorithm)
+                        complement, algorithm, mk)
 
             def _rebase(r):
                 r.B = B1
@@ -589,12 +589,12 @@ class QueryEngine:
             return
         # the watchdog deadline is real time by design: it bounds how long
         # we wait for the worker thread, even under a frozen virtual clock
-        end = time.perf_counter() + timeout
+        end = time.perf_counter() + timeout  # lint: clock-ok(watchdog)
         with self._space:
             while (self._ready or self._busy
                    or self._batcher.has_aged(self.max_wait_s,
                                              now=self.clock.now())):
-                if time.perf_counter() >= end:
+                if time.perf_counter() >= end:  # lint: clock-ok(watchdog)
                     raise TimeoutError(
                         "engine did not quiesce within "
                         f"{timeout}s (worker stuck or stopped?)")
@@ -646,14 +646,15 @@ class QueryEngine:
         planned, direct, forced_row = [], [], []
         for bucket in buckets:
             r = bucket[0]
-            if r.algorithm is None:
-                t0 = time.perf_counter()
+            if r.mesh is None and r.algorithm is None:
+                t0 = time.perf_counter()  # lint: clock-ok(plan duration)
                 try:
                     plan = self._plan(r)
                 except Exception as e:
                     self._fail_bucket(bucket, e)
                     continue
-                planned.append(((bucket, plan), time.perf_counter() - t0))
+                planned.append(  # lint: clock-ok(plan duration)
+                    ((bucket, plan), time.perf_counter() - t0))
                 if obs.enabled():
                     # explain() rides every plan event so traces carry
                     # modeled costs next to measured exec durations
@@ -661,7 +662,7 @@ class QueryEngine:
                               algorithm=plan.algorithm,
                               explain=planner.explain_cached(plan),
                               traces=[q.trace_id for q in bucket])
-            elif r.algorithm != "tile":
+            elif r.mesh is None and r.algorithm != "tile":
                 forced_row.append(bucket)
             else:
                 direct.append(bucket)
@@ -710,14 +711,18 @@ class QueryEngine:
         queue_wait = t_in - min(r.submitted_at for r in reqs)
         if obs.enabled():
             obs.counter("serve.inflight", len(reqs))
-        t_exec = time.perf_counter()
+        t_exec = time.perf_counter()  # lint: clock-ok(exec duration)
         with self._exec_lock:
             try:
-                results, route, algo, plan = self._run_local(
-                    reqs, plan, uniform=(merged_from == 1))
+                if reqs[0].mesh is not None:
+                    results, route, algo = self._run_distributed(reqs)
+                else:
+                    results, route, algo, plan = self._run_local(
+                        reqs, plan, uniform=(merged_from == 1))
             except Exception as e:
                 self._fail_bucket(reqs, e)
                 return
+            # lint: clock-ok(exec duration)
             exec_s = time.perf_counter() - t_exec
         if obs.enabled():
             traces = [r.trace_id for r in reqs]
@@ -775,6 +780,25 @@ class QueryEngine:
             r.ticket._complete(value)
         if cache_puts:
             obs.event("serve.result_cache_put", count=cache_puts)
+
+    def _run_distributed(self, reqs: List[Request]):
+        """Mesh-carrying bucket: the distributed plan and the ring's prep
+        are signature-cached, so the bucket pays for them once.  Ends in a
+        synchronise on each of the mesh's CUDA devices."""
+        from repro_torch.core.distributed import distributed_masked_spgemm
+        rep = reqs[0]
+        algo = rep.algorithm or "auto"
+        out = [distributed_masked_spgemm(
+            r.A, r.B, r.M, r.mesh, algorithm=algo, axis=r.axis,
+            semiring=r.semiring, complement=r.complement) for r in reqs]
+        for dev in {str(d): d for d in rep.mesh.devices}.values():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        if algo == "auto":
+            algo = planner.plan_distributed(
+                rep.A, rep.B, rep.M, int(rep.mesh.shape[rep.axis]),
+                complement=rep.complement, semiring=rep.semiring).route
+        return out, "distributed", algo
 
     def _run_local(self, reqs: List[Request],
                    plan: Optional[planner.Plan], uniform: bool = True):

@@ -8,10 +8,11 @@
     python -m repro_torch.tune --export-defaults p.json  # snapshot tables
     python -m repro_torch.tune --device cpu         # probe the host
 
-The probes run on ``--device`` (default ``cuda``).  The ``dist`` family
-waits for the distributed routes (ROADMAP Queue 1, item 8): the default
-probes ``row,tile`` and inherits ``DIST_COST`` from the base profile, and
-``--only dist`` exits non-zero.  The fitted profile is registered under
+The probes run on ``--device`` (default ``cuda``).  The default probes
+``row,tile`` and inherits ``DIST_COST`` from the base profile: the ``dist``
+probes run their meshes on ``--device``, and on a one-card host every shard
+shares the card, so their rotations cross no link; ``--only dist`` fits
+them all the same.  The fitted profile is registered under
 ``results/profiles/`` keyed by the device's backend signature (unless
 ``--out`` redirects it) and is installed with
 ``repro_torch.tuning.activate(profile)`` in-process or the
@@ -24,7 +25,7 @@ import sys
 from typing import Optional, Sequence
 
 from . import profile as profile_mod
-from .probes import DIST_MESSAGE, FAMILIES
+from .probes import FAMILIES
 
 #: what the port probes when ``--only`` is not given
 DEFAULT_FAMILIES = ("row", "tile")
@@ -40,8 +41,6 @@ def _parse_families(spec: str) -> Sequence[str]:
     if not fams:
         raise SystemExit("repro_torch.tune: --only given but no families "
                          "named")
-    if "dist" in fams:
-        raise SystemExit(f"repro_torch.tune: {DIST_MESSAGE}")
     return fams
 
 
@@ -67,9 +66,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--smoke", action="store_true",
                     help="tiny probe grids + 1 timed iteration (CI)")
     ap.add_argument("--only", default="",
-                    help="comma-separated probe families to refit "
-                         "(subset of: row,tile); the rest are inherited "
-                         "from the active profile")
+                    help=f"comma-separated probe families to refit "
+                         f"(subset of: {','.join(FAMILIES)}; default: "
+                         f"{','.join(DEFAULT_FAMILIES)}); the rest are "
+                         f"inherited from the active profile")
     ap.add_argument("--out", default=None,
                     help="write the fitted profile JSON here instead of "
                          "registering it under results/profiles/")

@@ -8,10 +8,11 @@ Three probe families mirror the three constant tables:
   ``block_spgemm`` kernel) on block-structured operands plus uniform-ER
   controls, with one reference row-kernel timing per point, solving for
   ``planner.TILE_COST`` and informing the ``TILE_MIN_*`` gates;
-* ``dist`` — the reference's distributed routes.  ``core/distributed.py``
-  is not ported yet, so asking for these probes raises; the family stays
-  in ``FAMILIES`` so a profile's tables and the fit's order are the
-  reference's, and a fit inherits ``DIST_COST`` from its base profile.
+* ``dist`` — the distributed routes (the sparse ring and row-parallel)
+  over meshes of 2 and 4 shards on block-structured operands plus an ER
+  control, solving for ``planner.DIST_COST``.  The mesh is
+  ``make_mesh(p, device)``: on a one-card host every shard shares the card,
+  so the rotations cross no link and the fit prices none.
 
 Every probe runs on ``device`` (default ``"cuda"``; pass ``"cpu"`` to
 probe the host): each timed call is the user's ``masked_spgemm`` on host
@@ -53,12 +54,6 @@ TILE_GRID = ((512, (8, 32), (0.1, 0.3), (0.2, 0.6), 2),
              (8192, (128,), (0.1, 0.3), (0.2, 0.6), 2))
 #: untimed calls before each timed point
 WARMUP = 1
-
-#: the ROADMAP item that ports the distributed routes (and their probes)
-DIST_MESSAGE = ("the dist probes time core/distributed.py, which the port "
-                "does not have yet (ROADMAP Queue 1, item 8); fit row,tile "
-                "and inherit dist from the base profile")
-
 
 @dataclasses.dataclass(frozen=True)
 class Measurement:
@@ -228,15 +223,98 @@ def tile_calls(smoke: bool = False) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Distributed probes: not ported
+# Distributed probes
 # ---------------------------------------------------------------------------
+
+
+def _dist_spec(smoke: bool) -> dict:
+    if smoke:
+        return dict(n=256, mesh_sizes=(2, 4), densities_b=(0.02, 0.3),
+                    iters=1)
+    return dict(n=1024, mesh_sizes=(2, 4), densities_b=(0.02, 0.1, 0.3),
+                iters=2)
+
+
+def dist_points(n: int, densities_b: Sequence[float]):
+    """The dist family's operands, ``(point, A, B, M)`` dense arrays: A
+    and M block-structured at block 32, B at each density, then an ER
+    control."""
+    from repro_torch.core.formats import block_sparse, erdos_renyi
+
+    bs = 32
+    for td in densities_b:
+        yield (f"dist_tdb{td}", block_sparse(n, bs, 0.1, 0.9, seed=1),
+               block_sparse(n, bs, td, 0.9, seed=2),
+               block_sparse(n, bs, 0.2, 1.0, seed=3, mask=True))
+    yield ("dist_er_control", erdos_renyi(n, 8, seed=1).to_dense(),
+           erdos_renyi(n, 8, seed=2).to_dense(),
+           erdos_renyi(n, 8, seed=3).to_dense())
+
+
+def _measure_dist(n: int, mesh_sizes: Sequence[int],
+                  densities_b: Sequence[float], iters: int, *,
+                  device: torch.device, log=print) -> List[Measurement]:
+    """Time the ring and row routes on ``make_mesh(p, device)`` for each
+    mesh size; each timed call ends by a synchronise of the mesh's CUDA
+    devices."""
+    from repro_torch.core.distributed import (distributed_masked_spgemm,
+                                              make_mesh,
+                                              ring_sparse_masked_spgemm)
+    from repro_torch.core.formats import csr_from_dense
+    from repro_torch.core.planner import collect_stats, decide_distributed
+
+    bs = 32
+    out: List[Measurement] = []
+    for point, A, B, M in dist_points(n, densities_b):
+        Ac, Bc, Mc = (csr_from_dense(np.asarray(x)) for x in (A, B, M))
+        del A, B, M
+        stats = collect_stats(Ac, Bc, Mc)
+        base_feats = _stats_features(stats)
+        for p in mesh_sizes:
+            mesh = make_mesh(p, device=device)
+            cards = {str(d): d for d in mesh.devices
+                     if d.type == "cuda"}.values()
+            dplan = decide_distributed(stats, p)
+            ring_bs = dplan.tile_block or bs
+            feats = dict(base_feats, p=float(p), bs=float(ring_bs),
+                         row_algorithm=dplan.row_algorithm)
+
+            def synced(fn):
+                def go():
+                    fn()
+                    for d in cards:
+                        torch.cuda.synchronize(d)
+                return go
+
+            go_ring = synced(lambda: ring_sparse_masked_spgemm(
+                Ac, Bc, Mc, mesh, block_size=ring_bs))
+            go_row = synced(lambda: distributed_masked_spgemm(
+                Ac, Bc, Mc, mesh, algorithm="row",
+                row_algorithm=dplan.row_algorithm))
+            pt = f"{point}_p{p}"
+            t_ring = _min_time(go_ring, iters)
+            out.append(Measurement("dist", "ring", pt, t_ring, feats))
+            t_row = _min_time(go_row, iters)
+            out.append(Measurement("dist", "row", pt, t_row, feats))
+            log(f"[tune/dist] {pt}: ring={t_ring * 1e3:.1f}ms "
+                f"row={t_row * 1e3:.1f}ms ({dplan.row_algorithm})")
+    return out
 
 
 def probe_dist(*, smoke: bool = False, log=print,
                device="cuda") -> List[Measurement]:
-    """The reference's distributed probes (row-parallel and sparse-ring
-    routes over a mesh); they wait for the distributed routes."""
-    raise NotImplementedError(DIST_MESSAGE)
+    """Time the distributed routes (the sparse ring and row-parallel) over
+    meshes on ``device``; one Measurement per (point, mesh size, route)."""
+    return _measure_dist(device=_device(device), log=log,
+                         **_dist_spec(smoke))
+
+
+def dist_calls(smoke: bool = False) -> int:
+    """Ring calls ``probe_dist`` makes (warm-ups included): on a CUDA
+    device, each launches the fused block kernel p² times."""
+    spec = _dist_spec(smoke)
+    return ((len(spec["densities_b"]) + 1) * (WARMUP + spec["iters"])
+            * sum(p * p for p in spec["mesh_sizes"]))
 
 
 def run_probes(families: Sequence[str], *, smoke: bool = False,
@@ -246,9 +324,7 @@ def run_probes(families: Sequence[str], *, smoke: bool = False,
     if unknown:
         raise ValueError(f"unknown probe families {unknown}; "
                          f"valid: {list(FAMILIES)}")
-    if "dist" in families:
-        raise NotImplementedError(DIST_MESSAGE)
-    runners = {"row": probe_row, "tile": probe_tile}
+    runners = {"row": probe_row, "tile": probe_tile, "dist": probe_dist}
     out: List[Measurement] = []
     for fam in FAMILIES:
         if fam in families:

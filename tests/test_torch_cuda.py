@@ -4,7 +4,9 @@ plain versions, both routes of
 masked_spgemm, the batched driver, the serving engine's burst, batched and
 tile buckets, lane patching, ``bcsr_apply_delta`` and scoped invalidation
 (device memory released), the golden trace's replay, and the graph
-applications against the same calls on the CPU, the calibration probes
+applications against the same calls on the CPU, the distributed routes
+(the sparse ring's p² fused launches, row-parallel, a mesh bucket of the
+engine) against the single-device call, the calibration probes
 (smoke grids) and auto results under the committed H100 profile against
 the builtin constants, the LM forward with the flash kernel against
 dense attention, and a monitored engine's ``/metrics`` and ``/health``
@@ -180,6 +182,58 @@ def test_tile_route_matches_cpu(cuda_device):
                          device="cpu")
     torch.testing.assert_close(got.vals.cpu(), want.vals, rtol=0, atol=0)
     assert torch.equal(got.present.cpu(), want.present)
+
+
+@pytest.mark.parametrize("p", [2, 4])
+@pytest.mark.parametrize("route", ["ring", "row"])
+def test_distributed_routes_on_cuda_match_single_device(cuda_device, route,
+                                                        p):
+    from repro_torch.core.distributed import (distributed_masked_spgemm,
+                                              make_mesh)
+    mats = [F.block_sparse(256, 32, 0.4, 0.9, seed=s) for s in (1, 2)]
+    mats.append(F.block_sparse(256, 32, 0.6, 1.0, seed=3, mask=True))
+    A, B, M = (F.csr_from_dense(x) for x in mats)
+    mesh = make_mesh(p)
+    assert all(d.type == "cuda" for d in mesh.devices)
+    before = kernel.FUSED_LAUNCHES, kernel.LAUNCHES
+    got = distributed_masked_spgemm(A, B, M, mesh, algorithm=route,
+                                    block_size=32)
+    torch.cuda.synchronize()
+    assert got.vals.device == mesh.devices[0]
+    # the ring: one fused launch per (shard, stage); the row route none
+    assert (kernel.FUSED_LAUNCHES - before[0], kernel.LAUNCHES) == (
+        p * p if route == "ring" else 0, before[1])
+    want = masked_spgemm(A, B, M, algorithm="tile", tile_block=32,
+                         device=cuda_device)
+    for g, w in ((got.vals, want.vals), (got.present, want.present),
+                 (got.mask_cols, want.mask_cols)):
+        assert torch.equal(g, w)
+    cpu = distributed_masked_spgemm(A, B, M, make_mesh(p, device="cpu"),
+                                    algorithm=route, block_size=32)
+    assert torch.equal(got.vals.cpu(), cpu.vals)
+    assert torch.equal(got.present.cpu(), cpu.present)
+
+
+def test_mesh_engine_bucket_on_cuda_is_bitwise_one_shot(cuda_device):
+    from repro_torch.core.distributed import (distributed_masked_spgemm,
+                                              make_mesh)
+    from repro_torch.serving import QueryEngine
+    mats = [F.block_sparse(256, 32, 0.4, 0.9, seed=s) for s in (1, 2)]
+    mats.append(F.block_sparse(256, 32, 0.6, 1.0, seed=3, mask=True))
+    A, B, M = (F.csr_from_dense(x) for x in mats)
+    queries = [int_valued(A, s) for s in range(3)]
+    mesh = make_mesh(4)
+    kernel.FUSED_LAUNCHES = 0
+    with QueryEngine(cache_results=False, device=cuda_device) as eng:
+        tickets = [eng.submit(a, B, M, mesh=mesh, algorithm="ring")
+                   for a in queries]
+        eng.flush()
+        assert kernel.FUSED_LAUNCHES == 3 * 16
+        for a, t in zip(queries, tickets):
+            want = distributed_masked_spgemm(a, B, M, mesh,
+                                             algorithm="ring")
+            assert torch.equal(t.result().vals, want.vals)
+            assert torch.equal(t.result().present, want.present)
 
 
 @pytest.mark.parametrize("dtype", [np.int64, np.float32, np.float64,

@@ -387,21 +387,24 @@ def test_engine_rejects_invalid_knobs():
 
 
 def test_unported_features_raise_not_implemented():
-    """Distributed requests are not ported; ``mesh=`` says so (naming its
-    ROADMAP item) instead of falling back, a recording engine's included.
-    The health layer is ported: ``monitor=``, ``expose_port=`` and
-    ``health()`` no longer raise."""
-    from repro_torch.serving import TraceRecorder
+    """Every serving feature is ported: ``mesh=`` serves distributed
+    requests (``tests/test_torch_distributed.py``), and a recording engine
+    refuses them as the reference's does (trace schema v1 is single
+    process) before anything is queued.  The health layer is ported too:
+    ``monitor=``, ``expose_port=`` and ``health()`` do not raise."""
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.serving import TraceError, TraceRecorder
     A, B, M = POOL[0]
     rec = TraceRecorder()
     with engine(recorder=rec, expose_port=0,
                 monitor=obs.HealthMonitor()) as eng:
-        with pytest.raises(NotImplementedError,
-                           match="mesh.*ROADMAP.*item 8"):
-            eng.submit(A, B, M, mesh=object())
+        with pytest.raises(TraceError, match="mesh"):
+            eng.submit(A, B, M, mesh=make_mesh(2, device=CPU))
         assert eng.health().status == "ok"
         assert eng.obs_server is not None
-        assert eng.metrics.snapshot()["submitted"] == 0
+        # counted before the recorder refuses it, as in the reference
+        assert eng.metrics.snapshot()["submitted"] == 1
+        assert eng.metrics.snapshot()["completed"] == 0
     assert rec.events == [] and eng.obs_server is None
 
 

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 from repro.serving import trace as rtrace
+from repro_torch.core.distributed import make_mesh
 from repro_torch.core.formats import erdos_renyi, er_mask
 from repro_torch.core.masked_spgemm import masked_spgemm
 from repro_torch.serving import (QueryEngine, Trace, TraceError,
@@ -150,8 +151,8 @@ def test_recorder_rejects_mesh_requests():
     with pytest.raises(TraceError, match="mesh"):
         rec.on_submit(A, B, M, t=0.0, mesh=object())
     with QueryEngine(recorder=rec, cache_results=False, device=CPU) as eng:
-        with pytest.raises(NotImplementedError, match="mesh"):
-            eng.submit(A, B, M, mesh=object())
+        with pytest.raises(TraceError, match="mesh"):
+            eng.submit(A, B, M, mesh=make_mesh(1, device=CPU))
     assert rec.events == []
 
 

@@ -675,13 +675,16 @@ def test_grids_keep_the_reference_entries_first():
 
 
 def test_dist_probes_and_cuda_without_card_raise():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        probes.run_probes(("row", "dist"), smoke=True, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        probes.probe_dist(smoke=True, device=CPU)
+    """The dist probes are ported (``tests/test_torch_distributed.py``
+    runs them): like every family they refuse a card that is not there,
+    and unknown families are refused before anything runs."""
+    with pytest.raises(ValueError, match="unknown"):
+        probes.run_probes(("dist", "bogus"), device=CPU)
     with pytest.raises(ValueError, match="unknown"):
         probes.run_probes(("bogus",), device=CPU)
     if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            probes.probe_dist(smoke=True)
         with pytest.raises(RuntimeError, match="CUDA"):
             probes.probe_row(smoke=True)
 
@@ -742,13 +745,17 @@ def test_cli_fits_from_the_profile_named_in_the_environment(tmp_path):
     assert set(p.residuals) == {"row"}
 
 
-@pytest.mark.parametrize("only", ["dist", "row,dist", "bogus", ","])
+@pytest.mark.parametrize("only", ["dist,bogus", "row,dist,bogus", "bogus",
+                                  ","])
 def test_cli_only_dist_or_unknown_exits_nonzero(only):
+    """``--only dist`` runs (``tests/test_torch_distributed.py``); an
+    unknown family beside it, or no family, exits non-zero before any
+    probe runs."""
     with pytest.raises(SystemExit) as exc:
         cli.main(["--only", only, "--device", CPU, "--out", os.devnull])
     assert exc.value.code not in (0, None)
-    if "dist" in only:
-        assert "item 8" in str(exc.value.code)
+    if "bogus" in only:
+        assert "unknown" in str(exc.value.code)
 
 
 def test_tune_module_runs_as_a_program(tmp_path):
