@@ -139,7 +139,36 @@ Phases, each printing its own lines:
    launches, each bit for bit its one-shot call. The dist probes (smoke
    grid) on the card and ``fit_dist`` on them (finite; printed, not
    registered: one card's rotations cross no link);
-14. one JSON line with every kernel's numbers, then the result line
+14. families (runs last, after phase 10, with every port cache cleared
+   and the allocator's free blocks released; random f32 weights from seed
+   0 on the card, cast at use, bf16 activations; each model freed before
+   the next): ``block_masked`` attention at llama3.2-1b's layer (B 4,
+   32/8 heads, S 2048, D 64, causal) within 1e-2 normwise of f32
+   ``dense_masked`` and of the flash kernel, one worklist call and no
+   fallback, its tiles (the flash worklist's) against the dense grid's,
+   its time beside the flash op and causal SDPA; at starcoder2-7b's layer
+   (B 1, 36/4, S 8192, D 128, window 4096) against flash.  llama3.2-1b's
+   published config (``block_masked``) at full width, a bf16 prefill of
+   4 x 2,048 tokens against phase 10's flash forward, timed beside it.
+   deepseek-v2-lite-16b at full width and depth (27 layers, 62.8 GB of
+   f32 weights; depth is cut only where the card's free memory, less
+   8 GiB, cannot hold them): a bf16 ``block_masked`` prefill of 1 x 2,048
+   (logits finite, (1, 2048, 102400)), tokens per expert, expert
+   matmuls, ms, tokens/s, peak memory, a ``torch.profiler`` breakdown by
+   group with the idle share, absorbed-MLA decode ms a step at B 1 and
+   B 4, ``generate``; f32 decode consistency at 2 layers (2e-2); MLA
+   under ``flash_pallas`` raises before any launch.  moonshot-v1-16b-a3b
+   at full width, 24 of 48 layers (55.4 GB): the bf16 flash kernel once
+   per layer at D 128 and no plain version, logits within 5e-2 normwise
+   of ``block_masked`` with the same routing; in f32 (the f32 flash
+   instance) within 1e-4, with the routings' differences counted; both
+   impls' prefill ms, decode ms a step; the kernel at the layer's shape
+   against its plain version, beside causal SDPA and its bound.
+   internvl2-2b at full width (256 patches + 1,792 tokens): logits
+   against ``dense_masked``, the prefix's rows within 5e-2 and ten times
+   closer than a causal-only prefix (flash).  deepseek runs at full
+   depth where 71.4 GB are free (its weights and 8 GiB of headroom);
+15. one JSON line with every kernel's numbers, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the result line.
@@ -183,6 +212,8 @@ from repro_torch.kernels.flash_mask.ops import (  # noqa: E402
     flash_mask_attention)
 from repro_torch.kernels.flash_mask.ref import mask_allowed  # noqa: E402
 from repro_torch.kernels.masked_matmul import kernel, ops  # noqa: E402
+from repro_torch.models import attention as A  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.decode import generate  # noqa: E402
 from repro_torch.core.semiring import PLUS_TIMES  # noqa: E402
@@ -524,14 +555,18 @@ def tile_problem(n: int, bs: int):
 
 
 class count_plain:
-    """Within the block, count the calls of the block product's plain
-    versions (kernel.py looks them up at call time)."""
+    """Within the block, count the calls of a kernel's plain versions (the
+    wrapper's module looks them up at call time): by default the block
+    product's, in ``kernel.py``."""
 
     NAMES = ("block_spgemm_plain", "block_spgemm_with_structure_plain")
 
+    def __init__(self, module=kernel, names=NAMES):
+        self.module, self.names = module, names
+
     def __enter__(self):
         self.calls = 0
-        self.saved = {name: getattr(kernel, name) for name in self.NAMES}
+        self.saved = {name: getattr(self.module, name) for name in self.names}
 
         def counted(fn):
             def call(*args, **kw):
@@ -540,12 +575,12 @@ class count_plain:
             return call
 
         for name, fn in self.saved.items():
-            setattr(kernel, name, counted(fn))
+            setattr(self.module, name, counted(fn))
         return self
 
     def __exit__(self, *exc):
         for name, fn in self.saved.items():
-            setattr(kernel, name, fn)
+            setattr(self.module, name, fn)
 
 
 #: the tile call's steps, as ``host_steps`` names them: its prep (uploads,
@@ -2981,9 +3016,10 @@ def prefill_breakdown(model, cfg, tokens, dev, top: int = 8) -> None:
 
 
 def lm_serving(dev, batch: int = LM_BATCH, seq: int = LM_SEQ,
-               smoke: bool = False) -> int:
+               smoke: bool = False) -> tuple:
     """Returns the flash kernel's launches in the main path's (bf16)
-    prefill and the f32 instance's in the f32 prefill.  ``smoke`` takes
+    prefill, the f32 instance's in the f32 prefill and the bf16 prefill's
+    warm ms.  ``smoke`` takes
     the reduced config (for a rehearsal on the CPU)."""
     cfg = get_config("llama3_2_1b", smoke=smoke).replace(
         attn_impl="flash_pallas", dtype="bfloat16")
@@ -3113,7 +3149,705 @@ def lm_serving(dev, batch: int = LM_BATCH, seq: int = LM_SEQ,
           f"({batch * 16 / gen_s:.1f} new tokens/s, "
           f"{batch * 48 / gen_s:.1f} tokens/s with the teacher-forced "
           f"prompt)")
-    return launches, f32_launches
+    return launches, f32_launches, warm_ms
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: block_masked attention and the MoE, MLA and VLM families
+# ---------------------------------------------------------------------------
+
+
+#: starcoder2-7b's attention layer: B 1, 36 query heads on 4 kv heads,
+#: S 8192, D 128, a 4,096-token window, causal
+STARCODER_LAYER = dict(b=1, hq=36, hkv=4, s=8192, d=128, window=4096)
+#: deepseek-v2-lite-16b's prefill: 1 x 2,048 tokens (also its decode
+#: cache's length)
+DEEPSEEK_SEQ = 2048
+#: moonshot-v1-16b-a3b at full width, cut to this many of its 48 layers:
+#: all 48 hold about 110 GB of f32 weights, more than the card
+MOONSHOT_LAYERS = 24
+#: internvl2-2b: its 256-patch image prefix, then this many text tokens
+INTERNVL_TEXT = 1792
+#: device memory kept free beside a model's f32 weights (prefill
+#: activations, logits, per-use weight casts)
+LM_HEADROOM_BYTES = 8 << 30
+#: decode steps timed per batch size, after two warm steps
+DECODE_STEPS = 8
+
+
+def free_port_memory(dev) -> int:
+    """Empty every port cache (the registry holds the schedules, the ring
+    prep and every engine's result cache), collect and hand the
+    allocator's free blocks back; returns the device's free bytes (0 on
+    the CPU)."""
+    caches.clear_all()
+    gc_collect(dev)
+    if dev.type != "cuda":
+        return 0
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info(dev)[0]
+
+
+def n_params(cfg) -> int:
+    """Parameters of a port ``Transformer`` of ``cfg``, from its shapes."""
+    d, h = cfg.d_model, cfg.n_heads
+    if cfg.mla is not None:
+        m = cfg.mla
+        attn = (d * h * (m.qk_nope_dim + m.qk_rope_dim)
+                + d * (m.kv_lora_rank + m.qk_rope_dim)
+                + m.kv_lora_rank * h * (m.qk_nope_dim + m.v_head_dim)
+                + h * m.v_head_dim * d)
+    else:
+        attn = 2 * d * h * cfg.hd + 2 * d * cfg.n_kv_heads * cfg.hd
+        attn += (h + 2 * cfg.n_kv_heads) * cfg.hd if cfg.qkv_bias else 0
+    norm = d * (2 if cfg.norm == "layernorm" else 1)
+
+    def mlp(f):
+        return 3 * d * f if cfg.act == "swiglu" else 2 * d * f + f + d
+
+    kd = T.n_dense_layers(cfg)
+    total = kd * (attn + 2 * norm + mlp(cfg.d_ff)) + norm
+    if cfg.moe is not None:
+        mo = cfg.moe
+        moe = mo.n_experts * (d + 3 * d * mo.d_ff_expert)
+        moe += mlp(mo.d_ff_shared * mo.n_shared) if mo.n_shared else 0
+        total += (cfg.n_layers - kd) * (attn + 2 * norm + moe)
+    total += cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    return total + (cfg.d_frontend * d if cfg.family == "vlm" else 0)
+
+
+def fit_depth(cfg, free: int) -> int:
+    """The most layers (at most the config's) whose f32 weights fit in
+    ``free`` bytes beside ``LM_HEADROOM_BYTES``; every layer on the CPU."""
+    if not free:
+        return cfg.n_layers
+    n = cfg.n_layers
+    while n > 1 and 4 * n_params(cfg.replace(n_layers=n)) \
+            + LM_HEADROOM_BYTES > free:
+        n -= 1
+    return n
+
+
+def build_lm(cfg, dev, what: str):
+    """A ``Transformer`` of ``cfg`` with random f32 weights from seed 0 on
+    the device, its parameter count checked against ``n_params``."""
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    sync(dev)
+    n = sum(p.numel() for p in model.parameters())
+    check(n == n_params(cfg), f"{what}: {n} parameters, {n_params(cfg)} "
+          f"from the config's shapes")
+    print(f"{what}: {cfg.name} {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, attn_impl={cfg.attn_impl} dtype={cfg.dtype}: "
+          f"{n / 1e9:.3f} B parameters (f32, {4 * n / 1e9:.2f} GB) "
+          f"initialised on the card from seed 0 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def lm_tokens(cfg, shape, dev):
+    return torch.randint(0, cfg.vocab_size, shape, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+
+
+def normwise(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def logits_agree(what: str, got, want) -> float:
+    """bf16 logits against another attention impl's on the same weights
+    (and, in a MoE model, the same routing): within 5e-2 normwise and 10 %
+    of max |logit|.  The impls round p at other places (block_masked to
+    bf16, flash in two bf16 terms, dense not at all), and the flips
+    compound through the layers' bf16 residual stream (phase 10 reads
+    1.3e-2 between flash and dense at 16 layers); a lost tile or a wrong
+    mask moves the logits by O(1)."""
+    diff = (got.float() - want.float()).abs()
+    rel = float(diff.norm() / want.float().norm())
+    top = float(want.float().abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    print(f"{what}: max |diff| {float(diff.max()):.4g} (max |logit| "
+          f"{top:.4g}), normwise {rel:.3g}, argmax agreement {agree:.4f}")
+    check(rel <= 5e-2 and float(diff.max()) <= 0.1 * top,
+          f"{what} within 5e-2 normwise and 10 % of max |logit|")
+    return rel
+
+
+def bm_counts():
+    return A.BLOCK_MASKED_CALLS, A.BLOCK_MASKED_FALLBACKS
+
+
+def bm_case(dev, what: str, b: int, hq: int, hkv: int, s: int, d: int,
+            window: int, blk: int, dense: bool) -> dict:
+    """One block_masked layer (bf16, causal): one call through the tile
+    worklist (no fallback, no flash launch), within 1e-2 normwise of the
+    flash kernel and, when ``dense``, of dense_masked in f32; its tiles
+    against the dense grid's and the flash worklist's; its time beside the
+    flash op and, with no window, causal SDPA."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = ((torch.randn(shape, generator=g, device=dev) * 0.5)
+               .to(torch.bfloat16)
+               for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+    kw = dict(causal=True, window=window, prefix=0)
+    before = bm_counts()
+    reset_counts()
+    got = A.attention(q, k, v, impl="block_masked", block=blk, **kw)
+    sync(dev)
+    check(bm_counts() == (before[0] + 1, before[1]) and flash.LAUNCHES == 0,
+          f"{what}: block_masked ran its tile worklist once, no dense "
+          f"fallback and no flash launch")
+    check(got.dtype == torch.bfloat16 and got.shape == q.shape,
+          f"{what}: block_masked output bf16 of q's shape")
+    out = {"flash_vs": normwise(got, flash_mask_attention(
+        q, k, v, bq=blk, bk=blk, **kw))}
+    if dense:
+        out["dense_vs"] = normwise(got, A.dense_masked_attention(
+            q.float(), k.float(), v.float(), **kw))
+    for name, rel in out.items():
+        check(rel <= 1e-2, f"{what}: block_masked within 1e-2 normwise of "
+              f"{name.split('_')[0]} (got {rel:.3g})")
+    _, _, _, _, valid, chunk = A._balanced_schedule(s, s, blk, blk, True,
+                                                    window, 0, 0)
+    tiles, grid = int(valid.sum()), (s // blk) ** 2
+    pairs = len(flash.build_schedule(s, s, bq=blk, bk=blk, q_offset=0,
+                                     **kw)[0])
+    check(tiles == pairs, f"{what}: block_masked visits the flash "
+          f"worklist's {pairs} tiles (got {tiles})")
+    out.update(tiles=tiles, grid=grid, groups=int(valid.shape[0]),
+               entries=int(valid.shape[1]), chunk=int(chunk))
+    out["ms"] = device_ms(lambda: A.attention(q, k, v, impl="block_masked",
+                                              block=blk, **kw),
+                          dev, reps=5, warm=1)
+    out["flash_ms"] = device_ms(lambda: flash_mask_attention(
+        q, k, v, bq=blk, bk=blk, **kw), dev, reps=7, warm=2)
+    out["library_ms"] = None if window else device_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), dev, reps=7, warm=2)
+    lib = ("" if out["library_ms"] is None else
+           f", causal SDPA {out['library_ms']:.3f} ms")
+    print(f"block_masked: {what} layer B={b} Hq={hq} Hkv={hkv} S={s} D={d} "
+          f"window {window} blocks {blk} bf16: {tiles} of the dense grid's "
+          f"{grid} tiles ({tiles / grid:.1%}; {grid - tiles} saved) in "
+          f"{out['groups']} folded groups of {out['entries']} entries, "
+          f"chunk {chunk}; normwise from flash {out['flash_vs']:.3g}"
+          + (f", from f32 dense_masked {out['dense_vs']:.3g}" if dense else "")
+          + f" (limit 1e-2); block_masked {out['ms']:.3f} ms, flash op "
+          f"{out['flash_ms']:.3f} ms ({out['ms'] / out['flash_ms']:.1f}x)"
+          + lib)
+    return out
+
+
+def block_masked_layers(dev, smoke: bool = False) -> dict:
+    """block_masked at llama3.2-1b's layer shape and at starcoder2-7b's
+    (``smoke``: small shapes for a rehearsal on the CPU)."""
+    cfg = get_config("llama3_2_1b")
+    st = dict(STARCODER_LAYER)
+    b, s, blk = LM_BATCH, LM_SEQ, cfg.attn_block
+    if smoke:
+        b, s, blk, st = 1, 128, 32, dict(b=1, hq=4, hkv=2, s=256, d=16,
+                                          window=64)
+    return {"llama": bm_case(dev, "llama3.2-1b", b, cfg.n_heads,
+                             cfg.n_kv_heads, s, cfg.hd, 0, blk, True),
+            "starcoder": bm_case(dev, "starcoder2-7b", st["b"], st["hq"],
+                                 st["hkv"], st["s"], st["d"], st["window"],
+                                 blk, False)}
+
+
+def llama_block_masked(dev, flash_warm_ms: float, batch: int = LM_BATCH,
+                       seq: int = LM_SEQ, smoke: bool = False) -> dict:
+    """llama3.2-1b's published config (``attn_impl="block_masked"``) at full
+    width: a bf16 prefill of ``batch`` x ``seq`` tokens on phase 10's weights
+    and tokens, against phase 10's flash forward."""
+    cfg = get_config("llama3_2_1b", smoke=smoke)
+    check(cfg.attn_impl == "block_masked", "llama3.2-1b's published "
+          "attn_impl is block_masked")
+    cfg = cfg.replace(dtype="bfloat16")
+    model = build_lm(cfg, dev, "llama-block-masked")
+    batch_in = {"tokens": lm_tokens(cfg, (batch, seq), dev)}
+    want = T.forward(model, cfg.replace(attn_impl="flash_pallas"), batch_in)
+    before = bm_counts()
+    reset_counts()
+    got = T.forward(model, cfg, batch_in)
+    sync(dev)
+    check(bm_counts() == (before[0] + cfg.n_layers, before[1])
+          and flash.LAUNCHES == 0, f"llama prefill ran block_masked once per "
+          f"layer ({cfg.n_layers}), no fallback, no flash launch")
+    check(got.shape == (batch, seq, cfg.vocab_size) and bool(
+        torch.isfinite(got).all()), "llama block_masked logits finite")
+    rel = logits_agree(f"llama-block-masked: prefill {batch}x{seq} vs the "
+                       f"flash prefill", got, want)
+    del got, want
+    warm_ms = host_ms(lambda: T.forward(model, cfg, batch_in), dev, reps=3)
+    print(f"llama-block-masked: prefill {batch}x{seq} bf16 warm "
+          f"{warm_ms:.1f} ms ({batch * seq / (warm_ms / 1e3):.0f} tokens/s) "
+          f"against the flash prefill's {flash_warm_ms:.1f} ms (phase 10)")
+    del model
+    return {"warm_ms": warm_ms, "flash_warm_ms": flash_warm_ms,
+            "vs_flash": rel}
+
+
+#: groups of the MoE prefill profile
+MOE_PROFILE_GROUPS = ("expert matmuls", "router/sort/gather/combine",
+                      "attention", "casts", "the rest")
+
+
+def moe_profile(model, cfg, batch_in, dev, what: str) -> dict:
+    """Device time of one warm prefill by group (``torch.profiler``, with
+    ranges opened around the port's ``attention``, ``MoE.forward`` and
+    ``MLP.forward`` for the call): a kernel goes to attention when its op
+    ran inside attention, else to casts when inside a cast
+    (``aten::_to_copy``), else to expert matmuls when it is a product
+    inside the MoE layer (not the router's, not a shared expert's), else
+    to router/sort/gather/combine when inside the MoE layer, else to the
+    rest (projections, dense and shared MLPs, norms, logits); and the
+    device's idle share of the call's wall time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    saved = (L.attention, L.MoE.forward, L.MoE.route, L.MLP.forward)
+
+    def ranged(name, fn):
+        def call(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return call
+
+    L.attention = ranged("smoke.attention", saved[0])
+    L.MoE.forward = ranged("smoke.moe", saved[1])
+    L.MoE.route = ranged("smoke.router", saved[2])
+    L.MLP.forward = ranged("smoke.mlp", saved[3])
+    try:
+        sync(dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            T.forward(model, cfg, batch_in)
+            sync(dev)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        L.attention, L.MoE.forward, L.MoE.route, L.MLP.forward = saved
+    groups = {g: [0.0, 0] for g in MOE_PROFILE_GROUPS}
+    products = ("aten::mm", "aten::addmm", "aten::bmm")
+    for e in prof.events():
+        if not e.kernels:
+            continue
+        chain, p = [], e
+        while p is not None:
+            chain.append(p.name)
+            p = p.cpu_parent
+        if "smoke.attention" in chain:
+            group = "attention"
+        elif "aten::_to_copy" in chain:
+            group = "casts"
+        elif "smoke.mlp" in chain or "smoke.moe" not in chain:
+            group = "the rest"
+        elif e.name in products and "smoke.router" not in chain:
+            group = "expert matmuls"
+        else:
+            group = "router/sort/gather/combine"
+        for k in e.kernels:
+            groups[group][0] += k.duration / 1e3
+            groups[group][1] += 1
+    busy = sum(ms for ms, _ in groups.values())
+    if not busy:
+        print(f"{what}: profile: the profiler saw no device time (no CUPTI)")
+        return {}
+    idle = 1 - busy / wall_ms
+    print(f"{what}: profile of one warm prefill: wall {wall_ms:.1f} ms under "
+          f"the profiler, device busy {busy:.1f} ms, idle share {idle:.1%}; "
+          f"by group: " + "; ".join(f"{g} {ms:.2f} ms {ms / busy:.1%} x{n}"
+                                    for g, (ms, n) in groups.items()))
+    return {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": idle,
+            "groups": {g: ms for g, (ms, _) in groups.items()}}
+
+
+def decode_step_ms(model, cfg, tokens, batch: int, length: int, dev) -> float:
+    """Host milliseconds of one ``decode_step`` at batch ``batch`` over a
+    cache of ``length`` slots: the mean of ``DECODE_STEPS`` steps after two
+    warm ones, ended by a synchronise."""
+    cache = T.init_cache(cfg, batch, length, device=dev)
+    row = tokens[0]
+
+    def step(t):
+        T.decode_step(model, cfg, row[t].expand(batch), cache,
+                      torch.full((batch,), t, dtype=torch.int32, device=dev))
+    for t in range(2):
+        step(t)
+    sync(dev)
+    t0 = time.perf_counter()
+    for t in range(2, 2 + DECODE_STEPS):
+        step(t)
+    sync(dev)
+    return (time.perf_counter() - t0) * 1e3 / DECODE_STEPS
+
+
+class routing_log:
+    """Within the block, ``MoE.route`` appends each call's (weights,
+    experts) to ``calls``; given ``replay`` (an earlier block's calls), it
+    returns those instead, in call order, so a second forward routes every
+    token as the first did."""
+
+    def __init__(self, replay=None):
+        self.replay = None if replay is None else iter(replay)
+        self.calls = []
+
+    def __enter__(self):
+        self.saved = L.MoE.route
+
+        def route(module, xt, cfg):
+            if self.replay is not None:
+                return next(self.replay)
+            self.calls.append(self.saved(module, xt, cfg))
+            return self.calls[-1]
+
+        L.MoE.route = route
+        return self
+
+    def __exit__(self, *exc):
+        L.MoE.route = self.saved
+
+
+def moe_prefill(model, cfg, batch_in, dev, what: str):
+    """One bf16 prefill of a MoE model under ``cfg.attn_impl``: its logits
+    (checked finite, of the right shape and dtype) and its counts, the
+    tokens each expert received and the peak memory."""
+    moes = [blk.ffn for blk in model.blocks if isinstance(blk.ffn, L.MoE)]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    before, matmuls = bm_counts(), L.EXPERT_MATMULS
+    reset_counts()
+    t0 = time.perf_counter()
+    logits = T.forward(model, cfg, batch_in)
+    sync(dev)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    n_tok = batch_in["tokens"].numel()
+    check(logits.shape == (1, n_tok, cfg.vocab_size)
+          and logits.dtype == torch.bfloat16
+          and bool(torch.isfinite(logits).all()),
+          f"{what}: logits finite, bf16, of shape (1, {n_tok}, "
+          f"{cfg.vocab_size})")
+    sizes = [m.group_sizes for m in moes]
+    check(all(sum(g) == n_tok * cfg.moe.top_k for g in sizes),
+          f"{what}: every MoE layer routed {cfg.moe.top_k} experts a token")
+    flat = [n for g in sizes for n in g]
+    out = {"first_ms": first_ms, "moe_layers": len(moes),
+           "tokens_per_expert": (min(flat), max(flat)),
+           "expert_matmuls": L.EXPERT_MATMULS - matmuls,
+           "host_reads": len(moes),
+           "block_masked_calls": bm_counts()[0] - before[0],
+           "fallbacks": bm_counts()[1] - before[1],
+           "peak_mib": (torch.cuda.max_memory_allocated(dev) / 2**20
+                        if dev.type == "cuda" else 0.0)}
+    check(out["expert_matmuls"] == 3 * sum(n > 0 for n in flat),
+          f"{what}: three products per expert that received tokens")
+    return out, logits
+
+
+def deepseek_phase(dev, smoke: bool = False) -> dict:
+    """deepseek-v2-lite-16b at full width and, where it fits, full depth:
+    a bf16 block_masked prefill of 1 x 2,048 tokens, its profile, absorbed
+    MLA decode and ``generate``; then f32 decode consistency at two layers
+    and MLA's refusal of ``flash_pallas``."""
+    what = "deepseek"
+    cfg = get_config("deepseek_v2_lite_16b", smoke=smoke).replace(
+        dtype="bfloat16")
+    seq = 32 if smoke else DEEPSEEK_SEQ
+    free = free_port_memory(dev)
+    depth = fit_depth(cfg, free)
+    print(f"{what}: {free / 2**30:.1f} GiB free on the card; full depth "
+          f"{cfg.n_layers} layers = {4 * n_params(cfg) / 1e9:.2f} GB of f32 "
+          f"weights; running {depth} layers"
+          + ("" if depth == cfg.n_layers else
+             f" (cut from {cfg.n_layers}: depth only, width kept)"))
+    cfg = cfg.replace(n_layers=depth)
+    model = build_lm(cfg, dev, what)
+    batch_in = {"tokens": lm_tokens(cfg, (1, seq), dev)}
+    out, logits = moe_prefill(model, cfg, batch_in, dev, what)
+    check(out["block_masked_calls"] == cfg.n_layers and out["fallbacks"] == 0
+          and flash.LAUNCHES == kernel.LAUNCHES == kernel.FUSED_LAUNCHES
+          == kernel.MASKED_MATMUL_LAUNCHES == 0,
+          f"{what}: block_masked once per layer ({cfg.n_layers}), no "
+          f"fallback, no kernel launch")
+    del logits
+    out["warm_ms"] = host_ms(lambda: T.forward(model, cfg, batch_in), dev,
+                             reps=3)
+    print(f"{what}: prefill 1x{seq} bf16 block_masked: first "
+          f"{out['first_ms']:.1f} ms, warm {out['warm_ms']:.1f} ms "
+          f"({seq / (out['warm_ms'] / 1e3):.0f} tokens/s); peak memory "
+          f"{out['peak_mib']:.0f} MiB; {out['moe_layers']} MoE layers: "
+          f"tokens per expert min {out['tokens_per_expert'][0]} max "
+          f"{out['tokens_per_expert'][1]} (of {seq * cfg.moe.top_k} "
+          f"assignments a layer over {cfg.moe.n_experts} experts), "
+          f"{out['expert_matmuls']} expert matmuls, {out['host_reads']} host "
+          f"reads of the group sizes")
+    out["profile"] = moe_profile(model, cfg, batch_in, dev, what)
+    if out["profile"]:
+        out["idle_share_warm"] = 1 - out["profile"]["busy_ms"] / out["warm_ms"]
+        print(f"{what}: the profile's device busy time against the "
+              f"unprofiled warm prefill ({out['warm_ms']:.1f} ms): idle share "
+              f"{out['idle_share_warm']:.1%}")
+    out["decode_ms"] = {bb: decode_step_ms(model, cfg, batch_in["tokens"],
+                                           bb, seq, dev) for bb in (1, 4)}
+    prompt = batch_in["tokens"][:, :16]
+    generate(model, cfg, prompt, max_new=2)              # warm-up
+    sync(dev)
+    t0 = time.perf_counter()
+    gen = generate(model, cfg, prompt, max_new=16)
+    sync(dev)
+    out["generate_ms"] = (time.perf_counter() - t0) * 1e3
+    check(gen.shape == (1, 32) and torch.equal(gen[:, :16],
+                                               prompt.to(torch.int32))
+          and bool(((gen >= 0) & (gen < cfg.vocab_size)).all()),
+          f"{what}: generate keeps the prompt and adds 16 tokens")
+    print(f"{what}: absorbed-MLA decode over a {seq}-slot latent cache "
+          f"({cfg.mla.kv_lora_rank} + {cfg.mla.qk_rope_dim} per token): "
+          f"{out['decode_ms'][1]:.2f} ms a step at B 1, "
+          f"{out['decode_ms'][4]:.2f} at B 4; generate 16 + 16 tokens "
+          f"{out['generate_ms']:.1f} ms "
+          f"({16e3 / out['generate_ms']:.1f} new tokens/s)")
+    del model, gen
+    free_port_memory(dev)
+
+    # the reference's decode-consistency property in f32 at two layers
+    # (one dense, one MoE) of full width
+    f32 = cfg.replace(n_layers=2, dtype="float32")
+    model = build_lm(f32, dev, f"{what}-f32")
+    short = batch_in["tokens"][:, :32]
+    want = T.forward(model, f32, {"tokens": short})
+    cache = T.init_cache(f32, 1, 32, device=dev)
+    steps = []
+    for t in range(short.shape[1]):
+        got, cache = T.decode_step(model, f32, short[:, t], cache,
+                                   torch.full((1,), t, dtype=torch.int32,
+                                              device=dev))
+        steps.append(got)
+    err = float((torch.stack(steps, 1) - want).abs().max())
+    check(err < 2e-2, f"{what}: f32 teacher-forced decode reproduces the "
+          f"f32 prefill within 2e-2 (max err {err:.3g})")
+    out["decode_consistency"] = err
+    # MLA's q.k head dim (192) is not its v head dim (128), which the flash
+    # op refuses before any launch, as the reference's does
+    reset_counts()
+    raised = None
+    try:
+        T.forward(model, f32.replace(attn_impl="flash_pallas"),
+                  {"tokens": short})
+    except ValueError as e:
+        raised = str(e)
+    check(raised is not None and flash.LAUNCHES == 0, f"{what}: MLA under "
+          f"flash_pallas raises before any launch")
+    print(f"{what}: f32 decode consistency at 2 layers, full width, 32 "
+          f"tokens: max |prefill - decode| {err:.3g} (< 2e-2); MLA under "
+          f"flash_pallas raises before any launch: {raised}")
+    del model, want, steps, cache
+    return out
+
+
+def moonshot_phase(dev, smoke: bool = False):
+    """moonshot-v1-16b-a3b at full width, depth cut to fit: a bf16 prefill
+    under flash_pallas (the bf16 flash kernel once per layer at D 128, no
+    plain version) against block_masked on the same weights, both timed,
+    decode ms a step; then the flash kernel at this layer's shape against
+    its plain version, beside causal SDPA and its bound.  Returns the
+    phase's numbers and the kernel's JSON entry."""
+    what = "moonshot"
+    cfg = get_config("moonshot_v1_16b_a3b", smoke=smoke).replace(
+        dtype="bfloat16")
+    seq = 32 if smoke else LM_SEQ
+    free = free_port_memory(dev)
+    depth = min(cfg.n_layers if smoke else MOONSHOT_LAYERS,
+                fit_depth(cfg, free))
+    print(f"{what}: {free / 2**30:.1f} GiB free on the card; "
+          f"{cfg.n_layers} layers = {4 * n_params(cfg) / 1e9:.2f} GB of f32 "
+          f"weights; running {depth} of them (depth cut, width kept)")
+    cfg = cfg.replace(n_layers=depth)
+    model = build_lm(cfg, dev, what)
+    batch_in = {"tokens": lm_tokens(cfg, (1, seq), dev)}
+    fcfg = cfg.replace(attn_impl="flash_pallas")
+    with count_plain(flash, ("flash_mask_plain",)) as plain, \
+            routing_log() as log:
+        out, flash_logits = moe_prefill(model, fcfg, batch_in, dev, what)
+    launches = flash.LAUNCHES
+    check(launches == flash.TC_LAUNCHES == cfg.n_layers
+          and flash.F32_LAUNCHES == 0 and plain.calls == 0
+          and out["block_masked_calls"] == 0,
+          f"{what}: the bf16 flash kernel launched once per layer "
+          f"({cfg.n_layers}) and no plain version ran (got {launches} "
+          f"launches, {plain.calls} plain calls)")
+    out["flash_launches"] = launches
+    # block_masked on the same weights, every token routed as the flash
+    # run routed it: a token at a router's near-tie would otherwise move to
+    # other experts under the impls' bf16 differences (an O(1) change of
+    # its logits, which the f32 comparison below counts)
+    with routing_log(replay=log.calls):
+        blocked, logits = moe_prefill(model, cfg, batch_in, dev,
+                                      f"{what} (block_masked)")
+    check(blocked["block_masked_calls"] == cfg.n_layers
+          and blocked["fallbacks"] == 0 and flash.LAUNCHES == 0,
+          f"{what}: block_masked once per layer, no flash launch")
+    out["vs_block_masked"] = logits_agree(
+        f"{what}: flash_pallas prefill vs block_masked with its routing",
+        flash_logits, logits)
+    del flash_logits, logits, log
+    # in f32 the impls differ only in summation order, but a token whose
+    # router sees a near-tie may still pick other experts; with the
+    # block_masked run's routing replayed into the flash run, what is left
+    # is the attention: the f32 flash instance (D 128) against block_masked
+    f32 = cfg.replace(dtype="float32")
+    moes = [blk.ffn for blk in model.blocks if isinstance(blk.ffn, L.MoE)]
+    with routing_log() as log:
+        want = T.forward(model, f32, batch_in)
+    sizes = [list(m.group_sizes) for m in moes]
+    reset_counts()
+    free_run = T.forward(model, f32.replace(attn_impl="flash_pallas"),
+                         batch_in)
+    sync(dev)
+    check(flash.F32_LAUNCHES == flash.LAUNCHES == cfg.n_layers,
+          f"{what}: f32 prefill runs the f32 flash kernel once per layer")
+    moved = [i for i, m in enumerate(moes) if m.group_sizes != sizes[i]]
+    free_rel = normwise(free_run, want)
+    del free_run
+    with routing_log(replay=log.calls):
+        got = T.forward(model, f32.replace(attn_impl="flash_pallas"),
+                        batch_in)
+    diff = (got - want).abs()
+    out["f32_vs_block_masked"] = float(diff.norm() / want.norm())
+    out["f32_free_vs_block_masked"] = free_rel
+    out["f32_layers_routed_apart"] = len(moved)
+    print(f"{what}: f32 prefill 1x{seq}, flash_pallas vs block_masked: "
+          f"{len(moved)} of {len(moes)} MoE layers route differently "
+          f"(first: MoE layer {moved[0] if moved else None}), normwise "
+          f"{free_rel:.3g}; with block_masked's routing replayed: max |diff| "
+          f"{float(diff.max()):.3g} (max |logit| "
+          f"{float(want.abs().max()):.4g}), normwise "
+          f"{out['f32_vs_block_masked']:.3g}")
+    check(out["f32_vs_block_masked"] <= 1e-4 and float(diff.max()) <= 1e-3,
+          f"{what}: f32 flash prefill with block_masked's routing within 1e-4 "
+          f"normwise and 1e-3 of block_masked")
+    del got, want, diff, log
+    out["flash_warm_ms"] = host_ms(lambda: T.forward(model, fcfg, batch_in),
+                                   dev, reps=3)
+    out["block_warm_ms"] = host_ms(lambda: T.forward(model, cfg, batch_in),
+                                   dev, reps=3)
+    out["decode_ms"] = decode_step_ms(model, fcfg, batch_in["tokens"], 1,
+                                      seq, dev)
+    flash_tok_s = seq / (out["flash_warm_ms"] / 1e3)
+    print(f"{what}: prefill 1x{seq} bf16: flash_pallas warm "
+          f"{out['flash_warm_ms']:.1f} ms ({flash_tok_s:.0f} tokens/s), "
+          f"block_masked {out['block_warm_ms']:.1f} ms "
+          f"({seq / (out['block_warm_ms'] / 1e3):.0f} tokens/s); peak memory "
+          f"{out['peak_mib']:.0f} MiB; tokens per expert min "
+          f"{out['tokens_per_expert'][0]} max {out['tokens_per_expert'][1]}, "
+          f"{out['expert_matmuls']} expert matmuls; decode "
+          f"{out['decode_ms']:.2f} ms a step at B 1")
+    del model
+    free_port_memory(dev)
+
+    # the kernel at this layer's shape: B 1, 16/16 heads, S, D 128
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    blk = min(cfg.attn_block, seq)
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = ((torch.randn(shape, generator=g, device=dev) * 0.5)
+               .to(torch.bfloat16)
+               for shape in ((1, hq, seq, d), (1, hkv, seq, d),
+                             (1, hkv, seq, d)))
+    sched = [torch.as_tensor(x, device=dev) for x in flash.build_schedule(
+        seq, seq, bq=blk, bk=blk, causal=True, window=0, prefix=0,
+        q_offset=0)]
+    pairs = int(sched[0].shape[0])
+    err, rel = flash_compare(q, k, v, bq=blk, bk=blk, q_offset=0, tol=1e-2,
+                             atol=1e-3, normwise=2e-3, **FLASH_PATTERNS[0])
+    kw = dict(bq=blk, bk=blk, scale=d ** -0.5, causal=True, window=0,
+              prefix=0, q_offset=0)
+    kernel_ms = device_ms(lambda: flash.flash_mask_kernel(q, k, v, *sched,
+                                                          **kw),
+                          dev, reps=7, warm=2)
+    plain_ms = device_ms(lambda: flash.flash_mask_plain(q, k, v, *sched,
+                                                        **kw),
+                         dev, reps=3, warm=1)
+    library_ms = device_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True), dev, reps=7, warm=2)
+    allowed = int(mask_allowed(seq, seq, causal=True, window=0, prefix=0,
+                               q_offset=0).sum())
+    flops = 4.0 * hq * allowed * d
+    nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel()) + 12 * pairs
+    bound_ms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    print(f"{what}: flash kernel at the layer's shape B=1 Hq={hq} Hkv={hkv} "
+          f"S={seq} D={d} blocks {blk} causal bf16: vs plain max |diff| "
+          f"{err:.3g}, normwise {rel:.3g} (limits rtol 1e-2, atol 1e-3, 2e-3 "
+          f"normwise); kernel {kernel_ms:.3f} ms "
+          f"({flops / kernel_ms / 1e9:.1f} TFLOP/s); plain {plain_ms:.3f} "
+          f"ms; library (causal SDPA) {library_ms:.3f} ms; bound {bound_ms:.4f} ms (by {by}); kernel at "
+          f"{bound_ms / kernel_ms:.2%} of it")
+    entry = {"name": "flash_mask (moonshot-v1-16b-a3b layer, D 128)",
+             "route": "cuda",
+             "source": "src/repro_torch/kernels/flash_mask/csrc/flash_mask.cu",
+             "replaces": "src/repro/kernels/flash_mask/kernel.py:121",
+             "launches": launches, "max_abs_err": err, "ms": kernel_ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+             "library_ms": library_ms}
+    del q, k, v
+    return out, entry
+
+
+def internvl_phase(dev, smoke: bool = False) -> dict:
+    """internvl2-2b at full width under block_masked with its image prefix
+    (256 patches + 1,792 tokens): logits against dense_masked on the same
+    weights (both honour the prefix-LM rule), overall and over the prefix's
+    rows, where flash_pallas (no prefix rule) is far off."""
+    what = "internvl"
+    cfg = get_config("internvl2_2b", smoke=smoke).replace(dtype="bfloat16")
+    text = 16 if smoke else INTERNVL_TEXT
+    free_port_memory(dev)
+    model = build_lm(cfg, dev, what)
+    g = torch.Generator(device=dev).manual_seed(2)
+    batch_in = {"tokens": lm_tokens(cfg, (1, text), dev),
+                "patches": torch.randn((1, cfg.img_tokens, cfg.d_frontend),
+                                       generator=g, device=dev) * 0.2}
+    p = cfg.img_tokens
+    before = bm_counts()
+    reset_counts()
+    got = T.forward(model, cfg, batch_in)
+    sync(dev)
+    check(bm_counts() == (before[0] + cfg.n_layers, before[1])
+          and flash.LAUNCHES == 0, f"{what}: block_masked once per layer "
+          f"({cfg.n_layers}), no fallback, no flash launch")
+    check(got.shape == (1, p + text, cfg.vocab_size) and bool(
+        torch.isfinite(got).all()), f"{what}: logits finite, of shape "
+          f"(1, {p + text}, {cfg.vocab_size})")
+    dense = T.forward(model, cfg.replace(attn_impl="dense_masked"), batch_in)
+    rel = logits_agree(f"{what}: prefill {p} + {text} vs dense_masked", got,
+                       dense)
+    rel_prefix = normwise(got[:, :p], dense[:, :p])
+    causal = T.forward(model, cfg.replace(attn_impl="flash_pallas"),
+                       batch_in)
+    rel_causal = normwise(causal[:, :p], dense[:, :p])
+    check(rel_prefix <= 5e-2 and rel_causal >= 10 * rel_prefix,
+          f"{what}: the prefix's rows within 5e-2 normwise of dense_masked "
+          f"(got {rel_prefix:.3g}), ten times closer than a causal-only "
+          f"prefix ({rel_causal:.3g})")
+    del causal, dense, got
+    warm_ms = host_ms(lambda: T.forward(model, cfg, batch_in), dev, reps=3)
+    print(f"{what}: the image prefix's rows vs dense_masked normwise "
+          f"{rel_prefix:.3g} (a causal-only prefix, flash_pallas: "
+          f"{rel_causal:.3g}); prefill {p} + {text} bf16 block_masked warm "
+          f"{warm_ms:.1f} ms ({(p + text) / (warm_ms / 1e3):.0f} tokens/s)")
+    del model
+    return {"vs_dense": rel, "prefix_vs_dense": rel_prefix,
+            "causal_prefix_vs_dense": rel_causal, "warm_ms": warm_ms}
+
+
+def families_phase(dev, flash_warm_ms: float):
+    """Phase 14; returns its numbers and the moonshot flash entry."""
+    free = free_port_memory(dev)
+    print(f"families: {free / 2**30:.1f} GiB free after clearing every port "
+          f"cache")
+    out = {"block_masked": block_masked_layers(dev),
+           "llama": llama_block_masked(dev, flash_warm_ms),
+           "deepseek": deepseek_phase(dev)}
+    out["moonshot"], entry = moonshot_phase(dev)
+    out["internvl"] = internvl_phase(dev)
+    free_port_memory(dev)
+    return out, entry
 
 
 def main() -> int:
@@ -3164,7 +3898,11 @@ def main() -> int:
     flash_entry = flash_layer(dev)
     flash_entry["max_abs_err"] = max(flash_entry["max_abs_err"], err)
     t_lm = time.perf_counter()
-    flash_entry["launches"], flash_entry["f32_launches"] = lm_serving(dev)
+    (flash_entry["launches"], flash_entry["f32_launches"],
+     flash_warm_ms) = lm_serving(dev)
+    t_families = time.perf_counter()
+    families, moonshot_entry = families_phase(dev, flash_warm_ms)
+    moonshot_entry["families"] = families
     t_end = time.perf_counter()
     print(f"phases: spgemm {t_serving - t_start:.1f} s, serving "
           f"{t_delta - t_serving:.1f} s, delta {t_tuning - t_delta:.1f} s, "
@@ -3172,8 +3910,10 @@ def main() -> int:
           f"health {t_dist - t_health:.1f} s, "
           f"distributed {t_sddmm - t_dist:.1f} s, "
           f"sddmm {t_flash - t_sddmm:.1f} s, "
-          f"flash {t_lm - t_flash:.1f} s, lm {t_end - t_lm:.1f} s")
-    print(json.dumps({"kernels": [entry, sddmm, flash_entry]}))
+          f"flash {t_lm - t_flash:.1f} s, lm {t_families - t_lm:.1f} s, "
+          f"families {t_end - t_families:.1f} s")
+    print(json.dumps({"kernels": [entry, sddmm, flash_entry,
+                                  moonshot_entry]}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

@@ -114,7 +114,8 @@ ARCH_IDS = (
 )
 
 #: architectures whose config and model the port has
-PORTED = ("llama3_2_1b",)
+PORTED = ("llama3_2_1b", "llama3_2_3b", "stablelm_3b", "starcoder2_7b",
+          "deepseek_v2_lite_16b", "moonshot_v1_16b_a3b", "internvl2_2b")
 
 # public --arch ids (hyphenated) -> module names
 ARCH_ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core.formats import BCSR, CSR, CSRDelta, PaddedCSR
 from repro_torch.core.planner import Plan, PlanStats
+from repro_torch.models.transformer import n_dense_layers
 
 
 def csr_from_reference(obj) -> CSR:
@@ -76,21 +77,49 @@ def _copy(dst: torch.Tensor, src, name: str) -> None:
         dst.copy_(torch.as_tensor(arr))
 
 
+def _copy_module(module, tree, path: str, i: int, rename=None) -> None:
+    """Copy layer ``i`` of each stacked leaf of ``tree`` into the parameter
+    of ``module`` with its name (a dict recurses into the submodule of its
+    name); a name the module has no parameter for raises."""
+    rename = rename or {}
+    for name, stacked in tree.items():
+        where = f"{path}/{name}"
+        if isinstance(stacked, dict):
+            sub = getattr(module, name, None)
+            if not isinstance(sub, torch.nn.Module):
+                raise ValueError(f"{where}: the port has no such module")
+            _copy_module(sub, stacked, where, i)
+            continue
+        dst = getattr(module, rename.get(name, name), None)
+        if not isinstance(dst, torch.Tensor):
+            raise ValueError(f"{where}: the port has no such parameter")
+        _copy(dst, stacked[i], f"{where}[{i}]")
+
+
 def load_reference_params(model, tree) -> None:
     """Copy a reference parameter tree (``repro.models.transformer
     .init_params``; leaves as numpy or JAX arrays) into a port
     ``Transformer`` of the same config, in place.
 
-    ``embed``, ``final_ln_scale`` (``final_ln_bias``) and ``lm_head`` map
-    to the model's own; ``layers_dense`` holds each block parameter stacked
-    on a leading layer axis: ``attn/{wq, wk, wv, wo, bq, bk, bv}``,
-    ``ffn/{w_gate, w_up, w_down, b_up, b_down}``, ``ln1_scale``,
-    ``ln2_scale`` (and ``_bias``) go to block i's modules.  A key the port
-    has no place for raises.
+    ``embed``, ``final_ln_scale`` (``final_ln_bias``), ``lm_head`` and the
+    VLM's ``patch_proj`` map to the model's own.  ``layers_dense`` (the
+    blocks with a dense MLP, first) and ``layers_moe`` (the MoE blocks)
+    hold each block parameter stacked on a leading layer axis:
+    ``attn/{wq, wk, wv, wo, bq, bk, bv}`` or, with MLA, ``attn/{wq,
+    wkv_a, wk_rope, wk_b, wv_b, wo}``; ``ffn/{w_gate, w_up, w_down, b_up,
+    b_down}`` or, in a MoE block, ``ffn/{router, experts_gate, experts_up,
+    experts_down, shared/{w_gate, w_up, w_down}}``; ``ln1_scale``,
+    ``ln2_scale`` (and ``_bias``).  Stack i goes to the i-th block of its
+    kind.  A key the port has no place for raises.
     """
     cfg = model.cfg
-    known = {"embed", "final_ln_scale", "final_ln_bias", "lm_head",
-             "layers_dense"}
+    kd = n_dense_layers(cfg)
+    stacks = {"layers_dense": model.blocks[:kd],
+              "layers_moe": model.blocks[kd:]}
+    known = {"embed", "final_ln_scale", "final_ln_bias", "lm_head"}
+    known |= {name for name, blocks in stacks.items() if len(blocks)}
+    if model.patch_proj is not None:
+        known.add("patch_proj")
     extra = sorted(set(tree) - known)
     if extra:
         raise ValueError(f"reference parameters the port has no place for: "
@@ -101,21 +130,23 @@ def load_reference_params(model, tree) -> None:
         _copy(model.final_ln.bias, tree["final_ln_bias"], "final_ln_bias")
     if model.lm_head is not None:
         _copy(model.lm_head, tree["lm_head"], "lm_head")
-    layers = tree["layers_dense"]
-    n = np.asarray(layers["ln1_scale"]).shape[0]
-    if n != len(model.blocks):
-        raise ValueError(f"reference has {n} layers, the port "
-                         f"{len(model.blocks)}")
+    if model.patch_proj is not None:
+        _copy(model.patch_proj, tree["patch_proj"], "patch_proj")
     kv = ({"wk_rep": "wk", "wv_rep": "wv"} if cfg.kv_replicated else {})
-    for i, block in enumerate(model.blocks):
-        for group, module in (("attn", block.attn), ("ffn", block.ffn)):
-            for name, stacked in layers[group].items():
-                dst = getattr(module, kv.get(name, name), None)
-                if not isinstance(dst, torch.Tensor):
-                    raise ValueError(f"layers_dense/{group}/{name}: the "
-                                     f"port has no such parameter")
-                _copy(dst, stacked[i], f"layers_dense/{group}/{name}[{i}]")
-        for ln, module in (("ln1", block.ln1), ("ln2", block.ln2)):
-            _copy(module.scale, layers[f"{ln}_scale"][i], f"{ln}_scale[{i}]")
-            if module.bias is not None:
-                _copy(module.bias, layers[f"{ln}_bias"][i], f"{ln}_bias[{i}]")
+    for stack, blocks in stacks.items():
+        if not len(blocks):
+            continue
+        layers = tree[stack]
+        n = np.asarray(layers["ln1_scale"]).shape[0]
+        if n != len(blocks):
+            raise ValueError(f"{stack}: reference has {n} layers, the port "
+                             f"{len(blocks)}")
+        for i, block in enumerate(blocks):
+            _copy_module(block.attn, layers["attn"], f"{stack}/attn", i, kv)
+            _copy_module(block.ffn, layers["ffn"], f"{stack}/ffn", i)
+            for ln, module in (("ln1", block.ln1), ("ln2", block.ln2)):
+                _copy(module.scale, layers[f"{ln}_scale"][i],
+                      f"{stack}/{ln}_scale[{i}]")
+                if module.bias is not None:
+                    _copy(module.bias, layers[f"{ln}_bias"][i],
+                          f"{stack}/{ln}_bias[{i}]")

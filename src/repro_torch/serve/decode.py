@@ -12,7 +12,8 @@ from repro_torch.models import transformer as T
 
 
 def make_serve_step(cfg: ModelConfig):
-    """The decode step for ``cfg``'s family (the dense family only)."""
+    """The decode step for ``cfg``'s family (dense, MoE with or without
+    MLA, and the VLM backbone on its text tokens, as the reference's)."""
     T._require_ported(cfg)
 
     def serve_step(model, token, cache, pos):

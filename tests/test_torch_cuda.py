@@ -9,7 +9,8 @@ applications against the same calls on the CPU, the distributed routes
 engine) against the single-device call, the calibration probes
 (smoke grids) and auto results under the committed H100 profile against
 the builtin constants, the LM forward with the flash kernel against
-dense attention, and a monitored engine's ``/metrics`` and ``/health``
+dense attention, block_masked attention, the MoE layer and an MLA/MoE
+model against the CPU, and a monitored engine's ``/metrics`` and ``/health``
 answering while its async worker launches the fused kernel.  Every test
 needs a GPU and skips without one.
 
@@ -701,6 +702,78 @@ def test_lm_forward_flash_matches_dense(cuda_device):
     want = T.forward(model, cfg.replace(attn_impl="dense_masked"),
                      {"tokens": tokens})
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_masked_on_cuda_matches_cpu(cuda_device, dtype):
+    """block_masked attention (GQA, causal, a window and a prefix, s_q !=
+    s_k) on the card against the same call on the CPU: 1e-5 in f32, 2e-2
+    in bf16 (both round p to bf16; the card's products sum in another
+    order, so a rounding may flip)."""
+    from repro_torch.models import attention as A
+    rng = np.random.default_rng(6)
+    q = torch.as_tensor(rng.standard_normal((2, 8, 128, 64)) * 0.5,
+                        dtype=torch.float32).to(dtype)
+    k, v = (torch.as_tensor(rng.standard_normal((2, 2, 256, 64)) * 0.5,
+                            dtype=torch.float32).to(dtype) for _ in range(2))
+    kw = dict(causal=True, window=96, prefix=32, q_offset=128, bq=32, bk=64)
+    want = A.block_masked_attention(q, k, v, **kw)
+    before = (A.BLOCK_MASKED_CALLS, A.BLOCK_MASKED_FALLBACKS)
+    got = A.block_masked_attention(q.to(cuda_device), k.to(cuda_device),
+                                   v.to(cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert (A.BLOCK_MASKED_CALLS, A.BLOCK_MASKED_FALLBACKS) == (
+        before[0] + 1, before[1])
+    assert got.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+def test_moe_on_cuda_matches_cpu(cuda_device):
+    """The MoE layer (64 experts, top-6, renormalised, two shared experts)
+    on the card against the CPU: the same routing and outputs within
+    1e-5."""
+    from repro_torch.configs.base import MoECfg
+    from repro_torch.models import layers as L
+    cfg = get_config("deepseek_v2_lite_16b", smoke=True).replace(
+        moe=MoECfg(n_experts=64, top_k=6, d_ff_expert=32, n_shared=2,
+                   d_ff_shared=32, router_scale=True))
+    moe = L.MoE(cfg, torch.Generator().manual_seed(3))
+    x = torch.randn(2, 64, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(4))
+    want = moe(x, cfg)
+    sizes = list(moe.group_sizes)
+    moe.to(cuda_device)
+    before = L.EXPERT_MATMULS
+    got = moe(x.to(cuda_device), cfg)
+    torch.cuda.synchronize()
+    assert moe.group_sizes == sizes
+    assert L.EXPERT_MATMULS - before == 3 * sum(n > 0 for n in sizes)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_mla_moe_model_on_cuda_matches_cpu(cuda_device):
+    """deepseek-v2-lite SMOKE (MLA, MoE, block_masked) on the card: f32
+    forward and teacher-forced decode against the same weights on the
+    CPU within 1e-5."""
+    cfg = get_config("deepseek_v2_lite_16b", smoke=True)
+    model = T.init_params(cfg, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32),
+                           generator=torch.Generator().manual_seed(5))
+    want = T.forward(model, cfg, {"tokens": tokens})
+    cache = T.init_cache(cfg, 2, 32, device="cpu")
+    want_step, _ = T.decode_step(model, cfg, tokens[:, 0], cache,
+                                 torch.zeros(2, dtype=torch.int32))
+    model.to(cuda_device)
+    got = T.forward(model, cfg, {"tokens": tokens.to(cuda_device)})
+    cache = T.init_cache(cfg, 2, 32, device=cuda_device)
+    got_step, _ = T.decode_step(model, cfg, tokens[:, 0].to(cuda_device),
+                                cache, torch.zeros(2, dtype=torch.int32,
+                                                   device=cuda_device))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got_step.cpu(), want_step, rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_monitored_engine_answers_while_the_async_worker_serves(cuda_device):

@@ -186,15 +186,16 @@ def test_config_variants_match_reference(variant):
 
 
 def test_prefix_lm_mask_differs_between_impls_as_in_reference():
-    """The dense mask makes a prefix bidirectional (prefix-LM) when
-    window == 0; the flash kernel's mask does not.  Each port impl is held
-    to its own reference impl, and the divergence is pinned."""
+    """The dense and block-masked masks make a prefix bidirectional
+    (prefix-LM) when window == 0; the flash kernel's mask does not.  Each
+    port impl is held to its own reference impl, block_masked agrees with
+    dense_masked, and the divergence from flash is pinned."""
     rng = np.random.default_rng(4)
     q, k, v = (rng.standard_normal((1, 2, 16, 8)).astype(np.float32)
                for _ in range(3))
     kw = dict(causal=True, window=0, prefix=8, block=8)
     got, want = {}, {}
-    for impl in ("flash_pallas", "dense_masked"):
+    for impl in ("flash_pallas", "dense_masked", "block_masked"):
         ref_flash_ops._sched.cache_clear()
         want[impl] = np.asarray(ref_attention(
             *(jnp.asarray(x) for x in (q, k, v)), impl=impl, **kw))
@@ -202,6 +203,8 @@ def test_prefix_lm_mask_differs_between_impls_as_in_reference():
                               impl=impl, **kw).numpy()
         np.testing.assert_allclose(got[impl], want[impl], rtol=F32_TOL,
                                    atol=F32_TOL)
+    np.testing.assert_allclose(got["block_masked"], got["dense_masked"],
+                               rtol=F32_TOL, atol=F32_TOL)
     # rows inside the prefix see later prefix keys only under dense_masked
     assert not np.allclose(got["flash_pallas"][:, :, :8],
                            got["dense_masked"][:, :, :8])
@@ -211,14 +214,19 @@ def test_prefix_lm_mask_differs_between_impls_as_in_reference():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="block_masked"):
-        q = torch.zeros(1, 2, 8, 4)
-        attention(q, q, q, impl="block_masked")
+    """block_masked runs and the moe family builds; the SSM, xLSTM, hybrid
+    and audio architectures still raise."""
+    q = torch.zeros(1, 2, 8, 4)
+    assert attention(q, q, q, impl="block_masked").shape == (1, 2, 8, 4)
+    for arch in ("zamba2_7b", "xlstm_1_3b", "seamless_m4t_large_v2"):
+        with pytest.raises(NotImplementedError):
+            get_config(arch, smoke=True)
+    moe = T.init_params(get_config("moonshot_v1_16b_a3b", smoke=True),
+                        device="cpu")
+    assert moe.cfg.family == "moe"
+    ssm_cfg = get_config("llama3_2_1b", smoke=True).replace(family="ssm")
     with pytest.raises(NotImplementedError):
-        get_config("zamba2_7b", smoke=True)
-    moe_cfg = get_config("llama3_2_1b", smoke=True).replace(family="moe")
-    with pytest.raises(NotImplementedError):
-        T.init_params(moe_cfg, device="cpu")
+        T.init_params(ssm_cfg, device="cpu")
     cfg = get_config("llama3.2-1b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.hd, cfg.vocab_size) == (16, 2048, 32, 8, 64, 128256)
