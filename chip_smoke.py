@@ -168,7 +168,33 @@ Phases, each printing its own lines:
    against ``dense_masked``, the prefix's rows within 5e-2 and ten times
    closer than a causal-only prefix (flash).  deepseek runs at full
    depth where 71.4 GB are free (its weights and 8 GiB of headroom);
-15. one JSON line with every kernel's numbers, then the result line
+15. families II (after phase 14, every port cache cleared; random f32
+   weights from seed 0, bf16 activations, full width and full depth, each
+   model freed before the next): zamba2-7b (81 Mamba2 blocks and one
+   shared attention block applied 13 times, D 112), a prefill of
+   1 x 2,048 under the published ``block_masked`` (13 worklist calls, no
+   flash launch) and under ``flash_pallas`` (13 bf16 launches, no plain
+   version): bf16 logits within 5e-2 normwise of ``block_masked``'s, or
+   within 1.5 times the bf16 floor (``dense_masked`` against
+   ``block_masked``) where that floor exceeds 5e-2, and the f32 prefill
+   under the f32 instance within 1e-4 normwise and 1e-3; cold and warm
+   ms, tokens/s, peak
+   memory, a ``torch.profiler`` breakdown by group (projections, SSD
+   intra-chunk, chunk states and recurrence, conv, attention, casts) with
+   the idle share; decode ms a step at B 1 over 2,048 and 32,768 slots,
+   ``generate`` 16 + 16, f32 decode against prefill over 64 tokens
+   (2e-2); the kernel at the shared block's shape against its plain
+   version, causal SDPA and its bound.  xlstm-1.3b (42 mLSTM and 6 sLSTM
+   blocks): prefill, its kernels launched and idle share, decode,
+   ``generate``, the f32 check.  seamless-m4t-large-v2 (24 + 24 layers):
+   2,048 frames and 2,048 tokens under ``block_masked`` (24 causal
+   worklist calls, 24 bidirectional encoder layers on the dense path) and
+   ``flash_pallas`` (24 non-causal then 24 causal launches), held as
+   zamba2's; the encoder computed once, decode with cross-attention over it,
+   ``generate``; the non-causal kernel at the encoder's shape against
+   non-causal SDPA and its bound.  Phase 9's sweep also holds D 112 and
+   D 128, causal and non-causal, f32 and bf16, against the plain version;
+16. one JSON line with every kernel's numbers, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the result line.
@@ -208,12 +234,14 @@ from repro_torch.graphs.triangle_counting import (  # noqa: E402
     degree_relabel, triangle_count)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_mask import kernel as flash  # noqa: E402
+from repro_torch.kernels.flash_mask import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_mask.ops import (  # noqa: E402
     flash_mask_attention)
 from repro_torch.kernels.flash_mask.ref import mask_allowed  # noqa: E402
 from repro_torch.kernels.masked_matmul import kernel, ops  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models import ssm as SSD  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.decode import generate  # noqa: E402
 from repro_torch.core.semiring import PLUS_TIMES  # noqa: E402
@@ -423,6 +451,9 @@ def build(dev) -> None:
                 ("flash_mask bf16 128/128, D 64",
                  _build.kernel_info("flash_mask", "flash_mask_tc_info", 128,
                                     128, 64)),
+                ("flash_mask bf16 128/128, D 112 and 128 (the D 128 tile)",
+                 _build.kernel_info("flash_mask", "flash_mask_tc_info", 128,
+                                    128, 112)),
                 ("flash_mask f32 (3xTF32) 128/128, D 64",
                  _build.kernel_info("flash_mask", "flash_mask_f32_info", 128,
                                     128, 64)),
@@ -2757,10 +2788,12 @@ def flash_compare(q, k, v, *, bq, bk, q_offset, tol, atol=None,
 
 def flash_vs_plain(dev) -> float:
     """The reference's sweep (tests/test_kernels_flash_mask.py): four
-    patterns x three shapes x f32/bf16 with q_offset = s_k - s_q, the
-    decode offset and the GQA op, within 2e-5 / 3e-2, and bf16 also within
-    the layer's 2e-3 normwise (one bf16 term for p, instead of the kernel's
-    two, exceeds it at the layer's shape: test_torch_tc_numerics)."""
+    patterns x three shapes x f32/bf16 with q_offset = s_k - s_q; then the
+    model layers' head dims D 112 and 128, causal and non-causal, 4/2
+    heads, S 256 in 128-blocks, f32/bf16; the decode offset and the GQA
+    op; within 2e-5 / 3e-2, and bf16 also within the layer's 2e-3
+    normwise (one bf16 term for p, instead of the kernel's two, exceeds it
+    at the layer's shape: test_torch_tc_numerics)."""
     err = rel_bf16 = 0.0
     d = 16
     tc_before, f32_before = flash.TC_LAUNCHES, flash.F32_LAUNCHES
@@ -2779,9 +2812,25 @@ def flash_vs_plain(dev) -> float:
                 err = max(err, e)
                 if dtype == torch.bfloat16:
                     rel_bf16 = max(rel_bf16, rel)
-    check(flash.TC_LAUNCHES - tc_before == 24
-          and flash.F32_LAUNCHES - f32_before == 12, "the 24 cases ran "
-          "tensor-core kernels, the 12 f32 ones the 3xTF32 kernel")
+    # the model layers' head dims beyond the sweep's: D 112 (zamba2-7b,
+    # the D 128 tile with a zero-filled tail) and D 128 (moonshot), causal
+    # and non-causal (seamless's encoder), GQA heads, 128-blocks
+    for d_big in (112, 128):
+        for pattern in (FLASH_PATTERNS[0], FLASH_PATTERNS[3]):
+            for dtype, tol, normwise in ((torch.float32, 2e-5, None),
+                                         (torch.bfloat16, 3e-2, 2e-3)):
+                rng = np.random.default_rng(d_big)
+                q, k, v = (torch.as_tensor(
+                    rng.standard_normal((1, h, 256, d_big)) * 0.5,
+                    device=dev).to(dtype) for h in (4, 2, 2))
+                e, rel = flash_compare(q, k, v, bq=128, bk=128, q_offset=0,
+                                       tol=tol, normwise=normwise, **pattern)
+                err = max(err, e)
+                if dtype == torch.bfloat16:
+                    rel_bf16 = max(rel_bf16, rel)
+    check(flash.TC_LAUNCHES - tc_before == 32
+          and flash.F32_LAUNCHES - f32_before == 16, "the 32 cases ran "
+          "tensor-core kernels, the 16 f32 ones the 3xTF32 kernel")
     rng = np.random.default_rng(9)
     q, k, v = (torch.as_tensor(rng.standard_normal((1, 1, s, d)) * 0.5,
                                dtype=torch.float32, device=dev)
@@ -2805,7 +2854,8 @@ def flash_vs_plain(dev) -> float:
     check(torch.allclose(got, want, rtol=2e-5, atol=2e-5),
           f"GQA op within 2e-5 (max err {e})")
     err = max(err, e)
-    print(f"flash-vs-plain: reference sweep, decode offset and GQA op "
+    print(f"flash-vs-plain: reference sweep, D 112 and 128 (causal and "
+          f"non-causal), decode offset and GQA op "
           f"agree (2e-5 f32, 3e-2 bf16), max abs err {err:.3g}; bf16 "
           f"normwise at most {rel_bf16:.3g} (limit 2e-3)")
     return err
@@ -3205,6 +3255,27 @@ def n_params(cfg) -> int:
     def mlp(f):
         return 3 * d * f if cfg.act == "swiglu" else 2 * d * f + f + d
 
+    head = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2) + norm
+    if cfg.family == "ssm":
+        xc = cfg.xlstm
+        hd = xc.head_dim or d // h
+        d_in, r = h * hd, xc.slstm_every
+        mlstm = 4 * d * d_in + 2 * d * h + 2 * h + d_in + d_in * d + norm
+        slstm = 4 * d * d_in + 4 * h * hd * hd + 5 * d_in + d_in * d + norm
+        return head + cfg.n_layers // r * ((r - 1) * mlstm + slstm)
+    if cfg.family == "hybrid":
+        sc = cfg.ssm
+        d_in = sc.expand * d
+        nh, conv = d_in // sc.head_dim, d_in + 2 * sc.d_state
+        ssm = (d * (conv + d_in + nh) + (sc.conv_width + 1) * conv
+               + 3 * nh + d_in + d_in * d + norm)
+        return (head + cfg.n_layers * ssm + attn + 2 * norm
+                + mlp(cfg.d_ff))
+    if cfg.family == "audio":
+        enc = attn + 2 * norm + mlp(cfg.d_ff)
+        dec = 2 * attn + 3 * norm + mlp(cfg.d_ff)
+        return (head + cfg.n_enc_layers * enc + cfg.n_dec_layers * dec
+                + norm + (cfg.d_frontend or d) * d)
     kd = T.n_dense_layers(cfg)
     total = kd * (attn + 2 * norm + mlp(cfg.d_ff)) + norm
     if cfg.moe is not None:
@@ -3391,18 +3462,17 @@ MOE_PROFILE_GROUPS = ("expert matmuls", "router/sort/gather/combine",
                       "attention", "casts", "the rest")
 
 
-def moe_profile(model, cfg, batch_in, dev, what: str) -> dict:
-    """Device time of one warm prefill by group (``torch.profiler``, with
-    ranges opened around the port's ``attention``, ``MoE.forward`` and
-    ``MLP.forward`` for the call): a kernel goes to attention when its op
-    ran inside attention, else to casts when inside a cast
-    (``aten::_to_copy``), else to expert matmuls when it is a product
-    inside the MoE layer (not the router's, not a shared expert's), else
-    to router/sort/gather/combine when inside the MoE layer, else to the
-    rest (projections, dense and shared MLPs, norms, logits); and the
-    device's idle share of the call's wall time."""
+def ranged_profile(run, dev, what: str, ranges, classify,
+                   groups) -> dict:
+    """Device time of one ``run()`` by group (``torch.profiler``): a range
+    (``record_function``) is opened around each ``(owner, attribute,
+    range name)`` of ``ranges`` for the call, and each kernel goes to the
+    group ``classify(chain, op name)`` names, from the names of the ranges
+    and ops it ran inside (innermost first) and its op's; returns the
+    call's wall time under the profiler, the device's busy time, its idle
+    share, the ms by group and the kernels launched."""
     from torch.profiler import ProfilerActivity, profile, record_function
-    saved = (L.attention, L.MoE.forward, L.MoE.route, L.MLP.forward)
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in ranges]
 
     def ranged(name, fn):
         def call(*args, **kw):
@@ -3410,22 +3480,20 @@ def moe_profile(model, cfg, batch_in, dev, what: str) -> dict:
                 return fn(*args, **kw)
         return call
 
-    L.attention = ranged("smoke.attention", saved[0])
-    L.MoE.forward = ranged("smoke.moe", saved[1])
-    L.MoE.route = ranged("smoke.router", saved[2])
-    L.MLP.forward = ranged("smoke.mlp", saved[3])
+    for (owner, attr, fn), (_, _, name) in zip(saved, ranges):
+        setattr(owner, attr, ranged(name, fn))
     try:
         sync(dev)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            T.forward(model, cfg, batch_in)
+            run()
             sync(dev)
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        L.attention, L.MoE.forward, L.MoE.route, L.MLP.forward = saved
-    groups = {g: [0.0, 0] for g in MOE_PROFILE_GROUPS}
-    products = ("aten::mm", "aten::addmm", "aten::bmm")
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+    by = {g: [0.0, 0] for g in groups}
     for e in prof.events():
         if not e.kernels:
             continue
@@ -3433,33 +3501,58 @@ def moe_profile(model, cfg, batch_in, dev, what: str) -> dict:
         while p is not None:
             chain.append(p.name)
             p = p.cpu_parent
-        if "smoke.attention" in chain:
-            group = "attention"
-        elif "aten::_to_copy" in chain:
-            group = "casts"
-        elif "smoke.mlp" in chain or "smoke.moe" not in chain:
-            group = "the rest"
-        elif e.name in products and "smoke.router" not in chain:
-            group = "expert matmuls"
-        else:
-            group = "router/sort/gather/combine"
+        group = classify(chain, e.name)
         for k in e.kernels:
-            groups[group][0] += k.duration / 1e3
-            groups[group][1] += 1
-    busy = sum(ms for ms, _ in groups.values())
+            by[group][0] += k.duration / 1e3
+            by[group][1] += 1
+    busy = sum(ms for ms, _ in by.values())
     if not busy:
         print(f"{what}: profile: the profiler saw no device time (no CUPTI)")
         return {}
     idle = 1 - busy / wall_ms
+    kernels = sum(n for _, n in by.values())
     print(f"{what}: profile of one warm prefill: wall {wall_ms:.1f} ms under "
-          f"the profiler, device busy {busy:.1f} ms, idle share {idle:.1%}; "
-          f"by group: " + "; ".join(f"{g} {ms:.2f} ms {ms / busy:.1%} x{n}"
-                                    for g, (ms, n) in groups.items()))
+          f"the profiler, device busy {busy:.1f} ms, idle share {idle:.1%}, "
+          f"{kernels} kernels; by group: "
+          + "; ".join(f"{g} {ms:.2f} ms {ms / busy:.1%} x{n}"
+                      for g, (ms, n) in by.items()))
     return {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": idle,
-            "groups": {g: ms for g, (ms, _) in groups.items()}}
+            "kernels": kernels, "groups": {g: ms for g, (ms, _) in by.items()}}
 
 
-def decode_step_ms(model, cfg, tokens, batch: int, length: int, dev) -> float:
+#: the ops of a product
+PRODUCTS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::matmul")
+
+
+def moe_profile(model, cfg, batch_in, dev, what: str) -> dict:
+    """Device time of one warm prefill by group, with ranges around the
+    port's ``attention``, ``MoE.forward``, ``MoE.route`` and
+    ``MLP.forward``: a kernel goes to attention when its op ran inside
+    attention, else to casts when inside a cast (``aten::_to_copy``), else
+    to expert matmuls when it is a product inside the MoE layer (not the
+    router's, not a shared expert's), else to router/sort/gather/combine
+    when inside the MoE layer, else to the rest (projections, dense and
+    shared MLPs, norms, logits)."""
+    def classify(chain, name):
+        if "smoke.attention" in chain:
+            return "attention"
+        if "aten::_to_copy" in chain:
+            return "casts"
+        if "smoke.mlp" in chain or "smoke.moe" not in chain:
+            return "the rest"
+        if name in PRODUCTS[:3] and "smoke.router" not in chain:
+            return "expert matmuls"
+        return "router/sort/gather/combine"
+
+    return ranged_profile(
+        lambda: T.forward(model, cfg, batch_in), dev, what,
+        ((L, "attention", "smoke.attention"),
+         (L.MoE, "forward", "smoke.moe"), (L.MoE, "route", "smoke.router"),
+         (L.MLP, "forward", "smoke.mlp")), classify, MOE_PROFILE_GROUPS)
+
+
+def decode_step_ms(model, cfg, tokens, batch: int, length: int, dev,
+                   encoder_out=None) -> float:
     """Host milliseconds of one ``decode_step`` at batch ``batch`` over a
     cache of ``length`` slots: the mean of ``DECODE_STEPS`` steps after two
     warm ones, ended by a synchronise."""
@@ -3468,7 +3561,8 @@ def decode_step_ms(model, cfg, tokens, batch: int, length: int, dev) -> float:
 
     def step(t):
         T.decode_step(model, cfg, row[t].expand(batch), cache,
-                      torch.full((batch,), t, dtype=torch.int32, device=dev))
+                      torch.full((batch,), t, dtype=torch.int32, device=dev),
+                      encoder_out=encoder_out)
     for t in range(2):
         step(t)
     sync(dev)
@@ -3586,24 +3680,15 @@ def deepseek_phase(dev, smoke: bool = False) -> dict:
               f"{out['idle_share_warm']:.1%}")
     out["decode_ms"] = {bb: decode_step_ms(model, cfg, batch_in["tokens"],
                                            bb, seq, dev) for bb in (1, 4)}
-    prompt = batch_in["tokens"][:, :16]
-    generate(model, cfg, prompt, max_new=2)              # warm-up
-    sync(dev)
-    t0 = time.perf_counter()
-    gen = generate(model, cfg, prompt, max_new=16)
-    sync(dev)
-    out["generate_ms"] = (time.perf_counter() - t0) * 1e3
-    check(gen.shape == (1, 32) and torch.equal(gen[:, :16],
-                                               prompt.to(torch.int32))
-          and bool(((gen >= 0) & (gen < cfg.vocab_size)).all()),
-          f"{what}: generate keeps the prompt and adds 16 tokens")
+    out["generate_ms"] = timed_generate(model, cfg,
+                                        batch_in["tokens"][:, :16], dev, what)
     print(f"{what}: absorbed-MLA decode over a {seq}-slot latent cache "
           f"({cfg.mla.kv_lora_rank} + {cfg.mla.qk_rope_dim} per token): "
           f"{out['decode_ms'][1]:.2f} ms a step at B 1, "
           f"{out['decode_ms'][4]:.2f} at B 4; generate 16 + 16 tokens "
           f"{out['generate_ms']:.1f} ms "
           f"({16e3 / out['generate_ms']:.1f} new tokens/s)")
-    del model, gen
+    del model
     free_port_memory(dev)
 
     # the reference's decode-consistency property in f32 at two layers
@@ -3611,18 +3696,8 @@ def deepseek_phase(dev, smoke: bool = False) -> dict:
     f32 = cfg.replace(n_layers=2, dtype="float32")
     model = build_lm(f32, dev, f"{what}-f32")
     short = batch_in["tokens"][:, :32]
-    want = T.forward(model, f32, {"tokens": short})
-    cache = T.init_cache(f32, 1, 32, device=dev)
-    steps = []
-    for t in range(short.shape[1]):
-        got, cache = T.decode_step(model, f32, short[:, t], cache,
-                                   torch.full((1,), t, dtype=torch.int32,
-                                              device=dev))
-        steps.append(got)
-    err = float((torch.stack(steps, 1) - want).abs().max())
-    check(err < 2e-2, f"{what}: f32 teacher-forced decode reproduces the "
-          f"f32 prefill within 2e-2 (max err {err:.3g})")
-    out["decode_consistency"] = err
+    err = out["decode_consistency"] = decode_consistency(model, f32, short,
+                                                         dev, what)
     # MLA's q.k head dim (192) is not its v head dim (128), which the flash
     # op refuses before any launch, as the reference's does
     reset_counts()
@@ -3637,8 +3712,26 @@ def deepseek_phase(dev, smoke: bool = False) -> dict:
     print(f"{what}: f32 decode consistency at 2 layers, full width, 32 "
           f"tokens: max |prefill - decode| {err:.3g} (< 2e-2); MLA under "
           f"flash_pallas raises before any launch: {raised}")
-    del model, want, steps, cache
+    del model
     return out
+
+
+def decode_consistency(model, f32, tokens, dev, what: str) -> float:
+    """The reference's property in f32 (``tests/test_models.py``):
+    teacher-forced ``decode_step`` over ``tokens`` (B, S) reproduces the
+    f32 prefill's logits within 2e-2; returns the max |difference|."""
+    want = T.forward(model, f32, {"tokens": tokens})
+    cache = T.init_cache(f32, tokens.shape[0], tokens.shape[1], device=dev)
+    steps = []
+    for t in range(tokens.shape[1]):
+        got, cache = T.decode_step(model, f32, tokens[:, t], cache,
+                                   torch.full((tokens.shape[0],), t,
+                                              dtype=torch.int32, device=dev))
+        steps.append(got)
+    err = float((torch.stack(steps, 1) - want).abs().max())
+    check(err < 2e-2, f"{what}: f32 teacher-forced decode reproduces the "
+          f"f32 prefill within 2e-2 (max err {err:.3g})")
+    return err
 
 
 def moonshot_phase(dev, smoke: bool = False):
@@ -3742,21 +3835,32 @@ def moonshot_phase(dev, smoke: bool = False):
     free_port_memory(dev)
 
     # the kernel at this layer's shape: B 1, 16/16 heads, S, D 128
-    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    blk = min(cfg.attn_block, seq)
+    entry = flash_path_layer(
+        dev, what, "flash_mask (moonshot-v1-16b-a3b layer, D 128)",
+        cfg.n_heads, cfg.n_kv_heads, seq, cfg.hd, min(cfg.attn_block, seq),
+        causal=True, launches=launches)
+    return out, entry
+
+
+def flash_path_layer(dev, what: str, name: str, hq: int, hkv: int, s: int,
+                     d: int, blk: int, causal: bool, launches: int) -> dict:
+    """The bf16 flash kernel at a model layer's shape (B 1, 0.5 randn from
+    seed 7): against its plain version (rtol 1e-2, atol 1e-3, 2e-3
+    normwise), its time beside the plain version, ``scaled_dot_product_
+    attention`` under the same mask (causal or none) and its bound at the
+    allowed elements.  Returns the layer's JSON entry with ``launches``
+    (the main path's)."""
     g = torch.Generator(device=dev).manual_seed(7)
     q, k, v = ((torch.randn(shape, generator=g, device=dev) * 0.5)
                .to(torch.bfloat16)
-               for shape in ((1, hq, seq, d), (1, hkv, seq, d),
-                             (1, hkv, seq, d)))
+               for shape in ((1, hq, s, d), (1, hkv, s, d), (1, hkv, s, d)))
+    pattern = FLASH_PATTERNS[0] if causal else FLASH_PATTERNS[3]
     sched = [torch.as_tensor(x, device=dev) for x in flash.build_schedule(
-        seq, seq, bq=blk, bk=blk, causal=True, window=0, prefix=0,
-        q_offset=0)]
+        s, s, bq=blk, bk=blk, q_offset=0, **pattern)]
     pairs = int(sched[0].shape[0])
     err, rel = flash_compare(q, k, v, bq=blk, bk=blk, q_offset=0, tol=1e-2,
-                             atol=1e-3, normwise=2e-3, **FLASH_PATTERNS[0])
-    kw = dict(bq=blk, bk=blk, scale=d ** -0.5, causal=True, window=0,
-              prefix=0, q_offset=0)
+                             atol=1e-3, normwise=2e-3, **pattern)
+    kw = dict(bq=blk, bk=blk, scale=d ** -0.5, q_offset=0, **pattern)
     kernel_ms = device_ms(lambda: flash.flash_mask_kernel(q, k, v, *sched,
                                                           **kw),
                           dev, reps=7, warm=2)
@@ -3765,28 +3869,28 @@ def moonshot_phase(dev, smoke: bool = False):
                          dev, reps=3, warm=1)
     library_ms = device_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True), dev, reps=7, warm=2)
-    allowed = int(mask_allowed(seq, seq, causal=True, window=0, prefix=0,
-                               q_offset=0).sum())
+            q, k, v, is_causal=causal, enable_gqa=hq != hkv), dev, reps=7,
+        warm=2)
+    allowed = int(mask_allowed(s, s, q_offset=0, **pattern).sum())
     flops = 4.0 * hq * allowed * d
     nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel()) + 12 * pairs
     bound_ms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    mask = "causal" if causal else "non-causal"
     print(f"{what}: flash kernel at the layer's shape B=1 Hq={hq} Hkv={hkv} "
-          f"S={seq} D={d} blocks {blk} causal bf16: vs plain max |diff| "
-          f"{err:.3g}, normwise {rel:.3g} (limits rtol 1e-2, atol 1e-3, 2e-3 "
-          f"normwise); kernel {kernel_ms:.3f} ms "
+          f"S={s} D={d} blocks {blk} {mask} bf16 ({pairs} tiles): vs plain "
+          f"max |diff| {err:.3g}, normwise {rel:.3g} (limits rtol 1e-2, atol "
+          f"1e-3, 2e-3 normwise); kernel {kernel_ms:.3f} ms "
           f"({flops / kernel_ms / 1e9:.1f} TFLOP/s); plain {plain_ms:.3f} "
-          f"ms; library (causal SDPA) {library_ms:.3f} ms; bound {bound_ms:.4f} ms (by {by}); kernel at "
-          f"{bound_ms / kernel_ms:.2%} of it")
-    entry = {"name": "flash_mask (moonshot-v1-16b-a3b layer, D 128)",
-             "route": "cuda",
-             "source": "src/repro_torch/kernels/flash_mask/csrc/flash_mask.cu",
-             "replaces": "src/repro/kernels/flash_mask/kernel.py:121",
-             "launches": launches, "max_abs_err": err, "ms": kernel_ms,
-             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-             "library_ms": library_ms}
+          f"ms; library ({mask} SDPA) {library_ms:.3f} ms; bound "
+          f"{bound_ms:.4f} ms (by {by}); kernel at {bound_ms / kernel_ms:.2%} "
+          f"of it")
     del q, k, v
-    return out, entry
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_mask/csrc/flash_mask.cu",
+            "replaces": "src/repro/kernels/flash_mask/kernel.py:121",
+            "launches": launches, "max_abs_err": err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": library_ms}
 
 
 def internvl_phase(dev, smoke: bool = False) -> dict:
@@ -3850,6 +3954,424 @@ def families_phase(dev, flash_warm_ms: float):
     return out, entry
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the xLSTM, hybrid (Zamba2) and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+
+#: the phase's prefill: 1 x 2,048 tokens (and 2,048 frames for seamless,
+#: which the reference's ``concrete_batch`` makes as long as the tokens)
+FAMILIES2_SEQ = 2048
+#: zamba2-7b's long decode cache: decode_32k's length
+ZAMBA_LONG_CACHE = 32768
+#: tokens of the f32 decode-vs-prefill checks
+CONSISTENCY_TOKENS = 64
+#: groups of the hybrid prefill's profile
+HYBRID_PROFILE_GROUPS = ("projections", "SSD intra-chunk",
+                         "chunk states and recurrence", "conv", "attention",
+                         "casts", "the rest")
+
+
+class flash_log:
+    """Within the block, record the ``causal`` flag of every call the
+    attention op makes of the flash kernel's wrapper."""
+
+    def __enter__(self):
+        self.causal = []
+        self.saved = flash_ops.flash_mask_kernel
+
+        def call(*args, **kw):
+            self.causal.append(bool(kw["causal"]))
+            return self.saved(*args, **kw)
+
+        flash_ops.flash_mask_kernel = call
+        return self
+
+    def __exit__(self, *exc):
+        flash_ops.flash_mask_kernel = self.saved
+
+
+def device_profile(run, dev, what: str) -> dict:
+    """The kernels one ``run()`` launches and their device time
+    (``torch.profiler`` tracing the device only: no op tree to build, so
+    a prefill of hundreds of thousands of launches stays cheap to read),
+    and the device's idle share of the call's wall time under the
+    profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if dev.type != "cuda":
+        print(f"{what}: profile: no device to trace")
+        return {}
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    if not busy:
+        print(f"{what}: profile: the profiler saw no device time (no CUPTI)")
+        return {}
+    out = {"wall_ms": wall_ms, "busy_ms": busy,
+           "idle_share": 1 - busy / wall_ms, "kernels": len(kernels)}
+    print(f"{what}: device profile of one warm prefill: wall {wall_ms:.1f} "
+          f"ms under the profiler, device busy {busy:.1f} ms, idle share "
+          f"{out['idle_share']:.1%}, {len(kernels)} kernels")
+    return out
+
+
+def family_prefill(model, cfg, batch_in, dev, what: str):
+    """One bf16 prefill under ``cfg.attn_impl``: its logits (checked
+    finite, bf16, of shape (1, S, V)) and its first call's ms, counts
+    (block_masked calls and dense fallbacks, flash launches; no masked
+    product) and peak memory."""
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = bm_counts()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits = T.forward(model, cfg, batch_in)
+    sync(dev)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    seq = batch_in["tokens"].shape[1]
+    check(logits.shape == (1, seq, cfg.vocab_size)
+          and logits.dtype == torch.bfloat16
+          and bool(torch.isfinite(logits).all()),
+          f"{what}: logits finite, bf16, of shape (1, {seq}, "
+          f"{cfg.vocab_size})")
+    check(kernel.LAUNCHES == kernel.FUSED_LAUNCHES
+          == kernel.MASKED_MATMUL_LAUNCHES == 0,
+          f"{what}: the prefill launches no masked product")
+    return {"first_ms": first_ms,
+            "block_masked_calls": bm_counts()[0] - before[0],
+            "fallbacks": bm_counts()[1] - before[1],
+            "flash_launches": flash.LAUNCHES,
+            "peak_mib": (torch.cuda.max_memory_allocated(dev) / 2**20
+                         if dev.type == "cuda" else 0.0)}, logits
+
+
+def timed_generate(model, cfg, prompt, dev, what: str,
+                   encoder_out=None) -> float:
+    """Milliseconds of ``generate`` of 16 tokens after ``prompt`` (after a
+    short warm-up), checked to keep the prompt and stay in the
+    vocabulary."""
+    generate(model, cfg, prompt, max_new=2, encoder_out=encoder_out)
+    sync(dev)
+    t0 = time.perf_counter()
+    gen = generate(model, cfg, prompt, max_new=16, encoder_out=encoder_out)
+    sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    b, s0 = prompt.shape
+    check(gen.shape == (b, s0 + 16)
+          and torch.equal(gen[:, :s0], prompt.to(torch.int32))
+          and bool(((gen >= 0) & (gen < cfg.vocab_size)).all()),
+          f"{what}: generate keeps the prompt and adds 16 tokens")
+    return ms
+
+
+def print_prefill(what: str, cfg, out: dict, seq: int) -> None:
+    print(f"{what}: prefill 1x{seq} bf16 {cfg.attn_impl}: first "
+          f"{out['first_ms']:.1f} ms, warm {out['warm_ms']:.1f} ms "
+          f"({seq / (out['warm_ms'] / 1e3):.0f} tokens/s); peak memory "
+          f"{out['peak_mib']:.0f} MiB; block_masked calls "
+          f"{out['block_masked_calls']}, dense fallbacks {out['fallbacks']}, "
+          f"flash launches {out['flash_launches']}")
+
+
+def idle_against_warm(out: dict, what: str) -> None:
+    """The profile's device busy time against the unprofiled warm
+    prefill: the idle share a user's call sees."""
+    if out["profile"]:
+        out["idle_share_warm"] = 1 - out["profile"]["busy_ms"] / out[
+            "warm_ms"]
+        print(f"{what}: the profile's device busy time against the "
+              f"unprofiled warm prefill ({out['warm_ms']:.1f} ms): idle "
+              f"share {out['idle_share_warm']:.1%}")
+
+
+def flash_agreement(model, cfg, batch_in, flash_logits, logits, dev,
+                    what: str, launches: int) -> dict:
+    """flash_pallas against block_masked on the same weights and inputs.
+    In bf16 every pair of impls parts by the rounding noise the model's
+    depth amplifies (they round p at other places), so the floor is
+    measured: dense_masked against block_masked; flash must lie within
+    5e-2 normwise of block_masked, or within 1.5 times that floor where
+    the floor itself exceeds 5e-2.  In f32 the impls differ only in
+    summation order: the f32 flash instance (``launches`` launches) must
+    lie within 1e-4 normwise and 1e-3 of block_masked, where a lost tile
+    or a wrong mask moves the logits by O(1)."""
+    dense = T.forward(model, cfg.replace(attn_impl="dense_masked"),
+                      batch_in)
+    out = {"vs_block_masked": normwise(flash_logits, logits),
+           "dense_vs_block_masked": normwise(dense, logits)}
+    del dense
+    limit = max(5e-2, 1.5 * out["dense_vs_block_masked"])
+    top = float(logits.float().abs().max())
+    diff = float((flash_logits.float() - logits.float()).abs().max())
+    agree = float((flash_logits.argmax(-1) == logits.argmax(-1)).float()
+                  .mean())
+    print(f"{what}: bf16 logits, flash_pallas vs block_masked: normwise "
+          f"{out['vs_block_masked']:.4g}, max |diff| {diff:.4g} (max |logit| "
+          f"{top:.4g}), argmax agreement {agree:.4f}; dense_masked vs "
+          f"block_masked (the bf16 floor) {out['dense_vs_block_masked']:.4g}"
+          f"; limit {limit:.3g}")
+    check(out["vs_block_masked"] <= limit, f"{what}: bf16 flash prefill "
+          f"within {limit:.3g} normwise of block_masked")
+    f32 = cfg.replace(dtype="float32")
+    want = T.forward(model, f32, batch_in)
+    reset_counts()
+    got = T.forward(model, f32.replace(attn_impl="flash_pallas"), batch_in)
+    sync(dev)
+    check(flash.F32_LAUNCHES == flash.LAUNCHES == launches,
+          f"{what}: the f32 prefill runs the f32 flash kernel {launches} "
+          f"times (got {flash.F32_LAUNCHES} of {flash.LAUNCHES})")
+    out["f32_vs_block_masked"] = normwise(got, want)
+    out["f32_max_diff"] = float((got - want).abs().max())
+    print(f"{what}: f32 logits, flash_pallas vs block_masked: normwise "
+          f"{out['f32_vs_block_masked']:.3g}, max |diff| "
+          f"{out['f32_max_diff']:.3g} (max |logit| "
+          f"{float(want.abs().max()):.4g}); limits 1e-4 and 1e-3")
+    check(out["f32_vs_block_masked"] <= 1e-4 and out["f32_max_diff"] <= 1e-3,
+          f"{what}: f32 flash prefill within 1e-4 normwise and 1e-3 of "
+          f"block_masked")
+    return out
+
+
+def zamba_phase(dev, smoke: bool = False):
+    """zamba2-7b at full width and depth (81 Mamba2 blocks and 13
+    applications of one shared attention block, D 112): a bf16 prefill
+    of 1 x 2,048 under the published block_masked (13 worklist calls) and
+    under flash_pallas (13 launches of the bf16 kernel, no plain version),
+    held to each other as ``flash_agreement`` says; the profile by group;
+    decode ms a
+    step over 2,048 and 32,768 slots; ``generate``; the f32
+    decode-vs-prefill check over 64 tokens; the kernel at the shared
+    block's shape.  Returns the phase's numbers and the kernel's JSON
+    entry."""
+    what = "zamba2"
+    cfg = get_config("zamba2_7b", smoke=smoke).replace(dtype="bfloat16")
+    seq = 64 if smoke else FAMILIES2_SEQ
+    free = free_port_memory(dev)
+    depth = fit_depth(cfg, free)
+    print(f"{what}: {free / 2**30:.1f} GiB free on the card; full depth "
+          f"{cfg.n_layers} layers = {4 * n_params(cfg) / 1e9:.2f} GB of f32 "
+          f"weights; running {depth} layers"
+          + ("" if depth == cfg.n_layers else
+             f" (cut from {cfg.n_layers}: depth only, width kept)"))
+    cfg = cfg.replace(n_layers=depth)
+    model = build_lm(cfg, dev, what)
+    batch_in = {"tokens": lm_tokens(cfg, (1, seq), dev)}
+    n_attn = T.n_shared_attn(cfg)
+    out, logits = family_prefill(model, cfg, batch_in, dev, what)
+    check(out["block_masked_calls"] == n_attn and out["fallbacks"] == 0
+          and out["flash_launches"] == 0, f"{what}: block_masked once per "
+          f"shared-block application ({n_attn}), no fallback, no flash "
+          f"launch")
+    out["warm_ms"] = host_ms(lambda: T.forward(model, cfg, batch_in), dev,
+                             reps=3)
+    print_prefill(what, cfg, out, seq)
+    out["profile"] = ranged_profile(
+        lambda: T.forward(model, cfg, batch_in), dev, what,
+        ((L, "attention", "smoke.attention"),
+         (SSD, "_ssd_intra", "smoke.ssd_intra"),
+         (SSD, "_ssd_inter", "smoke.ssd_inter"),
+         (SSD, "_causal_conv", "smoke.conv")),
+        lambda chain, name: next(
+            (g for key, g in (("smoke.attention", "attention"),
+                              ("smoke.ssd_intra", "SSD intra-chunk"),
+                              ("smoke.ssd_inter",
+                               "chunk states and recurrence"),
+                              ("smoke.conv", "conv"),
+                              ("aten::_to_copy", "casts"))
+             if key in chain),
+            "projections" if name in PRODUCTS else "the rest"),
+        HYBRID_PROFILE_GROUPS)
+    idle_against_warm(out, what)
+
+    fcfg = cfg.replace(attn_impl="flash_pallas")
+    with count_plain(flash, ("flash_mask_plain",)) as plain:
+        flashed, flash_logits = family_prefill(model, fcfg, batch_in, dev,
+                                               f"{what} (flash_pallas)")
+    launches = flashed["flash_launches"]
+    check(launches == flash.TC_LAUNCHES == n_attn
+          and flash.F32_LAUNCHES == 0 and plain.calls == 0
+          and flashed["block_masked_calls"] == 0,
+          f"{what}: the bf16 flash kernel launched once per shared-block "
+          f"application ({n_attn}) and no plain version ran (got "
+          f"{launches} launches, {plain.calls} plain calls)")
+    out["flash_launches"] = launches
+    out.update(flash_agreement(model, cfg, batch_in, flash_logits, logits,
+                               dev, what, n_attn))
+    del logits, flash_logits
+    out["flash_warm_ms"] = host_ms(lambda: T.forward(model, fcfg, batch_in),
+                                   dev, reps=3)
+    long = 128 if smoke else ZAMBA_LONG_CACHE
+    out["decode_ms"] = {n: decode_step_ms(model, cfg, batch_in["tokens"], 1,
+                                          n, dev) for n in (seq, long)}
+    out["generate_ms"] = timed_generate(model, cfg,
+                                        batch_in["tokens"][:, :16], dev, what)
+    out["decode_consistency"] = decode_consistency(
+        model, cfg.replace(dtype="float32"),
+        batch_in["tokens"][:, :CONSISTENCY_TOKENS], dev, what)
+    print(f"{what}: prefill under flash_pallas warm "
+          f"{out['flash_warm_ms']:.1f} ms "
+          f"({seq / (out['flash_warm_ms'] / 1e3):.0f} tokens/s), {launches} "
+          f"launches at D {cfg.hd}; decode at B 1 "
+          f"{out['decode_ms'][seq]:.2f} ms a step over {seq} slots, "
+          f"{out['decode_ms'][long]:.2f} over {long} ({n_attn} KV caches; "
+          f"the SSM state is O(1)); generate 16 + 16 tokens "
+          f"{out['generate_ms']:.1f} ms; f32 decode consistency at "
+          f"{cfg.n_layers} layers over {CONSISTENCY_TOKENS} tokens: max "
+          f"|prefill - decode| {out['decode_consistency']:.3g} (< 2e-2)")
+    del model
+    free_port_memory(dev)
+    entry = flash_path_layer(
+        dev, what, "flash_mask (zamba2-7b shared attention, D 112)",
+        cfg.n_heads, cfg.n_kv_heads, seq, cfg.hd, min(cfg.attn_block, seq),
+        causal=True, launches=launches)
+    return out, entry
+
+
+def xlstm_phase(dev, smoke: bool = False) -> dict:
+    """xlstm-1.3b at full width and depth (6 super-blocks of 7 mLSTM and
+    one sLSTM block): a bf16 prefill of 1 x 2,048 (no attention, no
+    kernel of the port), its device profile (kernels launched, idle
+    share), decode ms a step, ``generate`` and the f32 decode-vs-prefill
+    check over 64 tokens.  The sLSTM's per-token loop is the reference's
+    recurrence, one cell step after another."""
+    what = "xlstm"
+    cfg = get_config("xlstm_1_3b", smoke=smoke).replace(dtype="bfloat16")
+    seq = 64 if smoke else FAMILIES2_SEQ
+    free = free_port_memory(dev)
+    depth = fit_depth(cfg, free)
+    check(depth == cfg.n_layers, f"{what}: full depth fits")
+    model = build_lm(cfg, dev, what)
+    batch_in = {"tokens": lm_tokens(cfg, (1, seq), dev)}
+    out, logits = family_prefill(model, cfg, batch_in, dev, what)
+    del logits
+    check(out["block_masked_calls"] == out["fallbacks"]
+          == out["flash_launches"] == 0, f"{what}: no attention")
+    out["warm_ms"] = host_ms(lambda: T.forward(model, cfg, batch_in), dev,
+                             reps=1)
+    print_prefill(what, cfg, out, seq)
+    r = cfg.xlstm.slstm_every
+    out["slstm_steps"] = cfg.n_layers // r * seq
+    out["profile"] = device_profile(lambda: T.forward(model, cfg, batch_in),
+                                    dev, what)
+    idle_against_warm(out, what)
+    out["decode_ms"] = decode_step_ms(model, cfg, batch_in["tokens"], 1, seq,
+                                      dev)
+    out["generate_ms"] = timed_generate(model, cfg,
+                                        batch_in["tokens"][:, :16], dev, what)
+    out["decode_consistency"] = decode_consistency(
+        model, cfg.replace(dtype="float32"),
+        batch_in["tokens"][:, :CONSISTENCY_TOKENS], dev, what)
+    print(f"{what}: {cfg.n_layers // r} sLSTM blocks run "
+          f"{out['slstm_steps']} sequential cell steps a prefill; decode "
+          f"{out['decode_ms']:.2f} ms a step at B 1; generate 16 + 16 "
+          f"tokens {out['generate_ms']:.1f} ms; f32 decode consistency "
+          f"over {CONSISTENCY_TOKENS} tokens: max |prefill - decode| "
+          f"{out['decode_consistency']:.3g} (< 2e-2)")
+    del model
+    return out
+
+
+def seamless_phase(dev, smoke: bool = False):
+    """seamless-m4t-large-v2 at full width and depth (24 encoder and 24
+    decoder layers): frames 1 x 2,048 x 1,024 and tokens 1 x 2,048; a
+    bf16 prefill under block_masked (24 causal worklist calls in the
+    decoder, the encoder's 24 bidirectional layers on the dense path) and
+    under flash_pallas (24 non-causal encoder and 24 causal decoder
+    launches, no plain version), held to each other as
+    ``flash_agreement`` says; the
+    encoder output computed once, decode ms a step with cross-attention
+    over it and ``generate``; the kernel at the encoder's shape.  Returns
+    the phase's numbers and the kernel's JSON entry."""
+    what = "seamless"
+    cfg = get_config("seamless_m4t_large_v2", smoke=smoke).replace(
+        dtype="bfloat16")
+    seq = 64 if smoke else FAMILIES2_SEQ
+    free = free_port_memory(dev)
+    check(fit_depth(cfg, free) == cfg.n_layers, f"{what}: full depth fits")
+    model = build_lm(cfg, dev, what)
+    g = torch.Generator(device=dev).manual_seed(2)
+    batch_in = {"tokens": lm_tokens(cfg, (1, seq), dev),
+                "frames": torch.randn((1, seq, cfg.d_frontend), generator=g,
+                                      device=dev) * 0.2}
+    n_enc, n_dec = cfg.n_enc_layers, cfg.n_dec_layers
+    out, logits = family_prefill(model, cfg, batch_in, dev, what)
+    check(out["block_masked_calls"] == n_dec and out["fallbacks"] == n_enc
+          and out["flash_launches"] == 0, f"{what}: block_masked's worklist "
+          f"once per decoder layer ({n_dec}), the dense path once per "
+          f"bidirectional encoder layer ({n_enc}), no flash launch")
+    out["warm_ms"] = host_ms(lambda: T.forward(model, cfg, batch_in), dev,
+                             reps=3)
+    print_prefill(what, cfg, out, seq)
+    fcfg = cfg.replace(attn_impl="flash_pallas")
+    with flash_log() as log, \
+            count_plain(flash, ("flash_mask_plain",)) as plain:
+        flashed, flash_logits = family_prefill(model, fcfg, batch_in, dev,
+                                               f"{what} (flash_pallas)")
+    launches = flashed["flash_launches"]
+    check(log.causal == [False] * n_enc + [True] * n_dec
+          and launches == flash.TC_LAUNCHES == n_enc + n_dec
+          and flash.F32_LAUNCHES == 0 and plain.calls == 0
+          and flashed["block_masked_calls"] == flashed["fallbacks"] == 0,
+          f"{what}: the bf16 flash kernel launched {n_enc} times non-causal "
+          f"(encoder) then {n_dec} times causal (decoder), no plain version "
+          f"(got {launches} launches, {plain.calls} plain calls)")
+    out["flash_launches"] = launches
+    out.update(flash_agreement(model, cfg, batch_in, flash_logits, logits,
+                               dev, what, n_enc + n_dec))
+    del logits, flash_logits
+    out["flash_warm_ms"] = host_ms(lambda: T.forward(model, fcfg, batch_in),
+                                   dev, reps=3)
+    enc = model.encode(batch_in["frames"], cfg)
+    out["encode_ms"] = host_ms(lambda: model.encode(batch_in["frames"], cfg),
+                               dev, reps=3)
+    out["decode_ms"] = decode_step_ms(model, cfg, batch_in["tokens"], 1, seq,
+                                      dev, encoder_out=enc)
+    out["generate_ms"] = timed_generate(model, cfg,
+                                        batch_in["tokens"][:, :16], dev, what,
+                                        encoder_out=enc)
+    print(f"{what}: prefill under flash_pallas warm "
+          f"{out['flash_warm_ms']:.1f} ms "
+          f"({seq / (out['flash_warm_ms'] / 1e3):.0f} tokens/s); the encoder "
+          f"alone {out['encode_ms']:.1f} ms, computed once; decode at B 1 "
+          f"with cross-attention over {seq} encoder positions "
+          f"{out['decode_ms']:.2f} ms a step; generate 16 + 16 tokens "
+          f"{out['generate_ms']:.1f} ms")
+    del model, enc
+    free_port_memory(dev)
+    entry = flash_path_layer(
+        dev, what, "flash_mask (seamless-m4t-large-v2 encoder, D 64, "
+        "non-causal)", cfg.n_heads, cfg.n_kv_heads, seq, cfg.hd,
+        min(cfg.attn_block, seq), causal=False, launches=launches)
+    entry["launches_noncausal"], entry["launches_causal"] = n_enc, n_dec
+    return out, entry
+
+
+def families2_phase(dev):
+    """Phase 15; returns its numbers and the flash kernel's entries at the
+    zamba2 and seamless shapes."""
+    free = free_port_memory(dev)
+    print(f"families II: {free / 2**30:.1f} GiB free after clearing every "
+          f"port cache")
+    out, t0 = {}, time.perf_counter()
+    out["zamba2"], zamba_entry = zamba_phase(dev)
+    t1 = time.perf_counter()
+    out["xlstm"] = xlstm_phase(dev)
+    t2 = time.perf_counter()
+    out["seamless"], seamless_entry = seamless_phase(dev)
+    t3 = time.perf_counter()
+    print(f"families II: zamba2 {t1 - t0:.1f} s, xlstm {t2 - t1:.1f} s, "
+          f"seamless {t3 - t2:.1f} s")
+    free_port_memory(dev)
+    zamba_entry["families_ii"] = out
+    return zamba_entry, seamless_entry
+
+
 def main() -> int:
     device = card()
     dev = torch.device("cuda", 0)
@@ -3903,6 +4425,8 @@ def main() -> int:
     t_families = time.perf_counter()
     families, moonshot_entry = families_phase(dev, flash_warm_ms)
     moonshot_entry["families"] = families
+    t_families2 = time.perf_counter()
+    zamba_entry, seamless_entry = families2_phase(dev)
     t_end = time.perf_counter()
     print(f"phases: spgemm {t_serving - t_start:.1f} s, serving "
           f"{t_delta - t_serving:.1f} s, delta {t_tuning - t_delta:.1f} s, "
@@ -3911,9 +4435,11 @@ def main() -> int:
           f"distributed {t_sddmm - t_dist:.1f} s, "
           f"sddmm {t_flash - t_sddmm:.1f} s, "
           f"flash {t_lm - t_flash:.1f} s, lm {t_families - t_lm:.1f} s, "
-          f"families {t_end - t_families:.1f} s")
+          f"families {t_families2 - t_families:.1f} s, "
+          f"families II {t_end - t_families2:.1f} s")
     print(json.dumps({"kernels": [entry, sddmm, flash_entry,
-                                  moonshot_entry]}))
+                                  moonshot_entry, zamba_entry,
+                                  seamless_entry]}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

@@ -1,7 +1,7 @@
-"""Model configurations: the reference's schema, and the ported
+"""Model configurations: the reference's schema and its ten
 architectures."""
-from .base import (ARCH_ALIASES, ARCH_IDS, PORTED, MLACfg, ModelConfig,
+from .base import (ARCH_ALIASES, ARCH_IDS, MLACfg, ModelConfig,
                    MoECfg, SSMCfg, XLSTMCfg, get_config)
 
-__all__ = ["ARCH_ALIASES", "ARCH_IDS", "PORTED", "MLACfg", "ModelConfig",
+__all__ = ["ARCH_ALIASES", "ARCH_IDS", "MLACfg", "ModelConfig",
            "MoECfg", "SSMCfg", "XLSTMCfg", "get_config"]

@@ -3,7 +3,6 @@
 
 One ``<arch>.py`` per architecture defines ``CONFIG`` (exact published
 numbers) and ``SMOKE`` (a reduced same-family config for CPU tests).
-``get_config`` resolves only the architectures the port runs.
 """
 from __future__ import annotations
 
@@ -113,10 +112,6 @@ ARCH_IDS = (
     "seamless_m4t_large_v2", "internvl2_2b",
 )
 
-#: architectures whose config and model the port has
-PORTED = ("llama3_2_1b", "llama3_2_3b", "stablelm_3b", "starcoder2_7b",
-          "deepseek_v2_lite_16b", "moonshot_v1_16b_a3b", "internvl2_2b")
-
 # public --arch ids (hyphenated) -> module names
 ARCH_ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 ARCH_ALIASES.update({
@@ -130,9 +125,5 @@ ARCH_ALIASES.update({
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     mod_name = ARCH_ALIASES.get(arch, arch.replace("-", "_").replace(".", "_"))
-    if mod_name not in PORTED:
-        raise NotImplementedError(
-            f"architecture {arch!r} is not ported yet (ported: "
-            f"{', '.join(PORTED)}; see ROADMAP.md queue 1)")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.SMOKE if smoke else mod.CONFIG

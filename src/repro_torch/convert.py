@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core.formats import BCSR, CSR, CSRDelta, PaddedCSR
 from repro_torch.core.planner import Plan, PlanStats
+from repro_torch.models.layers import Norm
 from repro_torch.models.transformer import n_dense_layers
 
 
@@ -77,23 +78,70 @@ def _copy(dst: torch.Tensor, src, name: str) -> None:
         dst.copy_(torch.as_tensor(arr))
 
 
-def _copy_module(module, tree, path: str, i: int, rename=None) -> None:
-    """Copy layer ``i`` of each stacked leaf of ``tree`` into the parameter
-    of ``module`` with its name (a dict recurses into the submodule of its
-    name); a name the module has no parameter for raises."""
-    rename = rename or {}
-    for name, stacked in tree.items():
-        where = f"{path}/{name}"
-        if isinstance(stacked, dict):
-            sub = getattr(module, name, None)
-            if not isinstance(sub, torch.nn.Module):
+#: reference names of the port's parameters where they differ: replicated
+#: K/V projections, and the SSM block's mixer
+_RENAME = {"wk_rep": "wk", "wv_rep": "wv", "ssm": "mixer"}
+
+
+def _load(module, tree, path: str, idx: tuple, seen: set) -> None:
+    """Copy ``tree`` into ``module``: each leaf indexed at ``idx`` (its
+    stacked layer axes; () for an unstacked tree) into the parameter of
+    its name, ``<norm>_scale``/``<norm>_bias`` into the norm submodule of
+    that name, and a dict into the submodule of its name, recursively.  A
+    name the module has no place for raises; ``seen`` collects the ids of
+    the parameters written."""
+    for name, sub in tree.items():
+        where = f"{path}/{name}" if path else name
+        attr = _RENAME.get(name, name)
+        if isinstance(sub, dict):
+            child = getattr(module, attr, None)
+            if not isinstance(child, torch.nn.Module):
                 raise ValueError(f"{where}: the port has no such module")
-            _copy_module(sub, stacked, where, i)
+            _load(child, sub, where, idx, seen)
             continue
-        dst = getattr(module, rename.get(name, name), None)
+        owner = module
+        norm, _, part = name.rpartition("_")
+        if isinstance(getattr(module, norm, None), Norm):
+            owner, attr = getattr(module, norm), part
+        dst = getattr(owner, attr, None)
         if not isinstance(dst, torch.Tensor):
             raise ValueError(f"{where}: the port has no such parameter")
-        _copy(dst, stacked[i], f"{where}[{i}]")
+        _copy(dst, np.asarray(sub)[idx], where + (str(list(idx))
+                                                  if idx else ""))
+        seen.add(id(dst))
+
+
+def _stacks(model):
+    """The model's stacked reference trees: name -> (leading axes of each
+    leaf, [(block, index)])."""
+    cfg = model.cfg
+    blocks = list(model.blocks)
+    fam = cfg.family
+    if fam == "ssm":
+        r = cfg.xlstm.slstm_every
+        n_super = len(blocks) // r
+        return {"layers_mlstm": ((n_super, r - 1), [
+                    (blocks[s * r + j], (s, j)) for s in range(n_super)
+                    for j in range(r - 1)]),
+                "layers_slstm": ((n_super,), [
+                    (blocks[s * r + r - 1], (s,)) for s in range(n_super)])}
+    if fam == "hybrid":
+        return {"layers_ssm": ((len(blocks),), [
+            (b, (i,)) for i, b in enumerate(blocks)])}
+    if fam == "audio":
+        enc = list(model.enc_blocks)
+        return {"enc_layers": ((len(enc),), [(b, (i,))
+                                             for i, b in enumerate(enc)]),
+                "dec_layers": ((len(blocks),), [
+                    (b, (i,)) for i, b in enumerate(blocks)])}
+    kd = n_dense_layers(cfg)
+    out = {}
+    for name, part in (("layers_dense", blocks[:kd]),
+                       ("layers_moe", blocks[kd:])):
+        if part:
+            out[name] = ((len(part),), [(b, (i,))
+                                        for i, b in enumerate(part)])
+    return out
 
 
 def load_reference_params(model, tree) -> None:
@@ -101,52 +149,59 @@ def load_reference_params(model, tree) -> None:
     .init_params``; leaves as numpy or JAX arrays) into a port
     ``Transformer`` of the same config, in place.
 
-    ``embed``, ``final_ln_scale`` (``final_ln_bias``), ``lm_head`` and the
-    VLM's ``patch_proj`` map to the model's own.  ``layers_dense`` (the
-    blocks with a dense MLP, first) and ``layers_moe`` (the MoE blocks)
-    hold each block parameter stacked on a leading layer axis:
-    ``attn/{wq, wk, wv, wo, bq, bk, bv}`` or, with MLA, ``attn/{wq,
-    wkv_a, wk_rope, wk_b, wv_b, wo}``; ``ffn/{w_gate, w_up, w_down, b_up,
-    b_down}`` or, in a MoE block, ``ffn/{router, experts_gate, experts_up,
-    experts_down, shared/{w_gate, w_up, w_down}}``; ``ln1_scale``,
-    ``ln2_scale`` (and ``_bias``).  Stack i goes to the i-th block of its
-    kind.  A key the port has no place for raises.
+    Unstacked entries map to the model's own: ``embed``,
+    ``final_ln_scale`` (``_bias``), ``lm_head``, the VLM's ``patch_proj``,
+    the encoder-decoder's ``frame_proj`` and ``encfinal_ln_scale``
+    (``_bias``), and the hybrid's ``shared_attn`` (one weight set, no layer
+    axis) into its ``shared_attn`` block.  The stacks hold each block
+    parameter on leading layer axes:
+
+    * ``layers_dense`` (the blocks with a dense MLP, first) and
+      ``layers_moe`` (the MoE blocks): ``attn/{wq, wk, wv, wo, bq, bk,
+      bv}`` or, with MLA, ``attn/{wq, wkv_a, wk_rope, wk_b, wv_b, wo}``;
+      ``ffn/{w_gate, w_up, w_down, b_up, b_down}`` or, in a MoE block,
+      ``ffn/{router, experts_gate, experts_up, experts_down,
+      shared/{w_gate, w_up, w_down}}``; ``ln1_scale``, ``ln2_scale`` (and
+      ``_bias``);
+    * xLSTM: ``layers_mlstm`` on two axes (super-block, position in it)
+      and ``layers_slstm`` on one, each the mixer's parameters beside
+      ``ln1_scale``;
+    * hybrid: ``layers_ssm``, ``{"ssm": {...}, "ln1_scale"}``;
+    * encoder-decoder: ``enc_layers`` (``attn``, ``ffn``, ``ln1``,
+      ``ln2``) and ``dec_layers`` (``attn``, ``cross``, ``ffn``, ``ln1`` to
+      ``ln3``).
+
+    A key the port has no place for raises, as do a stack whose layer
+    axes differ from the model's and a tree that leaves a parameter of the
+    model unwritten.
     """
-    cfg = model.cfg
-    kd = n_dense_layers(cfg)
-    stacks = {"layers_dense": model.blocks[:kd],
-              "layers_moe": model.blocks[kd:]}
-    known = {"embed", "final_ln_scale", "final_ln_bias", "lm_head"}
-    known |= {name for name, blocks in stacks.items() if len(blocks)}
-    if model.patch_proj is not None:
-        known.add("patch_proj")
-    extra = sorted(set(tree) - known)
-    if extra:
+    stacks = _stacks(model)
+    foreign = sorted(k for k in tree if k.startswith(("layers_", "enc_",
+                                                      "dec_"))
+                     and k not in stacks)
+    if foreign:
         raise ValueError(f"reference parameters the port has no place for: "
-                         f"{extra}")
-    _copy(model.embed, tree["embed"], "embed")
-    _copy(model.final_ln.scale, tree["final_ln_scale"], "final_ln_scale")
-    if model.final_ln.bias is not None:
-        _copy(model.final_ln.bias, tree["final_ln_bias"], "final_ln_bias")
-    if model.lm_head is not None:
-        _copy(model.lm_head, tree["lm_head"], "lm_head")
-    if model.patch_proj is not None:
-        _copy(model.patch_proj, tree["patch_proj"], "patch_proj")
-    kv = ({"wk_rep": "wk", "wv_rep": "wv"} if cfg.kv_replicated else {})
-    for stack, blocks in stacks.items():
-        if not len(blocks):
-            continue
-        layers = tree[stack]
-        n = np.asarray(layers["ln1_scale"]).shape[0]
-        if n != len(blocks):
-            raise ValueError(f"{stack}: reference has {n} layers, the port "
-                             f"{len(blocks)}")
-        for i, block in enumerate(blocks):
-            _copy_module(block.attn, layers["attn"], f"{stack}/attn", i, kv)
-            _copy_module(block.ffn, layers["ffn"], f"{stack}/ffn", i)
-            for ln, module in (("ln1", block.ln1), ("ln2", block.ln2)):
-                _copy(module.scale, layers[f"{ln}_scale"][i],
-                      f"{stack}/{ln}_scale[{i}]")
-                if module.bias is not None:
-                    _copy(module.bias, layers[f"{ln}_bias"][i],
-                          f"{stack}/{ln}_bias[{i}]")
+                         f"{foreign}")
+    seen: set = set()
+    _load(model, {k: v for k, v in tree.items() if k not in stacks}, "", (),
+          seen)
+    for name, (lead, targets) in stacks.items():
+        layers = tree[name]
+        got = np.asarray(layers["ln1_scale"]).shape[:len(lead)]
+        if tuple(got) != lead:
+            raise ValueError(f"{name}: reference layer axes {tuple(got)}, "
+                             f"the port's {lead}")
+        for block, idx in targets:
+            if name in ("layers_mlstm", "layers_slstm"):
+                norms = {k: v for k, v in layers.items()
+                         if k.startswith("ln")}
+                _load(block, norms, name, idx, seen)
+                _load(block.mixer, {k: v for k, v in layers.items()
+                                    if k not in norms}, name, idx, seen)
+            else:
+                _load(block, layers, name, idx, seen)
+    missing = [n for n, p in model.named_parameters() if id(p) not in seen]
+    if missing:
+        raise ValueError(f"the reference tree has no value for: "
+                         f"{missing[:8]}" + (" ..." if len(missing) > 8
+                                             else ""))

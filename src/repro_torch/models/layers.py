@@ -1,6 +1,7 @@
 """Per-layer building blocks as ``nn.Module``s: the norm, GQA attention with
-RoPE and MLA (DeepSeek-V2's low-rank attention), each with prefill and
-one-token decode over a cache, the dense MLP and the top-k MoE.
+RoPE (and cross-attention on the same weights) and MLA (DeepSeek-V2's
+low-rank attention), each with prefill and one-token decode over a cache,
+the dense MLP and the top-k MoE.
 
 Parameters keep the reference's names and layouts (a projection is a
 ``(d_in, d_out)`` matrix applied as ``x @ w``), so a reference parameter
@@ -10,7 +11,7 @@ weights runs under any config of the same shapes (another attention impl
 or activation dtype).  They are
 stored in f32, as the reference keeps them, and cast to the activation
 dtype at each use.  The port serves inference only: no parameter requires
-a gradient.  Cross-attention is not ported yet.
+a gradient.
 """
 from __future__ import annotations
 
@@ -98,6 +99,23 @@ class Attention(nn.Module):
                         window=window, prefix=prefix, q_offset=q_offset,
                         block=cfg.attn_block)
         out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
+        return out @ self.wo.to(x.dtype)
+
+    def cross(self, x, kv_src, cfg: ModelConfig):
+        """Cross-attention (the reference's ``apply_cross_attn``): q from x,
+        k and v from ``kv_src`` (B, T, D), no RoPE and no biases, every
+        source position visible, always on ``dense_masked``.  x: (B, S, D)
+        -> (B, S, D)."""
+        b, s, _ = x.shape
+        t, hd = kv_src.shape[1], cfg.hd
+        q = (x @ self.wq.to(x.dtype)).reshape(
+            b, s, cfg.n_heads, hd).transpose(1, 2)
+        k = (kv_src @ self.wk.to(x.dtype)).reshape(
+            b, t, cfg.n_kv_heads, hd).transpose(1, 2)
+        v = (kv_src @ self.wv.to(x.dtype)).reshape(
+            b, t, cfg.n_kv_heads, hd).transpose(1, 2)
+        out = attention(q, k, v, impl="dense_masked", causal=False)
+        out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
         return out @ self.wo.to(x.dtype)
 
     def decode(self, x, cache: Dict[str, torch.Tensor], pos,

@@ -1,7 +1,9 @@
 """Batched serving: token-by-token decode (greedy / temperature).
 
 ``serve_step`` is one new token for every sequence in the batch against
-the KV cache.
+the model's cache (KV, recurrent state, or both); the encoder-decoder's
+also attends to the encoder output, computed once per request
+(``Transformer.encode``).
 """
 from __future__ import annotations
 
@@ -12,11 +14,15 @@ from repro_torch.models import transformer as T
 
 
 def make_serve_step(cfg: ModelConfig):
-    """The decode step for ``cfg``'s family (dense, MoE with or without
-    MLA, and the VLM backbone on its text tokens, as the reference's)."""
-    T._require_ported(cfg)
+    """The decode step for ``cfg``'s family, as the reference's: every
+    family of ``T.PORTED_FAMILIES``; ``encoder_out`` is passed on for the
+    encoder-decoder only."""
+    T._check_family(cfg)
 
-    def serve_step(model, token, cache, pos):
+    def serve_step(model, token, cache, pos, encoder_out=None):
+        if cfg.family == "audio":
+            return T.decode_step(model, cfg, token, cache, pos,
+                                 encoder_out=encoder_out)
         return T.decode_step(model, cfg, token, cache, pos)
     return serve_step
 
@@ -24,13 +30,14 @@ def make_serve_step(cfg: ModelConfig):
 @torch.no_grad()
 def generate(model: T.Transformer, cfg: ModelConfig, prompt_tokens, *,
              max_new: int = 16, temperature: float = 0.0,
-             generator: torch.Generator = None):
+             generator: torch.Generator = None, encoder_out=None):
     """Greedy/temperature generation.  prompt_tokens: (B, S0) int.
 
     Teacher-forces the prompt through ``decode_step`` (exercising the cache
     path), then samples ``max_new`` tokens: the argmax at temperature 0,
-    else a draw from softmax(logits / temperature) with ``generator``.
-    Returns (B, S0 + max_new) int32.
+    else a draw from softmax(logits / temperature) with ``generator``;
+    the encoder-decoder attends to ``encoder_out`` at every step.  Returns
+    (B, S0 + max_new) int32.
     """
     b, s0 = prompt_tokens.shape
     dev = prompt_tokens.device
@@ -42,7 +49,7 @@ def generate(model: T.Transformer, cfg: ModelConfig, prompt_tokens, *,
     for t in range(s0):
         logits, cache = step(model, prompt_tokens[:, t], cache,
                              torch.full((b,), t, dtype=torch.int32,
-                                        device=dev))
+                                        device=dev), encoder_out)
     out = [prompt_tokens.to(torch.int32)]
     for i in range(max_new):
         if temperature > 0.0:
@@ -55,5 +62,5 @@ def generate(model: T.Transformer, cfg: ModelConfig, prompt_tokens, *,
         if i < max_new - 1:
             logits, cache = step(model, cur, cache,
                                  torch.full((b,), s0 + i, dtype=torch.int32,
-                                            device=dev))
+                                            device=dev), encoder_out)
     return torch.cat(out, dim=1)

@@ -9,8 +9,10 @@ applications against the same calls on the CPU, the distributed routes
 engine) against the single-device call, the calibration probes
 (smoke grids) and auto results under the committed H100 profile against
 the builtin constants, the LM forward with the flash kernel against
-dense attention, block_masked attention, the MoE layer and an MLA/MoE
-model against the CPU, and a monitored engine's ``/metrics`` and ``/health``
+dense attention, block_masked attention, the MoE layer, an MLA/MoE
+model and the xLSTM, Zamba2 and encoder-decoder SMOKE models (under
+block_masked and, with attention, flash_pallas) against the CPU, and a
+monitored engine's ``/metrics`` and ``/health``
 answering while its async worker launches the fused kernel.  Every test
 needs a GPU and skips without one.
 
@@ -623,6 +625,7 @@ FLASH_PATTERNS = [dict(causal=True, window=0, prefix=0),
 @pytest.mark.parametrize("shape", [(32, 32, 8, 8, 16), (64, 64, 16, 16, 16),
                                    (32, 64, 8, 16, 16), (256, 256, 64, 32, 64),
                                    (256, 256, 128, 128, 128),
+                                   (256, 256, 128, 128, 112),
                                    (8, 64, 8, 8, 16), (64, 64, 16, 32, 20)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda_device, pattern, shape, dtype):
@@ -774,6 +777,54 @@ def test_mla_moe_model_on_cuda_matches_cpu(cuda_device):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got_step.cpu(), want_step, rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("arch,impl", [
+    ("xlstm_1_3b", "block_masked"), ("zamba2_7b", "block_masked"),
+    ("zamba2_7b", "flash_pallas"), ("seamless_m4t_large_v2", "block_masked"),
+    ("seamless_m4t_large_v2", "flash_pallas")])
+def test_recurrent_and_encdec_models_on_cuda_match_cpu(cuda_device, arch,
+                                                       impl):
+    """The xLSTM, Zamba2 and encoder-decoder SMOKE models (f32) on the card
+    against the same weights on the CPU: forward (under flash_pallas one
+    kernel launch per attention layer) and eight teacher-forced decode
+    steps (the encoder output computed once), within rtol 1e-5 and an
+    atol of 1e-5 of the largest |logit|: cuBLAS and the CPU sum in other
+    orders, and zamba2's residual stream grows through its layers (the
+    card read 1.5e-5 at 5 of 32,768 logits of magnitude up to 4.1)."""
+    cfg = get_config(arch, smoke=True).replace(attn_impl=impl)
+    model = T.init_params(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(6)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 32),
+                                     generator=gen)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn(2, 32, cfg.d_frontend,
+                                      generator=gen) * 0.2
+
+    def run(dev):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        logits = T.forward(model, cfg, b)
+        enc = model.encode(b["frames"]) if "frames" in b else None
+        cache = T.init_cache(cfg, 2, 32, device=dev)
+        steps = [T.decode_step(model, cfg, b["tokens"][:, t], cache,
+                               torch.full((2,), t, dtype=torch.int32,
+                                          device=dev), encoder_out=enc)[0]
+                 for t in range(8)]
+        return logits, torch.stack(steps, dim=1)
+
+    want = run("cpu")
+    model.to(cuda_device)
+    before = flash.LAUNCHES
+    got = run(cuda_device)
+    torch.cuda.synchronize()
+    if impl == "flash_pallas":
+        layers = (T.n_shared_attn(cfg) if cfg.family == "hybrid"
+                  else cfg.n_enc_layers + cfg.n_dec_layers)
+        # the forward, then the encoder once more for the decode
+        assert flash.LAUNCHES - before == layers + cfg.n_enc_layers
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5,
+                                   atol=1e-5 * float(w.abs().max()))
 
 
 def test_monitored_engine_answers_while_the_async_worker_serves(cuda_device):

@@ -19,7 +19,7 @@ from repro.kernels.flash_mask import ops as ref_flash_ops
 from repro.models import transformer as RT
 from repro.models.attention import attention as ref_attention
 from repro.serve.decode import generate as ref_generate
-from repro_torch.configs.base import get_config
+from repro_torch.configs.base import ARCH_IDS, get_config
 from repro_torch.convert import load_reference_params
 from repro_torch.kernels.flash_mask import kernel as flash_kernel
 from repro_torch.models import transformer as T
@@ -214,19 +214,25 @@ def test_prefix_lm_mask_differs_between_impls_as_in_reference():
 
 
 def test_unported_paths_raise():
-    """block_masked runs and the moe family builds; the SSM, xLSTM, hybrid
-    and audio architectures still raise."""
+    """Nothing is left unported: block_masked runs, all ten architectures
+    build on the CPU (every family of the reference), and a family the
+    reference does not know, or ``ssm`` without an xLSTM config, raises
+    ``ValueError`` in both packages."""
     q = torch.zeros(1, 2, 8, 4)
     assert attention(q, q, q, impl="block_masked").shape == (1, 2, 8, 4)
-    for arch in ("zamba2_7b", "xlstm_1_3b", "seamless_m4t_large_v2"):
-        with pytest.raises(NotImplementedError):
-            get_config(arch, smoke=True)
-    moe = T.init_params(get_config("moonshot_v1_16b_a3b", smoke=True),
-                        device="cpu")
-    assert moe.cfg.family == "moe"
-    ssm_cfg = get_config("llama3_2_1b", smoke=True).replace(family="ssm")
-    with pytest.raises(NotImplementedError):
-        T.init_params(ssm_cfg, device="cpu")
+    families = set()
+    for arch in ARCH_IDS:
+        model = T.init_params(get_config(arch, smoke=True), device="cpu")
+        assert model.cfg.name == ref_get_config(arch, smoke=True).name
+        families.add(model.cfg.family)
+    assert families == set(T.PORTED_FAMILIES)
+    for kw in (dict(family="rnn"), dict(family="ssm", xlstm=None)):
+        cfg = get_config("llama3_2_1b", smoke=True).replace(**kw)
+        with pytest.raises(ValueError, match="family"):
+            T.init_params(cfg, device="cpu")
+        ref_cfg = ref_get_config("llama3_2_1b", smoke=True).replace(**kw)
+        with pytest.raises(ValueError, match="family"):
+            RT.init_params(ref_cfg, jax.random.PRNGKey(0))
     cfg = get_config("llama3.2-1b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.hd, cfg.vocab_size) == (16, 2048, 32, 8, 64, 128256)

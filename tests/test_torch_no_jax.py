@@ -31,4 +31,4 @@ def test_port_imports_without_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[0]) >= 65
+    assert int(out.stdout.split()[0]) >= 70
