@@ -194,7 +194,30 @@ Phases, each printing its own lines:
    ``generate``; the non-causal kernel at the encoder's shape against
    non-causal SDPA and its bound.  Phase 9's sweep also holds D 112 and
    D 128, causal and non-causal, f32 and bf16, against the plain version;
-16. one JSON line with every kernel's numbers, then the result line
+16. training (after phase 15, every port cache cleared): llama-train,
+   the published llama3.2-1b (bf16 activations, f32 masters, remat
+   "full", block_masked, tied embeddings, 1,235,814,400 parameters) from
+   seed 0 under ``AdamW(3e-4, warmup 2, 8 steps)`` on
+   ``SyntheticLM(seq 2,048, batch 4, seed 0)``: a warm-up step, 4 timed
+   steps each ended by a synchronise, one more under the profiler; step
+   ms, tokens/s, the model-FLOP share of the bf16 peak (``mfu``, 6 N T a
+   step), peak memory, busy ms, idle share, kernels a step, ``grad_norm``;
+   every loss and gradient finite, the first loss within the reference's
+   band (0.1, 3) x ln V, no flash or block_spgemm launch, block_masked
+   twice a layer a step (forward and recompute).  f32 at full width and
+   2 of 16 layers (1 x 256 tokens): gradients on the card against the
+   CPU port's (1e-4 normwise, loss 1e-5), block_masked against
+   dense_masked (1e-4), remat "full" and "dots" against "none" (1e-6),
+   microbatches 2 against 1 (accumulated gradients 1e-5 normwise; loss
+   and grad_norm 1e-5; after one AdamW step the reference's rtol 2e-4 /
+   atol 2e-5 plus Adam's normalisation of each path's gradient).  One
+   training step of each of the ten SMOKE configs: f32 gradients against
+   the CPU port's (1e-4), then bf16 (``_bmm_f32``'s CUDA backward): loss
+   within 5e-2 relative of f32, parameters finite.  flash_pallas under
+   gradients raises with no launch.  Checkpoint and resume on the card:
+   6 SMOKE steps with an async save every 2, a fresh state restored from
+   step 4 runs steps 4-5 to the uninterrupted losses (1e-6 relative);
+17. one JSON line with every kernel's numbers, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the result line.
@@ -248,6 +271,12 @@ from repro_torch.core.semiring import PLUS_TIMES  # noqa: E402
 from repro_torch.serving import QueryEngine, burst  # noqa: E402
 from repro_torch.serving import trace as serve_trace  # noqa: E402
 from repro_torch.tuning import autotune, fit, probes  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLM, batch_for  # noqa: E402
+from repro_torch.launch.specs import concrete_batch  # noqa: E402
+from repro_torch.optim.adamw import AdamW  # noqa: E402
+from repro_torch.train.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.train.train_step import (  # noqa: E402
+    init_state, make_train_step)
 
 #: NVIDIA H100 SXM data sheet: f32 on CUDA cores, bf16 and TF32 on tensor
 #: cores (dense), HBM3 bandwidth
@@ -3511,7 +3540,7 @@ def ranged_profile(run, dev, what: str, ranges, classify,
         return {}
     idle = 1 - busy / wall_ms
     kernels = sum(n for _, n in by.values())
-    print(f"{what}: profile of one warm prefill: wall {wall_ms:.1f} ms under "
+    print(f"{what}: profile of one warm run: wall {wall_ms:.1f} ms under "
           f"the profiler, device busy {busy:.1f} ms, idle share {idle:.1%}, "
           f"{kernels} kernels; by group: "
           + "; ".join(f"{g} {ms:.2f} ms {ms / busy:.1%} x{n}"
@@ -4015,7 +4044,7 @@ def device_profile(run, dev, what: str) -> dict:
         return {}
     out = {"wall_ms": wall_ms, "busy_ms": busy,
            "idle_share": 1 - busy / wall_ms, "kernels": len(kernels)}
-    print(f"{what}: device profile of one warm prefill: wall {wall_ms:.1f} "
+    print(f"{what}: device profile of one warm run: wall {wall_ms:.1f} "
           f"ms under the profiler, device busy {busy:.1f} ms, idle share "
           f"{out['idle_share']:.1%}, {len(kernels)} kernels")
     return out
@@ -4080,13 +4109,13 @@ def print_prefill(what: str, cfg, out: dict, seq: int) -> None:
 
 
 def idle_against_warm(out: dict, what: str) -> None:
-    """The profile's device busy time against the unprofiled warm
-    prefill: the idle share a user's call sees."""
+    """The profile's device busy time against the unprofiled warm call
+    (a prefill, a training step): the idle share a user's call sees."""
     if out["profile"]:
         out["idle_share_warm"] = 1 - out["profile"]["busy_ms"] / out[
             "warm_ms"]
         print(f"{what}: the profile's device busy time against the "
-              f"unprofiled warm prefill ({out['warm_ms']:.1f} ms): idle "
+              f"unprofiled warm call ({out['warm_ms']:.1f} ms): idle "
               f"share {out['idle_share_warm']:.1%}")
 
 
@@ -4372,6 +4401,488 @@ def families2_phase(dev):
     return zamba_entry, seamless_entry
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: training
+# ---------------------------------------------------------------------------
+
+#: the llama-train cell: llama3.2-1b's published config (bf16 activations,
+#: f32 masters, remat "full", block_masked, tied embeddings), 4 x 2,048
+#: tokens a step from SyntheticLM(seed 0), AdamW(3e-4, warmup 2, 8 steps)
+TRAIN_BATCH = 4
+TRAIN_SEQ = 2048
+TRAIN_TIMED_STEPS = 4
+#: the f32 checks: llama3.2-1b at full width and 2 of 16 layers
+TRAIN_CUT_LAYERS = 2
+TRAIN_CUT_SEQ = 256
+#: llama-train's profile: the backward's own kernels, the attention's
+#: forward (block_masked, run again by remat in the backward), the rest of
+#: the forward and the optimizer
+TRAIN_PROFILE_GROUPS = ("forward", "attention forward and recompute",
+                        "backward and recompute", "AdamW")
+#: one training step of every SMOKE config: B 2 x 32 tokens
+TRAIN_SMOKE_BATCH = 2
+TRAIN_SMOKE_SEQ = 32
+#: the card's bf16 gradients against the CPU's f32 ones (SMOKE configs):
+#: the worst parameter normwise, and all parameters together.  Sound runs
+#: read at most 0.336 and 0.157 (moonshot's MoE) on the H100; a
+#: transposed cotangent in ``_BmmF32``'s backward reads 1.31 and 0.89 or
+#: more (tests/test_torch_train.py, tests/test_torch_cuda.py)
+TRAIN_BF16_PARAM_TOL = 0.6
+TRAIN_BF16_TOL = 0.3
+#: microbatches 2 against 1 after one AdamW step: an element may pass on
+#: Adam's normalisation of its two gradients (beyond the reference's
+#: rtol 2e-4 / atol 2e-5) only where both clipped gradients are within
+#: this many eps of zero, and no more than this many elements may
+TRAIN_ADAM_NEAR_ZERO_EPS = 100
+TRAIN_ADAM_MAX_NORMALISED = 64
+
+
+def grads_of(model, cfg, batch) -> tuple:
+    """(loss, {name: gradient}) of one backward of ``loss_fn``; a parameter
+    the loss does not reach gets zeros, as the reference's tree has."""
+    for p in model.parameters():
+        p.grad = None
+    loss = T.loss_fn(model, cfg, batch)
+    loss.backward()
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+             for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return float(loss.detach()), grads
+
+
+def grads_agree(what: str, got, want, tol: float, loss_tol: float = 1e-5
+                ) -> float:
+    """Two (loss, gradients) pairs: loss relative ``loss_tol``, every
+    gradient within ``tol`` normwise (to a zero gradient: exactly zero).
+    Returns the worst gradient's normwise distance."""
+    (lg, gg), (lw, gw) = got, want
+    check(math.isfinite(lg) and abs(lg - lw) <= loss_tol * abs(lw),
+          f"{what}: loss {lg!r} against {lw!r} (relative {loss_tol})")
+    worst, name = 0.0, None
+    for n, w in gw.items():
+        g = gg[n].to(w.device).float()
+        check(bool(torch.isfinite(g).all()), f"{what}: {n}'s gradient "
+              f"finite")
+        den = float(w.float().norm())
+        err = float((g - w.float()).norm()) / den if den else float(
+            g.abs().max())
+        if err > worst:
+            worst, name = err, n
+    check(worst <= tol, f"{what}: gradients within {tol} normwise (worst "
+          f"{name}: {worst:.3g})")
+    return worst
+
+
+def bf16_grads_agree(what: str, got, want) -> tuple:
+    """bf16 gradients against f32 ones: the loss within 5e-2 relative, the
+    worst parameter within ``TRAIN_BF16_PARAM_TOL`` normwise, all of them
+    together within ``TRAIN_BF16_TOL``.  Returns (worst, its name,
+    together)."""
+    (lg, gg), (lw, gw) = got, want
+    check(math.isfinite(lg) and abs(lg - lw) <= 5e-2 * abs(lw),
+          f"{what}: loss {lg} finite and within 5e-2 of the f32 loss {lw}")
+    worst, name, num, den = 0.0, None, 0.0, 0.0
+    for n, w in gw.items():
+        g = gg[n].to(w.device).float()
+        check(bool(torch.isfinite(g).all()), f"{what}: {n}'s gradient "
+              f"finite")
+        d2 = float((g - w.float()).double().norm()) ** 2
+        w2 = float(w.double().norm()) ** 2
+        num, den = num + d2, den + w2
+        err = (d2 / w2) ** 0.5 if w2 else d2 ** 0.5
+        if err > worst:
+            worst, name = err, n
+    total = (num / den) ** 0.5
+    check(worst <= TRAIN_BF16_PARAM_TOL and total <= TRAIN_BF16_TOL,
+          f"{what}: gradients within {TRAIN_BF16_PARAM_TOL} normwise per "
+          f"parameter (worst {name}: {worst:.3g}) and {TRAIN_BF16_TOL} "
+          f"together ({total:.3g})")
+    return worst, name, total
+
+
+def state_on(state, dev):
+    """A copy of a ``TrainState`` on ``dev`` (the same parameters, moments
+    and step)."""
+    import copy
+    other = copy.deepcopy(state)
+    other.model.to(dev)
+    return other._replace(opt=other.opt._replace(
+        step=other.opt.step.to(dev),
+        m={n: t.to(dev) for n, t in other.opt.m.items()},
+        v={n: t.to(dev) for n, t in other.opt.v.items()}))
+
+
+def llama_train(dev, smoke: bool = False) -> dict:
+    """llama-train: the published llama3.2-1b at full width and depth, a
+    warm-up step, then ``TRAIN_TIMED_STEPS`` steps of 4 x 2,048 tokens each
+    ended by a synchronise; step ms, tokens/s, the model-FLOP share of the
+    bf16 peak (6 N T a step), peak memory, the device profile of one more
+    step (busy ms, idle share, kernels), ``grad_norm``.  Every loss and
+    gradient finite, the first loss within the reference's band
+    0.1 ln V < loss < 3 ln V, no flash or tile-kernel launch."""
+    what = "llama-train"
+    cfg = get_config("llama3_2_1b", smoke=smoke)
+    if smoke:
+        cfg = cfg.replace(dtype="bfloat16", remat="full")
+    b, s = (2, 64) if smoke else (TRAIN_BATCH, TRAIN_SEQ)
+    free = free_port_memory(dev)
+    opt = AdamW(lr=3e-4, warmup=2, total_steps=8)
+    t0 = time.perf_counter()
+    state = init_state(cfg, opt, torch.Generator(device=dev).manual_seed(0))
+    sync(dev)
+    n = sum(p.numel() for p in state.model.parameters())
+    check(n == n_params(cfg), f"{what}: {n} parameters, {n_params(cfg)} "
+          f"from the config's shapes")
+    print(f"{what}: {cfg.name} {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, attn_impl={cfg.attn_impl} dtype={cfg.dtype} "
+          f"remat={cfg.remat} tie_embeddings={cfg.tie_embeddings}: "
+          f"{n:,} parameters (f32 masters, gradients, m and v "
+          f"{16 * n / 1e9:.1f} GB) initialised on the card from seed 0 in "
+          f"{time.perf_counter() - t0:.1f} s; {free / 2**30:.1f} GiB were "
+          f"free")
+    pipe = SyntheticLM(cfg.vocab_size, s, b, seed=0)
+    step_fn = make_train_step(cfg, opt)
+    reset_counts()
+    bm0 = A.BLOCK_MASKED_CALLS
+    losses, norms, times = [], [], []
+
+    def one(i):
+        nonlocal state
+        batch = batch_for(cfg, pipe, i, device=dev)
+        t = time.perf_counter()
+        state, m = step_fn(state, batch)
+        sync(dev)
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        check(math.isfinite(losses[-1]) and math.isfinite(norms[-1]),
+              f"{what}: step {i} loss {losses[-1]} and grad_norm "
+              f"{norms[-1]} finite (the global norm is finite only if every "
+              f"gradient is)")
+
+    one(0)
+    lnv = math.log(cfg.vocab_size)
+    check(0.1 * lnv < losses[0] < 3 * lnv, f"{what}: first loss "
+          f"{losses[0]:.4f} within the reference's band (0.1, 3) x ln V = "
+          f"({0.1 * lnv:.3f}, {3 * lnv:.3f})")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(1, 1 + TRAIN_TIMED_STEPS):
+        one(i)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else 0
+    prof = ranged_profile(
+        lambda: one(1 + TRAIN_TIMED_STEPS), dev, what,
+        ((A, "block_masked_attention", "smoke.attention"),
+         (AdamW, "update", "smoke.adamw")),
+        lambda chain, name: next(
+            (g for key, g in (("smoke.adamw", "AdamW"),
+                              ("smoke.attention",
+                               "attention forward and recompute"),
+                              ("autograd::engine", "backward and recompute"))
+             if any(key in c for c in chain)), "forward"),
+        TRAIN_PROFILE_GROUPS)
+    check(all(bool(torch.isfinite(p).all())
+              for p in state.model.parameters()),
+          f"{what}: every parameter finite after {len(losses)} steps")
+    check(flash.TC_LAUNCHES == 0 and kernel.FUSED_LAUNCHES == 0
+          and kernel.LAUNCHES == 0, f"{what}: the training path launches no "
+          f"flash or block_spgemm kernel (TC_LAUNCHES {flash.TC_LAUNCHES}, "
+          f"FUSED_LAUNCHES {kernel.FUSED_LAUNCHES})")
+    calls = A.BLOCK_MASKED_CALLS - bm0
+    check(calls == 2 * cfg.n_layers * len(losses),
+          f"{what}: block_masked ran twice a layer a step (forward and "
+          f"remat's recompute): {calls}")
+    warm = statistics.median(times[1:1 + TRAIN_TIMED_STEPS])
+    tokens = b * s
+    flops = 6 * n * tokens
+    out = {"params": n, "tokens_per_step": tokens, "cold_ms": times[0],
+           "step_ms": times[1:1 + TRAIN_TIMED_STEPS], "warm_ms": warm,
+           "tokens_per_s": tokens / (warm / 1e3),
+           "mfu": flops / (warm / 1e3) / PEAK_BF16_FLOPS,
+           "peak_mib": peak / 2**20, "losses": losses, "grad_norms": norms,
+           "profile": prof, "block_masked_calls": calls}
+    idle_against_warm(out, what)
+    print(f"{what}: losses {', '.join(f'{x:.4f}' for x in losses)}; "
+          f"grad_norm {', '.join(f'{x:.4g}' for x in norms)}")
+    print(f"{what}: step ms cold {times[0]:.1f}, warm "
+          f"{', '.join(f'{x:.1f}' for x in out['step_ms'])} (median "
+          f"{warm:.1f}); {out['tokens_per_s']:.0f} tokens/s; mfu "
+          f"{out['mfu']:.2%} (6 N T = {flops / 1e12:.1f} TFLOP a step "
+          f"against {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16); peak memory "
+          f"{out['peak_mib']:.0f} MiB; device busy "
+          f"{prof.get('busy_ms', float('nan')):.1f} ms a step, idle share "
+          f"{out.get('idle_share_warm', float('nan')):.1%} of the warm "
+          f"step, {prof.get('kernels', 0)} kernels a step; {CARD}")
+    del state, step_fn
+    free_port_memory(dev)
+    return out
+
+
+def train_cut_checks(dev, smoke: bool = False) -> dict:
+    """f32 at full width and 2 of 16 layers (remat "none"), 1 x 256
+    tokens: the card's gradients against the CPU port's on the same state
+    and batch, block_masked against dense_masked on the card, microbatches
+    2 against 1 after one AdamW step (2 x 256 tokens; the reference's
+    rtol 2e-4 / atol 2e-5, and Adam's normalisation of near-zero
+    gradients at no more than ``TRAIN_ADAM_MAX_NORMALISED`` elements),
+    remat "full" and "dots" against "none"."""
+    what = "train-f32-cut"
+    cfg = get_config("llama3_2_1b", smoke=smoke).replace(
+        n_layers=TRAIN_CUT_LAYERS, dtype="float32", remat="none")
+    s = 32 if smoke else TRAIN_CUT_SEQ
+    opt = AdamW(lr=1e-3, warmup=1, total_steps=10)
+    state = init_state(cfg, opt, torch.Generator(device=dev).manual_seed(0))
+    cpu = state_on(state, torch.device("cpu"))
+    pipe = SyntheticLM(cfg.vocab_size, s, 2, seed=0)
+    batch2 = batch_for(cfg, pipe, 0, device=dev)
+    batch = {k: v[:1] for k, v in batch2.items()}
+    out = {}
+    t0 = time.perf_counter()
+    card_g = grads_of(state.model, cfg, batch)
+    cpu_g = grads_of(cpu.model, cfg, {k: v.cpu() for k, v in batch.items()})
+    out["card_vs_cpu"] = grads_agree(f"{what}: card against CPU", card_g,
+                                     cpu_g, 1e-4)
+    dense = grads_of(state.model, cfg.replace(attn_impl="dense_masked"),
+                     batch)
+    out["block_vs_dense"] = grads_agree(
+        f"{what}: block_masked against dense_masked", card_g, dense, 1e-4)
+    for mode in ("full", "dots"):
+        out[f"remat_{mode}"] = grads_agree(
+            f"{what}: remat {mode} against none",
+            grads_of(state.model, cfg.replace(remat=mode), batch), card_g,
+            1e-6, loss_tol=1e-6)
+    del cpu, card_g, cpu_g, dense
+    # microbatches: the gradient the two halves accumulate against the
+    # whole batch's, then one AdamW step of each path
+    whole = grads_of(state.model, cfg, batch2)
+    for p in state.model.parameters():
+        p.grad = None
+    halves = 0.0
+    for i in range(2):
+        li = T.loss_fn(state.model, cfg, {k: v[i:i + 1]
+                                          for k, v in batch2.items()})
+        li.backward()
+        halves += float(li.detach()) / 2
+    acc = {n: (p.grad / 2 if p.grad is not None else torch.zeros_like(p))
+           for n, p in state.model.named_parameters()}
+    for p in state.model.parameters():
+        p.grad = None
+    out["microbatch_grads"] = grads_agree(
+        f"{what}: microbatches 2 against 1, accumulated gradients",
+        (halves, acc), whole, 1e-5)
+    other = state_on(state, dev)
+    s1, m1 = make_train_step(cfg, opt)(state, batch2)
+    s2, m2 = make_train_step(cfg, opt, microbatches=2)(other, batch2)
+    l1, l2 = float(m1["loss"]), float(m2["loss"])
+    n1, n2 = float(m1["grad_norm"]), float(m2["grad_norm"])
+    lr = float(m1["lr"])
+    check(abs(l1 - l2) <= 1e-5 * abs(l1) and abs(n1 - n2) <= 1e-5 * n1,
+          f"{what}: microbatches 2 against 1: loss {l2!r} / {l1!r}, "
+          f"grad_norm {n2!r} / {n1!r} (rtol 1e-5)")
+    # Adam's first update moves an element by lr * g / (|g| + eps) (g
+    # clipped): near |g| ~ eps a gradient's last bits move it by a share
+    # of lr, and opposite signs by up to 2 lr.  So each element must meet
+    # the reference's rtol 2e-4 / atol 2e-5; only where both paths'
+    # gradients lie within TRAIN_ADAM_NEAR_ZERO_EPS eps of zero may it add
+    # what Adam makes of the two, and at most TRAIN_ADAM_MAX_NORMALISED
+    # elements may need that.  A sign divergence at a larger |g| fails
+    near = TRAIN_ADAM_NEAR_ZERO_EPS * opt.eps
+    flipped = total = 0
+    worst = small = 0.0
+    with torch.no_grad():
+        for (n, x), (_, y) in zip(s1.model.named_parameters(),
+                                  s2.model.named_parameters()):
+            g1 = whole[1][n] * min(1.0, opt.grad_clip / n1)
+            g2 = acc[n] * min(1.0, opt.grad_clip / n2)
+            step_gap = (g1 / (g1.abs() + opt.eps)
+                        - g2 / (g2.abs() + opt.eps)).abs()
+            g_max = torch.maximum(g1.abs(), g2.abs())
+            diff = (x - y).abs()
+            ref_tol = 2e-5 + 2e-4 * y.abs()
+            adam = torch.where(g_max <= near,
+                               lr * step_gap * (1 + 1e-3) + 1e-7, 0.0)
+            check(bool((diff <= ref_tol + adam).all()),
+                  f"{what}: microbatches 2 against 1 after one AdamW step, "
+                  f"{n}: every element within rtol 2e-4 / atol 2e-5, plus "
+                  f"Adam's normalisation of the two gradients only where "
+                  f"both lie within {near:.3g} of zero")
+            out_tol = diff > ref_tol
+            flipped += int(out_tol.sum())
+            total += x.numel()
+            worst = max(worst, float(diff.max()))
+            if bool(out_tol.any()):
+                small = max(small, float(g_max[out_tol].max()))
+    del whole, acc
+    check(flipped <= TRAIN_ADAM_MAX_NORMALISED,
+          f"{what}: microbatches 2 against 1 after one AdamW step: "
+          f"{flipped} elements outside rtol 2e-4 / atol 2e-5, at most "
+          f"{TRAIN_ADAM_MAX_NORMALISED} may be")
+    out["microbatch_reversed"] = flipped
+    out["microbatch_max_abs"] = worst
+    out["microbatch_largest_g"] = small
+    print(f"{what}: {cfg.name} f32 at {cfg.n_layers} of 16 layers, 1 x {s} "
+          f"tokens: gradients card against CPU {out['card_vs_cpu']:.3g} "
+          f"normwise (worst parameter; 1e-4), block_masked against "
+          f"dense_masked {out['block_vs_dense']:.3g} (1e-4), remat full "
+          f"{out['remat_full']:.3g} and dots {out['remat_dots']:.3g} "
+          f"against none (1e-6); microbatches 2 against 1 at 2 x {s}: "
+          f"accumulated gradients {out['microbatch_grads']:.3g} normwise "
+          f"(1e-5), after one AdamW step loss {l2:.6f} / {l1:.6f}, "
+          f"grad_norm {n2:.6g} / {n1:.6g}, parameters max |diff| "
+          f"{worst:.3g}; {flipped:,} of {total:,} elements "
+          f"({flipped / total:.2g}; at most {TRAIN_ADAM_MAX_NORMALISED}) "
+          f"outside rtol 2e-4 / atol 2e-5, each one Adam's first update "
+          f"normalises from a near-zero gradient (largest clipped |g| of "
+          f"the two paths among them {small:.3g}, at most {near:.3g}; lr "
+          f"{lr:.3g}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    del state, other, s1, s2
+    free_port_memory(dev)
+    return out
+
+
+def train_families(dev) -> dict:
+    """One training step of each of the ten SMOKE configs on the card,
+    against the CPU port on the same state and batch: f32 gradients within
+    1e-4 normwise; bf16 gradients (``_bmm_f32``'s CUDA backward in
+    block_masked, MLA and the SSD tile) against the CPU's f32 ones
+    (``bf16_grads_agree``); then the step in bf16: its loss finite and
+    within 5e-2 relative of the f32 loss, every parameter finite after the
+    AdamW update."""
+    from repro_torch.configs.base import ARCH_IDS
+    out = {}
+    t0 = time.perf_counter()
+    opt = AdamW(lr=1e-3, warmup=1, total_steps=10)
+    for arch in ARCH_IDS:
+        cfg = get_config(arch, smoke=True)
+        cpu = init_state(cfg, opt, seed=0, device="cpu")
+        card_state = state_on(cpu, dev)
+        batch = concrete_batch(cfg, TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ,
+                               seed=1, device="cpu")
+        g32 = grads_of(card_state.model, cfg,
+                       {k: v.to(dev) for k, v in batch.items()})
+        cpu_g = grads_of(cpu.model, cfg, batch)
+        err = grads_agree(f"train {arch} f32: card against CPU", g32,
+                          cpu_g, 1e-4)
+        bcfg = cfg.replace(dtype="bfloat16")
+        bbatch = concrete_batch(bcfg, TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ,
+                                seed=1, device=dev)
+        bworst, bname, btotal = bf16_grads_agree(
+            f"train {arch} bf16 gradients on the card against f32 on the "
+            f"CPU", grads_of(card_state.model, bcfg, bbatch), cpu_g)
+        card_state, m = make_train_step(bcfg, opt)(card_state, bbatch)
+        lb = float(m["loss"])
+        check(math.isfinite(lb) and abs(lb - g32[0]) <= 5e-2 * abs(g32[0]),
+              f"train {arch} bf16: loss {lb} finite and within 5e-2 of the "
+              f"f32 loss {g32[0]}")
+        check(math.isfinite(float(m["grad_norm"])) and all(
+            bool(torch.isfinite(p).all())
+            for p in card_state.model.parameters()),
+            f"train {arch} bf16: gradients and updated parameters finite")
+        out[arch] = {"f32_grad_err": err, "f32_loss": g32[0],
+                     "bf16_loss": lb, "bf16_grad_worst": bworst,
+                     "bf16_grad_worst_name": bname,
+                     "bf16_grad_err": btotal,
+                     "bf16_grad_norm": float(m["grad_norm"])}
+        print(f"train {arch}: f32 gradients card against CPU {err:.3g} "
+              f"normwise (1e-4); bf16 gradients on the card against f32 on "
+              f"the CPU: worst {bname} {bworst:.3g} "
+              f"({TRAIN_BF16_PARAM_TOL}), together {btotal:.3g} "
+              f"({TRAIN_BF16_TOL}); loss f32 {g32[0]:.5f}, bf16 step "
+              f"{lb:.5f} (relative {abs(lb - g32[0]) / abs(g32[0]):.2g}; "
+              f"5e-2)")
+        del cpu, card_state, g32, cpu_g
+    print(f"train families: ten SMOKE configs in "
+          f"{time.perf_counter() - t0:.1f} s")
+    free_port_memory(dev)
+    return out
+
+
+def train_flash_refuses(dev) -> None:
+    """flash_pallas under gradients raises NotImplementedError before any
+    launch (the reference's Pallas kernel has no backward either)."""
+    cfg = get_config("llama3_2_1b", smoke=True).replace(
+        attn_impl="flash_pallas")
+    state = init_state(cfg, AdamW(), torch.Generator(device=dev)
+                       .manual_seed(0))
+    batch = concrete_batch(cfg, 1, TRAIN_SMOKE_SEQ, device=dev)
+    before = (flash.LAUNCHES, flash.TC_LAUNCHES)
+    try:
+        T.loss_fn(state.model, cfg, batch)
+    except NotImplementedError as e:
+        print(f"train flash_pallas: raises NotImplementedError ({e})")
+    else:
+        check(False, "flash_pallas under gradients raises")
+    check((flash.LAUNCHES, flash.TC_LAUNCHES) == before,
+          "flash_pallas under gradients launched no kernel")
+
+
+def train_resume(dev) -> dict:
+    """Checkpoint and resume on the card (SMOKE llama): 6 steps with an
+    async save every 2, then a fresh state restored from step 4 runs steps
+    4 and 5; its losses equal the uninterrupted run's to 1e-6 relative
+    (and say whether bitwise)."""
+    import tempfile
+    cfg = get_config("llama3_2_1b", smoke=True)
+    opt = AdamW(lr=1e-3, warmup=2, total_steps=6)
+    pipe = SyntheticLM(cfg.vocab_size, 16, 8, seed=11)
+    step_fn = make_train_step(cfg, opt)
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        state = init_state(cfg, opt, torch.Generator(device=dev)
+                           .manual_seed(7))
+        losses = []
+        for step in range(6):
+            state, m = step_fn(state, batch_for(cfg, pipe, step, device=dev))
+            losses.append(float(m["loss"]))
+            if (step + 1) % 2 == 0:
+                mgr.save(step + 1, state, asynchronous=True)
+        mgr.wait()
+        check(mgr.all_steps() == [2, 4, 6] and mgr.latest_step() == 6,
+              f"train resume: checkpoints {mgr.all_steps()}")
+        fresh = mgr.restore(4, init_state(
+            cfg, opt, torch.Generator(device=dev).manual_seed(99)))
+        check(int(fresh.opt.step) == 4 and fresh.opt.step.device.type
+              == dev.type, "train resume: step 4 restored on the card")
+        resumed = []
+        for step in (4, 5):
+            fresh, m = step_fn(fresh, batch_for(cfg, pipe, step, device=dev))
+            resumed.append(float(m["loss"]))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, losses[4:]))
+    check(rel <= 1e-6, f"train resume: steps 4-5 {resumed} against the "
+          f"uninterrupted {losses[4:]} (1e-6 relative)")
+    bitwise = resumed == losses[4:]
+    print(f"train resume: 6 steps, async saves at 2, 4, 6; restored step 4 "
+          f"into a fresh state on the card; steps 4-5 {resumed} against "
+          f"{losses[4:]}: relative {rel:.3g}, "
+          f"{'bitwise equal' if bitwise else 'not bitwise'}")
+    return {"resumed": resumed, "uninterrupted": losses[4:],
+            "bitwise": bitwise}
+
+
+def training_phase(dev) -> dict:
+    """Phase 16; returns its numbers."""
+    free = free_port_memory(dev)
+    print(f"training: {free / 2**30:.1f} GiB free after clearing every "
+          f"port cache")
+    out, t0 = {}, time.perf_counter()
+    out["llama_train"] = llama_train(dev)
+    t1 = time.perf_counter()
+    out["cut"] = train_cut_checks(dev)
+    t2 = time.perf_counter()
+    out["families"] = train_families(dev)
+    train_flash_refuses(dev)
+    t3 = time.perf_counter()
+    out["resume"] = train_resume(dev)
+    print(f"training: llama-train {t1 - t0:.1f} s, f32 cut checks "
+          f"{t2 - t1:.1f} s, families and flash {t3 - t2:.1f} s, resume "
+          f"{time.perf_counter() - t3:.1f} s")
+    free_port_memory(dev)
+    return out
+
+
 def main() -> int:
     device = card()
     dev = torch.device("cuda", 0)
@@ -4427,6 +4938,8 @@ def main() -> int:
     moonshot_entry["families"] = families
     t_families2 = time.perf_counter()
     zamba_entry, seamless_entry = families2_phase(dev)
+    t_training = time.perf_counter()
+    training = training_phase(dev)
     t_end = time.perf_counter()
     print(f"phases: spgemm {t_serving - t_start:.1f} s, serving "
           f"{t_delta - t_serving:.1f} s, delta {t_tuning - t_delta:.1f} s, "
@@ -4436,7 +4949,9 @@ def main() -> int:
           f"sddmm {t_flash - t_sddmm:.1f} s, "
           f"flash {t_lm - t_flash:.1f} s, lm {t_families - t_lm:.1f} s, "
           f"families {t_families2 - t_families:.1f} s, "
-          f"families II {t_end - t_families2:.1f} s")
+          f"families II {t_training - t_families2:.1f} s, "
+          f"training {t_end - t_training:.1f} s")
+    print("training numbers: " + json.dumps(training))
     print(json.dumps({"kernels": [entry, sddmm, flash_entry,
                                   moonshot_entry, zamba_entry,
                                   seamless_entry]}))

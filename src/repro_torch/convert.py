@@ -4,8 +4,9 @@ Each function reads the reference object's attributes as numpy arrays
 (``np.asarray`` of a JAX array needs no JAX import here) and builds the
 port's counterpart, so both packages can compute on identical operands and
 a plan elected by the reference planner can drive the port
-(``masked_spgemm(plan=plan_from_reference(p))``) and a model can run the
-reference's weights (``load_reference_params``).  Nothing of the
+(``masked_spgemm(plan=plan_from_reference(p))``), a model can run the
+reference's weights (``load_reference_params``) and training can start
+from the reference's state (``load_reference_state``).  Nothing of the
 reference is imported.
 """
 from __future__ import annotations
@@ -83,13 +84,15 @@ def _copy(dst: torch.Tensor, src, name: str) -> None:
 _RENAME = {"wk_rep": "wk", "wv_rep": "wv", "ssm": "mixer"}
 
 
-def _load(module, tree, path: str, idx: tuple, seen: set) -> None:
+def _load(module, tree, path: str, idx: tuple, seen: set,
+          into: dict) -> None:
     """Copy ``tree`` into ``module``: each leaf indexed at ``idx`` (its
     stacked layer axes; () for an unstacked tree) into the parameter of
     its name, ``<norm>_scale``/``<norm>_bias`` into the norm submodule of
     that name, and a dict into the submodule of its name, recursively.  A
     name the module has no place for raises; ``seen`` collects the ids of
-    the parameters written."""
+    the parameters written; ``into`` maps a parameter's id to the tensor
+    written in its place (by default the parameter itself)."""
     for name, sub in tree.items():
         where = f"{path}/{name}" if path else name
         attr = _RENAME.get(name, name)
@@ -97,7 +100,7 @@ def _load(module, tree, path: str, idx: tuple, seen: set) -> None:
             child = getattr(module, attr, None)
             if not isinstance(child, torch.nn.Module):
                 raise ValueError(f"{where}: the port has no such module")
-            _load(child, sub, where, idx, seen)
+            _load(child, sub, where, idx, seen, into)
             continue
         owner = module
         norm, _, part = name.rpartition("_")
@@ -106,8 +109,8 @@ def _load(module, tree, path: str, idx: tuple, seen: set) -> None:
         dst = getattr(owner, attr, None)
         if not isinstance(dst, torch.Tensor):
             raise ValueError(f"{where}: the port has no such parameter")
-        _copy(dst, np.asarray(sub)[idx], where + (str(list(idx))
-                                                  if idx else ""))
+        _copy(into.get(id(dst), dst), np.asarray(sub)[idx],
+              where + (str(list(idx)) if idx else ""))
         seen.add(id(dst))
 
 
@@ -144,7 +147,7 @@ def _stacks(model):
     return out
 
 
-def load_reference_params(model, tree) -> None:
+def load_reference_params(model, tree, into=None) -> None:
     """Copy a reference parameter tree (``repro.models.transformer
     .init_params``; leaves as numpy or JAX arrays) into a port
     ``Transformer`` of the same config, in place.
@@ -173,8 +176,12 @@ def load_reference_params(model, tree) -> None:
 
     A key the port has no place for raises, as do a stack whose layer
     axes differ from the model's and a tree that leaves a parameter of the
-    model unwritten.
+    model unwritten.  ``into`` (parameter name -> tensor of its shape)
+    writes a tree of the parameters' structure, such as an optimizer
+    moment, into those tensors in place of the parameters.
     """
+    params = dict(model.named_parameters())
+    into = {id(params[n]): t for n, t in (into or {}).items()}
     stacks = _stacks(model)
     foreign = sorted(k for k in tree if k.startswith(("layers_", "enc_",
                                                       "dec_"))
@@ -184,7 +191,7 @@ def load_reference_params(model, tree) -> None:
                          f"{foreign}")
     seen: set = set()
     _load(model, {k: v for k, v in tree.items() if k not in stacks}, "", (),
-          seen)
+          seen, into)
     for name, (lead, targets) in stacks.items():
         layers = tree[name]
         got = np.asarray(layers["ln1_scale"]).shape[:len(lead)]
@@ -195,13 +202,27 @@ def load_reference_params(model, tree) -> None:
             if name in ("layers_mlstm", "layers_slstm"):
                 norms = {k: v for k, v in layers.items()
                          if k.startswith("ln")}
-                _load(block, norms, name, idx, seen)
+                _load(block, norms, name, idx, seen, into)
                 _load(block.mixer, {k: v for k, v in layers.items()
-                                    if k not in norms}, name, idx, seen)
+                                    if k not in norms}, name, idx, seen, into)
             else:
-                _load(block, layers, name, idx, seen)
+                _load(block, layers, name, idx, seen, into)
     missing = [n for n, p in model.named_parameters() if id(p) not in seen]
     if missing:
         raise ValueError(f"the reference tree has no value for: "
                          f"{missing[:8]}" + (" ..." if len(missing) > 8
                                              else ""))
+
+
+def load_reference_state(state, ref_state) -> None:
+    """Copy a reference ``TrainState`` (``params`` and ``OptState(step, m,
+    v)``; leaves as numpy or JAX arrays) into a port ``TrainState`` of the
+    same config, in place: the parameters as ``load_reference_params``
+    maps them, the moments ``m`` and ``v`` (trees of the parameters'
+    structure) through the same map into ``state.opt.m`` / ``.v``, and the
+    step count."""
+    load_reference_params(state.model, ref_state.params)
+    load_reference_params(state.model, ref_state.opt.m, into=state.opt.m)
+    load_reference_params(state.model, ref_state.opt.v, into=state.opt.v)
+    with torch.no_grad():
+        state.opt.step.fill_(int(np.asarray(ref_state.opt.step)))

@@ -13,7 +13,8 @@ in the reference:
   softmax (torch code: the reference's is an XLA scan, not a kernel).
 * ``flash_pallas`` — the block-masked flash kernel
   (``repro_torch.kernels.flash_mask``): only mask-admitted tiles, one CUDA
-  launch for every (batch, head).
+  launch for every (batch, head).  It has no backward, as the reference's
+  has none: with gradients asked for it raises before any launch.
 
 ``decode_attention`` is the serve-time single-token path over a (possibly
 ring-buffered) KV cache.
@@ -179,17 +180,40 @@ def _device_plan(s_q, s_k, bq, bk, causal, window, prefix, q_offset, device):
     return plan
 
 
+class _BmmF32(torch.autograd.Function):
+    """``_bmm_f32`` of two bf16 operands, with its derivative: the CUDA
+    product ``bmm(out_dtype=f32)`` has none.  The backward is the
+    reference's transpose of ``preferred_element_type=f32``: the f32
+    cotangent times the other operand widened to f32 (exact), an IEEE f32
+    product, cast to each operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.device.type == "cuda":
+            return torch.bmm(a, b, out_dtype=torch.float32)
+        return torch.matmul(a.float(), b.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.matmul(g, b.float().transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.matmul(a.float().transpose(-1, -2), g).to(b.dtype)
+        return ga, gb
+
+
 def _bmm_f32(a, b):
     """``a @ b`` batched, accumulated and returned in f32 with the operands
     in their own dtype (the reference's ``preferred_element_type=f32``).
     On a CUDA device bf16 operands stay bf16 (``out_dtype``); the CPU has
     no such product, so there they are widened (exact) and multiplied in
-    f32, the same arithmetic."""
+    f32, the same arithmetic.  Both differentiate (``_BmmF32``)."""
     if a.dtype == torch.float32:
         return torch.matmul(a, b)
-    if a.device.type == "cuda":
-        return torch.bmm(a, b, out_dtype=torch.float32)
-    return torch.matmul(a.float(), b.float())
+    return _BmmF32.apply(a, b)
 
 
 def block_masked_attention(q, k, v, *, causal=True, window=0, prefix=0,
@@ -296,6 +320,14 @@ def attention(q, k, v, *, impl="block_masked", causal=True, window=0,
                                       prefix=prefix, q_offset=q_offset,
                                       scale=scale, bq=block, bk=block)
     if impl == "flash_pallas":
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            # the kernel writes its output through ctypes, which autograd
+            # cannot see; the reference's Pallas kernel has no
+            # differentiation rule either
+            raise NotImplementedError(
+                "attention impl 'flash_pallas' has no backward: train on "
+                "'block_masked' or 'dense_masked'")
         from repro_torch.kernels.flash_mask.ops import flash_mask_attention
         return flash_mask_attention(q, k, v, causal=causal, window=window,
                                     prefix=prefix, q_offset=q_offset,

@@ -1,7 +1,8 @@
 """Shared model numerics: norms, RoPE and the initializer.
 
-The reference's sharding helpers, ``pscan`` and remat have no counterpart:
-the port runs inference on one device, layer by layer.
+The reference's sharding helpers and ``pscan`` have no counterpart: the
+port runs on one device, layer by layer (remat is
+``transformer._remat``).
 """
 from __future__ import annotations
 

@@ -10,8 +10,8 @@ the reference, the config is an argument of every apply: one set of
 weights runs under any config of the same shapes (another attention impl
 or activation dtype).  They are
 stored in f32, as the reference keeps them, and cast to the activation
-dtype at each use.  The port serves inference only: no parameter requires
-a gradient.
+dtype at each use.  They are built without gradients, for serving;
+training turns them on (``repro_torch.train.train_step.init_state``).
 """
 from __future__ import annotations
 
@@ -370,3 +370,18 @@ class MoE(nn.Module):
         if self.shared is not None:
             out = out + self.shared(x)
         return out.to(x.dtype)
+
+
+def moe_aux_loss(moe: MoE, cfg: ModelConfig, x):
+    """The Switch-style load-balance loss of ``moe``'s router on x (B, S,
+    D): ``n_experts * sum(frac * importance)``, with ``frac`` the share of
+    tokens whose top expert is each expert and ``importance`` the mean f32
+    router probability.  As in the reference, nothing adds it to the
+    training loss."""
+    mo = cfg.moe
+    logits = (x.reshape(-1, x.shape[-1]) @ moe.router.to(x.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    top_e = torch.argmax(probs, dim=-1)
+    frac = F.one_hot(top_e, mo.n_experts).float().mean(dim=0)
+    imp = probs.mean(dim=0)
+    return mo.n_experts * torch.sum(frac * imp)

@@ -25,14 +25,19 @@ As in the reference, the family exposes ``init_params``, ``forward``
 (logits), ``init_cache`` and ``decode_step`` (one token), each taking the
 config beside the weights, so one model runs under every config of its
 shapes (e.g. ``attn_impl`` or ``dtype`` replaced).  Layers run one after
-another (the reference scans stacked layers).
+another (the reference scans stacked layers).  For training, ``loss_fn``
+is the reference's next-token loss, and with gradients on each block body
+the reference wraps in ``jax.checkpoint`` is recomputed in the backward as
+``cfg.remat`` says (``_remat``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
 from . import layers as Lyr
@@ -49,6 +54,38 @@ def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES or (cfg.family == "ssm"
                                              and cfg.xlstm is None):
         raise ValueError(f"family {cfg.family}")
+
+
+#: the products ``remat="dots"`` keeps: 2-D matmuls, the counterpart of
+#: the reference's ``dots_with_no_batch_dims_saveable``
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _SAVED_DOTS:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, recomputed in the backward as ``cfg.remat``
+    says (the reference's ``_remat``): ``"none"`` keeps every activation,
+    ``"dots"`` only the 2-D matmul outputs, anything else (``"full"``)
+    only the inputs.  Unless gradients are on and the block's input ``x``
+    (the first argument) requires one, as it does in training, it is a
+    plain call: serving outside ``no_grad`` runs what it runs under it.
+    The numbers do not change, but the recompute runs the forward code
+    again, so the module counters (``BLOCK_MASKED_CALLS``,
+    ``EXPERT_MATMULS``, ``MoE.group_sizes``) count it too."""
+    if cfg.remat == "none" or not (torch.is_grad_enabled()
+                                   and args[0].requires_grad):
+        return fn(*args, **kwargs)
+    context = _ckpt.noop_context_fn
+    if cfg.remat == "dots":
+        context = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return _ckpt.checkpoint(fn, *args, use_reentrant=False,
+                            context_fn=context, **kwargs)
 
 
 def n_dense_layers(cfg: ModelConfig) -> int:
@@ -212,7 +249,8 @@ class Transformer(nn.Module):
         b, s = enc.shape[:2]
         positions = torch.arange(s, device=enc.device).expand(b, s)
         for block in self.enc_blocks:
-            enc = block(enc, positions, cfg, causal=False, window=0)
+            enc = _remat(cfg, block, enc, positions, cfg, causal=False,
+                         window=0)
         return self.encfinal_ln(enc)
 
     def forward(self, tokens, cfg: ModelConfig = None, patches=None,
@@ -233,14 +271,16 @@ class Transformer(nn.Module):
         b, s = x.shape[:2]
         positions = torch.arange(s, device=tokens.device).expand(b, s)
         for i, block in enumerate(self.blocks):
-            if fam in ("ssm", "hybrid"):
-                x = block(x, cfg)
+            if fam == "ssm" and isinstance(block.mixer, XL.sLSTM):
+                x = block(x, cfg)       # the reference remats mLSTMs only
+            elif fam in ("ssm", "hybrid"):
+                x = _remat(cfg, block, x, cfg)
                 if fam == "hybrid" and self._shared(i, cfg):
-                    x = self.shared_attn(x, positions, cfg)
+                    x = _remat(cfg, self.shared_attn, x, positions, cfg)
             elif fam == "audio":
-                x = block(x, positions, enc, cfg)
+                x = _remat(cfg, block, x, positions, enc, cfg)
             else:
-                x = block(x, positions, cfg, prefix)
+                x = _remat(cfg, block, x, positions, cfg, prefix)
         return self._logits(self.final_ln(x))
 
 
@@ -260,6 +300,25 @@ def forward(model: Transformer, cfg: ModelConfig, batch: Dict[str, Any]):
     encoder-decoder].  Returns logits (B, P + S, V)."""
     return model(batch["tokens"], cfg, batch.get("patches"),
                  batch.get("frames"))
+
+
+def loss_fn(model: Transformer, cfg: ModelConfig, batch: Dict[str, Any]):
+    """The mean next-token cross-entropy of ``forward``'s logits against
+    ``batch["labels"]`` (B, S), the reference's ``loss_fn``: logits in f32,
+    the VLM's image prefix dropped, ``logsumexp`` minus the gold logit at
+    the labels ``>= 0``.  The gold logit is gathered where the reference
+    contracts a one-hot: the same value, without a (B, S, V) one-hot.
+    Differentiable; returns a 0-d f32 tensor."""
+    logits = model(batch["tokens"], cfg, batch.get("patches"),
+                   batch.get("frames")).float()
+    labels = batch["labels"]
+    if cfg.family == "vlm":          # the image prefix produces no loss
+        logits = logits[:, cfg.img_tokens:]
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return torch.sum((lse - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):

@@ -11,9 +11,11 @@ engine) against the single-device call, the calibration probes
 the builtin constants, the LM forward with the flash kernel against
 dense attention, block_masked attention, the MoE layer, an MLA/MoE
 model and the xLSTM, Zamba2 and encoder-decoder SMOKE models (under
-block_masked and, with attention, flash_pallas) against the CPU, and a
+block_masked and, with attention, flash_pallas) against the CPU, a
 monitored engine's ``/metrics`` and ``/health``
-answering while its async worker launches the fused kernel.  Every test
+answering while its async worker launches the fused kernel, and training:
+a backward of each family's SMOKE model against the CPU (then a bf16
+step), ``_bmm_f32``'s bf16 backward and flash refusing gradients.  Every test
 needs a GPU and skips without one.
 
 This file imports neither JAX nor the reference package, so it runs where
@@ -873,3 +875,151 @@ def test_monitored_engine_answers_while_the_async_worker_serves(cuda_device):
     assert sum(r["attrs"]["size"] for r in execs) == len(qs)
     for q, g in zip(qs, got):
         _same(g, masked_spgemm(*q, device=cuda_device))
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+#: bf16 gradients on the card against f32 on the CPU: the worst
+#: parameter normwise, and all together (as ``chip_smoke.py``'s
+#: ``TRAIN_BF16_PARAM_TOL`` / ``TRAIN_BF16_TOL``; sound runs read at most
+#: 0.336 and 0.157 on the H100, a transposed cotangent 1.31 and 0.89 on
+#: the CPU)
+BF16_GRAD_PARAM_TOL = 0.6
+BF16_GRAD_TOL = 0.3
+
+
+def _bf16_grad_errors(got, want):
+    """(the worst parameter's normwise distance, its name, the distance of
+    all gradients together)."""
+    errs, num, den = {}, 0.0, 0.0
+    for n, w in want.items():
+        d = float((got[n].cpu().double() - w.double()).norm())
+        wn = float(w.double().norm())
+        errs[n] = d / wn if wn else d
+        num, den = num + d * d, den + wn * wn
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst, (num / den) ** 0.5
+
+
+def _grads(model, cfg, batch):
+    for p in model.parameters():
+        p.grad = None
+    loss = T.loss_fn(model, cfg, batch)
+    loss.backward()
+    return float(loss.detach()), {
+        n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach()
+        .clone() for n, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("arch", ["llama3_2_1b", "deepseek_v2_lite_16b",
+                                  "internvl2_2b", "xlstm_1_3b", "zamba2_7b",
+                                  "seamless_m4t_large_v2"])
+def test_train_step_on_cuda_matches_cpu(cuda_device, arch):
+    """One backward of every family's SMOKE config on the card against the
+    CPU port on the same state and batch (f32: gradients 1e-4 normwise,
+    loss 1e-5 relative); the card's bf16 gradients (the CUDA ``_bmm_f32``
+    backward) against the CPU's f32 ones; then a bf16 training step on the
+    card: loss within 5e-2 of the f32 one, every updated parameter
+    finite."""
+    import copy
+
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.train_step import init_state, make_train_step
+    cfg = get_config(arch, smoke=True)
+    opt = AdamW(lr=1e-3, warmup=1, total_steps=10)
+    cpu = init_state(cfg, opt, seed=0, device="cpu")
+    card = copy.deepcopy(cpu)
+    card.model.to(cuda_device)
+    for d in (card.opt.m, card.opt.v):
+        for n in d:
+            d[n] = d[n].to(cuda_device)
+    card = card._replace(opt=card.opt._replace(
+        step=card.opt.step.to(cuda_device)))
+    batch = concrete_batch(cfg, 2, 32, seed=1, device="cpu")
+    want_loss, want = _grads(cpu.model, cfg, batch)
+    got_loss, got = _grads(card.model, cfg,
+                           {k: v.to(cuda_device) for k, v in batch.items()})
+    assert abs(got_loss - want_loss) <= 1e-5 * abs(want_loss)
+    for n, w in want.items():
+        den = float(w.norm())
+        err = float((got[n].cpu() - w).norm())
+        assert err <= 1e-4 * den if den else err == 0.0, (n, err, den)
+    bcfg = cfg.replace(dtype="bfloat16")
+    bbatch = concrete_batch(bcfg, 2, 32, seed=1, device=cuda_device)
+    _, got16 = _grads(card.model, bcfg, bbatch)
+    worst, name, total = _bf16_grad_errors(got16, want)
+    assert worst <= BF16_GRAD_PARAM_TOL, (name, worst)
+    assert total <= BF16_GRAD_TOL, total
+    card, m = make_train_step(bcfg, opt)(card, bbatch)
+    assert abs(float(m["loss"]) - want_loss) <= 5e-2 * abs(want_loss)
+    assert all(bool(torch.isfinite(p).all()) for p in card.model.parameters())
+
+
+@pytest.mark.parametrize("arch", ["llama3_2_1b", "deepseek_v2_lite_16b",
+                                  "zamba2_7b"])
+def test_bf16_gradient_check_on_cuda_catches_a_transposed_cotangent(
+        cuda_device, monkeypatch, arch):
+    """The bf16 comparison above fails when ``_BmmF32``'s backward returns
+    each operand's gradient transposed where its tile is square."""
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.models import attention as A
+    sound = A._BmmF32.backward
+
+    def faulty(ctx, g):
+        return tuple(x if x is None or x.shape[-1] != x.shape[-2]
+                     else x.transpose(-1, -2).contiguous()
+                     for x in sound(ctx, g))
+    cfg = get_config(arch, smoke=True)
+    model = T.init_params(cfg, seed=0, device="cpu").requires_grad_(True)
+    _, want = _grads(model, cfg, concrete_batch(cfg, 2, 32, seed=1,
+                                                device="cpu"))
+    model.to(cuda_device)
+    bcfg = cfg.replace(dtype="bfloat16")
+    bbatch = concrete_batch(bcfg, 2, 32, seed=1, device=cuda_device)
+    monkeypatch.setattr(A._BmmF32, "backward", staticmethod(faulty))
+    _, got = _grads(model, bcfg, bbatch)
+    worst, name, total = _bf16_grad_errors(got, want)
+    assert worst > BF16_GRAD_PARAM_TOL and total > BF16_GRAD_TOL, \
+        (name, worst, total)
+
+
+def test_bmm_f32_backward_in_bf16_on_cuda(cuda_device):
+    """``_bmm_f32`` of bf16 operands differentiates on the card: the f32
+    product, and bf16 gradients equal to the f32 products of the widened
+    operands up to one bf16 rounding."""
+    from repro_torch.models.attention import _bmm_f32
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    a = torch.randn(4, 64, 96, generator=g, device=cuda_device)
+    b = torch.randn(4, 96, 48, generator=g, device=cuda_device)
+    cot = torch.randn(4, 64, 48, generator=g, device=cuda_device)
+    ab, bb = (x.to(torch.bfloat16).requires_grad_(True) for x in (a, b))
+    out = _bmm_f32(ab, bb)
+    assert out.dtype == torch.float32
+    af, bf = ab.detach().float(), bb.detach().float()
+    torch.testing.assert_close(out, af @ bf, rtol=1e-5, atol=1e-4)
+    ga, gb = torch.autograd.grad(out, (ab, bb), cot)
+    assert ga.dtype == gb.dtype == torch.bfloat16
+    torch.testing.assert_close(ga.float(), cot @ bf.transpose(1, 2),
+                               rtol=2 ** -8, atol=1e-5)
+    torch.testing.assert_close(gb.float(), af.transpose(1, 2) @ cot,
+                               rtol=2 ** -8, atol=1e-5)
+
+
+def test_flash_refuses_gradients_on_cuda(cuda_device):
+    from repro_torch.models.attention import attention
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v = (torch.randn(1, 2, 64, 64, generator=g, device=cuda_device,
+                           dtype=torch.bfloat16) for _ in range(3))
+    before = (flash.LAUNCHES, flash.TC_LAUNCHES)
+    with pytest.raises(NotImplementedError):
+        attention(q, k.requires_grad_(True), v, impl="flash_pallas",
+                  block=64)
+    assert (flash.LAUNCHES, flash.TC_LAUNCHES) == before
+    with torch.no_grad():
+        out = attention(q, k, v, impl="flash_pallas", block=64)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and flash.TC_LAUNCHES == before[1] + 1
