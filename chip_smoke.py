@@ -217,7 +217,12 @@ Phases, each printing its own lines:
    gradients raises with no launch.  Checkpoint and resume on the card:
    6 SMOKE steps with an async save every 2, a fresh state restored from
    step 4 runs steps 4-5 to the uninterrupted losses (1e-6 relative);
-17. one JSON line with every kernel's numbers, then the result line
+17. lint (after phase 16, on the host): the port's invariant linter,
+   ``python -m repro_torch.lint --format=json --baseline none`` over
+   ``src/repro_torch`` in a child process; it must exit 0 with no
+   finding at all.  It launches nothing on the card; its counts and
+   seconds are printed;
+18. one JSON line with every kernel's numbers, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the result line.
@@ -227,6 +232,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -4883,6 +4889,31 @@ def training_phase(dev) -> dict:
     return out
 
 
+def lint_phase() -> dict:
+    """Phase 17: ``python -m repro_torch.lint`` over the port's own tree in
+    a child process.  A finding or a crash of the linter fails the run."""
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.lint", "--format=json",
+         "--baseline", "none"], cwd=root, env=env, capture_output=True,
+        text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"the port's linter exited {proc.returncode}: "
+          f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout)
+    counts = report["counts"]
+    check(counts["total"] == 0, f"the port's linter found {counts}")
+    check(report["roots"] == [str(root / "src" / "repro_torch")],
+          f"the linter ran over {report['roots']}")
+    print(f"lint: {len(report['rules'])} rules over src/repro_torch, "
+          f"counts {json.dumps(counts)}, {seconds:.2f} s (Python "
+          f"{sys.version.split()[0]})")
+    return {"counts": counts, "rules": report["rules"], "seconds": seconds}
+
+
 def main() -> int:
     device = card()
     dev = torch.device("cuda", 0)
@@ -4940,6 +4971,8 @@ def main() -> int:
     zamba_entry, seamless_entry = families2_phase(dev)
     t_training = time.perf_counter()
     training = training_phase(dev)
+    t_lint = time.perf_counter()
+    linted = lint_phase()
     t_end = time.perf_counter()
     print(f"phases: spgemm {t_serving - t_start:.1f} s, serving "
           f"{t_delta - t_serving:.1f} s, delta {t_tuning - t_delta:.1f} s, "
@@ -4950,8 +4983,10 @@ def main() -> int:
           f"flash {t_lm - t_flash:.1f} s, lm {t_families - t_lm:.1f} s, "
           f"families {t_families2 - t_families:.1f} s, "
           f"families II {t_training - t_families2:.1f} s, "
-          f"training {t_end - t_training:.1f} s")
+          f"training {t_lint - t_training:.1f} s, "
+          f"lint {t_end - t_lint:.1f} s")
     print("training numbers: " + json.dumps(training))
+    print("lint numbers: " + json.dumps(linted))
     print(json.dumps({"kernels": [entry, sddmm, flash_entry,
                                   moonshot_entry, zamba_entry,
                                   seamless_entry]}))

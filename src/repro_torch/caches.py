@@ -38,6 +38,15 @@ def register(name: str, *, clear: Callable[[], None],
                                set_capacity=set_capacity, stats=stats)
 
 
+def register_lru(name: str, fn) -> None:
+    """Register a ``functools.lru_cache``-wrapped function (fixed capacity)."""
+    register(name, clear=fn.cache_clear,
+             size=lambda: fn.cache_info().currsize,
+             capacity=lambda: fn.cache_info().maxsize,
+             stats=lambda: {"hits": fn.cache_info().hits,
+                            "misses": fn.cache_info().misses})
+
+
 def unregister(name: str) -> None:
     """Drop ``name`` from the registry (the cache keeps working; the
     registry stops referencing it)."""

@@ -411,7 +411,8 @@ class QueryEngine:
                 if d is None:
                     changed[name] = np.zeros(0, np.int64)
                     continue
-                isig = _delta_scratch.get(("isig", sig_old[name]))
+                isig = _delta_scratch.get(
+                    ("isig", sig_old[name]))  # lint: plan-key-ok(isig memo)
                 res = apply_csr_delta(old_ops[name], d, old_signature=isig)
                 new_ops[name] = res.csr
                 changed[name] = res.changed_rows
@@ -419,7 +420,7 @@ class QueryEngine:
                 signatures[name] = res.signature
                 _delta_scratch.put(
                     ("isig", planner.structure_signature(res.csr)),
-                    res.signature)
+                    res.signature)  # lint: plan-key-ok(isig memo)
                 applied += 1
             sp.set(applied=applied)
         A1, B1, M1 = new_ops["A"], new_ops["B"], new_ops["M"]
