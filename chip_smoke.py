@@ -73,14 +73,19 @@ Phases, each printing its own lines:
 9. flash attention: the ``flash_mask`` kernel against its plain version
    over the reference's test sweep (bf16 also within 2e-3 normwise; every
    case on tensor cores, the f32 ones on the 3xTF32 kernel), the decode
-   offset and the GQA op, then one full-width llama3.2-1b layer (B 4,
-   32/8 heads, S 2048, D 64, causal, bf16); then timings beside
+   offset and the GQA op; the Hopper bf16 kernel (``flash_mask_sm90``,
+   ``SM90_LAUNCHES``) at the path's four shapes cut to S 512, a window
+   with a prefix, q_offset > 0, bq 64, a never-visited q-block and
+   out-of-range kv-blocks; then one full-width llama3.2-1b layer (B 4,
+   32/8 heads, S 2048, D 64, causal, bf16) on it; then its timings beside
+   the mma.sync kernel's in the same run and
    ``scaled_dot_product_attention``; the f32 instance at the layer's shape
    against its plain version and float64, and its times at B 1 (the f32
    prefill's shape) and B 4 beside f32 ``scaled_dot_product_attention``;
 10. LM serving: llama3.2-1b at full width with ``attn_impl="flash_pallas"``
    and random weights from seed 0: a bf16 prefill of 4 x 2,048 tokens (the
-   bf16 flash kernel must launch once per layer, 16 times; logits finite
+   bf16 flash kernel must launch once per layer, 16 times, each on the
+   Hopper kernel by ``SM90_LAUNCHES``, as in phases 14 and 15; logits finite
    and close to the same forward with dense attention), a
    ``torch.profiler`` breakdown of one warm prefill by kernel with the
    device's idle share, an f32 prefill of 2,048 tokens (the f32 tensor-core
@@ -359,6 +364,7 @@ def reset_counts() -> None:
     flash.LAUNCHES = 0
     flash.TC_LAUNCHES = 0
     flash.F32_LAUNCHES = 0
+    flash.SM90_LAUNCHES = 0
 
 
 def device_ms(fn, dev, reps: int = 5, warm: int = 1) -> float:
@@ -381,6 +387,34 @@ def device_ms(fn, dev, reps: int = 5, warm: int = 1) -> float:
             t0 = time.perf_counter()
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def chained_ms(fn, dev, calls: int = 10, reps: int = 5,
+               warm: int = 2) -> float:
+    """Median over ``reps`` of the ms per call of ``calls`` back-to-back
+    calls of ``fn()`` between two CUDA events (the host clock elsewhere):
+    the device time of a kernel whose wrapper's host work would otherwise
+    open a gap inside a single call's events (60-100 us on the card's
+    hosts, PERF.md)."""
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        if dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / calls)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            times.append((time.perf_counter() - t0) * 1e3 / calls)
     return statistics.median(times)
 
 
@@ -483,10 +517,17 @@ def build(dev) -> None:
                   f"{info['local_bytes']} B local memory per thread, "
                   f"{info['ctas_per_sm']} CTAs per SM")
         for what, info in (
-                ("flash_mask bf16 128/128, D 64",
+                ("flash_mask_sm90 (wgmma + TMA) bf16 128/128, D 64",
+                 _build.kernel_info("flash_mask_sm90",
+                                    "flash_mask_sm90_info", 128, 128, 64)),
+                ("flash_mask_sm90 (wgmma + TMA) bf16 128/128, D 112 and 128",
+                 _build.kernel_info("flash_mask_sm90",
+                                    "flash_mask_sm90_info", 128, 128, 128)),
+                ("flash_mask mma.sync bf16 128/128, D 64",
                  _build.kernel_info("flash_mask", "flash_mask_tc_info", 128,
                                     128, 64)),
-                ("flash_mask bf16 128/128, D 112 and 128 (the D 128 tile)",
+                ("flash_mask mma.sync bf16 128/128, D 112 and 128 (the D 128 "
+                 "tile)",
                  _build.kernel_info("flash_mask", "flash_mask_tc_info", 128,
                                     128, 112)),
                 ("flash_mask f32 (3xTF32) 128/128, D 64",
@@ -2893,6 +2934,95 @@ def flash_vs_plain(dev) -> float:
           f"non-causal), decode offset and GQA op "
           f"agree (2e-5 f32, 3e-2 bf16), max abs err {err:.3g}; bf16 "
           f"normwise at most {rel_bf16:.3g} (limit 2e-3)")
+    return max(err, flash_sm90_cases(dev))
+
+
+def flash_sm90_cases(dev) -> float:
+    """The Hopper bf16 kernel against plain (the sweep's 3e-2 and 2e-3
+    normwise) at the four path shapes cut to S 512 (llama's layer at B 1),
+    a window with a prefix at 128-blocks, q_offset > 0, bq 64 with bk 64
+    and 128, a never-visited and a never-flushed q-block (zeros: the
+    kernel writes them, the output is not cleared first) and out-of-range
+    kv-blocks (which leave the result bit for bit as without them); every
+    launch on the Hopper kernel, counted by SM90_LAUNCHES."""
+    sm90_before = flash.SM90_LAUNCHES
+    err = rel_max = 0.0
+    launches = 0
+
+    def qkv(seed, hq, hkv, s_q, s_k, d):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return ((torch.randn(shape, generator=g, device=dev) * 0.5)
+                .to(torch.bfloat16)
+                for shape in ((1, hq, s_q, d), (1, hkv, s_k, d),
+                              (1, hkv, s_k, d)))
+
+    cases = (  # what, Hq, Hkv, S_q, S_k, D, bq, bk, pattern
+        ("llama", 32, 8, 512, 512, 64, 128, 128, FLASH_PATTERNS[0]),
+        ("moonshot", 16, 16, 512, 512, 128, 128, 128, FLASH_PATTERNS[0]),
+        ("zamba2 (D 112)", 32, 32, 512, 512, 112, 128, 128,
+         FLASH_PATTERNS[0]),
+        ("seamless (non-causal)", 16, 16, 512, 512, 64, 128, 128,
+         FLASH_PATTERNS[3]),
+        ("window 200 + prefix 100", 4, 2, 512, 512, 64, 128, 128,
+         dict(causal=True, window=200, prefix=100)),
+        ("q_offset 256", 4, 2, 256, 512, 64, 128, 128, FLASH_PATTERNS[0]),
+        ("bq 64, bk 64", 4, 2, 512, 512, 64, 64, 64, FLASH_PATTERNS[0]),
+        ("bq 64, bk 128, D 128", 4, 2, 512, 512, 128, 64, 128,
+         FLASH_PATTERNS[0]))
+    for i, (what, hq, hkv, s_q, s_k, d, bq, bk, pattern) in enumerate(cases):
+        q, k, v = qkv(20 + i, hq, hkv, s_q, s_k, d)
+        e, rel = flash_compare(q, k, v, bq=bq, bk=bk, q_offset=s_k - s_q,
+                               tol=3e-2, normwise=2e-3, **pattern)
+        err, rel_max, launches = max(err, e), max(rel_max, rel), launches + 1
+    # worklist edits: q-block 0 never visited; out-of-range kv-blocks (5
+    # and -1) inside q-block 1's segment
+    q, k, v = qkv(40, 4, 2, 256, 256, 64)
+    qi, ki, flags = flash.build_schedule(256, 256, bq=128, bk=128,
+                                         causal=True, window=0, prefix=0,
+                                         q_offset=0)
+    keep = qi != 0
+    at = int(np.nonzero(qi == 1)[0][1])
+    kw = dict(bq=128, bk=128, scale=0.125, causal=True, window=0, prefix=0,
+              q_offset=0)
+    worklists = {
+        "never-visited q-block": (qi[keep], ki[keep], flags[keep]),
+        "q-block never flushed": (qi, ki, np.where(qi == 1, flags & 1,
+                                                   flags)),
+        "plain": (qi, ki, flags),
+        "out-of-range kv-blocks": (np.insert(qi, at, [1, 1]),
+                                   np.insert(ki, at, [5, -1]),
+                                   np.insert(flags, at, [0, 0]))}
+    got = {name: flash.flash_mask_kernel(
+        q, k, v, *(torch.as_tensor(x, device=dev) for x in wl), **kw)
+        for name, wl in worklists.items()}
+    launches += len(worklists)
+    for name in ("never-visited q-block", "q-block never flushed", "plain"):
+        want = flash.flash_mask_plain(
+            q, k, v, *(torch.as_tensor(x, device=dev)
+                       for x in worklists[name]), **kw)
+        sync(dev)
+        diff = got[name].float() - want.float()
+        e, rel = float(diff.abs().max()), float(diff.norm()
+                                                / want.float().norm())
+        check(torch.allclose(got[name].float(), want.float(), rtol=3e-2,
+                             atol=3e-2) and rel <= 2e-3,
+              f"sm90 flash, {name}: within 3e-2 and 2e-3 normwise of plain "
+              f"(max err {e}, normwise {rel:.3g})")
+        err, rel_max = max(err, e), max(rel_max, rel)
+    check(bool((got["never-visited q-block"][:, :, :128] == 0).all())
+          and bool((got["q-block never flushed"][:, :, 128:] == 0).all()),
+          "sm90 flash: a never-visited or never-flushed q-block stays zero")
+    check(torch.equal(got["out-of-range kv-blocks"], got["plain"]),
+          "sm90 flash: out-of-range kv-blocks change nothing")
+    check(flash.SM90_LAUNCHES - sm90_before == launches,
+          f"the {launches} Hopper cases ran the sm90 kernel (got "
+          f"{flash.SM90_LAUNCHES - sm90_before})")
+    print(f"flash-sm90: {len(cases)} shapes (the path's four at S 512, "
+          f"window + prefix, q_offset, bq 64) and four worklists "
+          f"(never-visited and never-flushed q-blocks, out-of-range "
+          f"kv-blocks) agree with "
+          f"plain (3e-2, 2e-3 normwise): max abs err {err:.3g}, normwise at "
+          f"most {rel_max:.3g}; {launches} sm90 launches")
     return err
 
 
@@ -2917,15 +3047,13 @@ def flash_layer(dev, b: int = LM_BATCH, s: int = LM_SEQ) -> dict:
                              atol=1e-3, normwise=2e-3, **FLASH_PATTERNS[0])
     kw = dict(bq=blk, bk=blk, scale=d ** -0.5, causal=True, window=0,
               prefix=0, q_offset=0)
-    kernel_ms = device_ms(lambda: flash.flash_mask_kernel(q, k, v, *sched,
-                                                          **kw),
-                          dev, reps=7, warm=2)
+    kernel_ms, mma_sync_ms = sm90_and_mma_sync_ms(q, k, v, sched, kw, dev)
     plain_ms = device_ms(lambda: flash.flash_mask_plain(q, k, v, *sched,
                                                         **kw),
                          dev, reps=3, warm=1)
-    library_ms = device_ms(
+    library_ms = chained_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), dev, reps=7, warm=2)
+            q, k, v, is_causal=True, enable_gqa=True), dev)
     # the function needs q.k and p.v only at the allowed (q, k) elements;
     # the worklist's tiles also cover the masked halves of diagonal tiles
     allowed = int(mask_allowed(s, s, causal=True, window=0, prefix=0,
@@ -2943,26 +3071,78 @@ def flash_layer(dev, b: int = LM_BATCH, s: int = LM_SEQ) -> dict:
           f"terms), {nbytes / 1e6:.0f} MB")
     print(f"flash: kernel vs plain at the layer: max |diff| {err:.3g}, "
           f"normwise {rel:.3g} (limits rtol 1e-2, atol 1e-3, 2e-3 normwise)")
-    print(f"flash: kernel {kernel_ms:.3f} ms ({flops / kernel_ms / 1e9:.1f} "
-          f"TFLOP/s; PR 12: {PR12_MS['flash_mask']:.3f} ms); plain "
+    print(f"flash: kernel (sm90) {kernel_ms:.3f} ms "
+          f"({flops / kernel_ms / 1e9:.1f} TFLOP/s; the mma.sync kernel in "
+          f"this run {mma_sync_ms:.3f} ms; the first CUDA-core kernel "
+          f"{PR12_MS['flash_mask']:.3f} ms); plain "
           f"{plain_ms:.3f} ms; library (scaled_dot_product_attention, "
           f"causal, GQA) {library_ms:.3f} ms; bound {bound_ms:.4f} ms (by "
           f"{by}, bf16 tensor cores; the f32 instance's, three TF32 passes: "
           f"{f32_ms:.3f} ms); kernel at {bound_ms / kernel_ms:.2%} of it")
-    return {"name": "flash_mask", "route": "cuda",
-            "source": "src/repro_torch/kernels/flash_mask/csrc/flash_mask.cu",
+    return {"name": "flash_mask", "route": "cuda", "source": SM90_SOURCE,
             "replaces": "src/repro/kernels/flash_mask/kernel.py:121",
             "launches": 0, "max_abs_err": err, "ms": kernel_ms,
+            "mma_sync_ms": mma_sync_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
             "library_ms": library_ms,
-            **f32,
-            "design": "bf16: mma.sync m16n8k16 tensor cores, q tile in "
-                      "shared memory, k/v in a 2-stage cp.async ring, online "
-                      "softmax in registers, p.v as two bf16 terms (p = hi + "
-                      "lo); f32: mma.sync m16n8k8 tf32 tensor cores in "
-                      "3xTF32 (q.k^T and p.v; hi/lo splits rounded in "
-                      "integer arithmetic, IEEE k-step adds), k/v in a "
+            **f32, "f32_source": MMA_SYNC_SOURCE,
+            "sm90_instance": sm90_instance(64),
+            "design": SM90_DESIGN + "; f32: mma.sync m16n8k8 tf32 tensor "
+                      "cores in 3xTF32 (q.k^T and p.v; hi/lo splits rounded "
+                      "in integer arithmetic, IEEE k-step adds), k/v in a "
                       "2-stage cp.async ring of 64-key chunks"}
+
+
+#: the bf16 flash kernels: the Hopper one the path runs, and the mma.sync
+#: one that keeps the other shapes (and the f32 instance)
+SM90_SOURCE = "src/repro_torch/kernels/flash_mask/csrc/flash_mask_sm90.cu"
+MMA_SYNC_SOURCE = "src/repro_torch/kernels/flash_mask/csrc/flash_mask.cu"
+SM90_DESIGN = ("bf16: wgmma.mma_async (q.k^T m64n128k16 from shared memory, "
+               "p.v m64n64k16 with p = hi + lo as register A operands and v "
+               "read transposed, in four batches of keys), q/k/v by TMA in "
+               "the 128-byte swizzle behind full/empty mbarriers, a producer "
+               "warp and two consumer warpgroups of 64 rows (setmaxnreg 24 / "
+               "232), a 2-stage k/v ring, online softmax in registers with "
+               "ex2.approx and the scale folded into its fma; other bf16 "
+               "shapes on the mma.sync kernel")
+
+
+def sm90_expected(cfg, seq: int, launches: int) -> int:
+    """How many of a bf16 forward's ``launches`` flash launches run the
+    Hopper kernel: all where its dispatch predicate takes the model's
+    blocks (attn_block cut to the sequence) and head dim, as every LM at
+    full width, else none (the reduced configs' 16-blocks)."""
+    blk = min(cfg.attn_block, seq)
+    x = torch.empty((0, 0, 0, cfg.hd), dtype=torch.bfloat16)
+    return launches if flash.sm90_takes(x, x, x, blk, blk) else 0
+
+
+def sm90_and_mma_sync_ms(q, k, v, sched, kw, dev) -> tuple:
+    """The Hopper kernel's and the mma.sync kernel's ms on the same
+    inputs, timed back to back (``chained_ms``) in turns (sm90, mma.sync,
+    mma.sync, sm90; the median of each one's two).  The first is the
+    kernel the wrapper picks: the Hopper one at every path shape (the
+    reduced configs' 16-blocks keep mma.sync)."""
+    chosen = flash.choose_variant(None, q, k, v, kw["bq"], kw["bk"])
+    times = {chosen: [], "mma_sync": []}
+    for variant in (chosen, "mma_sync", "mma_sync", chosen):
+        times[variant].append(chained_ms(
+            lambda: flash.flash_mask_kernel(q, k, v, *sched, variant=variant,
+                                            **kw), dev))
+    return (statistics.median(times[chosen]),
+            statistics.median(times["mma_sync"]))
+
+
+def sm90_instance(d: int) -> str:
+    """Registers, spills, shared memory and CTAs per SM of the Hopper
+    kernel at 128-blocks and head dim d, on the card."""
+    info = _build.kernel_info("flash_mask_sm90", "flash_mask_sm90_info",
+                              128, 128, d)
+    return (f"flash_mask_sm90_kernel<128, 128, {64 if d <= 64 else 128}>: "
+            f"{info['threads']} threads, {info['registers']} registers at "
+            f"launch, {info['local_bytes']} B local memory, "
+            f"{info['smem_bytes']} B shared memory, {info['ctas_per_sm']} "
+            f"CTAs per SM")
 
 
 def f32_instance(dev, q_shape, kv_shape, sched, kw, allowed: int,
@@ -3139,6 +3319,9 @@ def lm_serving(dev, batch: int = LM_BATCH, seq: int = LM_SEQ,
           f"launched once per layer ({cfg.n_layers}), got "
           f"{flash.TC_LAUNCHES} of {launches} launches, "
           f"{flash.F32_LAUNCHES} f32")
+    check(flash.SM90_LAUNCHES == sm90_expected(cfg, seq, launches),
+          f"every bf16 flash launch of the prefill ran the Hopper kernel "
+          f"(SM90_LAUNCHES {flash.SM90_LAUNCHES} of {launches})")
     check(logits.shape == (batch, seq, cfg.vocab_size)
           and logits.dtype == torch.bfloat16, "prefill logits shape, bf16")
     check(bool(torch.isfinite(logits).all()), "prefill logits are finite")
@@ -3176,9 +3359,10 @@ def lm_serving(dev, batch: int = LM_BATCH, seq: int = LM_SEQ,
     sync(dev)
     f32_launches = flash.F32_LAUNCHES
     check(f32_launches == flash.TC_LAUNCHES == flash.LAUNCHES
-          == cfg.n_layers, f"f32 prefill runs the tensor-core f32 flash "
-          f"kernel once per layer (got {f32_launches} f32 of "
-          f"{flash.LAUNCHES} launches)")
+          == cfg.n_layers and flash.SM90_LAUNCHES == 0, f"f32 prefill runs "
+          f"the tensor-core f32 flash kernel once per layer (got "
+          f"{f32_launches} f32 of {flash.LAUNCHES} launches, "
+          f"{flash.SM90_LAUNCHES} sm90)")
     dense = T.forward(model, f32.replace(attn_impl="dense_masked"),
                       {"tokens": one})
     diff = (got - dense).abs()
@@ -3800,6 +3984,9 @@ def moonshot_phase(dev, smoke: bool = False):
           f"{what}: the bf16 flash kernel launched once per layer "
           f"({cfg.n_layers}) and no plain version ran (got {launches} "
           f"launches, {plain.calls} plain calls)")
+    check(flash.SM90_LAUNCHES == sm90_expected(cfg, seq, launches),
+          f"{what}: every bf16 flash launch ran the Hopper kernel "
+          f"(SM90_LAUNCHES {flash.SM90_LAUNCHES} of {launches})")
     out["flash_launches"] = launches
     # block_masked on the same weights, every token routed as the flash
     # run routed it: a token at a router's near-tie would otherwise move to
@@ -3896,16 +4083,13 @@ def flash_path_layer(dev, what: str, name: str, hq: int, hkv: int, s: int,
     err, rel = flash_compare(q, k, v, bq=blk, bk=blk, q_offset=0, tol=1e-2,
                              atol=1e-3, normwise=2e-3, **pattern)
     kw = dict(bq=blk, bk=blk, scale=d ** -0.5, q_offset=0, **pattern)
-    kernel_ms = device_ms(lambda: flash.flash_mask_kernel(q, k, v, *sched,
-                                                          **kw),
-                          dev, reps=7, warm=2)
+    kernel_ms, mma_sync_ms = sm90_and_mma_sync_ms(q, k, v, sched, kw, dev)
     plain_ms = device_ms(lambda: flash.flash_mask_plain(q, k, v, *sched,
                                                         **kw),
                          dev, reps=3, warm=1)
-    library_ms = device_ms(
+    library_ms = chained_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=hq != hkv), dev, reps=7,
-        warm=2)
+            q, k, v, is_causal=causal, enable_gqa=hq != hkv), dev)
     allowed = int(mask_allowed(s, s, q_offset=0, **pattern).sum())
     flops = 4.0 * hq * allowed * d
     nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel()) + 12 * pairs
@@ -3914,18 +4098,20 @@ def flash_path_layer(dev, what: str, name: str, hq: int, hkv: int, s: int,
     print(f"{what}: flash kernel at the layer's shape B=1 Hq={hq} Hkv={hkv} "
           f"S={s} D={d} blocks {blk} {mask} bf16 ({pairs} tiles): vs plain "
           f"max |diff| {err:.3g}, normwise {rel:.3g} (limits rtol 1e-2, atol "
-          f"1e-3, 2e-3 normwise); kernel {kernel_ms:.3f} ms "
-          f"({flops / kernel_ms / 1e9:.1f} TFLOP/s); plain {plain_ms:.3f} "
+          f"1e-3, 2e-3 normwise); kernel (sm90) {kernel_ms:.3f} ms "
+          f"({flops / kernel_ms / 1e9:.1f} TFLOP/s; the mma.sync kernel in "
+          f"this run {mma_sync_ms:.3f} ms); plain {plain_ms:.3f} "
           f"ms; library ({mask} SDPA) {library_ms:.3f} ms; bound "
           f"{bound_ms:.4f} ms (by {by}); kernel at {bound_ms / kernel_ms:.2%} "
           f"of it")
     del q, k, v
-    return {"name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/flash_mask/csrc/flash_mask.cu",
+    return {"name": name, "route": "cuda", "source": SM90_SOURCE,
             "replaces": "src/repro/kernels/flash_mask/kernel.py:121",
             "launches": launches, "max_abs_err": err, "ms": kernel_ms,
+            "mma_sync_ms": mma_sync_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "design": SM90_DESIGN,
+            "sm90_instance": sm90_instance(d)}
 
 
 def internvl_phase(dev, smoke: bool = False) -> dict:
@@ -4235,6 +4421,9 @@ def zamba_phase(dev, smoke: bool = False):
           f"{what}: the bf16 flash kernel launched once per shared-block "
           f"application ({n_attn}) and no plain version ran (got "
           f"{launches} launches, {plain.calls} plain calls)")
+    check(flash.SM90_LAUNCHES == sm90_expected(cfg, seq, launches),
+          f"{what}: every bf16 flash launch ran the Hopper kernel "
+          f"(SM90_LAUNCHES {flash.SM90_LAUNCHES} of {launches})")
     out["flash_launches"] = launches
     out.update(flash_agreement(model, cfg, batch_in, flash_logits, logits,
                                dev, what, n_attn))
@@ -4356,6 +4545,9 @@ def seamless_phase(dev, smoke: bool = False):
           f"{what}: the bf16 flash kernel launched {n_enc} times non-causal "
           f"(encoder) then {n_dec} times causal (decoder), no plain version "
           f"(got {launches} launches, {plain.calls} plain calls)")
+    check(flash.SM90_LAUNCHES == sm90_expected(cfg, seq, launches),
+          f"{what}: every bf16 flash launch ran the Hopper kernel "
+          f"(SM90_LAUNCHES {flash.SM90_LAUNCHES} of {launches})")
     out["flash_launches"] = launches
     out.update(flash_agreement(model, cfg, batch_in, flash_logits, logits,
                                dev, what, n_enc + n_dec))

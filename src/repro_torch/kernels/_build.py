@@ -31,9 +31,11 @@ SOURCES: Dict[str, Path] = {
     "block_spgemm": _PKG / "masked_matmul" / "csrc" / "block_spgemm.cu",
     "masked_matmul": _PKG / "masked_matmul" / "csrc" / "masked_matmul.cu",
     "flash_mask": _PKG / "flash_mask" / "csrc" / "flash_mask.cu",
+    "flash_mask_sm90": _PKG / "flash_mask" / "csrc" / "flash_mask_sm90.cu",
 }
 
-#: headers every source may include (``mma.cuh``: tensor-core primitives)
+#: headers every source may include (``mma.cuh``: mma.sync and cp.async
+#: primitives; ``sm90.cuh``: TMA, mbarrier, wgmma and setmaxnreg)
 INCLUDE_DIR = _PKG / "csrc"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

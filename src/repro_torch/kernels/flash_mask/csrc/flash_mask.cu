@@ -21,7 +21,10 @@
 // atomics, one sum order, deterministic results.  The C entry point picks
 // the kernel by dtype; both run on tensor cores.
 //
-// bf16: tensor cores (flash_mask_tc_kernel).  Warps of 16 query rows each (8
+// bf16: tensor cores (flash_mask_tc_kernel), for the bf16 shapes that
+// flash_mask_sm90.cu (wgmma + TMA, blocks of 64 or 128, head dims a
+// multiple of 16) does not take, and when asked for by name (kernel.py's
+// variant="mma_sync").  Warps of 16 query rows each (8
 // warps at bq = 128).  The q tile is loaded once into shared memory and read
 // as mma A-fragments (ldmatrix) at every tile: kept in registers it spilled
 // more of the 128-register budget and ran slower on an NVIDIA H100 80GB HBM3

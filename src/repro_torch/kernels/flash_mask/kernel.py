@@ -9,14 +9,20 @@ batch * head) walks that q-block's segment of the qi-sorted worklist
 q-block: reset; bit 2 = last visit: normalise and write).  The note at the
 top of the source gives its bound on an H100.
 
-The source holds two kernels, picked by dtype in its C entry point, both on
-tensor cores (``mma.sync``, k/v in a ``cp.async`` ring): bf16 with p.v in
-two bf16 terms, f32 in 3xTF32 (each operand split into two tf32 terms).
+Three kernels, all on tensor cores.  ``csrc/flash_mask_sm90.cu`` is bf16
+for Hopper (TMA loads behind mbarriers, a producer warp, consumer
+warpgroups on ``wgmma``), for blocks of 64 or 128 and head dims that are
+multiples of 16 up to 128 (``sm90_takes``).  ``csrc/flash_mask.cu`` holds
+the ``mma.sync`` kernels with k/v in a ``cp.async`` ring, picked by dtype
+in its C entry point: bf16 for every other bf16 shape (small blocks,
+decode at bq = 1), and f32 in 3xTF32 (each operand split into two tf32
+terms).  Both bf16 kernels take p.v in two bf16 terms.
 
-``flash_mask_kernel`` launches the kernel for CUDA tensors (or raises) and
+``flash_mask_kernel`` launches a kernel for CUDA tensors (or raises) and
 runs ``flash_mask_plain`` for CPU tensors; ``LAUNCHES`` counts launches,
-``TC_LAUNCHES`` those of them that ran a tensor-core kernel (all of them)
-and ``F32_LAUNCHES`` those that ran the f32 one.
+``TC_LAUNCHES`` those of them that ran a tensor-core kernel (all of them),
+``SM90_LAUNCHES`` those that ran the Hopper bf16 kernel and
+``F32_LAUNCHES`` those that ran the f32 one.
 """
 from __future__ import annotations
 
@@ -38,10 +44,66 @@ LAUNCHES = 0
 TC_LAUNCHES = 0
 #: of those, the launches of the f32 (3xTF32) tensor-core kernel
 F32_LAUNCHES = 0
+#: of those, the launches of the Hopper bf16 kernel (wgmma + TMA)
+SM90_LAUNCHES = 0
+
+#: the kernels a caller may ask for by name (``variant=``): the Hopper bf16
+#: kernel, or flash_mask.cu's mma.sync kernels (bf16 and f32)
+VARIANTS = ("sm90", "mma_sync")
 
 #: C signature: 7 pointers, 8 ints, the scale, 5 ints, the stream
 _ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float]
          + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+#: the Hopper kernel's: 7 pointers, 8 ints, the scale, 4 ints, the stream
+_SM90_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float]
+              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+def sm90_takes(q, k, v, bq: int, bk: int) -> bool:
+    """Whether the Hopper bf16 kernel takes these operands, as the kernel
+    receives them: bfloat16, bq and bk each 64 or 128, a head dim that is a
+    multiple of 16 in [16, 128], and q, k, v contiguous with 16-byte
+    aligned base pointers (the output, which the wrapper allocates, is
+    both)."""
+    d = q.shape[-1]
+    return (q.dtype == torch.bfloat16 and bq in (64, 128)
+            and bk in (64, 128) and d % 16 == 0
+            and 16 <= d <= MAX_HEAD_DIM
+            and all(x.is_contiguous() and x.data_ptr() % 16 == 0
+                    for x in (q, k, v)))
+
+
+def choose_variant(variant, q, k, v, bq: int, bk: int) -> str:
+    """The kernel a launch runs: ``variant`` if given (one of ``VARIANTS``;
+    "sm90" on operands that ``sm90_takes`` refuses raises), else "sm90"
+    where ``sm90_takes`` holds and "mma_sync" elsewhere."""
+    if variant is not None and variant not in VARIANTS:
+        raise ValueError(f"unknown flash_mask variant {variant!r}; expected "
+                         f"one of {VARIANTS} or None")
+    fits = sm90_takes(q, k, v, bq, bk)
+    if variant == "sm90" and not fits:
+        d = q.shape[-1]
+        raise ValueError(
+            f"the sm90 flash kernel takes bfloat16 with bq, bk in (64, 128) "
+            f"and D a multiple of 16 in [16, {MAX_HEAD_DIM}], contiguous "
+            f"and 16-byte aligned; got {q.dtype}, bq={bq}, bk={bk}, D={d}")
+    if variant is None:
+        return "sm90" if fits else "mma_sync"
+    return variant
+
+
+def tile_is_full(q_lo: int, rows: int, k_lo: int, keys: int, *, causal: bool,
+                 window: int, prefix: int) -> bool:
+    """The kernels' test for skipping the element mask: every element of
+    the tile of queries q_lo .. q_lo + rows - 1 (absolute positions) and
+    keys k_lo .. k_lo + keys - 1 is allowed when the tile lies wholly on or
+    below the causal diagonal and wholly inside the window or the prefix.
+    The Hopper kernel asks it per warpgroup (64 rows), the mma.sync kernel
+    per warp (16 rows)."""
+    k_hi = k_lo + keys - 1
+    return ((not causal or k_hi <= q_lo)
+            and (window <= 0 or q_lo + rows - 1 - k_lo < window
+                 or k_hi < prefix))
 
 
 def build_schedule(s_q: int, s_k: int, *, bq: int, bk: int, causal: bool,
@@ -170,7 +232,7 @@ def flash_mask_plain(q, k, v, qi, ki, flags, *, bq: int, bk: int,
 
 def flash_mask_kernel(q, k, v, qi, ki, flags, *, bq: int, bk: int,
                       scale: float, causal: bool, window: int, prefix: int,
-                      q_offset: int) -> torch.Tensor:
+                      q_offset: int, variant: str = None) -> torch.Tensor:
     """Masked flash attention over the worklist ``(qi, ki, flags)``.
 
     q: (B, Hq, S, D) and k, v: (B, Hkv, T, D) with Hq % Hkv == 0 (query
@@ -178,18 +240,23 @@ def flash_mask_kernel(q, k, v, qi, ki, flags, *, bq: int, bk: int,
     qi/ki/flags: (P,) int32 from ``build_schedule``.  Returns
     (B, Hq, S, D) in q.dtype.
 
-    CPU tensors run ``flash_mask_plain``.  CUDA tensors launch the kernel
-    once for every (batch, head) on the current stream without
-    synchronising, or raise: the bf16 tensor-core kernel for bfloat16, the
-    3xTF32 one for float32.  A q-block the worklist never visits comes
-    out as zeros; a kv-block index out of range reads as fully masked.
+    CPU tensors run ``flash_mask_plain``.  CUDA tensors launch one kernel
+    for every (batch, head) on the current stream without synchronising,
+    or raise: ``choose_variant`` picks it (``variant`` None: the Hopper
+    bf16 kernel where ``sm90_takes`` holds, else flash_mask.cu's mma.sync
+    kernel for the dtype; "mma_sync" forces the latter; "sm90" on operands
+    it does not take raises, on the CPU too).  A q-block the worklist never
+    visits comes out as zeros; a kv-block index out of range reads as fully
+    masked.
     """
-    global LAUNCHES, TC_LAUNCHES, F32_LAUNCHES
+    global LAUNCHES, TC_LAUNCHES, F32_LAUNCHES, SM90_LAUNCHES
     _check(q, k, v, qi, ki, flags, bq, bk)
     dev = q.device
     kw = dict(bq=bq, bk=bk, scale=scale, causal=causal, window=window,
               prefix=prefix, q_offset=q_offset)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if dev.type == "cpu":
+        choose_variant(variant, q, k, v, bq, bk)
         return flash_mask_plain(q, k, v, qi, ki, flags, **kw)
     if dev.type != "cuda":
         raise ValueError(f"no flash_mask kernel for device {dev}")
@@ -197,28 +264,38 @@ def flash_mask_kernel(q, k, v, qi, ki, flags, *, bq: int, bk: int,
     if max(b * hq, s_q // bq) > 65535:
         raise ValueError(f"B * Hq = {b * hq} or S / bq = {s_q // bq} "
                          f"exceeds the grid's 65535")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     ki, flags = ki.contiguous(), flags.contiguous()
-    out = torch.zeros_like(q)
+    chosen = choose_variant(variant, q, k, v, bq, bk)
+    # the Hopper kernel writes every element (zeros where no flush
+    # reaches); the mma.sync kernels leave those rows as they find them
+    out = (torch.empty_like(q, memory_format=torch.contiguous_format)
+           if chosen == "sm90" else torch.zeros_like(q))
     nq = s_q // bq
     # segment offsets of the qi-sorted worklist, on the device
     seg_ptr = torch.searchsorted(
         qi.contiguous(), torch.arange(nq + 1, dtype=torch.int32, device=dev),
         out_int32=True)
-    fn = _build.load("flash_mask", "flash_mask", _ARGS)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), ki.data_ptr(),
+            flags.data_ptr(), seg_ptr.data_ptr(), out.data_ptr())
+    dims = (b * hq, hq, k.shape[1], s_q, k.shape[2], d, bq, bk)
+    mask = (int(bool(causal)), int(window), int(prefix), int(q_offset))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), ki.data_ptr(),
-            flags.data_ptr(), seg_ptr.data_ptr(), out.data_ptr(), b * hq, hq,
-            k.shape[1], s_q, k.shape[2], d, bq, bk, float(scale),
-            int(bool(causal)), int(window), int(prefix), int(q_offset),
-            0 if q.dtype == torch.float32 else 1, stream)
+        if chosen == "sm90":
+            fn = _build.load("flash_mask_sm90", "flash_mask_sm90",
+                             _SM90_ARGS)
+            err = fn(*ptrs, *dims, float(scale), *mask, stream)
+        else:
+            fn = _build.load("flash_mask", "flash_mask", _ARGS)
+            err = fn(*ptrs, *dims, float(scale), *mask,
+                     0 if q.dtype == torch.float32 else 1, stream)
     if err != 0:
-        raise RuntimeError(f"flash_mask kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"flash_mask kernel ({chosen}) launch failed: "
+                           f"CUDA error {err}")
     LAUNCHES += 1
     TC_LAUNCHES += 1
+    if chosen == "sm90":
+        SM90_LAUNCHES += 1
     if q.dtype == torch.float32:
         F32_LAUNCHES += 1
     return out

@@ -9,7 +9,9 @@ applications against the same calls on the CPU, the distributed routes
 engine) against the single-device call, the calibration probes
 (smoke grids) and auto results under the committed H100 profile against
 the builtin constants, the LM forward with the flash kernel against
-dense attention, block_masked attention, the MoE layer, an MLA/MoE
+dense attention, the Hopper bf16 flash kernel (wgmma + TMA) at the path's
+shapes and the worklist's edges, block_masked attention, the MoE layer,
+an MLA/MoE
 model and the xLSTM, Zamba2 and encoder-decoder SMOKE models (under
 block_masked and, with attention, flash_pallas) against the CPU, a
 monitored engine's ``/metrics`` and ``/health``
@@ -679,6 +681,96 @@ def test_flash_out_of_range_kv_block_is_fully_masked(cuda_device, dtype):
         q, k, v, *(torch.as_tensor(x, device=cuda_device) for x in wl), **kw)
         for wl in ((qi, ki, flags), padded))
     assert torch.equal(got, want)
+
+
+SM90_CASES = {  # Hq, Hkv, S_q, S_k, D, bq, bk, pattern
+    "llama": (32, 8, 512, 512, 64, 128, 128, FLASH_PATTERNS[0]),
+    "moonshot": (16, 16, 512, 512, 128, 128, 128, FLASH_PATTERNS[0]),
+    "zamba2-d112": (32, 32, 512, 512, 112, 128, 128, FLASH_PATTERNS[0]),
+    "seamless-noncausal": (16, 16, 512, 512, 64, 128, 128,
+                           FLASH_PATTERNS[3]),
+    "window+prefix": (4, 2, 512, 512, 64, 128, 128,
+                      dict(causal=True, window=200, prefix=100)),
+    "q_offset": (4, 2, 256, 512, 64, 128, 128, FLASH_PATTERNS[0]),
+    "bq64-bk64": (4, 2, 512, 512, 64, 64, 64, FLASH_PATTERNS[0]),
+    "bq64-bk128-d128": (4, 2, 512, 512, 128, 64, 128, FLASH_PATTERNS[0]),
+}
+
+
+@pytest.mark.parametrize("case", list(SM90_CASES))
+def test_flash_sm90_matches_plain(cuda_device, case):
+    """The Hopper bf16 kernel (wgmma + TMA) at the path's shapes cut to
+    S 512 and B 1, and at its edges, against the plain version within the
+    sweep's 3e-2 and 2e-3 normwise; the wrapper picks it unasked."""
+    hq, hkv, s_q, s_k, d, bq, bk, pattern = SM90_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(s_q + d + bq)
+    q, k, v = ((torch.randn(shape, generator=g, device=cuda_device) * 0.5)
+               .to(torch.bfloat16)
+               for shape in ((1, hq, s_q, d), (1, hkv, s_k, d),
+                             (1, hkv, s_k, d)))
+    q_off = s_k - s_q
+    sched = [torch.as_tensor(x, device=cuda_device) for x in
+             flash.build_schedule(s_q, s_k, bq=bq, bk=bk, q_offset=q_off,
+                                  **pattern)]
+    kw = dict(bq=bq, bk=bk, scale=d ** -0.5, q_offset=q_off, **pattern)
+    before = flash.SM90_LAUNCHES, flash.TC_LAUNCHES
+    got = flash.flash_mask_kernel(q, k, v, *sched, **kw)
+    torch.cuda.synchronize()
+    assert (flash.SM90_LAUNCHES, flash.TC_LAUNCHES) == (before[0] + 1,
+                                                        before[1] + 1)
+    want = flash.flash_mask_plain(q, k, v, *sched, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                               atol=3e-2)
+    diff = got.float() - want.float()
+    assert float(diff.norm() / want.float().norm()) <= 2e-3
+
+
+def test_flash_sm90_worklist_edges(cuda_device):
+    """A q-block the worklist never visits, or never flushes, stays zero,
+    and out-of-range kv-blocks (the producer arrives on their stage with
+    no bytes) change nothing, bit for bit; mma_sync forced by name runs
+    the old kernel."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v = ((torch.randn(1, 4, 256, 64, generator=g, device=cuda_device)
+                * 0.5).to(torch.bfloat16) for _ in range(3))
+    k, v = k[:, :2].contiguous(), v[:, :2].contiguous()
+    qi, ki, flags = flash.build_schedule(256, 256, bq=128, bk=128,
+                                         causal=True, window=0, prefix=0,
+                                         q_offset=0)
+    kw = dict(bq=128, bk=128, scale=0.125, causal=True, window=0, prefix=0,
+              q_offset=0)
+    at = int(np.nonzero(qi == 1)[0][1])
+    keep = qi != 0
+
+    def run(wl, **extra):
+        return flash.flash_mask_kernel(
+            q, k, v, *(torch.as_tensor(x, device=cuda_device) for x in wl),
+            **kw, **extra)
+
+    before = flash.SM90_LAUNCHES
+    base = run((qi, ki, flags))
+    padded = run((np.insert(qi, at, [1, 1]), np.insert(ki, at, [5, -1]),
+                  np.insert(flags, at, [0, 0])))
+    skipped = run((qi[keep], ki[keep], flags[keep]))
+    # q-block 1 never flushed: its rows stay zero (the kernel writes them,
+    # as the wrapper does not clear the output)
+    unflushed = run((qi, ki, np.where(qi == 1, flags & 1, flags)))
+    torch.cuda.synchronize()
+    assert flash.SM90_LAUNCHES == before + 4
+    assert torch.equal(padded, base)
+    assert bool((skipped[:, :, :128] == 0).all())
+    assert bool((unflushed[:, :, 128:] == 0).all())
+    assert torch.equal(unflushed[:, :, :128], base[:, :, :128])
+    want = flash.flash_mask_plain(
+        q, k, v, *(torch.as_tensor(x, device=cuda_device)
+                   for x in (qi[keep], ki[keep], flags[keep])), **kw)
+    torch.testing.assert_close(skipped.float(), want.float(), rtol=3e-2,
+                               atol=3e-2)
+    old = run((qi, ki, flags), variant="mma_sync")
+    torch.cuda.synchronize()
+    assert flash.SM90_LAUNCHES == before + 4
+    torch.testing.assert_close(old.float(), base.float(), rtol=3e-2,
+                               atol=3e-2)
 
 
 def test_flash_op_matches_cpu(cuda_device):
