@@ -12,18 +12,24 @@ Phases, each printing its own lines:
    ``nvcc`` per source, all started together; ``ptxas``'s registers and
    spills of every kernel instance, and the registers, shared memory and
    resident CTAs per SM of the tensor-core kernels at the path's shapes
-   (every ``block_spgemm`` instance, both flash instances);
+   (every ``block_spgemm`` instance, the Hopper one at bs 128 among them,
+   both flash instances);
 3. kernel against plain: the ``block_spgemm`` kernel, values only and
    fused with the structural counts, against its plain PyTorch version at
-   block sizes 4, 8, 32, 48 and 128 (every instance), with zero-fill
-   entries, an empty B and a worklist padded with all-flags-off entries;
-   standard-normal data also within 2e-6 normwise of float64;
+   block sizes 4, 8, 32, 48 and 128 (every instance; bs 128 on the Hopper
+   kernel, ``block_spgemm_sm90.cu``, and on the mma.sync one by
+   ``variant="mma_sync"``, each launch counted in ``SM90_LAUNCHES`` or
+   not), with zero-fill entries, an empty B and a worklist padded with
+   all-flags-off entries; standard-normal data also within 2e-6 normwise
+   of float64;
 4. tile route: ``masked_spgemm(A, B, M)`` (algorithm "auto") on an
    n = 8192 block-sparse problem; the planner must elect the tile route
-   at block size 128, the fused kernel must launch exactly once and no
-   plain version run, the values must equal the dense product at the mask
-   and ``present`` the structural product; the call's peak device memory;
-   then timings of the fused and the values-only replay, and the steps of
+   at block size 128, the fused kernel must launch exactly once, on the
+   Hopper kernel (``SM90_LAUNCHES``), and no plain version run, the values
+   must equal the dense product at the mask and ``present`` the
+   structural product; the call's peak device memory; both kernels bit for
+   bit on the path's worklist; then the fused and the values-only replay
+   timed on the Hopper and the mma.sync kernel in turns, and the steps of
    the call one by one (uploads, block construction and gather on the
    card; the schedule on the host);
 5. row route: triangle counting on R-MAT scale 14 (algorithm "auto"),
@@ -128,10 +134,12 @@ Phases, each printing its own lines:
    ``make_mesh(p)`` at p = 2, 4 and 8 (one card: every shard on it),
    ``algorithm="ring"`` at block 128: bit for bit the single-device tile
    call and the dense product at the mask, the fused kernel launched p²
-   times per call and no plain version; the first call (ring prep built)
+   times per call, each on the Hopper kernel (``SM90_LAUNCHES``), and no
+   plain version; the first call (ring prep built)
    and the ring-prep hit's warm time (median of 5) and peak memory
    beside the single-device call's; shard 0's stage-0 kernel time (CUDA
-   events), W and bound; the bytes a real ring would put on its links.
+   events) on the Hopper and the mma.sync kernel in turns, W and bound;
+   the bytes a real ring would put on its links.
    Standard-normal values at p = 4 within 2e-6 normwise of float64. The
    row route at p = 4 on tc-rmat14's (L, L, L), bit for bit the
    single-device row kernel; ``algorithm="auto"`` at p = 4 on tc-rmat14
@@ -229,6 +237,11 @@ Phases, each printing its own lines:
    seconds are printed;
 18. one JSON line with every kernel's numbers, then the result line
    ``{"ok": true, "device": {...}}``.
+
+Wherever phases 4, 6, 7, 11, 12 and 13 drive the path, every block
+product at bs 128 must have run the Hopper kernel and every other one the
+mma.sync kernel, and ``SM90_LAUNCHES`` must count the former
+(``launch_shapes``).
 
 Any failure raises, and the script exits non-zero without the result line.
 """
@@ -360,6 +373,7 @@ def reset_counts() -> None:
     """Zero every kernel's launch count (just before a path runs)."""
     kernel.LAUNCHES = 0
     kernel.FUSED_LAUNCHES = 0
+    kernel.SM90_LAUNCHES = 0
     kernel.MASKED_MATMUL_LAUNCHES = 0
     flash.LAUNCHES = 0
     flash.TC_LAUNCHES = 0
@@ -416,6 +430,40 @@ def chained_ms(fn, dev, calls: int = 10, reps: int = 5,
                 fn()
             times.append((time.perf_counter() - t0) * 1e3 / calls)
     return statistics.median(times)
+
+
+#: device clock cycles of the sleep that ``kernel_ms`` queues ahead of the
+#: calls it times (about 20 ms at the H100's 1.98 GHz)
+SLEEP_CYCLES = 40_000_000
+
+
+def kernel_ms(fn, dev, calls: int = 10, warm: int = 2) -> float:
+    """Device milliseconds per call of ``fn()``: ``calls`` calls queued
+    behind a device-side sleep, so that the CUDA events around them time
+    their kernels back to back, without the wrappers' host work (which a
+    single call's events hold, and which at a 0.04 ms kernel back-to-back
+    calls do not hide); checked that the host queued every call before
+    the sleep ended.  The host clock of a call elsewhere."""
+    if dev.type != "cuda":
+        return device_ms(fn, dev, reps=calls, warm=warm)
+    for _ in range(warm):
+        fn()
+    sync(dev)
+    slept, start, end = (torch.cuda.Event(enable_timing=True)
+                         for _ in range(3))
+    t0 = time.perf_counter()
+    slept.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    sleep_ms = slept.elapsed_time(start)
+    check(host_ms < sleep_ms, f"the host queued {calls} calls in "
+          f"{host_ms:.2f} ms, within the device's {sleep_ms:.2f} ms sleep")
+    return start.elapsed_time(end) / calls
 
 
 def sync(dev) -> None:
@@ -511,11 +559,19 @@ def build(dev) -> None:
     with torch.cuda.device(dev):
         for bs in BLOCK_SIZES:
             info = _build.kernel_info("block_spgemm", "block_spgemm_info", bs)
-            print(f"build: block_spgemm bs {bs} ({block_instance(bs)}): "
+            print(f"build: block_spgemm bs {bs} "
+                  f"({block_instance(bs, 'mma_sync')}): "
                   f"{info['threads']} threads, {info['smem_bytes']} B dynamic "
                   f"shared memory, {info['registers']} registers and "
                   f"{info['local_bytes']} B local memory per thread, "
                   f"{info['ctas_per_sm']} CTAs per SM")
+        info = _build.kernel_info("block_spgemm_sm90",
+                                  "block_spgemm_sm90_info")
+        print(f"build: block_spgemm bs 128 ({SM90_INSTANCE}): "
+              f"{info['threads']} threads, {info['smem_bytes']} B dynamic "
+              f"shared memory, {info['registers']} registers at launch and "
+              f"{info['local_bytes']} B local memory per thread, "
+              f"{info['ctas_per_sm']} CTAs per SM")
         for what, info in (
                 ("flash_mask_sm90 (wgmma + TMA) bf16 128/128, D 64",
                  _build.kernel_info("flash_mask_sm90",
@@ -556,11 +612,58 @@ def build(dev) -> None:
 BLOCK_SIZES = (4, 8, 32, 48, 128)
 
 
-def block_instance(bs: int) -> str:
-    """The block_spgemm kernel instance that block size ``bs`` runs."""
+#: the Hopper kernel (csrc/block_spgemm_sm90.cu), which bs 128 runs
+SM90_INSTANCE = "block_spgemm_sm90_kernel (wgmma + TMA)"
+
+
+def block_instance(bs: int, variant: str = None) -> str:
+    """The block_spgemm kernel instance that block size ``bs`` runs (by
+    default, or under ``variant``)."""
+    if bs == kernel.SM90_BLOCK and variant != "mma_sync":
+        return SM90_INSTANCE
     t, wm, wn = next(c for c in ((16, 1, 1), (32, 2, 1), (64, 2, 2),
                                  (128, 2, 4)) if bs <= c[0] or c[0] == 128)
-    return f"block_spgemm_tc_kernel<{t}, {wm}, {wn}>"
+    return f"block_spgemm_tc_kernel<{t}, {wm}, {wn}> (mma.sync)"
+
+
+class launch_shapes:
+    """Within the block, record the block size and the kernel chosen of
+    every block_spgemm launch (the wrappers look ``choose_variant`` up at
+    call time); ``check(what)`` then holds every bs-128 launch to the
+    Hopper kernel and ``kernel.SM90_LAUNCHES`` to their number (the counts
+    reset with the block)."""
+
+    def __enter__(self):
+        self.calls = []
+        self.saved = kernel.choose_variant
+
+        def recorded(variant, a_blocks, *rest):
+            chosen = self.saved(variant, a_blocks, *rest)
+            self.calls.append((int(a_blocks.shape[1]), chosen))
+            return chosen
+
+        kernel.choose_variant = recorded
+        return self
+
+    def __exit__(self, *exc):
+        kernel.choose_variant = self.saved
+
+    def at_128(self) -> int:
+        return sum(bs == kernel.SM90_BLOCK for bs, _ in self.calls)
+
+    def check(self, what: str) -> int:
+        """Checks and returns the bs-128 launches (all on the Hopper
+        kernel, each counted once in ``SM90_LAUNCHES``)."""
+        n = self.at_128()
+        check(all(c == "sm90" for bs, c in self.calls
+                  if bs == kernel.SM90_BLOCK)
+              and all(c == "mma_sync" for bs, c in self.calls
+                      if bs != kernel.SM90_BLOCK),
+              f"{what}: every bs-128 block product ran the Hopper kernel and "
+              f"every other one mma.sync (got {self.calls[:8]}...)")
+        check(kernel.SM90_LAUNCHES == n, f"{what}: SM90_LAUNCHES equals the "
+              f"{n} bs-128 launches (got {kernel.SM90_LAUNCHES})")
+        return n
 
 
 def block_f64(a_blocks, b_blocks, wl, nnzb_out) -> torch.Tensor:
@@ -573,14 +676,23 @@ def block_f64(a_blocks, b_blocks, wl, nnzb_out) -> torch.Tensor:
     return out.index_add_(0, rank, prods * real[:, None, None])
 
 
-def compare(a_blocks, b_blocks, wl, nnzb_out, exact: bool) -> float:
-    """Kernel against plain on the same tensors, values only and fused
-    with the counts over the operands' 0/1 patterns: returns max |diff|.
-    On float data the values are also held to 2e-6 normwise of float64."""
+def compare(a_blocks, b_blocks, wl, nnzb_out, exact: bool,
+            variant: str = None) -> float:
+    """Kernel (``variant``, default: the one the wrapper picks) against
+    plain on the same tensors, values only and fused with the counts over
+    the operands' 0/1 patterns: returns max |diff|.  On float data the
+    values are also held to 2e-6 normwise of float64.  Checks that both
+    launches ran the kernel asked for, by ``SM90_LAUNCHES``."""
     a_pat, b_pat = ((x != 0).float() for x in (a_blocks, b_blocks))
-    got = kernel.block_spgemm_kernel(a_blocks, b_blocks, *wl, nnzb_out)
+    sm90 = kernel.choose_variant(variant, a_blocks, b_blocks) == "sm90"
+    before = kernel.SM90_LAUNCHES
+    got = kernel.block_spgemm_kernel(a_blocks, b_blocks, *wl, nnzb_out,
+                                     variant=variant)
     vals, counts = kernel.block_spgemm_with_structure_kernel(
-        a_blocks, b_blocks, a_pat, b_pat, *wl, nnzb_out)
+        a_blocks, b_blocks, a_pat, b_pat, *wl, nnzb_out, variant=variant)
+    check(kernel.SM90_LAUNCHES == before + 2 * (sm90 and nnzb_out > 0),
+          f"SM90_LAUNCHES counted the {variant or 'default'} kernel's "
+          f"launches")
     want, want_c = kernel.block_spgemm_with_structure_plain(
         a_blocks, b_blocks, a_pat, b_pat, *wl, nnzb_out)
     sync(a_blocks.device)
@@ -616,6 +728,9 @@ def kernel_vs_plain(dev) -> float:
     for bs, nb in zip(BLOCK_SIZES, (64, 48, 16, 12, 8)):
         n = bs * nb
         rng = np.random.default_rng(bs)
+        # bs 128: the Hopper kernel (the default) and the mma.sync one
+        variants = ((None, "mma_sync") if bs == kernel.SM90_BLOCK
+                    else (None,))
         for ints in (True, False):
             ops_ = []
             for seed, mask in ((1, False), (2, False), (3, True)):
@@ -631,18 +746,21 @@ def kernel_vs_plain(dev) -> float:
             sched = ops.build_spgemm_schedule(A, B, M)
             check(bool(((sched[3] & 2) == 0).any()), "zero-fill present")
             for pad in (0, 5):
-                err = max(err, compare(A.blocks, B.blocks,
-                                       worklist(sched, dev, pad), M.nnzb,
-                                       exact=ints))
+                for variant in variants:
+                    err = max(err, compare(A.blocks, B.blocks,
+                                           worklist(sched, dev, pad), M.nnzb,
+                                           exact=ints, variant=variant))
         # an empty B: only zero-fill entries, over one zero block
         Bz = F.bcsr_from_dense(np.zeros((n, n), np.float32), bs, device=dev)
         sched = ops.build_spgemm_schedule(A, Bz, M)
         check(not (sched[3] & 2).any(), "empty B gives zero-fill only")
         zero = torch.zeros((1, bs, bs), device=dev)
-        err = max(err, compare(A.blocks, zero, worklist(sched, dev),
-                               M.nnzb, exact=True))
-        print(f"kernel-vs-plain: bs={bs} ({block_instance(bs)}) n={n} "
-              f"W={len(sched[0])}.. ok")
+        for variant in variants:
+            err = max(err, compare(A.blocks, zero, worklist(sched, dev),
+                                   M.nnzb, exact=True, variant=variant))
+        print(f"kernel-vs-plain: bs={bs} ("
+              + " and ".join(block_instance(bs, v) for v in variants)
+              + f") n={n} W={len(sched[0])}.. ok")
     print(f"kernel-vs-plain: all block sizes agree, values only and fused "
           f"(exact on integers and counts; 1e-4 and 2e-6 normwise from "
           f"float64 otherwise), max abs err {err:.3g}")
@@ -764,11 +882,12 @@ def tile_route(dev, n: int = TILE_N, bs: int = TILE_BS):
         torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
     t0 = time.perf_counter()
-    with count_plain() as plain:
+    with count_plain() as plain, launch_shapes() as shapes:
         res = masked_spgemm(A, B, M, device=dev)
         sync(dev)
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = kernel.FUSED_LAUNCHES
+    sm90_launches = shapes.check("tile route")
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else 0)
     p = planner.plan(A, B, M, device=dev)        # the cached plan
@@ -780,6 +899,7 @@ def tile_route(dev, n: int = TILE_N, bs: int = TILE_BS):
           f"launched once and the values-only one never (got {launches}, "
           f"{kernel.LAUNCHES})")
     check(plain.calls == 0, f"no plain version ran (got {plain.calls})")
+    check(sm90_launches == 1, "the fused launch ran the Hopper kernel")
 
     # the result against the dense product at the mask (exact: integer
     # data, every partial sum below 2^24)
@@ -818,22 +938,45 @@ def tile_route(dev, n: int = TILE_N, bs: int = TILE_BS):
     wl = worklist(sched, dev)
     W = len(sched[0])
     real = int(((sched[3] >> 1) & 1).sum())
-    err = compare(Ab.blocks, Bb.blocks, wl, Mb.nnzb, exact=True)
+    err = max(compare(Ab.blocks, Bb.blocks, wl, Mb.nnzb, exact=True,
+                      variant=v) for v in kernel.VARIANTS)
+    same = [kernel.block_spgemm_with_structure_kernel(
+        Ab.blocks, Bb.blocks, a_pat, b_pat, *wl, Mb.nnzb, variant=v)
+        for v in kernel.VARIANTS]
+    check(all(torch.equal(x, y) for x, y in zip(*same)), "the Hopper and "
+          "mma.sync kernels agree bit for bit at tile-8192 (integer data)")
+    del same
 
-    def run_fused():
+    def run_fused(variant="sm90"):
         return kernel.block_spgemm_with_structure_kernel(
-            Ab.blocks, Bb.blocks, a_pat, b_pat, *wl, Mb.nnzb)
+            Ab.blocks, Bb.blocks, a_pat, b_pat, *wl, Mb.nnzb,
+            variant=variant)
 
-    def run_values():
+    def run_values(variant="sm90"):
         return kernel.block_spgemm_kernel(Ab.blocks, Bb.blocks, *wl,
-                                          Mb.nnzb)
+                                          Mb.nnzb, variant=variant)
 
     def run_plain():
         return kernel.block_spgemm_with_structure_plain(
             Ab.blocks, Bb.blocks, a_pat, b_pat, *wl, Mb.nnzb)
 
-    fused_ms = device_ms(run_fused, dev, reps=7, warm=2)
-    values_ms = device_ms(run_values, dev, reps=7, warm=2)
+    # both kernels in turns (sm90, mma.sync, mma.sync, sm90): a call's
+    # device time (the kernel and the wrapper's segment offsets), and one
+    # call's CUDA events, its host work included; medians of the turns
+    turns = {(r, v): [] for r in ("fused", "values", "fused call")
+             for v in kernel.VARIANTS}
+    for order in (kernel.VARIANTS, kernel.VARIANTS[::-1]):
+        for v in order:
+            turns[("fused", v)].append(kernel_ms(lambda: run_fused(v), dev))
+            turns[("values", v)].append(kernel_ms(lambda: run_values(v),
+                                                  dev))
+            turns[("fused call", v)].append(device_ms(
+                lambda: run_fused(v), dev, reps=5, warm=1))
+    tmed = {k: statistics.median(x) for k, x in turns.items()}
+    fused_ms, values_ms = tmed[("fused", "sm90")], tmed[("values", "sm90")]
+    fused_mma_ms = tmed[("fused", "mma_sync")]
+    values_mma_ms = tmed[("values", "mma_sync")]
+    call_ms = {v: tmed[("fused call", v)] for v in kernel.VARIANTS}
     plain_ms = device_ms(run_plain, dev, reps=3, warm=1)
     Cb, Sb = run_fused()
     gather_ms = host_ms(lambda: gather_mask_aligned(M, Mb, Cb, Sb, n=n), dev)
@@ -857,19 +1000,25 @@ def tile_route(dev, n: int = TILE_N, bs: int = TILE_BS):
     print(f"tile: W={W} real={real} nnzb A={Ab.nnzb} B={Bb.nnzb} "
           f"out={Mb.nnzb}; {flops / 1e9:.1f} GFLOP per replay; fused call "
           f"moves {fused_bytes / 1e6:.0f} MB")
-    print(f"tile: fused kernel {fused_ms:.3f} ms per tile call (values and "
-          f"counts; the CUDA-core kernel it replaced: 2 x "
-          f"{CUDA_CORE_BLOCK_SPGEMM_MS:.3f} ms); bound "
-          f"{bound_ms:.3f} ms (by {by}: three TF32 passes at "
+    print(f"tile [{CARD}]: fused kernel (Hopper, wgmma + TMA) "
+          f"{fused_ms:.4f} ms per tile call (values and counts; the "
+          f"mma.sync kernel in the same run {fused_mma_ms:.4f} ms, "
+          f"{fused_mma_ms / fused_ms:.2f}x; the CUDA-core kernel before "
+          f"them: 2 x {CUDA_CORE_BLOCK_SPGEMM_MS:.3f} ms); bound "
+          f"{bound_ms:.4f} ms (by {by}: three TF32 passes at "
           f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s plus one bf16 pass at "
           f"{PEAK_BF16_FLOPS / 1e12:.0f}); at {bound_ms / fused_ms:.1%} of "
-          f"it; plain {plain_ms:.3f} ms")
-    print(f"tile: values-only replay {values_ms:.3f} ms "
-          f"({flops / values_ms / 1e9:.1f} TF32-accurate TFLOP/s; the "
-          f"CUDA-core kernel: {CUDA_CORE_BLOCK_SPGEMM_MS:.3f} ms); bound "
-          f"{values_bound:.3f} ms "
-          f"(by {values_by}); at {values_bound / values_ms:.1%} of it; the "
-          f"counting CTAs add {fused_ms - values_ms:.3f} ms")
+          f"it (mma.sync {bound_ms / fused_mma_ms:.1%}); plain "
+          f"{plain_ms:.3f} ms; one call's events, wrapper included: "
+          f"{call_ms['sm90']:.4f} / {call_ms['mma_sync']:.4f} ms; turns "
+          f"(ms) " + json.dumps({f"{r} {v}": x
+                                 for (r, v), x in turns.items()}))
+    print(f"tile [{CARD}]: values-only replay {values_ms:.4f} ms "
+          f"({flops / values_ms / 1e9:.1f} TF32-accurate TFLOP/s; mma.sync "
+          f"{values_mma_ms:.4f} ms); bound {values_bound:.4f} ms "
+          f"(by {values_by}); at {values_bound / values_ms:.1%} of it "
+          f"(mma.sync {values_bound / values_mma_ms:.1%}); the counting "
+          f"CTAs add {fused_ms - values_ms:.4f} ms")
     print(f"tile: gather_mask_aligned {gather_ms:.1f} ms; end to end "
           f"{e2e_ms:.1f} ms per call (first {first_ms:.1f} ms, with "
           f"planning); peak memory of the first call {peak / 2**20:.1f} "
@@ -882,21 +1031,33 @@ def tile_route(dev, n: int = TILE_N, bs: int = TILE_BS):
     return mask_tiles, (A, B, M), {
         "name": "block_spgemm", "route": "cuda",
         "source": "src/repro_torch/kernels/masked_matmul/csrc/"
-                  "block_spgemm.cu",
+                  "block_spgemm_sm90.cu",
+        "mma_sync_source": "src/repro_torch/kernels/masked_matmul/csrc/"
+                           "block_spgemm.cu",
         "replaces": "src/repro/kernels/masked_matmul/kernel.py:105",
-        "launches": launches, "max_abs_err": err, "ms": fused_ms,
+        "launches": launches, "sm90_launches": sm90_launches,
+        "max_abs_err": err, "ms": fused_ms, "mma_sync_ms": fused_mma_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
         "library_ms": None,
         "instance": block_instance(bs) + ", fused values and counts",
-        "values_ms": values_ms, "values_bound_ms": values_bound,
+        "call_ms": call_ms["sm90"], "call_mma_sync_ms": call_ms["mma_sync"],
+        "values_ms": values_ms, "values_mma_sync_ms": values_mma_ms,
+        "values_bound_ms": values_bound,
         "tile_call_ms": e2e_ms, "tile_peak_mib": peak / 2**20,
-        "tile_steps_ms": steps,
-        "design": "mma.sync tensor cores: values 3xTF32 (hi + lo "
-                  "splits, IEEE k-step adds), counts one bf16 pass over "
-                  "bf16 patterns, in one grid of both CTA kinds; the "
-                  "(pair, k-chunk) stream in a 3-stage cp.async ring of "
-                  "32-deep chunks, ldmatrix fragments; 128x128 CTA "
-                  "tile, 8 warps of 64x32"}
+        "tile_steps_ms": steps, "card": CARD,
+        "design": "Hopper, bs 128: the output tile computed transposed "
+                  "(C^T = B^T A^T) on wgmma; values 3xTF32 with B^T split "
+                  "in registers (m64n128k8 RS, 64 columns per consumer "
+                  "warpgroup) against A's hi and lo in shared memory "
+                  "(split once per tile by the producer warpgroup's idle "
+                  "warps), a truncating partial sum per 32-deep stage "
+                  "added to the f32 accumulator with IEEE rounding; counts "
+                  "one bf16 m64n128k16 pass, B's pattern read transposed; "
+                  "TMA loads in the 128-byte swizzle into a 4-stage ring "
+                  "behind full, ready and empty mbarriers, one producer "
+                  "thread; both CTA kinds in one grid, one CTA an SM. "
+                  "Other block sizes: mma.sync 3xTF32 in a 3-stage "
+                  "cp.async ring (block_spgemm.cu)"}
 
 
 # ---------------------------------------------------------------------------
@@ -993,7 +1154,7 @@ def serving_tile_bucket(dev, ops, bs: int = TILE_BS,
     misses = planner.plan_cache_info()["misses"]
     reset_counts()
     submit_ms = []
-    with count_plain() as plain:
+    with count_plain() as plain, launch_shapes() as shapes:
         t_start = time.perf_counter()
         tickets = []
         for a in As:     # the last submit fills the bucket and runs it
@@ -1018,6 +1179,8 @@ def serving_tile_bucket(dev, ops, bs: int = TILE_BS,
           f"launched once per query ({queries}), got {launches} (values "
           f"only: {kernel.LAUNCHES})")
     check(plain.calls == 0, f"no plain version ran (got {plain.calls})")
+    check(shapes.check("tile bucket") == queries, "each tile query ran the "
+          "Hopper kernel")
     for a, g in zip(As, got):
         check(same_result(g, masked_spgemm(a, B, M, device=dev)),
               "each tile-bucket result equals its one-shot call bit for bit")
@@ -1460,13 +1623,15 @@ def delta_tile(dev, ops, bs: int = TILE_BS,
 
     As = [revalue(A1, 10 + s, ints=True) for s in range(queries)]
     reset_counts()
-    with count_plain() as plain:
+    with count_plain() as plain, launch_shapes() as shapes:
         got = eng.serve([(a, B, M) for a in As])
         sync(dev)
     launches = kernel.FUSED_LAUNCHES
     check(launches == queries and kernel.LAUNCHES == 0,
           f"the post-delta bucket launches the fused kernel {queries} times "
           f"(got {launches}, values only {kernel.LAUNCHES})")
+    check(shapes.check("delta-tile") == queries, "each post-delta query "
+          "ran the Hopper kernel")
     check(plain.calls == 0, "no plain version ran")
     check(eng.metrics.bucket_log()[-1]["route"] == "tile",
           "the post-delta bucket runs the tile route")
@@ -1809,7 +1974,7 @@ def tuning_phase(dev, ops) -> dict:
 
         reset_counts()
         t0 = time.perf_counter()
-        with count_plain() as plain:
+        with count_plain() as plain, launch_shapes() as shapes:
             ms = probes.run_probes(("row", "tile"), smoke=True, device=dev,
                                    log=lambda line: None)
         probe_s = time.perf_counter() - t0
@@ -1820,6 +1985,12 @@ def tuning_phase(dev, ops) -> dict:
               f"{probes.tile_calls(smoke=True)} times and the values-only "
               f"one never (got {launches}, {kernel.LAUNCHES})")
         check(plain.calls == 0, f"no plain version ran (got {plain.calls})")
+        # the smoke grid's calls at bs 128 (as probes.tile_calls counts)
+        at_128 = sum((len(tds) * len(mos) + 1) * (probes.WARMUP + it)
+                     for _, bss, tds, mos, it in probes.TILE_GRID_SMOKE
+                     for b in bss if b == kernel.SM90_BLOCK)
+        check(shapes.check("tuning probes") == at_128, f"the tile probes' "
+              f"bs-128 calls ({at_128}) ran the Hopper kernel")
         smoke_fit = fit.fit_profile(ms, builtin, families=("row", "tile"),
                                     name="smoke",
                                     backend=tuning.backend_signature(dev))
@@ -2011,13 +2182,15 @@ def health_pressure(dev, ops, n: int = SERVE_N) -> dict:
         base = eng.obs_server.url
         with obs.tracing(mon):
             reset_counts()
-            with count_plain() as plain:
+            with count_plain() as plain, launch_shapes() as shapes:
                 eng.serve([(revalue(A, 0, ints=True), B, M)])
             launches = kernel.FUSED_LAUNCHES
             check(launches == 1 and kernel.LAUNCHES == 0 and plain.calls == 0,
                   f"the tile query launched the fused kernel once and no "
                   f"plain version ran (got {launches}, {kernel.LAUNCHES}, "
                   f"{plain.calls})")
+            check(shapes.check("health pressure") == 1, "the tile query ran "
+                  "the Hopper kernel")
             code, body = http_get(f"{base}/health")
             healthy = json.loads(body)
             check(code == 200 and healthy["status"] == "ok"
@@ -2124,7 +2297,8 @@ def health_drift(dev, ops, n: int = SERVE_N,
                               cache_results=False, monitor=mon, device=dev)
             reset_counts()
             t0 = time.perf_counter()
-            with count_plain() as plain, obs.tracing(mon):
+            with count_plain() as plain, obs.tracing(mon), \
+                    launch_shapes() as shapes:
                 for q in range(queries):
                     for a, b, m in structs:
                         eng.submit(revalue(a, 3000 + q, ints=True), b,
@@ -2136,6 +2310,11 @@ def health_drift(dev, ops, n: int = SERVE_N,
                   f"the fused kernel once each and no plain version ran (got "
                   f"{kernel.FUSED_LAUNCHES}, {kernel.LAUNCHES}, "
                   f"{plain.calls})")
+            sm90_n = shapes.check(f"drift under {label}")
+            check(sm90_n == queries * (planner.plan(A, B, M, device=dev)
+                                       .tile_block == kernel.SM90_BLOCK),
+                  f"{label}: the tile queries at bs 128 ran the Hopper "
+                  f"kernel (got {sm90_n})")
             check(det.token == planner.cost_model_token()
                   and (label == "builtin" or det.token != before),
                   f"{label}: the detector follows the cost model's token "
@@ -2174,7 +2353,8 @@ def health_drift(dev, ops, n: int = SERVE_N,
                       f"{rep.families})")
             runs[label] = {"token": det.token, "families": rep.families,
                            "flags": len(rep.flags), "stats": det.snapshot(),
-                           "launches": kernel.FUSED_LAUNCHES}
+                           "launches": kernel.FUSED_LAUNCHES,
+                           "sm90_launches": sm90_n}
     finally:
         tuning.activate(builtin)
         planner.clear_plan_cache()
@@ -2291,13 +2471,15 @@ def ring_sizes(dev, ops, single, bs: int = TILE_BS) -> dict:
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         reset_counts()
-        with count_plain() as plain:
+        with count_plain() as plain, launch_shapes() as shapes:
             t0 = time.perf_counter()
             res = distributed_masked_spgemm(A, B, M, mesh, algorithm="ring",
                                             block_size=bs)
             sync(dev)
             first_ms = (time.perf_counter() - t0) * 1e3
         launches = kernel.FUSED_LAUNCHES
+        check(shapes.check(f"ring p={p}") == p * p, f"ring p={p}: SM90_"
+              f"LAUNCHES == p² (every stage on the Hopper kernel)")
         peak_first = (torch.cuda.max_memory_allocated(dev)
                       if dev.type == "cuda" else 0)
         check(launches == p * p and kernel.LAUNCHES == 0,
@@ -2313,12 +2495,16 @@ def ring_sizes(dev, ops, single, bs: int = TILE_BS) -> dict:
             torch.cuda.reset_peak_memory_stats(dev)
         reset_counts()
         times = []
-        for _ in range(DIST_REPS):
-            t0 = time.perf_counter()
-            res = distributed_masked_spgemm(A, B, M, mesh, algorithm="ring",
-                                            block_size=bs)
-            sync(dev)
-            times.append((time.perf_counter() - t0) * 1e3)
+        with launch_shapes() as shapes:
+            for _ in range(DIST_REPS):
+                t0 = time.perf_counter()
+                res = distributed_masked_spgemm(A, B, M, mesh,
+                                                algorithm="ring",
+                                                block_size=bs)
+                sync(dev)
+                times.append((time.perf_counter() - t0) * 1e3)
+        check(shapes.check(f"ring p={p} warm") == DIST_REPS * p * p,
+              f"ring p={p}: p² Hopper launches per warm call")
         warm_ms = statistics.median(times)
         peak_warm = (torch.cuda.max_memory_allocated(dev)
                      if dev.type == "cuda" else 0)
@@ -2343,23 +2529,33 @@ def ring_sizes(dev, ops, single, bs: int = TILE_BS) -> dict:
         read_blocks = (len(np.unique(wl_host[1][on]))
                        + len(np.unique(wl_host[2][on])))
 
-        def stage():
+        def stage(variant="sm90"):
             return kernel.block_spgemm_with_structure_kernel(
                 a, b, a_pat, b_pat, wl[0], wl[1], wl[2], wl[3],
-                st.wm_blocks)
+                st.wm_blocks, variant=variant)
 
         def stage_plain():
             return kernel.block_spgemm_with_structure_plain(
                 a, b, a_pat, b_pat, wl[0], wl[1], wl[2], wl[3],
                 st.wm_blocks)
 
-        stage_ms = device_ms(stage, dev, reps=7, warm=2)
+        # both kernels in turns (sm90, mma.sync, mma.sync, sm90), a call's
+        # device time; and one call's CUDA events
+        turns = {v: [] for v in kernel.VARIANTS}
+        for order in (kernel.VARIANTS, kernel.VARIANTS[::-1]):
+            for v in order:
+                turns[v].append(kernel_ms(lambda: stage(v), dev))
+        stage_ms = statistics.median(turns["sm90"])
+        stage_mma_ms = statistics.median(turns["mma_sync"])
+        stage_call_ms = device_ms(stage, dev, reps=7, warm=2)
         stage_plain_ms = device_ms(stage_plain, dev, reps=3, warm=1)
-        sv, sc = stage()
         pv, pc = stage_plain()
-        err = float((sv - pv).abs().max())
-        check(torch.equal(sc, pc) and err == 0.0, f"ring p={p}: the stage "
-              f"replay equals its plain version (integer data)")
+        for v in kernel.VARIANTS:
+            sv, sc = stage(v)
+            err = float((sv - pv).abs().max())
+            check(torch.equal(sc, pc) and err == 0.0, f"ring p={p}: the "
+                  f"stage replay ({v}) equals its plain version (integer "
+                  f"data)")
         flops = 2.0 * real * bs ** 3
         out_bytes = st.wm_blocks * bs * bs * 4
         t_ops = flops / PEAK_F32_ACCURATE_FLOPS + flops / PEAK_BF16_FLOPS
@@ -2378,16 +2574,22 @@ def ring_sizes(dev, ops, single, bs: int = TILE_BS) -> dict:
               f"device and the dense product; the cached prep holds "
               f"{prep_bytes / 2**20:.1f} MiB on the card")
         print(f"dist [{CARD}]: ring p={p}: shard 0 stage 0: W={W} (real "
-              f"{real}), {st.wm_blocks} output blocks, kernel {stage_ms:.3f} "
-              f"ms (plain {stage_plain_ms:.3f}), bound {stage_bound:.4f} ms "
-              f"(by {stage_by}); slab {slab / 2**20:.1f} MiB (wb {st.wb}); a "
+              f"{real}), {st.wm_blocks} output blocks, kernel (Hopper) "
+              f"{stage_ms:.4f} ms, mma.sync in the same run "
+              f"{stage_mma_ms:.4f} ms ({stage_mma_ms / stage_ms:.2f}x; turns "
+              f"{json.dumps(turns)}; one call's events, wrapper included, "
+              f"{stage_call_ms:.4f}), plain {stage_plain_ms:.3f} ms, bound "
+              f"{stage_bound:.4f} ms (by {stage_by}); slab "
+              f"{slab / 2**20:.1f} MiB (wb {st.wb}); a "
               f"real ring would move {link / p / 2**20:.1f} MiB per link "
               f"per call ({link / 2**20:.1f} MiB over {p} links; one card: "
               f"no copy made)")
         out[p] = {"first_ms": first_ms, "warm_ms": warm_ms,
                   "warm_runs_ms": times, "peak_first_mib": peak_first / 2**20,
                   "peak_warm_mib": peak_warm / 2**20, "launches": launches,
-                  "stage_ms": stage_ms, "stage_plain_ms": stage_plain_ms,
+                  "stage_ms": stage_ms, "stage_mma_sync_ms": stage_mma_ms,
+                  "stage_call_ms": stage_call_ms,
+                  "stage_plain_ms": stage_plain_ms,
                   "stage_bound_ms": stage_bound, "stage_bound_by": stage_by,
                   "W": W, "real": real, "read_blocks": read_blocks,
                   "wm_blocks": st.wm_blocks, "link_bytes": link,
@@ -2408,11 +2610,14 @@ def ring_normal(dev, ops, single, bs: int = TILE_BS) -> dict:
                rng.standard_normal(B.nnz).astype(np.float32), B.shape)
     mesh = mesh_on(dev, DIST_P)
     reset_counts()
-    res = distributed_masked_spgemm(An, Bn, M, mesh, algorithm="ring",
-                                    block_size=bs)
-    sync(dev)
+    with launch_shapes() as shapes:
+        res = distributed_masked_spgemm(An, Bn, M, mesh, algorithm="ring",
+                                        block_size=bs)
+        sync(dev)
     check(kernel.FUSED_LAUNCHES == DIST_P ** 2, "normal data: p² fused "
           "launches")
+    check(shapes.check("ring, normal data") == DIST_P ** 2, "normal data: "
+          "p² Hopper launches")
     one = masked_spgemm(An, Bn, M, algorithm="tile", tile_block=bs,
                         device=dev)
     idx = masked_entries(res, M, dev)
@@ -2552,7 +2757,7 @@ def dist_serving(dev, ops, queries: int = SERVE_TILE_QUERIES) -> dict:
     plans0, prep0 = planner.plan_cache_info(), dist.ring_prep_cache_info()
     eng = QueryEngine(max_batch=queries, cache_results=False, device=dev)
     reset_counts()
-    with count_plain() as plain:
+    with count_plain() as plain, launch_shapes() as shapes:
         t0 = time.perf_counter()
         tickets = [eng.submit(a, B, M, mesh=mesh) for a in As]
         got = [t.result() for t in tickets]
@@ -2573,6 +2778,7 @@ def dist_serving(dev, ops, queries: int = SERVE_TILE_QUERIES) -> dict:
     check(launches == queries * DIST_P ** 2 and plain.calls == 0,
           f"{queries} x {DIST_P ** 2} fused launches and no plain version "
           f"(got {launches}, plain {plain.calls})")
+    sm90_n = shapes.check("mesh bucket")
     for a, g in zip(As, got):
         check(same_result(g, distributed_masked_spgemm(a, B, M, mesh)),
               "each mesh-bucket result equals its one-shot call bit for bit")
@@ -2580,11 +2786,12 @@ def dist_serving(dev, ops, queries: int = SERVE_TILE_QUERIES) -> dict:
           f"tile-{M.shape[0]} at p={DIST_P}: {bucket_ms:.1f} ms submit to results, serve.exec "
           f"{row['exec_s'] * 1e3:.1f} ms; plan cache {plans0['misses']} -> "
           f"{plans1['misses']} misses, ring prep {prep0} -> {prep1}; "
-          f"{launches} fused launches, no plain version; bitwise one-shot")
+          f"{launches} fused launches ({sm90_n} at bs 128 on the Hopper "
+          f"kernel), no plain version; bitwise one-shot")
     del got
     dist.clear_ring_prep_cache()
-    return {"launches": launches, "bucket_ms": bucket_ms,
-            "exec_ms": row["exec_s"] * 1e3}
+    return {"launches": launches, "sm90_launches": sm90_n,
+            "bucket_ms": bucket_ms, "exec_ms": row["exec_s"] * 1e3}
 
 
 def dist_fit(dev) -> dict:
@@ -2593,8 +2800,10 @@ def dist_fit(dev) -> dict:
     The fit is printed, never registered: on one card the rotations cross
     no link."""
     reset_counts()
-    ms = probes.probe_dist(smoke=True, device=dev, log=lambda line: None)
+    with launch_shapes() as shapes:
+        ms = probes.probe_dist(smoke=True, device=dev, log=lambda line: None)
     calls = probes.dist_calls(smoke=True)
+    sm90_n = shapes.check("dist probes")
     check(kernel.FUSED_LAUNCHES == calls, f"the dist probes launched the "
           f"fused kernel {calls} times (got {kernel.FUSED_LAUNCHES})")
     fitted, resid = fit.fit_dist(ms, acc.COST_CONSTANTS, planner.TILE_COST,
@@ -2603,7 +2812,8 @@ def dist_fit(dev) -> dict:
         math.isfinite(v) and v >= 0 for v in fitted.values()),
         f"fit_dist gives finite constants and residual ({fitted}, {resid})")
     print(f"dist [{CARD}]: dist probes (smoke): {len(ms)} points, "
-          f"{calls} fused launches; " + "; ".join(
+          f"{calls} fused launches ({sm90_n} at bs 128 on the Hopper "
+          f"kernel); " + "; ".join(
               f"{m.point} {m.target} {m.seconds * 1e3:.2f} ms" for m in ms))
     print(f"dist [{CARD}]: fit_dist on them: {fitted}, residual "
           f"{resid:.3f} (builtin {planner.DIST_COST}); one card, so the "
@@ -5137,6 +5347,11 @@ def main() -> int:
     ring = distributed["ring"]
     entry["ring_launches"] = {p: r["launches"] for p, r in ring.items()}
     entry["ring_stage_ms"] = {p: r["stage_ms"] for p, r in ring.items()}
+    entry["ring_stage_mma_sync_ms"] = {p: r["stage_mma_sync_ms"]
+                                       for p, r in ring.items()}
+    entry["ring_stage_real"] = {p: r["real"] for p, r in ring.items()}
+    entry["ring_stage_out_blocks"] = {p: r["wm_blocks"]
+                                      for p, r in ring.items()}
     entry["ring_stage_W"] = {p: r["W"] for p, r in ring.items()}
     entry["ring_stage_bound_ms"] = {p: r["stage_bound_ms"]
                                     for p, r in ring.items()}

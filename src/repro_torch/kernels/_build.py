@@ -29,13 +29,16 @@ BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch"
 #: every CUDA source of the package, by library name
 SOURCES: Dict[str, Path] = {
     "block_spgemm": _PKG / "masked_matmul" / "csrc" / "block_spgemm.cu",
+    "block_spgemm_sm90": _PKG / "masked_matmul" / "csrc"
+                         / "block_spgemm_sm90.cu",
     "masked_matmul": _PKG / "masked_matmul" / "csrc" / "masked_matmul.cu",
     "flash_mask": _PKG / "flash_mask" / "csrc" / "flash_mask.cu",
     "flash_mask_sm90": _PKG / "flash_mask" / "csrc" / "flash_mask_sm90.cu",
 }
 
 #: headers every source may include (``mma.cuh``: mma.sync and cp.async
-#: primitives; ``sm90.cuh``: TMA, mbarrier, wgmma and setmaxnreg)
+#: primitives; ``sm90.cuh``: TMA, mbarrier, wgmma, setmaxnreg and the
+#: tensor maps' encoder)
 INCLUDE_DIR = _PKG / "csrc"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,32 +1,40 @@
 // Hopper (sm_90a) primitives shared by the port's warp-specialised
 // kernels: mbarriers, TMA tile loads (cp.async.bulk.tensor) into shared
 // memory in the 128-byte swizzle, wgmma shared-memory descriptors, the
-// wgmma.mma_async shapes the kernels issue with their fence, commit and
-// wait, setmaxnreg and named barriers.
+// wgmma.mma_async shapes the kernels issue (bf16, and tf32 with A in
+// registers) with their fence, commit and wait, the generic-to-async proxy
+// fence, setmaxnreg, named barriers, and on the host the tensor maps'
+// encoder.
 //
 // Shared-memory layout that TMA writes and wgmma reads (PTX ISA, "Matrix
 // Descriptor Format" and "Shared Memory Matrix Layout"; CUTLASS's
-// make_gmma_desc): a panel of R rows x 64 bf16 (128 bytes a row), rows
+// make_gmma_desc): a panel of R rows x 128 bytes (64 bf16 or 32 f32), rows
 // consecutive, 16-byte chunk j of row r stored at chunk j ^ (r % 8), the
 // panel 1024-byte aligned (the swizzle is a function of the address).
 //   K-major operand (q, k: the reduction dim contiguous): SBO = 1024 bytes
-//     between 8-row groups, LBO unused (1); the k16 step kk starts 32 * kk
-//     bytes into the panel.
+//     between 8-row groups, LBO unused (1); the bf16 k16 step kk (the tf32
+//     k8 step) starts 32 * kk bytes into the panel.  A tf32 operand in
+//     shared memory must be K-major: the transpose bits exist for 16-bit
+//     types only.
 //   MN-major operand (v read transposed for p.v: N = head dim contiguous,
-//     K = keys along rows): SBO = 1024 bytes between 8-key groups, LBO =
-//     the byte stride between 64-column panels (one panel per instruction
-//     here, so unused); the k16 step kk starts 2048 * kk bytes in.
+//     K = keys along rows; a bf16 pattern's 64 columns as the A operand):
+//     SBO = 1024 bytes between 8-key groups, LBO = the byte stride between
+//     64-column panels (one panel per instruction here, so unused); the
+//     k16 step kk starts 2048 * kk bytes in.
 //
 // Accumulator layout of m64nNk16 (f32): warp w of the warpgroup holds rows
 // 16w .. 16w + 15; with g = lane / 4 and t = lane % 4, register 4j + x is
 // (row 16w + g + 8 (x / 2), col 8j + 2t + x % 2): each n8 block is the
-// mma.sync m16n8 C fragment.  The register A operand of the RS form is,
-// per warp, the m16k16 mma.sync A fragment, so two neighbouring n8 blocks
-// of a score accumulator, packed in bf16 pairs, are one k16 A operand.
+// mma.sync m16n8 C fragment (the same for m64nNk8 tf32).  The register A
+// operand of the RS form is, per warp, the m16k16 mma.sync A fragment
+// (m16k8 for tf32), so two neighbouring n8 blocks of a score accumulator,
+// packed in bf16 pairs, are one k16 A operand.
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace sm90 {
@@ -102,6 +110,12 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (the wgmma or TMA that reads or overwrites them next)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -232,6 +246,84 @@ __device__ __forceinline__ void wgmma_rs_tn_n64(float (&d)[32],
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+// d (+)= a . b, m64n128k16, bf16 from shared memory: a read transposed
+// (MN-major: M contiguous, descriptor da), b K-major (descriptor db), f32
+// accumulators; scale_d = 0 starts from zero
+__device__ __forceinline__ void wgmma_ss_at_n128(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= a . b^T, m64n128k8, tf32: a a tf32 A-fragment in registers (per
+// warp the m16k8 mma.sync layout: a0 (row g, k t), a1 (row g + 8, k t),
+// a2 (row g, k t + 4), a3 (row g + 8, k t + 4)), b from shared memory,
+// K-major (descriptor db; tf32 has no transposed form), f32 accumulators;
+// scale_d = 0 starts from zero.  The operands' low 13 bits are not read.
+__device__ __forceinline__ void wgmma_rs_tf32_n128(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
 
 
 // ---------------------------------------------------------------------------
@@ -251,6 +343,60 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 // barrier `id` (1 .. 15; 0 is __syncthreads) over `threads` threads
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// host side: tensor maps
+// ---------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled (cuda.h, CUDA 12.x), reached through the runtime,
+// so that a library needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the (rows, cols) row-major matrix at ptr, elements of `type` and
+// elem_bytes bytes, read in boxes of box_cols x box_rows in the 128-byte
+// swizzle (box_cols * elem_bytes <= 128); elements beyond cols read as
+// zeros
+inline cudaError_t map_2d(CUtensorMap* map, CUtensorMapDataType type,
+                          int elem_bytes, const void* ptr, uint64_t rows,
+                          uint64_t cols, uint32_t box_cols,
+                          uint32_t box_rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = enc(map, type, 2, const_cast<void*>(ptr), dims, strides,
+                         box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace sm90

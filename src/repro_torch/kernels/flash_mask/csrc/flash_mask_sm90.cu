@@ -69,8 +69,9 @@
 // one tile's p.v with the next tile's q.k^T needs S, p's two terms and O
 // in registers together, which spilled and serialised here.
 // The C entry builds the tensor maps of q, k and v on every call
-// (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so the library
-// needs no -lcuda) and passes them as __grid_constant__ parameters.
+// (sm90::map_2d: cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so
+// the library needs no -lcuda) and passes them as __grid_constant__
+// parameters.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -463,50 +464,12 @@ flash_mask_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
 // host side
 // ---------------------------------------------------------------------------
 
-// cuTensorMapEncodeTiled (cuda.h, CUDA 12.x), reached through the runtime
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // the (rows, D) bf16 row-major matrix at ptr, read in boxes of 64 columns
 // x box_rows rows in the 128-byte swizzle; columns >= D read as zeros
 cudaError_t make_map(CUtensorMap* map, const void* ptr, uint64_t rows, int D,
                      int box_rows) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return cudaErrorSymbolNotFound;
-  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)D * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                         const_cast<void*>(ptr), dims, strides, box, unit,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return sm90::map_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sizeof(bf16),
+                      ptr, rows, D, 64, box_rows);
 }
 
 struct Args {

@@ -1,7 +1,7 @@
 """Masked tile products: the CUDA kernels' wrappers and their plain PyTorch
 versions.
 
-``block_spgemm_kernel`` (``csrc/block_spgemm.cu``) replaces the TPU kernel
+``block_spgemm_kernel`` replaces the TPU kernel
 ``repro/kernels/masked_matmul/kernel.py::block_spgemm_kernel``.  It replays
 a rank-sorted worklist ``(rank, pa, pb, flags)``: flag bit 1 zeroes the f32
 accumulator, bit 2 adds ``A[pa] @ B[pb]``, bit 4 writes the accumulator to
@@ -9,7 +9,12 @@ accumulator, bit 2 adds ``A[pa] @ B[pb]``, bit 4 writes the accumulator to
 worklist segment on tensor cores (3xTF32, f32 accuracy), so the result needs
 no atomics and is deterministic.  ``block_spgemm_with_structure_kernel``
 adds, in the same launch, the replay of the worklist over the operands' 0/1
-patterns (structural counts, one exact bf16 pass).
+patterns (structural counts, one exact bf16 pass).  Two kernels compute it:
+``csrc/block_spgemm_sm90.cu`` for Hopper (TMA loads behind mbarriers, a
+producer warpgroup, two consumer warpgroups on ``wgmma``) at block size 128
+with f32 operands and bf16 patterns, contiguous and 16-byte aligned
+(``sm90_takes``), and ``csrc/block_spgemm.cu`` (``mma.sync``, a
+``cp.async`` ring) for every other block size.
 
 ``masked_matmul_kernel`` (``csrc/masked_matmul.cu``) replaces the TPU
 kernel ``repro/kernels/masked_matmul/kernel.py::masked_matmul_kernel``, the
@@ -21,7 +26,8 @@ split operands (3xTF32, f32 accuracy), fed by a ``cp.async`` ring.
 The note at the top of each source gives its bound on an H100.  Each
 wrapper launches its kernel for CUDA tensors (or raises) and runs its plain
 version for CPU tensors; ``LAUNCHES``, ``FUSED_LAUNCHES`` and
-``MASKED_MATMUL_LAUNCHES`` count the launches.
+``MASKED_MATMUL_LAUNCHES`` count the launches, ``SM90_LAUNCHES`` those of
+the block product's (values only or fused) that ran the Hopper kernel.
 """
 from __future__ import annotations
 
@@ -40,8 +46,18 @@ _XLA_CHUNK_ELEMS = 1 << 24
 LAUNCHES = 0
 #: number of times it was launched for values and structure together
 FUSED_LAUNCHES = 0
+#: of the block_spgemm launches (values only and fused), those that ran
+#: the Hopper kernel (wgmma + TMA)
+SM90_LAUNCHES = 0
 #: number of times the masked_matmul kernel was launched in this process
 MASKED_MATMUL_LAUNCHES = 0
+
+#: the block product kernels a caller may ask for by name (``variant=``):
+#: the Hopper kernel, or block_spgemm.cu's mma.sync kernel
+VARIANTS = ("sm90", "mma_sync")
+#: the one block size the Hopper kernel takes (the planner's largest tile
+#: block)
+SM90_BLOCK = 128
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C signatures: pointers, then ints, then the stream
@@ -109,11 +125,47 @@ def block_spgemm_plain(a_blocks, b_blocks, rank, pa, pb, flags,
     return out
 
 
-def _launch_block_spgemm(symbol, argtypes, blocks, rank, pa, pb, flags,
-                         nnzb_out):
-    """Launch ``symbol`` of the block_spgemm library on the current stream
-    with ``blocks`` (the operand pointers, in order) and one output per
-    operand pair; returns the outputs."""
+def sm90_takes(a_blocks, b_blocks, a_pat=None, b_pat=None) -> bool:
+    """Whether the Hopper kernel takes these operands, as the kernel
+    receives them (the patterns after the wrapper's cast to bfloat16):
+    block size 128, float32 values and bfloat16 patterns, each contiguous
+    with a 16-byte aligned base pointer (the outputs, which the wrapper
+    allocates, are both)."""
+    pats = () if a_pat is None else (a_pat, b_pat)
+    return (a_blocks.dim() == 3 and a_blocks.shape[1] == SM90_BLOCK
+            and a_blocks.dtype == b_blocks.dtype == torch.float32
+            and all(x.dtype == torch.bfloat16 for x in pats)
+            and all(x.is_contiguous() and x.data_ptr() % 16 == 0
+                    for x in (a_blocks, b_blocks) + pats))
+
+
+def choose_variant(variant, a_blocks, b_blocks, a_pat=None,
+                   b_pat=None) -> str:
+    """The kernel a launch runs: ``variant`` if given (one of ``VARIANTS``;
+    "sm90" on operands that ``sm90_takes`` refuses raises), else "sm90"
+    where ``sm90_takes`` holds and "mma_sync" elsewhere."""
+    if variant is not None and variant not in VARIANTS:
+        raise ValueError(f"unknown block_spgemm variant {variant!r}; "
+                         f"expected one of {VARIANTS} or None")
+    fits = sm90_takes(a_blocks, b_blocks, a_pat, b_pat)
+    if variant == "sm90" and not fits:
+        raise ValueError(
+            f"the sm90 block_spgemm kernel takes block size {SM90_BLOCK}, "
+            f"float32 values and bfloat16 patterns, contiguous and 16-byte "
+            f"aligned; got blocks {tuple(a_blocks.shape)} "
+            f"{a_blocks.dtype}" + ("" if a_pat is None else
+                                   f", patterns {a_pat.dtype}"))
+    if variant is None:
+        return "sm90" if fits else "mma_sync"
+    return variant
+
+
+def _launch_block_spgemm(entry, argtypes, blocks, rank, pa, pb, flags,
+                         nnzb_out, chosen):
+    """Launch the C entry point ``<library>_<entry>`` of kernel ``chosen``'s
+    library (``block_spgemm_sm90`` or ``block_spgemm``) on the current
+    stream with ``blocks`` (the operand pointers, in order) and one output
+    per operand pair; returns the outputs."""
     a_blocks = blocks[0]
     bs, dev = a_blocks.shape[1], a_blocks.device
     if dev.type != "cuda":
@@ -126,7 +178,8 @@ def _launch_block_spgemm(symbol, argtypes, blocks, rank, pa, pb, flags,
     seg_ptr = torch.searchsorted(
         rank, torch.arange(nnzb_out + 1, dtype=torch.int32, device=dev),
         out_int32=True)
-    fn = _build.load("block_spgemm", symbol, argtypes)
+    lib = "block_spgemm_sm90" if chosen == "sm90" else "block_spgemm"
+    fn = _build.load(lib, f"{lib}_{entry}", argtypes)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*(x.data_ptr() for x in blocks), pa.data_ptr(),
@@ -134,13 +187,13 @@ def _launch_block_spgemm(symbol, argtypes, blocks, rank, pa, pb, flags,
                  *(o.data_ptr() for o in outs), nnzb_out, bs,
                  a_blocks.shape[0], blocks[1].shape[0], stream)
     if err != 0:
-        raise RuntimeError(f"block_spgemm kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"block_spgemm kernel ({chosen}) launch failed: "
+                           f"CUDA error {err}")
     return outs
 
 
 def block_spgemm_kernel(a_blocks, b_blocks, rank, pa, pb, flags,
-                        nnzb_out: int) -> torch.Tensor:
+                        nnzb_out: int, variant: str = None) -> torch.Tensor:
     """Masked BCSR product from a worklist sorted by rank.
 
     a_blocks: (nnzb_a, bs, bs) f32; b_blocks: (nnzb_b, bs, bs) f32.
@@ -148,21 +201,27 @@ def block_spgemm_kernel(a_blocks, b_blocks, rank, pa, pb, flags,
     and the flag bitfield (1 = zero the accumulator, 2 = real product,
     4 = write the accumulator).  Returns (nnzb_out, bs, bs) f32.
 
-    CPU tensors run ``block_spgemm_plain``.  CUDA tensors launch the kernel
-    on the current stream without synchronising, or raise.  Positions out
-    of range are skipped by the kernel instead of faulting; callers
-    validate them on the host.
+    CPU tensors run ``block_spgemm_plain``.  CUDA tensors launch a kernel
+    on the current stream without synchronising, or raise:
+    ``choose_variant`` picks it (``variant`` None: the Hopper kernel where
+    ``sm90_takes`` holds, else the mma.sync kernel; "mma_sync" forces the
+    latter; "sm90" on operands it does not take raises, on the CPU too).
+    Positions out of range are skipped by the kernels instead of faulting;
+    callers validate them on the host.
     """
-    global LAUNCHES
+    global LAUNCHES, SM90_LAUNCHES
     _check(a_blocks, b_blocks, rank, pa, pb, flags, nnzb_out)
+    chosen = choose_variant(variant, a_blocks, b_blocks)
     if a_blocks.device.type == "cpu":
         return block_spgemm_plain(a_blocks, b_blocks, rank, pa, pb, flags,
                                   nnzb_out)
-    out, = _launch_block_spgemm("block_spgemm_f32", _BLOCK_SPGEMM_ARGS,
+    out, = _launch_block_spgemm("f32", _BLOCK_SPGEMM_ARGS,
                                 (a_blocks, b_blocks), rank, pa, pb, flags,
-                                nnzb_out)
+                                nnzb_out, chosen)
     if nnzb_out:
         LAUNCHES += 1
+        if chosen == "sm90":
+            SM90_LAUNCHES += 1
     return out
 
 
@@ -177,7 +236,8 @@ def block_spgemm_with_structure_plain(a_blocks, b_blocks, a_pat, b_pat,
 
 
 def block_spgemm_with_structure_kernel(a_blocks, b_blocks, a_pat, b_pat,
-                                       rank, pa, pb, flags, nnzb_out: int):
+                                       rank, pa, pb, flags, nnzb_out: int,
+                                       variant: str = None):
     """The masked BCSR product and its structural counts from one worklist.
 
     As ``block_spgemm_kernel``, plus ``a_pat`` and ``b_pat``: bf16 (or
@@ -188,22 +248,31 @@ def block_spgemm_with_structure_kernel(a_blocks, b_blocks, a_pat, b_pat,
 
     CPU tensors run ``block_spgemm_with_structure_plain``.  CUDA tensors
     launch one kernel for both on the current stream without
-    synchronising, or raise.  The kernel reads the patterns in bf16 (f32
-    ones are converted first, one more pass over them) and counts exactly
-    while they hold integers up to 256 in magnitude.
+    synchronising, or raise; ``variant`` picks it as in
+    ``block_spgemm_kernel``, on the patterns as the kernel reads them.  The
+    kernels read the patterns in bf16 (f32 ones are converted first, one
+    more pass over them) and count exactly while they hold integers up to
+    256 in magnitude.
     """
-    global FUSED_LAUNCHES
+    global FUSED_LAUNCHES, SM90_LAUNCHES
     _check(a_blocks, b_blocks, rank, pa, pb, flags, nnzb_out)
     _check_patterns(a_blocks, b_blocks, a_pat, b_pat)
     if a_blocks.device.type == "cpu":
+        if variant is not None:      # checked as the kernel would get them
+            choose_variant(variant, a_blocks, b_blocks,
+                           *(x.to(torch.bfloat16) for x in (a_pat, b_pat)))
         return block_spgemm_with_structure_plain(
             a_blocks, b_blocks, a_pat, b_pat, rank, pa, pb, flags, nnzb_out)
     a_pat, b_pat = (x.to(torch.bfloat16) for x in (a_pat, b_pat))
+    chosen = choose_variant(variant, a_blocks, b_blocks, a_pat, b_pat)
     vals, counts = _launch_block_spgemm(
-        "block_spgemm_with_structure", _FUSED_ARGS,
-        (a_blocks, b_blocks, a_pat, b_pat), rank, pa, pb, flags, nnzb_out)
+        "with_structure", _FUSED_ARGS,
+        (a_blocks, b_blocks, a_pat, b_pat), rank, pa, pb, flags, nnzb_out,
+        chosen)
     if nnzb_out:
         FUSED_LAUNCHES += 1
+        if chosen == "sm90":
+            SM90_LAUNCHES += 1
     return vals, counts
 
 

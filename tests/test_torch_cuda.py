@@ -1,7 +1,8 @@
 """The port on a CUDA device: the block_spgemm (values only and fused with
 the structural counts), masked_matmul and flash_mask kernels against their
-plain versions, both routes of
-masked_spgemm, the batched driver, the serving engine's burst, batched and
+plain versions (the Hopper block product, wgmma + TMA, at bs 128 and the
+worklist's edges, and bit for bit the mma.sync kernel on integers), both
+routes of masked_spgemm, the batched driver, the serving engine's burst, batched and
 tile buckets, lane patching, ``bcsr_apply_delta`` and scoped invalidation
 (device memory released), the golden trace's replay, and the graph
 applications against the same calls on the CPU, the distributed routes
@@ -150,6 +151,161 @@ def test_fused_kernel_matches_plain(cuda_device, bs, ints):
     torch.testing.assert_close(vals, want, rtol=tol, atol=tol)
     exact = block_f64(A.blocks, B.blocks, wl, M.nnzb)
     assert float((vals.double() - exact).norm() / exact.norm()) <= 2e-6
+
+
+def sm90_worklist(entries, dev):
+    """(rank, pa, pb, flags) device tensors from (rank, pa, pb, flags)
+    tuples, which must be sorted by rank."""
+    cols = np.array(entries, np.int32).reshape(-1, 4).T
+    return [torch.as_tensor(np.ascontiguousarray(x), device=dev)
+            for x in cols]
+
+
+def sm90_blocks(seed, nnzb, ints, dev, density=0.6):
+    """(nnzb, 128, 128) f32 blocks, integers 1-4 or standard normal, each
+    element nonzero with probability ``density``, and their bf16
+    patterns."""
+    rng = np.random.default_rng(seed)
+    shape = (nnzb, 128, 128)
+    v = rng.integers(1, 5, shape) if ints else rng.standard_normal(shape)
+    x = torch.as_tensor((v * (rng.random(shape) < density))
+                        .astype(np.float32), device=dev)
+    return x, (x != 0).to(torch.bfloat16)
+
+
+def sm90_against_plain(a, b, a_pat, b_pat, wl, nnzb_out, ints,
+                       want_wl=None):
+    """Both entry points on the Hopper kernel (one SM90 launch each)
+    against their plain versions on ``want_wl`` (default ``wl``):
+    counts exact, values exact on integers, else within 1e-4 of plain
+    and 2e-6 normwise of float64.  Returns the values."""
+    want_wl = wl if want_wl is None else want_wl
+    before = kernel.SM90_LAUNCHES, kernel.LAUNCHES, kernel.FUSED_LAUNCHES
+    got = kernel.block_spgemm_kernel(a, b, *wl, nnzb_out, variant="sm90")
+    vals, counts = kernel.block_spgemm_with_structure_kernel(
+        a, b, a_pat, b_pat, *wl, nnzb_out, variant="sm90")
+    torch.cuda.synchronize()
+    assert (kernel.SM90_LAUNCHES, kernel.LAUNCHES, kernel.FUSED_LAUNCHES) \
+        == (before[0] + 2, before[1] + 1, before[2] + 1)
+    want, want_c = kernel.block_spgemm_with_structure_plain(
+        a, b, a_pat, b_pat, *want_wl, nnzb_out)
+    assert torch.equal(counts, want_c)
+    assert torch.equal(vals, got)
+    if ints:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        exact = block_f64(a, b, want_wl, nnzb_out)
+        assert float((got.double() - exact).norm() / exact.norm()) <= 2e-6
+    return got
+
+
+@pytest.mark.parametrize("ints", [True, False])
+def test_block_spgemm_sm90_matches_plain(cuda_device, ints):
+    """The Hopper kernel at bs 128 on a block-sparse problem with
+    zero-fill entries (an empty block row of A) and an all-flags-off tail
+    (the ring's padding), values only and fused; the default variant picks
+    it."""
+    a, b, mk = dense_operands(27, 128 * 6, (0.5, 0.5, 0.6), ints)
+    a[:128] = 0.0
+    A, B, M = (F.bcsr_from_dense(x, 128, device=cuda_device)
+               for x in (a, b, mk))
+    a_pat, b_pat = ((x != 0).to(torch.bfloat16) for x in (A.blocks,
+                                                           B.blocks))
+    sched = ops.build_spgemm_schedule(A, B, M)
+    assert ((sched[3] & 2) == 0).any() and (sched[3] == 5).any()
+    wl = padded_worklist(sched, 5, cuda_device)
+    assert kernel.sm90_takes(A.blocks, B.blocks, a_pat, b_pat)
+    sm90_against_plain(A.blocks, B.blocks, a_pat, b_pat, wl, M.nnzb, ints)
+    before = kernel.SM90_LAUNCHES
+    kernel.block_spgemm_with_structure_kernel(A.blocks, B.blocks, a_pat,
+                                              b_pat, *wl, M.nnzb)
+    assert kernel.SM90_LAUNCHES == before + 1
+
+
+@pytest.mark.parametrize("ints", [True, False])
+def test_block_spgemm_sm90_worklist_edges(cuda_device, ints):
+    """Out-of-range pa and pb skipped, a write mid-segment, zero-fill and
+    all-flags-off entries, ranks that no entry writes (zeros, though the
+    output is not cleared first) and a segment of 24 pairs, which wraps the
+    stage ring many times."""
+    dev = cuda_device
+    a, a_pat = sm90_blocks(31, 24, ints, dev)
+    b, b_pat = sm90_blocks(32, 24, ints, dev)
+    long_seg = [(1, i, (5 * i) % 24, 2 | (1 if i == 0 else 0)
+                 | (4 if i in (11, 23) else 0)) for i in range(24)]
+    entries = ([(0, 0, 0, 3), (0, -1, 1, 2), (0, 24, 2, 2), (0, 1, 24, 2),
+                (0, 2, -3, 2), (0, 3, 4, 6)]
+               + long_seg
+               + [(3, 0, 0, 5), (3, 0, 0, 0), (4, 5, 6, 7), (4, 0, 0, 0),
+                  (4, 0, 0, 0), (6, 7, 8, 1), (6, 9, 10, 2)])
+    wl = sm90_worklist(entries, dev)
+    # what the plain version (which ignores the write bit) computes for the
+    # same replay: the out-of-range entries' add bit cleared and their
+    # positions made valid, and rank 6, which adds but never writes, left
+    # out
+    fixed = [(r, min(max(i, 0), 23), min(max(j, 0), 23),
+              f & ~2 if not (0 <= i < 24 and 0 <= j < 24) or r == 6 else f)
+             for r, i, j, f in entries]
+    got = sm90_against_plain(a, b, a_pat, b_pat, wl, 8, ints,
+                             want_wl=sm90_worklist(fixed, dev))
+    assert not got[[2, 5, 7]].any()         # ranks that no entry writes
+    assert not got[6].any()                 # added, never written
+    assert not got[3].any()                 # zero-fill
+
+
+def test_block_spgemm_sm90_empty_b(cuda_device):
+    """An empty B: only zero-fill and all-flags-off entries, no tensor map
+    encoded, every block zeros (the outputs are not cleared first)."""
+    dev = cuda_device
+    a, a_pat = sm90_blocks(33, 3, True, dev)
+    b = torch.zeros((0, 128, 128), device=dev)
+    wl = sm90_worklist([(0, 0, 0, 5), (1, 1, 0, 5), (2, 2, 0, 0)], dev)
+    before = kernel.SM90_LAUNCHES
+    got = kernel.block_spgemm_kernel(a, b, *wl, 4, variant="sm90")
+    vals, counts = kernel.block_spgemm_with_structure_kernel(
+        a, b, a_pat, b.to(torch.bfloat16), *wl, 4, variant="sm90")
+    torch.cuda.synchronize()
+    assert kernel.SM90_LAUNCHES == before + 2
+    for x in (got, vals, counts):
+        assert x.shape == (4, 128, 128) and not x.any()
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_block_spgemm_sm90_equals_mma_sync_on_integers(cuda_device, fused):
+    """Both kernels bit for bit on integer data, and each counted."""
+    a, b, mk = dense_operands(29, 128 * 5, (0.6, 0.6, 0.7), True)
+    A, B, M = (F.bcsr_from_dense(x, 128, device=cuda_device)
+               for x in (a, b, mk))
+    a_pat, b_pat = ((x != 0).to(torch.bfloat16) for x in (A.blocks,
+                                                           B.blocks))
+    wl = padded_worklist(ops.build_spgemm_schedule(A, B, M), 2, cuda_device)
+    outs = {}
+    for variant in ("sm90", "mma_sync"):
+        before = kernel.SM90_LAUNCHES
+        if fused:
+            outs[variant] = kernel.block_spgemm_with_structure_kernel(
+                A.blocks, B.blocks, a_pat, b_pat, *wl, M.nnzb,
+                variant=variant)
+        else:
+            outs[variant] = (kernel.block_spgemm_kernel(
+                A.blocks, B.blocks, *wl, M.nnzb, variant=variant),)
+        torch.cuda.synchronize()
+        assert kernel.SM90_LAUNCHES == before + (variant == "sm90")
+    for x, y in zip(outs["sm90"], outs["mma_sync"]):
+        assert torch.equal(x, y)
+
+
+def test_block_spgemm_sm90_refuses_other_shapes_on_cuda(cuda_device):
+    a = torch.ones((2, 32, 32), device=cuda_device)
+    wl = sm90_worklist([(0, 0, 1, 7)], cuda_device)
+    with pytest.raises(ValueError, match="sm90"):
+        kernel.block_spgemm_kernel(a, a, *wl, 1, variant="sm90")
+    before = kernel.SM90_LAUNCHES
+    got = kernel.block_spgemm_kernel(a, a, *wl, 1)
+    torch.cuda.synchronize()
+    assert kernel.SM90_LAUNCHES == before
+    assert torch.equal(got, kernel.block_spgemm_plain(a, a, *wl, 1))
 
 
 def test_kernel_empty_b_gives_zero_blocks(cuda_device):
