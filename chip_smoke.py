@@ -13,7 +13,7 @@ Phases, each printing its own lines:
    spills of every kernel instance, and the registers, shared memory and
    resident CTAs per SM of the tensor-core kernels at the path's shapes
    (every ``block_spgemm`` instance, the Hopper one at bs 128 among them,
-   both flash instances);
+   the bf16 and f32 flash instances, Hopper and mma.sync);
 3. kernel against plain: the ``block_spgemm`` kernel, values only and
    fused with the structural counts, against its plain PyTorch version at
    block sizes 4, 8, 32, 48 and 128 (every instance; bs 128 on the Hopper
@@ -78,16 +78,19 @@ Phases, each printing its own lines:
    standard-normal data (f32 accuracy: 2e-6 normwise); then timings;
 9. flash attention: the ``flash_mask`` kernel against its plain version
    over the reference's test sweep (bf16 also within 2e-3 normwise; every
-   case on tensor cores, the f32 ones on the 3xTF32 kernel), the decode
-   offset and the GQA op; the Hopper bf16 kernel (``flash_mask_sm90``,
-   ``SM90_LAUNCHES``) at the path's four shapes cut to S 512, a window
-   with a prefix, q_offset > 0, bq 64, a never-visited q-block and
-   out-of-range kv-blocks; then one full-width llama3.2-1b layer (B 4,
-   32/8 heads, S 2048, D 64, causal, bf16) on it; then its timings beside
-   the mma.sync kernel's in the same run and
+   case on tensor cores, the f32 ones on a 3xTF32 kernel: the f32 Hopper
+   kernel at D 112 and 128, the mma.sync one at the sweep's small blocks),
+   the decode offset and the GQA op; the Hopper bf16 kernel
+   (``flash_mask_sm90``, ``SM90_LAUNCHES``) at the path's four shapes cut
+   to S 512, a window with a prefix, q_offset > 0, bq 64, a never-visited
+   q-block and out-of-range kv-blocks; then one full-width llama3.2-1b
+   layer (B 4, 32/8 heads, S 2048, D 64, causal, bf16) on it; then its
+   timings beside the mma.sync kernel's in the same run and
    ``scaled_dot_product_attention``; the f32 instance at the layer's shape
-   against its plain version and float64, and its times at B 1 (the f32
-   prefill's shape) and B 4 beside f32 ``scaled_dot_product_attention``;
+   on the f32 Hopper kernel (``flash_mask_f32_sm90``) against its plain
+   version, the mma.sync f32 kernel and float64, and its times at B 1 (the
+   f32 prefill's shape) and B 4 beside the mma.sync f32 kernel's in the
+   same run and f32 ``scaled_dot_product_attention``;
 10. LM serving: llama3.2-1b at full width with ``attn_impl="flash_pallas"``
    and random weights from seed 0: a bf16 prefill of 4 x 2,048 tokens (the
    bf16 flash kernel must launch once per layer, 16 times, each on the
@@ -95,7 +98,8 @@ Phases, each printing its own lines:
    and close to the same forward with dense attention), a
    ``torch.profiler`` breakdown of one warm prefill by kernel with the
    device's idle share, an f32 prefill of 2,048 tokens (the f32 tensor-core
-   flash kernel must launch once per layer) against dense attention, f32
+   flash kernel must launch once per layer, each on the f32 Hopper kernel
+   by ``SM90_LAUNCHES``, as in phases 14 and 15) against dense attention, f32
    prefill against teacher-forced decode (the reference's
    decode-consistency property), and ``generate``;
 11. tuning (runs after phase 7, on tile-8192's operands): the committed
@@ -586,6 +590,17 @@ def build(dev) -> None:
                  "tile)",
                  _build.kernel_info("flash_mask", "flash_mask_tc_info", 128,
                                     128, 112)),
+                ("flash_mask_f32_sm90 (tf32 wgmma + TMA) f32 128/128, D 64",
+                 _build.kernel_info("flash_mask_f32_sm90",
+                                    "flash_mask_f32_sm90_info", 128, 128,
+                                    64)),
+                ("flash_mask_f32_sm90 (tf32 wgmma + TMA) f32 64/64, D 64",
+                 _build.kernel_info("flash_mask_f32_sm90",
+                                    "flash_mask_f32_sm90_info", 64, 64, 64)),
+                ("flash_mask_f32_sm90 (tf32 wgmma + TMA) f32, D 112 and 128",
+                 _build.kernel_info("flash_mask_f32_sm90",
+                                    "flash_mask_f32_sm90_info", 128, 128,
+                                    128)),
                 ("flash_mask f32 (3xTF32) 128/128, D 64",
                  _build.kernel_info("flash_mask", "flash_mask_f32_info", 128,
                                     128, 64)),
@@ -3079,10 +3094,24 @@ def flash_vs_plain(dev) -> float:
     heads, S 256 in 128-blocks, f32/bf16; the decode offset and the GQA
     op; within 2e-5 / 3e-2, and bf16 also within the layer's 2e-3
     normwise (one bf16 term for p, instead of the kernel's two, exceeds it
-    at the layer's shape: test_torch_tc_numerics)."""
+    at the layer's shape: test_torch_tc_numerics).  Counts the f32 cases
+    that ran the f32 Hopper kernel: each case where ``choose_variant``
+    picks it (D 112 and 128 at 128-blocks), and no other."""
     err = rel_bf16 = 0.0
     d = 16
     tc_before, f32_before = flash.TC_LAUNCHES, flash.F32_LAUNCHES
+    f32_sm90 = f32_sm90_expected = 0
+
+    def compare(q, k, v, **kw):
+        nonlocal f32_sm90, f32_sm90_expected
+        before = flash.SM90_LAUNCHES
+        out = flash_compare(q, k, v, **kw)
+        if q.dtype == torch.float32:
+            f32_sm90 += flash.SM90_LAUNCHES - before
+            f32_sm90_expected += flash.choose_variant(
+                None, q, k, v, kw["bq"], kw["bk"]) == "sm90"
+        return out
+
     for pattern in FLASH_PATTERNS:
         for s_q, s_k, bq, bk in ((32, 32, 8, 8), (64, 64, 16, 16),
                                  (32, 64, 8, 16)):
@@ -3092,9 +3121,9 @@ def flash_vs_plain(dev) -> float:
                 q, k, v = (torch.as_tensor(
                     rng.standard_normal((1, 1, s, d)) * 0.5,
                     device=dev).to(dtype) for s in (s_q, s_k, s_k))
-                e, rel = flash_compare(q, k, v, bq=bq, bk=bk,
-                                       q_offset=s_k - s_q, tol=tol,
-                                       normwise=normwise, **pattern)
+                e, rel = compare(q, k, v, bq=bq, bk=bk,
+                                 q_offset=s_k - s_q, tol=tol,
+                                 normwise=normwise, **pattern)
                 err = max(err, e)
                 if dtype == torch.bfloat16:
                     rel_bf16 = max(rel_bf16, rel)
@@ -3109,14 +3138,17 @@ def flash_vs_plain(dev) -> float:
                 q, k, v = (torch.as_tensor(
                     rng.standard_normal((1, h, 256, d_big)) * 0.5,
                     device=dev).to(dtype) for h in (4, 2, 2))
-                e, rel = flash_compare(q, k, v, bq=128, bk=128, q_offset=0,
-                                       tol=tol, normwise=normwise, **pattern)
+                e, rel = compare(q, k, v, bq=128, bk=128, q_offset=0,
+                                 tol=tol, normwise=normwise, **pattern)
                 err = max(err, e)
                 if dtype == torch.bfloat16:
                     rel_bf16 = max(rel_bf16, rel)
     check(flash.TC_LAUNCHES - tc_before == 32
           and flash.F32_LAUNCHES - f32_before == 16, "the 32 cases ran "
-          "tensor-core kernels, the 16 f32 ones the 3xTF32 kernel")
+          "tensor-core kernels, the 16 f32 ones a 3xTF32 kernel")
+    check(f32_sm90 == f32_sm90_expected == 4, f"the f32 cases at D 112 and "
+          f"128 ran the f32 Hopper kernel and no other f32 case did (got "
+          f"{f32_sm90} of {f32_sm90_expected} expected)")
     rng = np.random.default_rng(9)
     q, k, v = (torch.as_tensor(rng.standard_normal((1, 1, s, d)) * 0.5,
                                dtype=torch.float32, device=dev)
@@ -3143,7 +3175,8 @@ def flash_vs_plain(dev) -> float:
     print(f"flash-vs-plain: reference sweep, D 112 and 128 (causal and "
           f"non-causal), decode offset and GQA op "
           f"agree (2e-5 f32, 3e-2 bf16), max abs err {err:.3g}; bf16 "
-          f"normwise at most {rel_bf16:.3g} (limit 2e-3)")
+          f"normwise at most {rel_bf16:.3g} (limit 2e-3); {f32_sm90} of the "
+          f"16 f32 cases on the f32 Hopper kernel")
     return max(err, flash_sm90_cases(dev))
 
 
@@ -3295,17 +3328,17 @@ def flash_layer(dev, b: int = LM_BATCH, s: int = LM_SEQ) -> dict:
             "mma_sync_ms": mma_sync_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
             "library_ms": library_ms,
-            **f32, "f32_source": MMA_SYNC_SOURCE,
+            **f32, "f32_source": F32_SM90_SOURCE,
+            "f32_mma_sync_source": MMA_SYNC_SOURCE,
             "sm90_instance": sm90_instance(64),
-            "design": SM90_DESIGN + "; f32: mma.sync m16n8k8 tf32 tensor "
-                      "cores in 3xTF32 (q.k^T and p.v; hi/lo splits rounded "
-                      "in integer arithmetic, IEEE k-step adds), k/v in a "
-                      "2-stage cp.async ring of 64-key chunks"}
+            "design": SM90_DESIGN + "; " + F32_SM90_DESIGN}
 
 
-#: the bf16 flash kernels: the Hopper one the path runs, and the mma.sync
-#: one that keeps the other shapes (and the f32 instance)
+#: the flash kernels: the Hopper ones the path runs (bf16 and f32), and the
+#: mma.sync ones that keep the other shapes
 SM90_SOURCE = "src/repro_torch/kernels/flash_mask/csrc/flash_mask_sm90.cu"
+F32_SM90_SOURCE = ("src/repro_torch/kernels/flash_mask/csrc/"
+                   "flash_mask_f32_sm90.cu")
 MMA_SYNC_SOURCE = "src/repro_torch/kernels/flash_mask/csrc/flash_mask.cu"
 SM90_DESIGN = ("bf16: wgmma.mma_async (q.k^T m64n128k16 from shared memory, "
                "p.v m64n64k16 with p = hi + lo as register A operands and v "
@@ -3315,15 +3348,29 @@ SM90_DESIGN = ("bf16: wgmma.mma_async (q.k^T m64n128k16 from shared memory, "
                "232), a 2-stage k/v ring, online softmax in registers with "
                "ex2.approx and the scale folded into its fma; other bf16 "
                "shapes on the mma.sync kernel")
+F32_SM90_DESIGN = (
+    "f32: tf32 wgmma.mma_async in 3xTF32 (q.k^T m64n64k8 with q and k from "
+    "shared memory; p.v m64n64k8 with p's hi and lo as register A operands "
+    "and v^T from shared memory), every element split once (hi the raw f32 "
+    "word, lo = rna(x - trunc x); q's lo by its consumer warpgroup, k's lo "
+    "and v^T's hi and lo by three producer warps, v^T's keys in the S "
+    "fragment's order), partial sums flushed with IEEE adds (q.k^T every 8 "
+    "k8 steps, p.v every one), q/k/v by TMA behind full / k-ready / v-ready "
+    "/ empty mbarriers, a 2-stage ring of 64-key chunks, two consumer "
+    "warpgroups taking turns at q.k^T (setmaxnreg 72 / 216); D 112 and 128 "
+    "in CTAs of 64 rows and 32-key chunks; other f32 shapes on the mma.sync "
+    "kernel")
 
 
-def sm90_expected(cfg, seq: int, launches: int) -> int:
-    """How many of a bf16 forward's ``launches`` flash launches run the
-    Hopper kernel: all where its dispatch predicate takes the model's
+def sm90_expected(cfg, seq: int, launches: int,
+                  dtype=torch.bfloat16) -> int:
+    """How many of a forward's ``launches`` flash launches in ``dtype`` run
+    a Hopper kernel: all where its dispatch predicate takes the model's
     blocks (attn_block cut to the sequence) and head dim, as every LM at
-    full width, else none (the reduced configs' 16-blocks)."""
+    full width in bf16 and in f32 (D 64, 112 and 128), else none (the
+    reduced configs' 16-blocks)."""
     blk = min(cfg.attn_block, seq)
-    x = torch.empty((0, 0, 0, cfg.hd), dtype=torch.bfloat16)
+    x = torch.empty((0, 0, 0, cfg.hd), dtype=dtype)
     return launches if flash.sm90_takes(x, x, x, blk, blk) else 0
 
 
@@ -3358,28 +3405,40 @@ def sm90_instance(d: int) -> str:
 def f32_instance(dev, q_shape, kv_shape, sched, kw, allowed: int,
                  pairs: int) -> dict:
     """The f32 (3xTF32) flash instance at the layer's shape, on f32 inputs
-    of full precision (0.5 randn, seed 8): against its plain version (the
-    sweep's rtol = atol = 2e-5) at B 1 and float64 (2e-6 normwise) at B 1
-    and B 4; its times at B 1 (the f32 prefill's shape) and B 4 beside its
-    bound, the plain version and f32 ``scaled_dot_product_attention``
-    (causal, with the kv heads expanded to the query heads before the clock
-    starts), whose error from float64 is reported too.  Returns the f32
-    fields of the flash entry of the JSON line."""
+    of full precision (0.5 randn, seed 8), on the kernel the wrapper picks
+    (the f32 Hopper kernel, by ``SM90_LAUNCHES``): against its plain
+    version (the sweep's rtol = atol = 2e-5) at B 1 and float64 (2e-6
+    normwise) at B 1 and B 4; its times at B 1 (the f32 prefill's shape)
+    and B 4 beside flash_mask.cu's mma.sync f32 kernel in the same run
+    (back to back, in turns: ``sm90_and_mma_sync_ms``), its bound, the
+    plain version and f32 ``scaled_dot_product_attention`` (causal, with
+    the kv heads expanded to the query heads before the clock starts),
+    whose error from float64 is reported too, as is the mma.sync
+    kernel's.  The Hopper kernel passes raw f32 words as the hi terms of
+    its splits, which holds only where tf32 wgmma truncates them: a
+    rounding tensor core would put it near 1e-4 from float64, far past the
+    2e-6.  Returns the f32 fields of the flash entry of the JSON line."""
     gen = torch.Generator(device=dev).manual_seed(8)
     q, k, v = (torch.randn(shape, generator=gen, device=dev) * 0.5
                for shape in (q_shape, kv_shape, kv_shape))
     b, hq, s, d = q.shape
     g = hq // k.shape[1]
-    out = {"f32_ms": {}, "f32_bound_ms": {}, "f32_plain_ms": {},
-           "f32_library_ms": {}, "f32_vs_f64": {}, "f32_library_vs_f64": {}}
+    out = {"f32_ms": {}, "f32_mma_sync_ms": {}, "f32_bound_ms": {},
+           "f32_plain_ms": {}, "f32_library_ms": {}, "f32_vs_f64": {},
+           "f32_mma_sync_vs_f64": {}, "f32_library_vs_f64": {}}
     for bb in sorted({1, b}):
         qf, kf, vf = (x[:bb] for x in (q, k, v))
         ke, ve = (x.repeat_interleave(g, dim=1) for x in (kf, vf))
+        before = flash.SM90_LAUNCHES
         got = flash.flash_mask_kernel(qf, kf, vf, *sched, **kw)
+        check(flash.SM90_LAUNCHES == before + 1, "the f32 layer runs the "
+              "f32 Hopper kernel")
+        old = flash.flash_mask_kernel(qf, kf, vf, *sched, variant="mma_sync",
+                                      **kw)
         lib = torch.nn.functional.scaled_dot_product_attention(
             qf, ke, ve, is_causal=True)
         # float64 one batch row at a time: the scores of all four are 4 GB
-        num = den = lib_num = 0.0
+        num = den = lib_num = old_num = 0.0
         for i in range(bb):
             sc = (qf[i].double() @ ke[i].double().transpose(-1, -2)) * kw[
                 "scale"]
@@ -3388,10 +3447,12 @@ def f32_instance(dev, q_shape, kv_shape, sched, kw, allowed: int,
             exact = torch.softmax(sc, dim=-1) @ ve[i].double()
             del sc
             num += float((got[i].double() - exact).norm()) ** 2
+            old_num += float((old[i].double() - exact).norm()) ** 2
             lib_num += float((lib[i].double() - exact).norm()) ** 2
             den += float(exact.norm()) ** 2
             del exact
         rel, lib_rel = (num / den) ** 0.5, (lib_num / den) ** 0.5
+        old_rel = (old_num / den) ** 0.5
         if bb == 1:
             want = flash.flash_mask_plain(qf, kf, vf, *sched, **kw)
             err = float((got - want).abs().max())
@@ -3399,12 +3460,14 @@ def f32_instance(dev, q_shape, kv_shape, sched, kw, allowed: int,
                   f"f32 flash at the layer's shape within 2e-5 of plain "
                   f"(max err {err})")
             out["f32_max_abs_err"] = err
+            old_err = float((got - old).abs().max())
+            check(torch.allclose(got, old, rtol=2e-5, atol=2e-5),
+                  f"f32 Hopper flash within 2e-5 of the mma.sync kernel "
+                  f"(max diff {old_err})")
             del want
         check(rel <= 2e-6, f"f32 flash at B {bb} within 2e-6 normwise of "
               f"float64 (got {rel:.3g})")
-        t_ms = device_ms(lambda: flash.flash_mask_kernel(qf, kf, vf, *sched,
-                                                         **kw),
-                         dev, reps=7, warm=2)
+        t_ms, old_ms = sm90_and_mma_sync_ms(qf, kf, vf, sched, kw, dev)
         plain_ms = device_ms(lambda: flash.flash_mask_plain(qf, kf, vf,
                                                             *sched, **kw),
                              dev, reps=3, warm=1)
@@ -3416,27 +3479,41 @@ def f32_instance(dev, q_shape, kv_shape, sched, kw, allowed: int,
                    + 12 * pairs, PEAK_F32_ACCURATE_FLOPS)[0]
         key = f"B{bb}"
         out["f32_ms"][key], out["f32_bound_ms"][key] = t_ms, bd
+        out["f32_mma_sync_ms"][key] = old_ms
         out["f32_plain_ms"][key], out["f32_library_ms"][key] = (plain_ms,
                                                                 lib_ms)
         out["f32_vs_f64"][key], out["f32_library_vs_f64"][key] = rel, lib_rel
-        print(f"flash: f32 instance (3xTF32 tensor cores) B={bb}: kernel "
-              f"{t_ms:.3f} ms against its 3xTF32 bound {bd:.3f} ms "
-              f"({bd / t_ms:.1%}; the CUDA-core kernel it replaced "
+        out["f32_mma_sync_vs_f64"][key] = old_rel
+        print(f"flash: f32 instance (3xTF32 tensor cores) B={bb}: Hopper "
+              f"kernel {t_ms:.3f} ms, the mma.sync kernel in this run "
+              f"{old_ms:.3f} ms (back to back), against the 3xTF32 bound "
+              f"{bd:.3f} ms ({bd / t_ms:.1%} / {bd / old_ms:.1%}; the "
+              f"first CUDA-core kernel "
               f"{CUDA_CORE_F32_FLASH_MS.get(key, float('nan')):.3f} ms); "
               f"plain {plain_ms:.3f} ms; library (f32 "
               f"scaled_dot_product_attention, causal, kv heads expanded) "
-              f"{lib_ms:.3f} ms; normwise from float64: kernel {rel:.3g}, "
-              f"library {lib_rel:.3g}")
-        del qf, kf, vf, ke, ve, got, lib
+              f"{lib_ms:.3f} ms; normwise from float64: Hopper kernel "
+              f"{rel:.3g}, mma.sync kernel {old_rel:.3g}, library "
+              f"{lib_rel:.3g}")
+        del qf, kf, vf, ke, ve, got, old, lib
     del q, k, v
-    info = _build.kernel_info("flash_mask", "flash_mask_f32_info", 128, 128,
-                              64)
-    out["f32_instance"] = (f"flash_mask_f32_tc_kernel<128, 64>: "
-                           f"{info['registers']} registers, "
+    info = _build.kernel_info("flash_mask_f32_sm90",
+                              "flash_mask_f32_sm90_info", 128, 128, 64)
+    old = _build.kernel_info("flash_mask", "flash_mask_f32_info", 128, 128,
+                             64)
+    out["f32_instance"] = (f"flash_mask_f32_sm90_kernel<128, 64>: "
+                           f"{info['threads']} threads, "
+                           f"{info['registers']} registers at launch, "
                            f"{info['local_bytes']} B local memory, "
+                           f"{info['smem_bytes']} B shared memory, "
                            f"{info['ctas_per_sm']} CTAs per SM")
+    out["f32_mma_sync_instance"] = (
+        f"flash_mask_f32_tc_kernel<128, 64>: {old['registers']} registers, "
+        f"{old['local_bytes']} B local memory, {old['ctas_per_sm']} CTAs "
+        f"per SM")
     print(f"flash: f32 instance at the layer's shape within 2e-5 of plain "
-          f"(max err {out['f32_max_abs_err']:.3g}); {out['f32_instance']}")
+          f"(max err {out['f32_max_abs_err']:.3g}) and of the mma.sync "
+          f"kernel; {out['f32_instance']}; {out['f32_mma_sync_instance']}")
     return out
 
 
@@ -3568,11 +3645,13 @@ def lm_serving(dev, batch: int = LM_BATCH, seq: int = LM_SEQ,
     got = T.forward(model, f32, {"tokens": one})
     sync(dev)
     f32_launches = flash.F32_LAUNCHES
+    f32_sm90 = sm90_expected(cfg, seq, f32_launches, torch.float32)
     check(f32_launches == flash.TC_LAUNCHES == flash.LAUNCHES
-          == cfg.n_layers and flash.SM90_LAUNCHES == 0, f"f32 prefill runs "
-          f"the tensor-core f32 flash kernel once per layer (got "
+          == cfg.n_layers and flash.SM90_LAUNCHES == f32_sm90,
+          f"f32 prefill runs the tensor-core f32 flash kernel once per "
+          f"layer, each launch the Hopper one where it takes the shape (got "
           f"{f32_launches} f32 of {flash.LAUNCHES} launches, "
-          f"{flash.SM90_LAUNCHES} sm90)")
+          f"{flash.SM90_LAUNCHES} sm90 of {f32_sm90} expected)")
     dense = T.forward(model, f32.replace(attn_impl="dense_masked"),
                       {"tokens": one})
     diff = (got - dense).abs()
@@ -3580,7 +3659,8 @@ def lm_serving(dev, batch: int = LM_BATCH, seq: int = LM_SEQ,
     print(f"lm: f32 prefill B=1 S={seq} vs dense_masked: max |diff| "
           f"{float(diff.max()):.3g} (max |logit| "
           f"{float(dense.abs().max()):.4g}), normwise {rel32:.3g}; "
-          f"{f32_launches} launches of the f32 tensor-core flash kernel")
+          f"{f32_launches} launches of the f32 tensor-core flash kernel, "
+          f"{flash.SM90_LAUNCHES} of them on the Hopper one")
     check(rel32 <= 1e-4 and float(diff.max()) <= 1e-3,
           "f32 flash prefill within 1e-4 normwise and 1e-3 of dense_masked")
     del got, dense, diff
@@ -4225,8 +4305,13 @@ def moonshot_phase(dev, smoke: bool = False):
     free_run = T.forward(model, f32.replace(attn_impl="flash_pallas"),
                          batch_in)
     sync(dev)
-    check(flash.F32_LAUNCHES == flash.LAUNCHES == cfg.n_layers,
-          f"{what}: f32 prefill runs the f32 flash kernel once per layer")
+    check(flash.F32_LAUNCHES == flash.LAUNCHES == cfg.n_layers
+          and flash.SM90_LAUNCHES == sm90_expected(cfg, seq, cfg.n_layers,
+                                                   torch.float32),
+          f"{what}: f32 prefill runs the f32 flash kernel once per layer, "
+          f"each launch the Hopper one where it takes the shape (got "
+          f"{flash.F32_LAUNCHES} f32 and {flash.SM90_LAUNCHES} sm90 of "
+          f"{flash.LAUNCHES})")
     moved = [i for i, m in enumerate(moes) if m.group_sizes != sizes[i]]
     free_rel = normwise(free_run, want)
     del free_run
@@ -4531,7 +4616,8 @@ def flash_agreement(model, cfg, batch_in, flash_logits, logits, dev,
     the floor itself exceeds 5e-2.  In f32 the impls differ only in
     summation order: the f32 flash instance (``launches`` launches) must
     lie within 1e-4 normwise and 1e-3 of block_masked, where a lost tile
-    or a wrong mask moves the logits by O(1)."""
+    or a wrong mask moves the logits by O(1); every launch at a shape the
+    f32 Hopper kernel takes must have run it."""
     dense = T.forward(model, cfg.replace(attn_impl="dense_masked"),
                       batch_in)
     out = {"vs_block_masked": normwise(flash_logits, logits),
@@ -4554,9 +4640,14 @@ def flash_agreement(model, cfg, batch_in, flash_logits, logits, dev,
     reset_counts()
     got = T.forward(model, f32.replace(attn_impl="flash_pallas"), batch_in)
     sync(dev)
-    check(flash.F32_LAUNCHES == flash.LAUNCHES == launches,
+    sm90 = sm90_expected(cfg, batch_in["tokens"].shape[1], launches,
+                         torch.float32)
+    check(flash.F32_LAUNCHES == flash.LAUNCHES == launches
+          and flash.SM90_LAUNCHES == sm90,
           f"{what}: the f32 prefill runs the f32 flash kernel {launches} "
-          f"times (got {flash.F32_LAUNCHES} of {flash.LAUNCHES})")
+          f"times, {sm90} of them on the Hopper one (got "
+          f"{flash.F32_LAUNCHES} f32 and {flash.SM90_LAUNCHES} sm90 of "
+          f"{flash.LAUNCHES})")
     out["f32_vs_block_masked"] = normwise(got, want)
     out["f32_max_diff"] = float((got - want).abs().max())
     print(f"{what}: f32 logits, flash_pallas vs block_masked: normwise "

@@ -34,6 +34,8 @@ SOURCES: Dict[str, Path] = {
     "masked_matmul": _PKG / "masked_matmul" / "csrc" / "masked_matmul.cu",
     "flash_mask": _PKG / "flash_mask" / "csrc" / "flash_mask.cu",
     "flash_mask_sm90": _PKG / "flash_mask" / "csrc" / "flash_mask_sm90.cu",
+    "flash_mask_f32_sm90": _PKG / "flash_mask" / "csrc"
+                           / "flash_mask_f32_sm90.cu",
 }
 
 #: headers every source may include (``mma.cuh``: mma.sync and cp.async

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) primitives shared by the port's warp-specialised
 // kernels: mbarriers, TMA tile loads (cp.async.bulk.tensor) into shared
 // memory in the 128-byte swizzle, wgmma shared-memory descriptors, the
-// wgmma.mma_async shapes the kernels issue (bf16, and tf32 with A in
-// registers) with their fence, commit and wait, the generic-to-async proxy
-// fence, setmaxnreg, named barriers, and on the host the tensor maps'
+// wgmma.mma_async shapes the kernels issue (bf16; tf32 with A in
+// registers or, K-major, in shared memory) with their fence, commit and
+// wait, the generic-to-async proxy
+// fence, setmaxnreg, named barriers (wait and arrive), and on the host
+// the tensor maps'
 // encoder.
 //
 // Shared-memory layout that TMA writes and wgmma reads (PTX ISA, "Matrix
@@ -325,6 +327,80 @@ __device__ __forceinline__ void wgmma_rs_tf32_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// d (+)= a . b^T, m64n32k8, tf32 from shared memory (both K-major,
+// descriptors da and db), f32 accumulators; scale_d = 0 starts from zero.
+// The operands' low 13 bits are not read.
+__device__ __forceinline__ void wgmma_ss_tf32_n32(float (&d)[16], uint64_t da,
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= a . b^T, m64n64k8, tf32 from shared memory (both K-major,
+// descriptors da and db), f32 accumulators; scale_d = 0 starts from zero.
+// The operands' low 13 bits are not read.
+__device__ __forceinline__ void wgmma_ss_tf32_n64(float (&d)[32], uint64_t da,
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= a . b^T, m64n64k8, tf32: a a tf32 A-fragment in registers (the
+// m16k8 mma.sync layout per warp, as wgmma_rs_tf32_n128's), b from shared
+// memory, K-major (descriptor db), f32 accumulators; scale_d = 0 starts
+// from zero.  The operands' low 13 bits are not read.
+__device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 
 // ---------------------------------------------------------------------------
 // warp specialisation
@@ -343,6 +419,12 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 // barrier `id` (1 .. 15; 0 is __syncthreads) over `threads` threads
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// arrive on barrier `id` without waiting (the threads that wait on it use
+// named_sync with the same count)
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---------------------------------------------------------------------------

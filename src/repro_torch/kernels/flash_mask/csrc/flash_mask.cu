@@ -49,27 +49,30 @@
 // below 16 and head dims below the mma depth are zero-padded in shared memory,
 // the padding masked.
 //
-// f32: tensor cores in 3xTF32 (flash_mask_f32_tc_kernel), the bf16
-// kernel's structure on f32 data: warps of 16 query rows, the q tile in
-// shared memory, k and v in a 2-stage cp.async ring of 64-key chunks (two
-// chunks per 128-key tile; f32 tiles are twice the bf16 size, and 64-key
-// chunks keep two CTAs on an SM at bq = 128, D = 64), the online softmax in
-// registers once per chunk, longest q-blocks first.  Both products run on
-// m16n8k8 tf32 mma with each operand split into hi = tf32(x) and
-// lo = tf32(x - hi): a_lo b_hi + a_hi b_lo + a_hi b_hi per k-step of 8,
+// f32: tensor cores in 3xTF32 (flash_mask_f32_tc_kernel), for the f32 shapes
+// that flash_mask_f32_sm90.cu (tf32 wgmma + TMA, blocks of 64 or 128 and head
+// dims 64, 112 and 128: every f32 prefill at full width) does not take (the
+// reference's small-block sweep, the reduced configs' 16-blocks, single-query
+// decode, other head dims), and when asked for by name (kernel.py's
+// variant="mma_sync").  The bf16 kernel's structure on f32 data: warps of 16
+// query rows, the q tile in shared memory, k and v in a 2-stage cp.async ring
+// of 64-key chunks (two chunks per 128-key tile; f32 tiles are twice the bf16
+// size, and 64-key chunks keep two CTAs on an SM at bq = 128, D = 64), the
+// online softmax in registers once per chunk, longest q-blocks first.  Both
+// products run on m16n8k8 tf32 mma with each operand split into hi = tf32(x)
+// and lo = tf32(x - hi): a_lo b_hi + a_hi b_lo + a_hi b_hi per k-step of 8,
 // started from zero and added to the f32 accumulator with IEEE rounding,
-// because the mma's own f32 sums truncate; one TF32 pass would not keep
-// f32 accuracy (tests/test_torch_tc_numerics.py).  The m16n8 C fragment
-// holds keys 2t, 2t + 1 where the m16k8 A fragment wants k slots t, t + 4;
-// rather than move p between threads, p.v assigns keys 2t, 2t + 1 to slots
-// t, t + 4 and reads v's rows in that order, and q.k^T does the same with
-// head dims, so every operand pair of q and k is one 8-byte shared-memory
-// load.  The splits are most of the
-// kernel's non-mma instructions, so they round in integer arithmetic (the
-// same bits as cvt.rna.tf32.f32), and the exponentials use ex2.approx.ftz
-// directly; together these cut its time by 18-21 % on an NVIDIA H100 80GB
-// HBM3 at 700 W (tools/flash_f32_variants.py, which also holds the chunk
-// size and the register budget against their alternatives).
+// because the mma's own f32 sums truncate; one TF32 pass would not keep f32
+// accuracy (tests/test_torch_tc_numerics.py).  The m16n8 C fragment holds keys
+// 2t, 2t + 1 where the m16k8 A fragment wants k slots t, t + 4; rather than
+// move p between threads, p.v assigns keys 2t, 2t + 1 to slots t, t + 4 and
+// reads v's rows in that order, and q.k^T does the same with head dims, so
+// every operand pair of q and k is one 8-byte shared-memory load.  The splits
+// are most of the kernel's non-mma instructions, so they round in integer
+// arithmetic (the same bits as cvt.rna.tf32.f32), and the exponentials use
+// ex2.approx.ftz directly; together these cut its time by 18-21 % on an NVIDIA
+// H100 80GB HBM3 at 700 W (tools/flash_f32_variants.py, which also holds the
+// chunk size and the register budget against their alternatives).
 //
 // Bound on an H100 SXM at the full-width llama3.2-1b layer (B = 4,
 // Hq = 32, Hkv = 8, S = 2048, D = 64, bq = bk = 128, causal): the allowed

@@ -1,28 +1,31 @@
 """Block-masked flash attention: the host worklist, the CUDA kernel's wrapper
 and its plain PyTorch version.
 
-The kernel (``csrc/flash_mask.cu``) replaces the TPU kernel
+Each kernel (``csrc/*.cu``) replaces the TPU kernel
 ``repro/kernels/flash_mask/kernel.py::flash_mask_kernel`` and, in the same
 launch, the batch/head/GQA vmap around it: one CTA per (q-block,
 batch * head) walks that q-block's segment of the qi-sorted worklist
 ``(qi, ki, flags)`` with an online softmax (flag bit 1 = first visit of the
 q-block: reset; bit 2 = last visit: normalise and write).  The note at the
-top of the source gives its bound on an H100.
+top of each source gives its bound on an H100.
 
-Three kernels, all on tensor cores.  ``csrc/flash_mask_sm90.cu`` is bf16
-for Hopper (TMA loads behind mbarriers, a producer warp, consumer
-warpgroups on ``wgmma``), for blocks of 64 or 128 and head dims that are
-multiples of 16 up to 128 (``sm90_takes``).  ``csrc/flash_mask.cu`` holds
-the ``mma.sync`` kernels with k/v in a ``cp.async`` ring, picked by dtype
-in its C entry point: bf16 for every other bf16 shape (small blocks,
-decode at bq = 1), and f32 in 3xTF32 (each operand split into two tf32
-terms).  Both bf16 kernels take p.v in two bf16 terms.
+Four kernels, all on tensor cores.  Two are for Hopper (TMA loads behind
+mbarriers, a producer warpgroup, consumer warpgroups on ``wgmma``), for
+blocks of 64 or 128 (``sm90_takes``): ``csrc/flash_mask_sm90.cu`` is bf16,
+for head dims that are multiples of 16 up to 128, with p.v in two bf16
+terms; ``csrc/flash_mask_f32_sm90.cu`` is f32 in 3xTF32 (each operand split
+into two tf32 terms, once, by the warps that load it), for head dims 64,
+112 and 128 (every f32 prefill of the LM configs at full width).
+``csrc/flash_mask.cu`` holds the ``mma.sync`` kernels with k/v in a
+``cp.async`` ring, picked by dtype in its C entry point, for every other
+shape (small blocks, decode at bq = 1, other head dims): bf16, and f32 in
+3xTF32.
 
 ``flash_mask_kernel`` launches a kernel for CUDA tensors (or raises) and
 runs ``flash_mask_plain`` for CPU tensors; ``LAUNCHES`` counts launches,
 ``TC_LAUNCHES`` those of them that ran a tensor-core kernel (all of them),
-``SM90_LAUNCHES`` those that ran the Hopper bf16 kernel and
-``F32_LAUNCHES`` those that ran the f32 one.
+``SM90_LAUNCHES`` those that ran a Hopper kernel (bf16 or f32) and
+``F32_LAUNCHES`` those that ran an f32 one (Hopper or ``mma.sync``).
 """
 from __future__ import annotations
 
@@ -42,33 +45,41 @@ MAX_HEAD_DIM = 128
 LAUNCHES = 0
 #: of those, the launches of a tensor-core kernel (bf16 or f32)
 TC_LAUNCHES = 0
-#: of those, the launches of the f32 (3xTF32) tensor-core kernel
+#: of those, the launches of an f32 (3xTF32) kernel
 F32_LAUNCHES = 0
-#: of those, the launches of the Hopper bf16 kernel (wgmma + TMA)
+#: of those, the launches of a Hopper kernel (wgmma + TMA, bf16 or f32)
 SM90_LAUNCHES = 0
 
-#: the kernels a caller may ask for by name (``variant=``): the Hopper bf16
-#: kernel, or flash_mask.cu's mma.sync kernels (bf16 and f32)
+#: the kernels a caller may ask for by name (``variant=``): the Hopper
+#: kernel of the dtype, or flash_mask.cu's mma.sync kernel of the dtype
 VARIANTS = ("sm90", "mma_sync")
+#: the head dims of the f32 Hopper kernel: llama3.2-1b's and
+#: seamless-m4t's 64, zamba2-7b's 112, moonshot's 128
+SM90_F32_HEAD_DIMS = (64, 112, 128)
 
 #: C signature: 7 pointers, 8 ints, the scale, 5 ints, the stream
 _ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float]
          + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-#: the Hopper kernel's: 7 pointers, 8 ints, the scale, 4 ints, the stream
+#: the Hopper kernels' (bf16 and f32): 7 pointers, 8 ints, the scale, 4
+#: ints, the stream
 _SM90_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float]
               + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def sm90_takes(q, k, v, bq: int, bk: int) -> bool:
-    """Whether the Hopper bf16 kernel takes these operands, as the kernel
-    receives them: bfloat16, bq and bk each 64 or 128, a head dim that is a
-    multiple of 16 in [16, 128], and q, k, v contiguous with 16-byte
-    aligned base pointers (the output, which the wrapper allocates, is
-    both)."""
+    """Whether a Hopper kernel takes these operands, as the kernel receives
+    them: bq and bk each 64 or 128; bfloat16 with a head dim that is a
+    multiple of 16 in [16, 128], or float32 with a head dim in
+    ``SM90_F32_HEAD_DIMS``; and q, k, v contiguous with 16-byte aligned
+    base pointers (the output, which the wrapper allocates, is both)."""
     d = q.shape[-1]
-    return (q.dtype == torch.bfloat16 and bq in (64, 128)
-            and bk in (64, 128) and d % 16 == 0
-            and 16 <= d <= MAX_HEAD_DIM
+    if q.dtype == torch.bfloat16:
+        dims = d % 16 == 0 and 16 <= d <= MAX_HEAD_DIM
+    elif q.dtype == torch.float32:
+        dims = d in SM90_F32_HEAD_DIMS
+    else:
+        dims = False
+    return (dims and bq in (64, 128) and bk in (64, 128)
             and all(x.is_contiguous() and x.data_ptr() % 16 == 0
                     for x in (q, k, v)))
 
@@ -84,9 +95,10 @@ def choose_variant(variant, q, k, v, bq: int, bk: int) -> str:
     if variant == "sm90" and not fits:
         d = q.shape[-1]
         raise ValueError(
-            f"the sm90 flash kernel takes bfloat16 with bq, bk in (64, 128) "
-            f"and D a multiple of 16 in [16, {MAX_HEAD_DIM}], contiguous "
-            f"and 16-byte aligned; got {q.dtype}, bq={bq}, bk={bk}, D={d}")
+            f"the sm90 flash kernel takes bq, bk in (64, 128) with bfloat16 "
+            f"and D a multiple of 16 in [16, {MAX_HEAD_DIM}] or float32 and "
+            f"D in {SM90_F32_HEAD_DIMS}, contiguous and 16-byte aligned; got "
+            f"{q.dtype}, bq={bq}, bk={bk}, D={d}")
     if variant is None:
         return "sm90" if fits else "mma_sync"
     return variant
@@ -243,11 +255,11 @@ def flash_mask_kernel(q, k, v, qi, ki, flags, *, bq: int, bk: int,
     CPU tensors run ``flash_mask_plain``.  CUDA tensors launch one kernel
     for every (batch, head) on the current stream without synchronising,
     or raise: ``choose_variant`` picks it (``variant`` None: the Hopper
-    bf16 kernel where ``sm90_takes`` holds, else flash_mask.cu's mma.sync
-    kernel for the dtype; "mma_sync" forces the latter; "sm90" on operands
-    it does not take raises, on the CPU too).  A q-block the worklist never
-    visits comes out as zeros; a kv-block index out of range reads as fully
-    masked.
+    kernel of the dtype where ``sm90_takes`` holds, else flash_mask.cu's
+    mma.sync kernel for the dtype; "mma_sync" forces the latter; "sm90" on
+    operands it does not take raises, on the CPU too).  A q-block the
+    worklist never visits comes out as zeros; a kv-block index out of range
+    reads as fully masked.
     """
     global LAUNCHES, TC_LAUNCHES, F32_LAUNCHES, SM90_LAUNCHES
     _check(q, k, v, qi, ki, flags, bq, bk)
@@ -266,7 +278,7 @@ def flash_mask_kernel(q, k, v, qi, ki, flags, *, bq: int, bk: int,
                          f"exceeds the grid's 65535")
     ki, flags = ki.contiguous(), flags.contiguous()
     chosen = choose_variant(variant, q, k, v, bq, bk)
-    # the Hopper kernel writes every element (zeros where no flush
+    # the Hopper kernels write every element (zeros where no flush
     # reaches); the mma.sync kernels leave those rows as they find them
     out = (torch.empty_like(q, memory_format=torch.contiguous_format)
            if chosen == "sm90" else torch.zeros_like(q))
@@ -282,8 +294,9 @@ def flash_mask_kernel(q, k, v, qi, ki, flags, *, bq: int, bk: int,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if chosen == "sm90":
-            fn = _build.load("flash_mask_sm90", "flash_mask_sm90",
-                             _SM90_ARGS)
+            lib = ("flash_mask_f32_sm90" if q.dtype == torch.float32
+                   else "flash_mask_sm90")
+            fn = _build.load(lib, lib, _SM90_ARGS)
             err = fn(*ptrs, *dims, float(scale), *mask, stream)
         else:
             fn = _build.load("flash_mask", "flash_mask", _ARGS)

@@ -11,7 +11,9 @@ engine) against the single-device call, the calibration probes
 (smoke grids) and auto results under the committed H100 profile against
 the builtin constants, the LM forward with the flash kernel against
 dense attention, the Hopper bf16 flash kernel (wgmma + TMA) at the path's
-shapes and the worklist's edges, block_masked attention, the MoE layer,
+shapes and the worklist's edges, the Hopper f32 flash kernel (tf32 wgmma +
+TMA) over the sweep's patterns, blocks and head dims, its worklist edges,
+against float64 and the mma.sync kernel, block_masked attention, the MoE layer,
 an MLA/MoE
 model and the xLSTM, Zamba2 and encoder-decoder SMOKE models (under
 block_masked and, with attention, flash_pallas) against the CPU, a
@@ -36,7 +38,9 @@ also held where one tensor-core pass would fail: bf16 flash to 2e-3
 normwise (one bf16 term for p exceeds it at the layer's shape), the
 f32 SDDMM at K = 256 to 2e-6 normwise (one TF32 pass misses it by over
 10x) and f32 flash (3xTF32) to the sweep's 2e-5, which one TF32 pass
-misses (tests/test_torch_tc_numerics.py emulates all three).
+misses (tests/test_torch_tc_numerics.py emulates all three), the Hopper
+f32 flash also to 2e-6 normwise of float64 at S 1,024
+(tests/test_torch_flash_f32_sm90.py emulates its flushed scheme).
 """
 import numpy as np
 import pytest
@@ -927,6 +931,136 @@ def test_flash_sm90_worklist_edges(cuda_device):
     assert flash.SM90_LAUNCHES == before + 4
     torch.testing.assert_close(old.float(), base.float(), rtol=3e-2,
                                atol=3e-2)
+
+
+F32_SM90_PATTERNS = FLASH_PATTERNS + [dict(causal=True, window=384,
+                                           prefix=128)]
+
+
+def f32_qkv(seed, b, hq, hkv, s_q, s_k, d, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=dev) * 0.5
+            for shape in ((b, hq, s_q, d), (b, hkv, s_k, d),
+                          (b, hkv, s_k, d)))
+
+
+@pytest.mark.parametrize("pattern", F32_SM90_PATTERNS,
+                         ids=["causal", "window", "window+prefix", "dense",
+                              "wide window+prefix"])
+@pytest.mark.parametrize("bq,bk", [(64, 64), (64, 128), (128, 64),
+                                   (128, 128)])
+@pytest.mark.parametrize("d", [64, 112, 128])
+def test_flash_f32_sm90_matches_plain(cuda_device, pattern, bq, bk, d):
+    """The f32 Hopper kernel (tf32 wgmma + TMA, 3xTF32) against the plain
+    version within the sweep's rtol = atol = 2e-5, at GQA 4/2 heads, B 2,
+    q_offset = s_k - s_q; the wrapper picks it unasked and counts it in
+    SM90_LAUNCHES and F32_LAUNCHES."""
+    s_q, s_k = 256, 384
+    q, k, v = f32_qkv(s_q + d + bq + bk, 2, 4, 2, s_q, s_k, d, cuda_device)
+    q_off = s_k - s_q
+    sched = [torch.as_tensor(x, device=cuda_device) for x in
+             flash.build_schedule(s_q, s_k, bq=bq, bk=bk, q_offset=q_off,
+                                  **pattern)]
+    kw = dict(bq=bq, bk=bk, scale=d ** -0.5, q_offset=q_off, **pattern)
+    before = (flash.LAUNCHES, flash.TC_LAUNCHES, flash.SM90_LAUNCHES,
+              flash.F32_LAUNCHES)
+    got = flash.flash_mask_kernel(q, k, v, *sched, **kw)
+    torch.cuda.synchronize()
+    assert (flash.LAUNCHES, flash.TC_LAUNCHES, flash.SM90_LAUNCHES,
+            flash.F32_LAUNCHES) == tuple(x + 1 for x in before)
+    want = flash.flash_mask_plain(q, k, v, *sched, **kw)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_f32_sm90_worklist_edges(cuda_device, d):
+    """A q-block the worklist never visits, or never flushes, stays zero
+    (the kernel writes it: the output is not cleared), and out-of-range
+    kv-blocks (5 and -1: the producer arrives with no bytes, the splitters
+    and consumers skip them) change nothing, bit for bit."""
+    q, k, v = f32_qkv(4 + d, 1, 4, 2, 256, 256, d, cuda_device)
+    qi, ki, flags = flash.build_schedule(256, 256, bq=128, bk=128,
+                                         causal=True, window=0, prefix=0,
+                                         q_offset=0)
+    kw = dict(bq=128, bk=128, scale=d ** -0.5, causal=True, window=0,
+              prefix=0, q_offset=0)
+    at = int(np.nonzero(qi == 1)[0][1])
+    keep = qi != 0
+
+    def run(wl):
+        return flash.flash_mask_kernel(
+            q, k, v, *(torch.as_tensor(x, device=cuda_device) for x in wl),
+            **kw)
+
+    before = flash.SM90_LAUNCHES
+    base = run((qi, ki, flags))
+    padded = run((np.insert(qi, at, [1, 1]), np.insert(ki, at, [5, -1]),
+                  np.insert(flags, at, [0, 0])))
+    skipped = run((qi[keep], ki[keep], flags[keep]))
+    unflushed = run((qi, ki, np.where(qi == 1, flags & 1, flags)))
+    torch.cuda.synchronize()
+    assert flash.SM90_LAUNCHES == before + 4
+    assert torch.equal(padded, base)
+    assert bool((skipped[:, :, :128] == 0).all())
+    assert bool((unflushed[:, :, 128:] == 0).all())
+    assert torch.equal(unflushed[:, :, :128], base[:, :, :128])
+    want = flash.flash_mask_plain(
+        q, k, v, *(torch.as_tensor(x, device=cuda_device)
+                   for x in (qi[keep], ki[keep], flags[keep])), **kw)
+    torch.testing.assert_close(skipped, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [64, 112, 128])
+def test_flash_f32_sm90_keeps_f32_accuracy(cuda_device, d):
+    """At S 1,024 (causal, 128-blocks, GQA 4/2) the f32 Hopper kernel lies
+    within 2e-6 normwise of float64, and within 2e-5 of the mma.sync f32
+    kernel forced by name (which SM90_LAUNCHES does not count)."""
+    s = 1024
+    q, k, v = f32_qkv(d, 1, 4, 2, s, s, d, cuda_device)
+    sched = [torch.as_tensor(x, device=cuda_device) for x in
+             flash.build_schedule(s, s, bq=128, bk=128, causal=True,
+                                  window=0, prefix=0, q_offset=0)]
+    kw = dict(bq=128, bk=128, scale=d ** -0.5, causal=True, window=0,
+              prefix=0, q_offset=0)
+    before = flash.SM90_LAUNCHES
+    got = flash.flash_mask_kernel(q, k, v, *sched, **kw)
+    old = flash.flash_mask_kernel(q, k, v, *sched, variant="mma_sync", **kw)
+    torch.cuda.synchronize()
+    assert flash.SM90_LAUNCHES == before + 1
+    ke, ve = (x.repeat_interleave(2, dim=1).double() for x in (k, v))
+    sc = (q.double() @ ke.transpose(-1, -2)) * d ** -0.5
+    sc = sc.masked_fill(torch.ones(s, s, dtype=torch.bool,
+                                   device=cuda_device).triu(1),
+                        float("-inf"))
+    exact = torch.softmax(sc, -1) @ ve
+    assert float((got.double() - exact).norm() / exact.norm()) <= 2e-6
+    torch.testing.assert_close(got, old, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("bq,bk,d", [(128, 128, 16), (32, 32, 64),
+                                     (128, 128, 96), (8, 8, 64)])
+def test_flash_f32_sm90_refuses_other_shapes_on_cuda(cuda_device, bq, bk, d):
+    """variant="sm90" on an f32 shape the Hopper kernel does not take
+    raises before any launch; unasked, the shape runs the mma.sync f32
+    kernel."""
+    q, k, v = f32_qkv(1, 1, 2, 1, 128, 128, d, cuda_device)
+    sched = [torch.as_tensor(x, device=cuda_device) for x in
+             flash.build_schedule(128, 128, bq=bq, bk=bk, causal=True,
+                                  window=0, prefix=0, q_offset=0)]
+    kw = dict(bq=bq, bk=bk, scale=d ** -0.5, causal=True, window=0,
+              prefix=0, q_offset=0)
+    before = (flash.LAUNCHES, flash.SM90_LAUNCHES, flash.F32_LAUNCHES)
+    with pytest.raises(ValueError, match="sm90 flash kernel takes"):
+        flash.flash_mask_kernel(q, k, v, *sched, variant="sm90", **kw)
+    assert (flash.LAUNCHES, flash.SM90_LAUNCHES,
+            flash.F32_LAUNCHES) == before
+    got = flash.flash_mask_kernel(q, k, v, *sched, **kw)
+    torch.cuda.synchronize()
+    assert (flash.LAUNCHES, flash.SM90_LAUNCHES, flash.F32_LAUNCHES) == (
+        before[0] + 1, before[1], before[2] + 1)
+    want = flash.flash_mask_plain(q, k, v, *sched, **kw)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
 def test_flash_op_matches_cpu(cuda_device):

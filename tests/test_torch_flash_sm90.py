@@ -1,8 +1,9 @@
 """The Hopper bf16 flash kernel's host-side rules, on the CPU: the dispatch
 predicate that sends a bf16 launch to ``csrc/flash_mask_sm90.cu`` or keeps
 it on the ``mma.sync`` kernel, the ``variant`` argument, and the "full
-tile" test that lets both kernels skip the element mask, held exhaustively
-against the dense mask ``ref.mask_allowed``.  No kernel runs here: the
+tile" test that lets the kernels skip the element mask, held exhaustively
+against the dense mask ``ref.mask_allowed``.  The f32 shapes' dispatch is
+in tests/test_torch_flash_f32_sm90.py.  No kernel runs here: the
 kernels' agreement with the plain version is in tests/test_torch_cuda.py
 and chip_smoke.py phase 9.
 """
@@ -50,7 +51,6 @@ def test_hopper_shapes_go_to_sm90(bq, bk, d):
     (torch.bfloat16, 128, 32, 64, "bk 32"),
     (torch.bfloat16, 128, 128, 20, "D not a multiple of 16"),
     (torch.bfloat16, 128, 128, 8, "D below 16"),
-    (torch.float32, 128, 128, 64, "f32 keeps its 3xTF32 kernel"),
 ])
 def test_other_shapes_stay_on_mma_sync(dtype, bq, bk, d, why):
     q, k, v = operands(d, dtype)
