@@ -13,7 +13,7 @@ Phases, each printing its own lines:
    spills of every kernel instance, and the registers, shared memory and
    resident CTAs per SM of the tensor-core kernels at the path's shapes
    (every ``block_spgemm`` instance, the Hopper one at bs 128 among them,
-   the bf16 and f32 flash instances, Hopper and mma.sync);
+   the bf16 and f32 flash and SDDMM instances, Hopper and mma.sync);
 3. kernel against plain: the ``block_spgemm`` kernel, values only and
    fused with the structural counts, against its plain PyTorch version at
    block sizes 4, 8, 32, 48 and 128 (every instance; bs 128 on the Hopper
@@ -71,11 +71,18 @@ Phases, each printing its own lines:
    bit for bit its one-shot call); serve-mixed-8192 captured by
    ``TraceRecorder`` (generator specs only) and replayed twice to one
    digest, its replay queries/s beside the captured run's;
-8. tile SDDMM: the ``masked_matmul`` kernel against its plain version over
-   the reference's test sweep, then ``ops.masked_matmul`` once at
-   M = N = 8192, K = 256, 128-blocks on the tile-8192 mask (one launch,
-   equal to the plain version on integer data), the same call on
-   standard-normal data (f32 accuracy: 2e-6 normwise); then timings;
+8. tile SDDMM: the ``masked_matmul`` kernels against their plain version
+   over the reference's test sweep (the ``mma.sync`` kernel's small
+   blocks), at K = 384 and 128-blocks on both kernels (f32 within 1e-5 of
+   float64, bf16 within 2e-2 of plain) and with out-of-range tiles (zeros
+   from both); then ``ops.masked_matmul`` once at M = N = 8192, K = 256,
+   128-blocks on the tile-8192 mask (one launch, on the Hopper kernel,
+   ``masked_matmul_sm90.cu``, by ``MASKED_MATMUL_SM90_LAUNCHES``; equal to
+   the plain version on integer data, f32 and bf16), the same call on
+   standard-normal data (f32 accuracy: 2e-6 normwise of plain and of
+   float64, 1e-5 of sum_k |a b| elementwise; bf16 2e-2 of plain); then the
+   Hopper and the mma.sync kernels timed in turns (``kernel_ms``), f32
+   and bf16, beside the plain version, the library call and the bounds;
 9. flash attention: the ``flash_mask`` kernel against its plain version
    over the reference's test sweep (bf16 also within 2e-3 normwise; every
    case on tensor cores, the f32 ones on a 3xTF32 kernel: the f32 Hopper
@@ -379,6 +386,7 @@ def reset_counts() -> None:
     kernel.FUSED_LAUNCHES = 0
     kernel.SM90_LAUNCHES = 0
     kernel.MASKED_MATMUL_LAUNCHES = 0
+    kernel.MASKED_MATMUL_SM90_LAUNCHES = 0
     flash.LAUNCHES = 0
     flash.TC_LAUNCHES = 0
     flash.F32_LAUNCHES = 0
@@ -604,6 +612,12 @@ def build(dev) -> None:
                 ("flash_mask f32 (3xTF32) 128/128, D 64",
                  _build.kernel_info("flash_mask", "flash_mask_f32_info", 128,
                                     128, 64)),
+                ("masked_matmul_sm90 (wgmma + TMA) f32 128x128",
+                 _build.kernel_info("masked_matmul_sm90",
+                                    "masked_matmul_sm90_info", 0)),
+                ("masked_matmul_sm90 (wgmma + TMA) bf16 128x128",
+                 _build.kernel_info("masked_matmul_sm90",
+                                    "masked_matmul_sm90_info", 1)),
                 ("masked_matmul f32 128x128",
                  _build.kernel_info("masked_matmul", "masked_matmul_info",
                                     128, 128, 0)),
@@ -2892,10 +2906,15 @@ def sddmm_f64(a, b, bi, bj, bm: int, bn: int) -> torch.Tensor:
 def sddmm_vs_plain(dev) -> float:
     """The reference's sweep (tests/test_kernels_masked_matmul.py): four
     shapes x blocks 8/16 x f32/bf16, within 1e-5 / 2e-2 of the plain
-    version, and f32 also within 1e-5 of float64.  Then the f32 case of
-    the GPU tests with K = 384, where the plain version's own IEEE f32
-    bmm strays past 1e-5 of float64 at some outputs: the kernel is held
-    to 1e-5 of float64 there, and the outputs beyond 1e-5 are counted."""
+    version, and f32 also within 1e-5 of float64 (blocks the mma.sync
+    kernel takes).  Then the GPU tests' 128-block cases on both kernels
+    (the Hopper one by default, each launch counted or not in
+    ``MASKED_MATMUL_SM90_LAUNCHES``): f32 with K = 384, where the plain
+    version's own IEEE f32 bmm strays past 1e-5 of float64 at some
+    outputs, so each kernel is held to 1e-5 of float64 and the outputs
+    beyond 1e-5 are counted; bf16 within 2e-2 of plain; and integer data
+    with tiles outside A or B, which both kernels must give as zeros and
+    the rest bit for bit the plain version."""
     err = 0.0
     for M, K, N in ((16, 16, 16), (32, 48, 64), (64, 32, 16),
                     (128, 128, 128)):
@@ -2926,7 +2945,7 @@ def sddmm_vs_plain(dev) -> float:
                           f"{dtype} within {tol} (max err {e})")
                     err = max(err, e)
 
-    # tests/test_torch_cuda.py's f32 case at blocks (128, 128, 128)
+    # tests/test_torch_cuda.py's 128-block cases, on both kernels
     rng = np.random.default_rng(256)
     a = torch.as_tensor(rng.standard_normal((512, 384)), dtype=torch.float32,
                         device=dev)
@@ -2936,21 +2955,101 @@ def sddmm_vs_plain(dev) -> float:
     ok[0, 0] = True
     bi, bj = (torch.as_tensor(x.astype(np.int32), device=dev)
               for x in np.nonzero(ok))
-    got = kernel.masked_matmul_kernel(a, b, bi, bj, bm=128, bn=128, bk=128)
     plain = kernel.masked_matmul_plain(a, b, bi, bj, bm=128, bn=128)
     exact = sddmm_f64(a, b, bi, bj, 128, 128)
-    beyond = {name: int((~torch.isclose(x.double(), y.double(), rtol=1e-5,
-                                        atol=1e-5)).sum())
-              for name, x, y in (("kernel vs plain", got, plain),
-                                 ("plain vs float64", plain, exact),
-                                 ("kernel vs float64", got, exact))}
-    check(beyond["kernel vs float64"] == 0, "f32 SDDMM at K = 384 within "
-          "1e-5 of float64")
+    beyond = {"plain vs float64": int((~torch.isclose(
+        plain.double(), exact, rtol=1e-5, atol=1e-5)).sum())}
+    ab, bb = a.bfloat16(), b.bfloat16()
+    plain16 = kernel.masked_matmul_plain(ab, bb, bi, bj, bm=128, bn=128)
+    for variant in ("sm90", "mma_sync"):
+        before = kernel.MASKED_MATMUL_SM90_LAUNCHES
+        got = kernel.masked_matmul_kernel(a, b, bi, bj, bm=128, bn=128,
+                                          bk=128, variant=variant)
+        got16 = kernel.masked_matmul_kernel(ab, bb, bi, bj, bm=128, bn=128,
+                                            bk=128, variant=variant)
+        sync(dev)
+        check(kernel.MASKED_MATMUL_SM90_LAUNCHES
+              == before + 2 * (variant == "sm90"),
+              f"the 128-block cases ran the {variant} kernel")
+        if variant == "sm90":
+            check(torch.equal(got, kernel.masked_matmul_kernel(
+                a, b, bi, bj, bm=128, bn=128, bk=128)), "the default "
+                "variant at 128-blocks is the Hopper kernel's result")
+        beyond[f"{variant} vs plain"] = int((~torch.isclose(
+            got.double(), plain.double(), rtol=1e-5, atol=1e-5)).sum())
+        beyond[f"{variant} vs float64"] = n64 = int((~torch.isclose(
+            got.double(), exact, rtol=1e-5, atol=1e-5)).sum())
+        check(n64 == 0, f"f32 SDDMM at K = 384 on the {variant} kernel "
+              f"within 1e-5 of float64")
+        e16 = float((got16 - plain16).abs().max())
+        check(torch.allclose(got16, plain16, rtol=2e-2, atol=2e-2),
+              f"bf16 SDDMM at K = 384 on the {variant} kernel within 2e-2 "
+              f"of plain (max err {e16})")
+        err = max(err, float((got - plain).abs().max()), e16)
+
+    # tiles outside A or B come out as zeros (the outputs are not cleared
+    # first); integer data: the rest bit for bit
+    rng = np.random.default_rng(7)
+    inside = [(0, 0), (2, 1), (1, 2)]
+    outside = [(-1, 0), (3, 0), (0, 3), (0, -2), (1 << 20, 1 << 20)]
+    bi, bj = (torch.tensor(x, dtype=torch.int32, device=dev)
+              for x in zip(*(inside + outside)))
+    for dtype in (torch.float32, torch.bfloat16):
+        a = torch.as_tensor(rng.integers(-4, 5, (384, 256)), dtype=dtype,
+                            device=dev)
+        b = torch.as_tensor(rng.integers(-4, 5, (256, 384)), dtype=dtype,
+                            device=dev)
+        want = kernel.masked_matmul_plain(a, b, bi[:3], bj[:3], bm=128,
+                                          bn=128)
+        for variant in ("sm90", "mma_sync"):
+            got = kernel.masked_matmul_kernel(a, b, bi, bj, bm=128, bn=128,
+                                              bk=128, variant=variant)
+            sync(dev)
+            check(torch.equal(got[:3], want) and not got[3:].any(),
+                  f"{dtype} {variant}: tiles inside equal plain, "
+                  f"{len(outside)} tiles outside A or B zeros")
     print(f"sddmm-vs-plain: reference sweep agrees (1e-5 f32, also against "
-          f"float64; 2e-2 bf16), max abs err {err:.3g}; at K = 384 "
-          f"({got.numel()} outputs), outputs beyond 1e-5: "
-          + ", ".join(f"{k} {v}" for k, v in beyond.items()))
+          f"float64; 2e-2 bf16), max abs err {err:.3g}; at K = 384 and "
+          f"128-blocks ({plain.numel()} outputs; bf16 within 2e-2 on both "
+          f"kernels), outputs beyond 1e-5: "
+          + ", ".join(f"{k} {v}" for k, v in beyond.items())
+          + f"; {len(outside)} out-of-range tiles zeros on both kernels, "
+          f"f32 and bf16")
     return err
+
+
+#: the Hopper SDDMM kernel (csrc/masked_matmul_sm90.cu), which the path's
+#: 128-blocks run, and the mma.sync one it replaced there
+SDDMM_SOURCE = ("src/repro_torch/kernels/masked_matmul/csrc/"
+                "masked_matmul_sm90.cu")
+SDDMM_MMA_SYNC_SOURCE = ("src/repro_torch/kernels/masked_matmul/csrc/"
+                         "masked_matmul.cu")
+SDDMM_DESIGN = (
+    "persistent CTAs (one an SM) walking the mask's tiles in CSR order; TMA "
+    "loads of A's 128-row and B's 128-column panels, 128 bytes of K a "
+    "stage, behind full / ready / empty mbarriers; a producer warpgroup "
+    "(one thread issues copies, three warps split A into tf32 hi and lo) "
+    "and two consumer warpgroups on wgmma (setmaxnreg 56 / 224); each "
+    "warpgroup's 64 x 128 share of a tile staged in shared memory and "
+    "stored by TMA. f32: 3xTF32 as C^T = B^T A^T (B^T split in registers, "
+    "m64n128k8 RS; hi = rna(x), lo = rna(x - hi)), a partial every 2 k8 "
+    "steps added with IEEE rounding, a 3-stage ring. bf16: two m64n64k16 SS "
+    "a k16 step (B's two 64-column panels read MN-major through the "
+    "transpose bit), a 4-stage ring. Other shapes on the mma.sync kernel")
+
+
+def sddmm_sm90_and_mma_sync_ms(a, b, bi, bj, bs: int, dev) -> tuple:
+    """The Hopper and the mma.sync SDDMM kernels' device ms per call on the
+    same inputs (``kernel_ms``), in turns (sm90, mma.sync, mma.sync, sm90;
+    the median of each one's two)."""
+    times = {"sm90": [], "mma_sync": []}
+    for variant in ("sm90", "mma_sync", "mma_sync", "sm90"):
+        times[variant].append(kernel_ms(
+            lambda: kernel.masked_matmul_kernel(a, b, bi, bj, bm=bs, bn=bs,
+                                                bk=bs, variant=variant),
+            dev))
+    return (statistics.median(times["sm90"]),
+            statistics.median(times["mma_sync"]))
 
 
 def sddmm_path(dev, mask_tiles, n: int = TILE_N, bs: int = TILE_BS,
@@ -2970,22 +3069,34 @@ def sddmm_path(dev, mask_tiles, n: int = TILE_N, bs: int = TILE_BS,
     got = ops.masked_matmul(a, b, bi, bj, bm=bs, bn=bs, bk=bs)
     sync(dev)
     launches = kernel.MASKED_MATMUL_LAUNCHES
+    sm90_launches = kernel.MASKED_MATMUL_SM90_LAUNCHES
     check(launches == 1, f"masked_matmul launched once (got {launches})")
-    check(kernel.LAUNCHES == kernel.FUSED_LAUNCHES == flash.LAUNCHES == 0,
-          "the SDDMM path launches "
-          "no other kernel")
+    check(sm90_launches == 1, f"the path's call ran the Hopper SDDMM kernel "
+          f"(MASKED_MATMUL_SM90_LAUNCHES {sm90_launches})")
+    check(kernel.LAUNCHES == kernel.FUSED_LAUNCHES == flash.LAUNCHES
+          == kernel.SM90_LAUNCHES == 0,
+          "the SDDMM path launches no other kernel")
     want = kernel.masked_matmul_plain(a, b, bi, bj, bm=bs, bn=bs)
     check(torch.equal(got, want), "masked_matmul equals plain exactly on "
           "integer data")
     check(bool(torch.isfinite(got).all()), "SDDMM values are finite")
     err = float((got - want).abs().max())
     del got, want
+    ab, bb = a.bfloat16(), b.bfloat16()      # integers: exact in bf16
+    before = kernel.MASKED_MATMUL_SM90_LAUNCHES
+    got = ops.masked_matmul(ab, bb, bi, bj, bm=bs, bn=bs, bk=bs)
+    sync(dev)
+    check(kernel.MASKED_MATMUL_SM90_LAUNCHES == before + 1, "the bf16 call "
+          "ran the Hopper SDDMM kernel")
+    check(torch.equal(got, kernel.masked_matmul_plain(ab, bb, bi, bj, bm=bs,
+                                                      bn=bs)),
+          "bf16 masked_matmul equals plain exactly on integer data")
+    del got
 
     # the same call on standard-normal data, where precision shows: the
     # plain version runs bmm in IEEE f32, 3xTF32 keeps f32 accuracy and
     # one TF32 pass misses 2e-6 by more than 10x (test_torch_tc_numerics).
-    # Any
-    # f32 summation order errs by up to ~1e-5 of the dot products'
+    # Any f32 summation order errs by up to ~1e-5 of the dot products'
     # absolute scale sum_k |a_ik b_kj|, not of their (possibly tiny)
     # values, so the elementwise 1e-5 is held relative to that scale
     an = torch.as_tensor(rng.standard_normal((n, k)), dtype=torch.float32,
@@ -3003,49 +3114,90 @@ def sddmm_path(dev, mask_tiles, n: int = TILE_N, bs: int = TILE_BS,
     del diff
     exact = sddmm_f64(an, bn_, bi, bj, bs, bs)
     rel64 = float((got.double() - exact).norm() / exact.norm())
-    print(f"sddmm: standard-normal data: normwise {rel:.3g} against plain "
-          f"(IEEE f32 bmm), {rel64:.3g} against float64; max |diff| / "
-          f"sum_k |a b| {scaled:.3g} against plain")
+    del got, want, exact
+    an16, bn16 = an.bfloat16(), bn_.bfloat16()
+    got = ops.masked_matmul(an16, bn16, bi, bj, bm=bs, bn=bs, bk=bs)
+    want = kernel.masked_matmul_plain(an16, bn16, bi, bj, bm=bs, bn=bs)
+    err16 = float((got - want).abs().max())
+    rel16 = float((got - want).norm() / want.norm())
+    ok16 = torch.allclose(got, want, rtol=2e-2, atol=2e-2)
+    del got, want, an16, bn16
+    print(f"sddmm: standard-normal data: f32 normwise {rel:.3g} against "
+          f"plain (IEEE f32 bmm), {rel64:.3g} against float64; max |diff| / "
+          f"sum_k |a b| {scaled:.3g} against plain; bf16 max |diff| "
+          f"{err16:.3g}, normwise {rel16:.3g} against plain")
     check(max(rel, rel64) <= 2e-6, f"SDDMM on float data within 2e-6 "
           f"normwise of plain and of float64 (got {rel:.3g}, {rel64:.3g})")
     check(scaled <= 1e-5, f"SDDMM on float data within 1e-5 of "
           f"sum_k |a b| elementwise (got {scaled:.3g})")
-    del an, bn_, got, want, exact
+    check(ok16, f"bf16 SDDMM on float data within 2e-2 of plain (max err "
+          f"{err16:.3g})")
+    del an, bn_
 
-    def run_library():      # gather the panels of block views, one bmm
-        a_pan = a.view(n // bs, bs, k)[bi.long()]
-        b_pan = b.view(k, n // bs, bs).permute(1, 0, 2)[bj.long()]
-        return torch.bmm(a_pan, b_pan)
+    def library(x, y):      # gather the panels of block views, one bmm
+        x_pan = x.view(n // bs, bs, k)[bi.long()]
+        y_pan = y.view(k, n // bs, bs).permute(1, 0, 2)[bj.long()]
+        if x.dtype == torch.float32:
+            return torch.bmm(x_pan, y_pan)
+        if dev.type == "cuda":
+            return torch.bmm(x_pan, y_pan, out_dtype=torch.float32)
+        return torch.bmm(x_pan.float(), y_pan.float())
 
-    kernel_ms = device_ms(lambda: kernel.masked_matmul_kernel(
-        a, b, bi, bj, bm=bs, bn=bs, bk=bs), dev, reps=7, warm=2)
-    plain_ms = device_ms(lambda: kernel.masked_matmul_plain(
-        a, b, bi, bj, bm=bs, bn=bs), dev, reps=5, warm=1)
-    library_ms = device_ms(run_library, dev, reps=5, warm=1)
     flops = 2.0 * nnzb * bs * bs * k
-    nbytes = a.nbytes + b.nbytes + 8 * nnzb + nnzb * bs * bs * 4
-    bound_ms, by = bound(flops, nbytes, PEAK_F32_ACCURATE_FLOPS)
+    out = {}
+    for key, x, y, peak in (("", a, b, PEAK_F32_ACCURATE_FLOPS),
+                            ("bf16_", ab, bb, PEAK_BF16_FLOPS)):
+        out[key + "ms"], out[key + "mma_sync_ms"] = (
+            sddmm_sm90_and_mma_sync_ms(x, y, bi, bj, bs, dev))
+        out[key + "plain_ms"] = device_ms(lambda: kernel.masked_matmul_plain(
+            x, y, bi, bj, bm=bs, bn=bs), dev, reps=5, warm=1)
+        out[key + "library_ms"] = chained_ms(lambda: library(x, y), dev)
+        nbytes = x.nbytes + y.nbytes + 8 * nnzb + nnzb * bs * bs * 4
+        out[key + "bound_ms"], out[key + "bound_by"] = bound(flops, nbytes,
+                                                             peak)
+        out[key + "gbytes"] = nbytes / 1e9
     f32_ms = flops / PEAK_F32_FLOPS * 1e3
     print(f"sddmm: M=N={n} K={k} blocks {bs} nnzb={nnzb}: {flops / 1e9:.1f} "
-          f"GFLOP, {nbytes / 1e6:.0f} MB; launches {launches}; equals plain "
-          f"exactly on integers")
-    print(f"sddmm: kernel {kernel_ms:.3f} ms ({flops / kernel_ms / 1e9:.1f} "
-          f"TFLOP/s; PR 12: {PR12_MS['masked_matmul']:.3f} ms); plain "
-          f"{plain_ms:.3f} ms; library (block-view gather + torch.bmm) "
-          f"{library_ms:.3f} ms; bound {bound_ms:.3f} ms (by {by}, three "
-          f"TF32 passes; {f32_ms:.3f} ms on f32 CUDA cores); kernel at "
-          f"{bound_ms / kernel_ms:.1%} of it")
+          f"GFLOP, {out['gbytes'] * 1e3:.0f} MB f32, "
+          f"{out['bf16_gbytes'] * 1e3:.0f} MB bf16; launches {launches} "
+          f"({sm90_launches} on the Hopper kernel); equals plain exactly on "
+          f"integers, f32 and bf16")
+    for key, what in (("", "f32 (3xTF32)"), ("bf16_", "bf16")):
+        ms, old, bd = (out[key + "ms"], out[key + "mma_sync_ms"],
+                       out[key + "bound_ms"])
+        print(f"sddmm: {what}: Hopper kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), the mma.sync kernel in "
+              f"this run {old:.4f} ms (in turns, kernel_ms); plain "
+              f"{out[key + 'plain_ms']:.3f} ms; library (block-view gather "
+              f"+ torch.bmm) {out[key + 'library_ms']:.3f} ms; bound "
+              f"{bd:.4f} ms (by {out[key + 'bound_by']}"
+              + (f", three TF32 passes; {f32_ms:.3f} ms on f32 CUDA cores"
+                 if not key else "")
+              + f"); {bd / ms:.1%} / {bd / old:.1%} of it")
+    info = _build.kernel_info("masked_matmul_sm90", "masked_matmul_sm90_info",
+                              0)
     return {"name": "masked_matmul", "route": "cuda",
-            "source": "src/repro_torch/kernels/masked_matmul/csrc/"
-                      "masked_matmul.cu",
+            "source": SDDMM_SOURCE,
             "replaces": "src/repro/kernels/masked_matmul/kernel.py:50",
-            "launches": launches, "max_abs_err": err, "ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": library_ms,
-            "design": "mma.sync tensor cores: 3xTF32 (f32 operands split "
-                      "hi + lo, three m16n8k8 passes) or one bf16 m16n8k16 "
-                      "pass; 3-stage cp.async ring of 32-deep K chunks; "
-                      "128x128 CTA tile, 8 warps of 64x32"}
+            "launches": launches, "sm90_launches": sm90_launches,
+            "max_abs_err": max(err, err16), "ms": out["ms"],
+            "plain_ms": out["plain_ms"], "bound_ms": out["bound_ms"],
+            "bound_by": out["bound_by"], "library_ms": out["library_ms"],
+            "mma_sync_source": SDDMM_MMA_SYNC_SOURCE,
+            "mma_sync_ms": out["mma_sync_ms"],
+            "bf16_ms": out["bf16_ms"],
+            "bf16_mma_sync_ms": out["bf16_mma_sync_ms"],
+            "bf16_bound_ms": out["bf16_bound_ms"],
+            "bf16_plain_ms": out["bf16_plain_ms"],
+            "bf16_library_ms": out["bf16_library_ms"],
+            "f32_vs_f64": rel64, "bf16_vs_plain": rel16,
+            "design": SDDMM_DESIGN,
+            "sm90_instance": (f"masked_matmul_sm90_kernel<float>: "
+                              f"{info['threads']} threads, "
+                              f"{info['registers']} registers at launch, "
+                              f"{info['local_bytes']} B local memory, "
+                              f"{info['smem_bytes']} B shared memory, "
+                              f"{info['ctas_per_sm']} CTAs per SM")}
 
 
 # ---------------------------------------------------------------------------

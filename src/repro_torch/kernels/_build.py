@@ -32,6 +32,8 @@ SOURCES: Dict[str, Path] = {
     "block_spgemm_sm90": _PKG / "masked_matmul" / "csrc"
                          / "block_spgemm_sm90.cu",
     "masked_matmul": _PKG / "masked_matmul" / "csrc" / "masked_matmul.cu",
+    "masked_matmul_sm90": _PKG / "masked_matmul" / "csrc"
+                          / "masked_matmul_sm90.cu",
     "flash_mask": _PKG / "flash_mask" / "csrc" / "flash_mask.cu",
     "flash_mask_sm90": _PKG / "flash_mask" / "csrc" / "flash_mask_sm90.cu",
     "flash_mask_f32_sm90": _PKG / "flash_mask" / "csrc"

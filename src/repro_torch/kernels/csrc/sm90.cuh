@@ -1,12 +1,11 @@
 // Hopper (sm_90a) primitives shared by the port's warp-specialised
 // kernels: mbarriers, TMA tile loads (cp.async.bulk.tensor) into shared
-// memory in the 128-byte swizzle, wgmma shared-memory descriptors, the
-// wgmma.mma_async shapes the kernels issue (bf16; tf32 with A in
-// registers or, K-major, in shared memory) with their fence, commit and
-// wait, the generic-to-async proxy
-// fence, setmaxnreg, named barriers (wait and arrive), and on the host
-// the tensor maps'
-// encoder.
+// memory in the 128-byte swizzle and TMA stores out of it, wgmma
+// shared-memory descriptors, the wgmma.mma_async shapes the kernels issue
+// (bf16; tf32 with A in registers or, K-major, in shared memory) with
+// their fence, commit and wait, the generic-to-async proxy fence, the
+// fragment layout of the transposed tf32 product, setmaxnreg, named
+// barriers (wait and arrive), and on the host the tensor maps' encoder.
 //
 // Shared-memory layout that TMA writes and wgmma reads (PTX ISA, "Matrix
 // Descriptor Format" and "Shared Memory Matrix Layout"; CUTLASS's
@@ -19,7 +18,8 @@
 //     shared memory must be K-major: the transpose bits exist for 16-bit
 //     types only.
 //   MN-major operand (v read transposed for p.v: N = head dim contiguous,
-//     K = keys along rows; a bf16 pattern's 64 columns as the A operand):
+//     K = keys along rows; a bf16 pattern's 64 columns as the A operand;
+//     a 64-column panel of the bf16 SDDMM's B tile as the B operand):
 //     SBO = 1024 bytes between 8-key groups, LBO = the byte stride between
 //     64-column panels (one panel per instruction here, so unused); the
 //     k16 step kk starts 2048 * kk bytes in.
@@ -112,6 +112,36 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// shared memory at src into the box of the 2-D tensor map `map` at
+// (column c0, row c1), as one bulk group of this thread's (commit with
+// bulk_commit); elements beyond the map's extent are not written
+__device__ __forceinline__ void tma_store_2d(const void* map, uint32_t src,
+                                             int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups still read their
+// shared memory (the source may then be overwritten)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// wait until at most N of this thread's bulk groups are incomplete (their
+// writes to global memory done)
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // make this thread's generic-proxy writes to shared memory visible to the
@@ -286,6 +316,32 @@ __device__ __forceinline__ void wgmma_ss_at_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (+)= a . b, m64n64k16, bf16 from shared memory: a K-major (descriptor
+// da), b read transposed (MN-major: one 64-column panel, descriptor db),
+// f32 accumulators; scale_d = 0 starts from zero
+__device__ __forceinline__ void wgmma_ss_bt_n64(float* d, uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d (+)= a . b^T, m64n128k8, tf32: a a tf32 A-fragment in registers (per
 // warp the m16k8 mma.sync layout: a0 (row g, k t), a1 (row g + 8, k t),
 // a2 (row g, k t + 4), a3 (row g + 8, k t + 4)), b from shared memory,
@@ -401,6 +457,28 @@ __device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+
+// ---------------------------------------------------------------------------
+// the transposed tf32 product C^T = B^T A^T (block_spgemm_sm90.cu,
+// masked_matmul_sm90.cu): B^T, a 128-column tile of B loaded as four
+// 32-column boxes, is the register A operand, split per thread
+// ---------------------------------------------------------------------------
+
+// Output column of a consumer's accumulator rows g (this column) and g + 8
+// (the next): warp wq of warpgroup wg holds 16 columns, chosen so that a
+// half-warp's 64-bit loads of the swizzled B tile cover all 32 banks once
+// at every k
+__device__ __forceinline__ int ct_col(int wg, int wq, int g) {
+  return wg * 64 + 32 * (wq >> 1) + 8 * (wq & 1) + 2 * (g & 1) +
+         16 * ((g >> 1) & 1) + 4 * (g >> 2);
+}
+
+// byte offset of f32 B tile element (k, j) (k < 32): four 32-column boxes
+// of 32 rows x 128 bytes, 16-byte chunks swizzled by the row
+__device__ __forceinline__ int ct_b_offset(int k, int j) {
+  return (j >> 5) * 4096 + k * 128 + ((((j & 31) >> 2) ^ (k & 7)) << 4) +
+         ((j & 3) << 2);
+}
 
 // ---------------------------------------------------------------------------
 // warp specialisation

@@ -48,7 +48,7 @@
 //   - the register operand is B^T: consumer warpgroup wg owns output
 //     columns 64 wg .. 64 wg + 63, loads them from the staged B tile per
 //     k8 step and splits them into hi and lo itself (no element is split
-//     twice).  The accumulator's row order is permuted (col_of below) so
+//     twice).  The accumulator's row order is permuted (sm90::ct_col) so
 //     that a thread's two fragment rows are adjacent columns: each k8
 //     fragment is two conflict-free 64-bit shared loads, and each
 //     accumulator pair is one 8-byte store of the transposed result;
@@ -135,22 +135,6 @@ __device__ __forceinline__ bool real(const int* flags, const int* pa,
                                      int nnzb_b) {
   const int ia = pa[w], ib = pb[w];
   return (flags[w] & 2) && ia >= 0 && ia < nnzb_a && ib >= 0 && ib < nnzb_b;
-}
-
-// Output column of a values consumer's accumulator rows g (this column)
-// and g + 8 (the next): warp wq of warpgroup wg holds 16 columns, chosen
-// so that a half-warp's 64-bit loads of the swizzled B tile cover all 32
-// banks once at every k
-__device__ __forceinline__ int col_of(int wg, int wq, int g) {
-  return wg * 64 + 32 * (wq >> 1) + 8 * (wq & 1) + 2 * (g & 1) +
-         16 * ((g >> 1) & 1) + 4 * (g >> 2);
-}
-
-// byte offset of B tile element (k, j) (k < 32): four 32-column boxes of
-// 32 rows x 128 bytes, 16-byte chunks swizzled by the row
-__device__ __forceinline__ int b_offset(int k, int j) {
-  return (j >> 5) * 4096 + k * 128 + ((((j & 31) >> 2) ^ (k & 7)) << 4) +
-         ((j & 3) << 2);
 }
 
 __device__ __forceinline__ void zero(float (&d)[64]) {
@@ -342,7 +326,7 @@ block_spgemm_sm90_kernel(const __grid_constant__ CUtensorMap a_map,
     return;
   }
 
-  const int j = col_of(wg, wq, g);
+  const int j = sm90::ct_col(wg, wq, g);
   float part[64];
   zero(part);
   for (int w = w0; w < w1; ++w) {
@@ -365,7 +349,7 @@ block_spgemm_sm90_kernel(const __grid_constant__ CUtensorMap a_map,
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const float2 v = *reinterpret_cast<const float2*>(
-                bs + b_offset(8 * s + t + 4 * h, j));
+                bs + sm90::ct_b_offset(8 * s + t + 4 * h, j));
             tc::split_tf32(v.x, bhi[s][2 * h], blo[s][2 * h]);
             tc::split_tf32(v.y, bhi[s][2 * h + 1], blo[s][2 * h + 1]);
           }

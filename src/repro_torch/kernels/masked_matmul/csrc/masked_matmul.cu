@@ -9,6 +9,13 @@
 // never scheduled; a tile whose block coordinates fall outside A or B comes
 // out as zeros.
 //
+// Since masked_matmul_sm90.cu (TMA + wgmma) took 128 x 128 blocks with f32
+// or bf16 operands, contiguous, 16-byte aligned, with rows of a multiple of
+// 16 bytes (kernel.py's masked_matmul_sm90_takes: sddmm-8192, the path's
+// shape), this kernel runs every other shape (blocks of 8 to 64, 256,
+// unequal bm and bn, rows not 16-byte multiples) and what variant=
+// "mma_sync" asks for.
+//
 // Design.  The TPU kernel carries its accumulator across a sequential K
 // grid dimension.  Here one CTA owns one (mask tile r, output sub-tile of
 // at most 128 x 128) pair and loops over all of K itself, the accumulators

@@ -16,18 +16,25 @@ with f32 operands and bf16 patterns, contiguous and 16-byte aligned
 (``sm90_takes``), and ``csrc/block_spgemm.cu`` (``mma.sync``, a
 ``cp.async`` ring) for every other block size.
 
-``masked_matmul_kernel`` (``csrc/masked_matmul.cu``) replaces the TPU
-kernel ``repro/kernels/masked_matmul/kernel.py::masked_matmul_kernel``, the
-tile SDDMM ``out[r] = A[bi[r] row panel] @ B[bj[r] column panel]``.  One CTA
-per (mask tile, output sub-tile) loops over K itself on tensor cores: bf16
-operands in one ``mma.sync`` pass, f32 operands in three TF32 passes of
-split operands (3xTF32, f32 accuracy), fed by a ``cp.async`` ring.
+``masked_matmul_kernel`` replaces the TPU kernel
+``repro/kernels/masked_matmul/kernel.py::masked_matmul_kernel``, the tile
+SDDMM ``out[r] = A[bi[r] row panel] @ B[bj[r] column panel]``: bf16
+operands in one tensor-core pass, f32 operands in three TF32 passes of
+split operands (3xTF32, f32 accuracy), each tile summed over all of K by
+one CTA.  Two kernels compute it: ``csrc/masked_matmul_sm90.cu`` for Hopper
+(persistent CTAs, TMA loads behind mbarriers, a producer warpgroup, two
+consumer warpgroups on ``wgmma``) at 128 x 128 blocks with f32 or bf16
+operands, contiguous, 16-byte aligned, with rows of a multiple of 16 bytes
+(``masked_matmul_sm90_takes``), and ``csrc/masked_matmul.cu`` (``mma.sync``,
+a ``cp.async`` ring, one CTA per mask tile and output sub-tile) for every
+other shape; ``choose_masked_matmul_variant`` picks one.
 
 The note at the top of each source gives its bound on an H100.  Each
 wrapper launches its kernel for CUDA tensors (or raises) and runs its plain
 version for CPU tensors; ``LAUNCHES``, ``FUSED_LAUNCHES`` and
 ``MASKED_MATMUL_LAUNCHES`` count the launches, ``SM90_LAUNCHES`` those of
-the block product's (values only or fused) that ran the Hopper kernel.
+the block product's (values only or fused) that ran the Hopper kernel and
+``MASKED_MATMUL_SM90_LAUNCHES`` those of the SDDMM that did.
 """
 from __future__ import annotations
 
@@ -49,20 +56,27 @@ FUSED_LAUNCHES = 0
 #: of the block_spgemm launches (values only and fused), those that ran
 #: the Hopper kernel (wgmma + TMA)
 SM90_LAUNCHES = 0
-#: number of times the masked_matmul kernel was launched in this process
+#: number of times a masked_matmul kernel was launched in this process
 MASKED_MATMUL_LAUNCHES = 0
+#: of the masked_matmul launches, those that ran the Hopper kernel (wgmma +
+#: TMA)
+MASKED_MATMUL_SM90_LAUNCHES = 0
 
-#: the block product kernels a caller may ask for by name (``variant=``):
-#: the Hopper kernel, or block_spgemm.cu's mma.sync kernel
+#: the kernels a caller may ask for by name (``variant=``), of the block
+#: product and of the SDDMM alike: the Hopper kernel, or the mma.sync one
+#: (block_spgemm.cu, masked_matmul.cu)
 VARIANTS = ("sm90", "mma_sync")
 #: the one block size the Hopper kernel takes (the planner's largest tile
 #: block)
 SM90_BLOCK = 128
+#: the SDDMM blocks (bm = bn) the Hopper SDDMM kernel takes (the path's)
+MASKED_MATMUL_SM90_BLOCK = 128
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C signatures: pointers, then ints, then the stream
 _BLOCK_SPGEMM_ARGS = [_P] * 7 + [_I] * 4 + [_P]
 _FUSED_ARGS = [_P] * 10 + [_I] * 4 + [_P]
+#: masked_matmul's, which masked_matmul_sm90 shares
 _MASKED_MATMUL_ARGS = [_P] * 5 + [_I] * 7 + [_P]
 
 
@@ -312,42 +326,88 @@ def masked_matmul_plain(a, b, bi, bj, *, bm: int, bn: int) -> torch.Tensor:
     return torch.bmm(a_pan, b_pan)
 
 
-def masked_matmul_kernel(a, b, bi, bj, *, bm: int, bn: int,
-                         bk: int) -> torch.Tensor:
+def masked_matmul_sm90_takes(a, b, bm: int, bn: int) -> bool:
+    """Whether the Hopper SDDMM kernel takes these operands, as the kernel
+    receives them (after the wrapper's ``contiguous``): 128 x 128 blocks,
+    ``a`` (M, K) and ``b`` (K, N) both float32 or both bfloat16, each
+    contiguous with a 16-byte aligned base pointer and rows of a multiple
+    of 16 bytes (TMA's rules: K and N multiples of 4 in f32, of 8 in
+    bf16)."""
+    return (bm == bn == MASKED_MATMUL_SM90_BLOCK
+            and a.dim() == b.dim() == 2
+            and a.dtype == b.dtype
+            and a.dtype in (torch.float32, torch.bfloat16)
+            and all(x.is_contiguous() and x.data_ptr() % 16 == 0
+                    and (x.shape[1] * x.element_size()) % 16 == 0
+                    for x in (a, b)))
+
+
+def choose_masked_matmul_variant(variant, a, b, bm: int, bn: int) -> str:
+    """The SDDMM kernel a launch runs: ``variant`` if given (one of
+    ``VARIANTS``; "sm90" on operands that ``masked_matmul_sm90_takes``
+    refuses raises), else "sm90" where it holds and "mma_sync" elsewhere."""
+    if variant is not None and variant not in VARIANTS:
+        raise ValueError(f"unknown masked_matmul variant {variant!r}; "
+                         f"expected one of {VARIANTS} or None")
+    fits = masked_matmul_sm90_takes(a, b, bm, bn)
+    if variant == "sm90" and not fits:
+        raise ValueError(
+            f"the sm90 masked_matmul kernel takes blocks "
+            f"{MASKED_MATMUL_SM90_BLOCK} x {MASKED_MATMUL_SM90_BLOCK} and "
+            f"float32 or bfloat16 operands, contiguous, 16-byte aligned, "
+            f"with rows of a multiple of 16 bytes; got blocks ({bm}, {bn}), "
+            f"a {a.dtype} {tuple(a.shape)}, b {b.dtype} {tuple(b.shape)}")
+    if variant is None:
+        return "sm90" if fits else "mma_sync"
+    return variant
+
+
+def masked_matmul_kernel(a, b, bi, bj, *, bm: int, bn: int, bk: int,
+                         variant: str = None) -> torch.Tensor:
     """C_tiles[r] = (A @ B) tile (bi[r], bj[r]); only allowed tiles computed.
 
     a: (M, K), b: (K, N), both float32 or both bfloat16, with
     M % bm == N % bn == K % bk == 0.  bi, bj: (nnzb,) int32 mask tile
     coordinates.  Returns (nnzb, bm, bn) float32.
 
-    CPU tensors run ``masked_matmul_plain``.  CUDA tensors launch the kernel
-    on the current stream without synchronising, or raise.  The kernel
-    loops over all of K in chunks of its own, so ``bk`` only has to divide
-    K, as the reference requires; a tile whose coordinates lie outside A or
-    B comes out as zeros.
+    CPU tensors run ``masked_matmul_plain``.  CUDA tensors launch a kernel
+    on the current stream without synchronising, or raise:
+    ``choose_masked_matmul_variant`` picks it (``variant`` None: the Hopper
+    kernel where ``masked_matmul_sm90_takes`` holds, else the mma.sync
+    kernel; "mma_sync" forces the latter; "sm90" on operands it does not
+    take raises, on the CPU too).  The kernels loop over all of K in chunks
+    of their own, so ``bk`` only has to divide K, as the reference
+    requires; a tile whose coordinates lie outside A or B comes out as
+    zeros.
     """
-    global MASKED_MATMUL_LAUNCHES
+    global MASKED_MATMUL_LAUNCHES, MASKED_MATMUL_SM90_LAUNCHES
     _check_sddmm(a, b, bi, bj, bm, bn, bk)
     dev = a.device
     if dev.type == "cpu":
+        if variant is not None:      # checked as the kernel would get them
+            choose_masked_matmul_variant(variant, a.contiguous(),
+                                         b.contiguous(), bm, bn)
         return masked_matmul_plain(a, b, bi, bj, bm=bm, bn=bn)
     if dev.type != "cuda":
         raise ValueError(f"no masked_matmul kernel for device {dev}")
     a, b, bi, bj = (x.contiguous() for x in (a, b, bi, bj))
+    chosen = choose_masked_matmul_variant(variant, a, b, bm, bn)
     nnzb = bi.shape[0]
     out = torch.empty((nnzb, bm, bn), dtype=torch.float32, device=dev)
     if nnzb == 0:
         return out
-    fn = _build.load("masked_matmul", "masked_matmul", _MASKED_MATMUL_ARGS)
     M, K = a.shape
+    dtype = 0 if a.dtype == torch.float32 else 1
+    lib = "masked_matmul_sm90" if chosen == "sm90" else "masked_matmul"
+    fn = _build.load(lib, lib, _MASKED_MATMUL_ARGS)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            a.data_ptr(), b.data_ptr(), bi.data_ptr(), bj.data_ptr(),
-            out.data_ptr(), nnzb, M, K, b.shape[1], bm, bn,
-            0 if a.dtype == torch.float32 else 1, stream)
+        err = fn(a.data_ptr(), b.data_ptr(), bi.data_ptr(), bj.data_ptr(),
+                 out.data_ptr(), nnzb, M, K, b.shape[1], bm, bn, dtype, stream)
     if err != 0:
-        raise RuntimeError(f"masked_matmul kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"masked_matmul kernel ({chosen}) launch failed: "
+                           f"CUDA error {err}")
     MASKED_MATMUL_LAUNCHES += 1
+    if chosen == "sm90":
+        MASKED_MATMUL_SM90_LAUNCHES += 1
     return out

@@ -46,14 +46,16 @@ def tile_path_supported(semiring_name: str, complement: bool) -> bool:
     return semiring_name == "plus_times" and not complement
 
 
-def masked_matmul(a, b, bi, bj, *, bm: int, bn: int,
-                  bk: int) -> torch.Tensor:
+def masked_matmul(a, b, bi, bj, *, bm: int, bn: int, bk: int,
+                  variant: Optional[str] = None) -> torch.Tensor:
     """Tile-MCA SDDMM: only mask-allowed output tiles are computed.
 
     a: (M, K), b: (K, N) float32 or bfloat16 tensors on one device; bi, bj:
     (nnzb,) int32 mask tile coordinates.  Returns (nnzb, bm, bn) float32.
+    ``variant`` picks the kernel as ``masked_matmul_kernel``'s does.
     """
-    return masked_matmul_kernel(a, b, bi, bj, bm=bm, bn=bn, bk=bk)
+    return masked_matmul_kernel(a, b, bi, bj, bm=bm, bn=bn, bk=bk,
+                                variant=variant)
 
 
 # ---------------------------------------------------------------------------

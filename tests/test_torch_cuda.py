@@ -1,7 +1,9 @@
 """The port on a CUDA device: the block_spgemm (values only and fused with
 the structural counts), masked_matmul and flash_mask kernels against their
 plain versions (the Hopper block product, wgmma + TMA, at bs 128 and the
-worklist's edges, and bit for bit the mma.sync kernel on integers), both
+worklist's edges, and bit for bit the mma.sync kernel on integers; the
+Hopper SDDMM at 128-blocks, f32 and bf16, several K and tile counts,
+out-of-range tiles, no tiles, the mma.sync variant and refusals), both
 routes of masked_spgemm, the batched driver, the serving engine's burst, batched and
 tile buckets, lane patching, ``bcsr_apply_delta`` and scoped invalidation
 (device memory released), the golden trace's replay, and the graph
@@ -723,6 +725,9 @@ def test_auto_results_equal_under_h100_profile_and_builtin(cuda_device,
 @pytest.mark.parametrize("ints", [True, False])
 def test_masked_matmul_kernel_matches_plain(cuda_device, blocks, dtype,
                                             ints):
+    """Every block shape against the plain version; the 128 x 128 cases
+    run the Hopper kernel (masked_matmul_sm90.cu) by dispatch, the rest
+    the mma.sync kernel, under the same assertions."""
     bm, bn, bk = blocks
     rng = np.random.default_rng(bm + bn)
     M, K, N = 4 * bm, 3 * bk, 3 * bn
@@ -735,9 +740,12 @@ def test_masked_matmul_kernel_matches_plain(cuda_device, blocks, dtype,
     bi, bj = (torch.as_tensor(x.astype(np.int32), device=cuda_device)
               for x in np.nonzero(ok))
     before = kernel.MASKED_MATMUL_LAUNCHES
+    before_sm90 = kernel.MASKED_MATMUL_SM90_LAUNCHES
     got = ops.masked_matmul(a, b, bi, bj, bm=bm, bn=bn, bk=bk)
     torch.cuda.synchronize()
     assert kernel.MASKED_MATMUL_LAUNCHES == before + 1
+    assert (kernel.MASKED_MATMUL_SM90_LAUNCHES - before_sm90
+            == (bm == bn == 128))
     want = kernel.masked_matmul_plain(a, b, bi, bj, bm=bm, bn=bn)
     if ints or dtype == torch.bfloat16:
         tol = 0 if ints else 2e-2
@@ -757,7 +765,7 @@ def test_masked_matmul_f32_keeps_f32_accuracy(cuda_device):
     the plain version (IEEE f32 bmm) and of float64, and elementwise within
     1e-5 of the dot products' absolute scale sum_k |a_ik b_kj|, which
     rounding in any f32 summation order stays under; one TF32 pass fails
-    all three."""
+    all three.  Its 128-blocks run the Hopper kernel by dispatch."""
     n, k, bs = 1024, 256, 128
     rng = np.random.default_rng(3)
     a = torch.as_tensor(rng.standard_normal((n, k)), dtype=torch.float32,
@@ -776,6 +784,142 @@ def test_masked_matmul_f32_keeps_f32_accuracy(cuda_device):
     assert float((diff.abs() / scale).max()) <= 1e-5
     exact = sddmm_f64(a, b, bi, bj, bs, bs)
     assert float((got.double() - exact).norm() / exact.norm()) <= 2e-6
+
+
+def sddmm_case(seed, m, k, n, dtype, ints, dev, frac=0.5):
+    """Operands and a random mask of 128-blocks (tile (0, 0) always)."""
+    rng = np.random.default_rng(seed)
+    draw = ((lambda s: rng.integers(-4, 5, s)) if ints
+            else rng.standard_normal)
+    a = torch.as_tensor(draw((m, k)), dtype=dtype, device=dev)
+    b = torch.as_tensor(draw((k, n)), dtype=dtype, device=dev)
+    ok = rng.random((m // 128, n // 128)) < frac
+    ok[0, 0] = True
+    bi, bj = (torch.as_tensor(x.astype(np.int32), device=dev)
+              for x in np.nonzero(ok))
+    return a, b, bi, bj
+
+
+@pytest.mark.parametrize("shape", [(512, 384, 384), (256, 32, 256),
+                                   (384, 200, 640), (2048, 256, 2048),
+                                   (256, 1024, 384)],
+                         ids=["K384", "K32", "K200-208", "many-tiles",
+                              "K1024"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ints", [True, False])
+def test_masked_matmul_sm90_matches_plain(cuda_device, shape, dtype, ints):
+    """The Hopper SDDMM kernel at several K (past a stage's depth and not
+    a multiple of it: TMA's zero fill) and tile counts (more tiles than
+    SMs: each persistent CTA walks several): integers bit for bit the
+    plain version; normal data f32 within 2e-6 normwise of plain and of
+    float64 and elementwise within 1e-5 of the dot products' absolute
+    scale sum_k |a b| from float64 (at K = 1024 the plain version's own
+    IEEE f32 bmm strays past rtol = atol = 1e-5 of float64 at some
+    outputs), bf16 within 2e-2 of plain."""
+    m, k, n = shape
+    if dtype == torch.bfloat16 and k % 8:
+        k += 8 - k % 8                  # bf16 rows of 16-byte multiples
+    a, b, bi, bj = sddmm_case(k + m, m, k, n, dtype, ints, cuda_device,
+                              frac=0.6)
+    assert kernel.masked_matmul_sm90_takes(a, b, 128, 128)
+    before = kernel.MASKED_MATMUL_SM90_LAUNCHES
+    got = ops.masked_matmul(a, b, bi, bj, bm=128, bn=128, bk=k)
+    torch.cuda.synchronize()
+    assert kernel.MASKED_MATMUL_SM90_LAUNCHES == before + 1
+    want = kernel.masked_matmul_plain(a, b, bi, bj, bm=128, bn=128)
+    if ints:
+        assert torch.equal(got, want)
+    elif dtype == torch.bfloat16:
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+    else:
+        exact = sddmm_f64(a, b, bi, bj, 128, 128)
+        scale = sddmm_f64(a.abs(), b.abs(), bi, bj, 128, 128)
+        assert float(((got.double() - exact).abs() / scale).max()) <= 1e-5
+        assert float((got - want).norm() / want.norm()) <= 2e-6
+        assert float((got.double() - exact).norm() / exact.norm()) <= 2e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_matmul_sm90_out_of_range_tiles(cuda_device, dtype):
+    """Tiles outside A or B come out as zeros (the output is not cleared
+    first) between tiles inside, which equal the plain version."""
+    a, b, _, _ = sddmm_case(11, 384, 256, 512, dtype, True, cuda_device)
+    tiles = [(0, 0), (-1, 0), (2, 3), (3, 0), (0, 4), (1, -7), (1, 1),
+             (1 << 24, 2)]
+    inside = [i for i, (x, y) in enumerate(tiles) if 0 <= x < 3
+              and 0 <= y < 4]
+    bi, bj = (torch.tensor(x, dtype=torch.int32, device=cuda_device)
+              for x in zip(*tiles))
+    outs = {}
+    for variant in ("sm90", "mma_sync"):
+        outs[variant] = got = kernel.masked_matmul_kernel(
+            a, b, bi, bj, bm=128, bn=128, bk=128, variant=variant)
+        torch.cuda.synchronize()
+        keep = torch.tensor(inside, device=cuda_device)
+        want = kernel.masked_matmul_plain(a, b, bi[keep], bj[keep], bm=128,
+                                          bn=128)
+        assert torch.equal(got[keep], want)
+        drop = [i for i in range(len(tiles)) if i not in inside]
+        assert not got[drop].any()
+    assert torch.equal(outs["sm90"], outs["mma_sync"])
+
+
+def test_masked_matmul_sm90_no_tiles(cuda_device):
+    """nnzb = 0: an empty result and no launch."""
+    a, b, _, _ = sddmm_case(12, 256, 256, 256, torch.float32, True,
+                            cuda_device)
+    none = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    counts = (kernel.MASKED_MATMUL_LAUNCHES,
+              kernel.MASKED_MATMUL_SM90_LAUNCHES)
+    got = ops.masked_matmul(a, b, none, none, bm=128, bn=128, bk=128,
+                            variant="sm90")
+    torch.cuda.synchronize()
+    assert got.shape == (0, 128, 128)
+    assert (kernel.MASKED_MATMUL_LAUNCHES,
+            kernel.MASKED_MATMUL_SM90_LAUNCHES) == counts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_matmul_mma_sync_variant_is_not_counted_as_sm90(cuda_device,
+                                                               dtype):
+    """variant="mma_sync" at 128-blocks runs the old kernel: counted in
+    MASKED_MATMUL_LAUNCHES only, and bit for bit the Hopper kernel on
+    integers."""
+    a, b, bi, bj = sddmm_case(13, 512, 256, 512, dtype, True, cuda_device)
+    outs = {}
+    for variant in ("mma_sync", "sm90"):
+        launches = kernel.MASKED_MATMUL_LAUNCHES
+        sm90 = kernel.MASKED_MATMUL_SM90_LAUNCHES
+        outs[variant] = ops.masked_matmul(a, b, bi, bj, bm=128, bn=128,
+                                          bk=128, variant=variant)
+        torch.cuda.synchronize()
+        assert kernel.MASKED_MATMUL_LAUNCHES == launches + 1
+        assert kernel.MASKED_MATMUL_SM90_LAUNCHES == sm90 + (variant
+                                                             == "sm90")
+    assert torch.equal(outs["sm90"], outs["mma_sync"])
+
+
+def test_masked_matmul_sm90_refuses_other_shapes_on_cuda(cuda_device):
+    """"sm90" on a shape it does not take raises; the default runs the
+    mma.sync kernel there, uncounted as sm90."""
+    dev = cuda_device
+    a = torch.ones((256, 256), device=dev)
+    bi = bj = torch.zeros(1, dtype=torch.int32, device=dev)
+    odd = torch.ones((256, 6), device=dev), torch.ones((6, 256), device=dev)
+    for x, y, blk in ((a, a, 64), (*odd, 128)):
+        with pytest.raises(ValueError, match="sm90 masked_matmul"):
+            kernel.masked_matmul_kernel(x, y, bi, bj, bm=blk, bn=blk,
+                                        bk=x.shape[1], variant="sm90")
+        before = kernel.MASKED_MATMUL_SM90_LAUNCHES
+        got = kernel.masked_matmul_kernel(x, y, bi, bj, bm=blk, bn=blk,
+                                          bk=x.shape[1])
+        torch.cuda.synchronize()
+        assert kernel.MASKED_MATMUL_SM90_LAUNCHES == before
+        assert torch.equal(got, kernel.masked_matmul_plain(
+            x, y, bi, bj, bm=blk, bn=blk))
+    with pytest.raises(ValueError, match="unknown masked_matmul variant"):
+        kernel.masked_matmul_kernel(a, a, bi, bj, bm=128, bn=128, bk=128,
+                                    variant="wgmma")
 
 
 FLASH_PATTERNS = [dict(causal=True, window=0, prefix=0),

@@ -30,7 +30,8 @@ ablations only reported; then all of them and the ``mma.sync`` kernel are
 timed in turns (forward, backward, forward, backward), each turn the
 device time per call over the calls queued behind a device-side sleep
 (``chip_smoke.kernel_ms``), and the median of each one's turns is printed
-with its registers, spills and ptxas's notes; the static opcode histogram
+with its registers, spills and ptxas's notes and each shape's f32 bound
+(as ``chip_smoke.f32_instance`` computes it); the static opcode histogram
 of the adopted ``<128, 64>`` instance comes first (``cuobjdump -sass``).
 About 85 s of command on the card.
 """
@@ -264,10 +265,24 @@ def main() -> int:
                 times[name].append(smoke.kernel_ms(
                     lambda: run(fn, *args, **kw), dev,
                     calls=8 if b > 1 else 10))
+        # the bound as chip_smoke's f32_instance computes it: the allowed
+        # elements' operations at three TF32 passes, q, k, v and the
+        # output read or written once, 12 bytes a worklist entry
+        allowed = int(smoke.mask_allowed(2048, 2048, causal=causal,
+                                         window=0, prefix=0,
+                                         q_offset=0).sum())
+        bound_ms, by = smoke.bound(
+            4.0 * b * hq * allowed * d,
+            4 * (q.numel() * 2 + k.numel() + v.numel())
+            + 12 * int(sched[0].shape[0]), smoke.PEAK_F32_ACCURATE_FLOPS)
+        print(f"{what}: B={b} Hq={hq} Hkv={hkv} S=2048 D={d} "
+              f"{'causal' if causal else 'non-causal'}: f32 bound "
+              f"{bound_ms:.4f} ms (by {by}, three TF32 passes)")
         for name in order:
-            print(f"{what} {name}: median "
-                  f"{statistics.median(times[name]):.4f} ms over 4 turns ("
-                  + ", ".join(f"{t:.4f}" for t in times[name]) + ")")
+            t = statistics.median(times[name])
+            print(f"{what} {name}: median {t:.4f} ms over 4 turns "
+                  f"({bound_ms / t:.1%} of the bound; "
+                  + ", ".join(f"{x:.4f}" for x in times[name]) + ")")
     return 0
 
 
