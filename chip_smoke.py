@@ -246,7 +246,23 @@ Phases, each printing its own lines:
    ``src/repro_torch`` in a child process; it must exit 0 with no
    finding at all.  It launches nothing on the card; its counts and
    seconds are printed;
-18. one JSON line with every kernel's numbers, then the result line
+18. examples (after phase 17): ``examples_torch/`` as a user runs it,
+   each script in a child process with jax and the reference package
+   blocked (``EXAMPLE_PRELUDE``).  quickstart, graph_analytics and
+   serve_lm at the reference's sizes on the card and, at the same time,
+   on the CPU: every ``nnz(C)``, both triangle counts, the 5-truss's
+   edges and iterations, the served nnz, the result-cache hit, the four
+   delta counters and ``plan_survived``, the span names, the verdicts
+   (healthy, then not) and serve_lm's shapes equal on both; no linter
+   finding; sync and async replay digests equal; betweenness's top five
+   vertices equal wherever their scores are more than 1e-5 apart;
+   quickstart's tile route, ``ops.block_spgemm`` and forced ring (bs 8)
+   must launch the block product on the card.  Then train_lm at its
+   ~100M default (12 x d512, 200 steps of 4 x 128 tokens, f32) on the
+   card, its checkpoints in a fresh temporary directory that the phase
+   removes; the example asserts the loss drop, the phase prints the first
+   and last loss and the warm step's ms;
+19. one JSON line with every kernel's numbers, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Wherever phases 4, 6, 7, 11, 12 and 13 drive the path, every block
@@ -266,6 +282,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.error
 import urllib.request
@@ -5559,6 +5576,181 @@ def lint_phase() -> dict:
     return {"counts": counts, "rules": report["rules"], "seconds": seconds}
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 18: the examples
+# ---------------------------------------------------------------------------
+
+#: ``examples_torch/``'s scripts; the first three also run on the CPU,
+#: whose deterministic results the card's must equal
+EXAMPLES = ("quickstart", "graph_analytics", "serve_lm", "train_lm")
+
+#: a child's program: block jax and the reference package (any import of
+#: either raises ImportError), run an example's ``main()`` with the
+#: arguments that follow its path, and print as the last line of output
+#: one JSON object: what ``main()`` returned, the block product's launch
+#: counts, and the seconds of every training step (each ended by a
+#: synchronise on a card, which the step's loss read does anyway)
+EXAMPLE_PRELUDE = r"""
+import json, runpy, sys, time
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import torch
+from repro_torch.launch import train
+step_s = []
+make_train_step = train.make_train_step
+
+def timed_make_train_step(*args, **kwargs):
+    step = make_train_step(*args, **kwargs)
+
+    def timed(state, data):
+        t0 = time.perf_counter()
+        out = step(state, data)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return out
+    return timed
+
+train.make_train_step = timed_make_train_step
+path, argv = sys.argv[1], sys.argv[2:]
+sys.argv = [path] + argv
+results = runpy.run_path(path, run_name="example")["main"](argv)
+from repro_torch.kernels.masked_matmul import kernel
+print(json.dumps({"results": results, "launches": {
+    "LAUNCHES": kernel.LAUNCHES, "FUSED_LAUNCHES": kernel.FUSED_LAUNCHES,
+    "SM90_LAUNCHES": kernel.SM90_LAUNCHES}, "step_s": step_s}))
+"""
+
+
+def start_example(name: str, *args: str, env=None) -> subprocess.Popen:
+    """``examples_torch/<name>.py`` with ``args`` in a child process under
+    ``EXAMPLE_PRELUDE`` (``PYTHONPATH=src``, from the repository root)."""
+    root = Path(__file__).resolve().parent
+    return subprocess.Popen(
+        [sys.executable, "-c", EXAMPLE_PRELUDE,
+         str(root / "examples_torch" / f"{name}.py"), *args], cwd=root,
+        env={**os.environ, "PYTHONPATH": str(root / "src"), **(env or {})},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def example_output(proc: subprocess.Popen, timeout: float) -> tuple:
+    """(exit code, stdout, stderr) of a child of ``start_example``, killed
+    if it outlives ``timeout`` seconds."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    return proc.returncode, out, err
+
+
+def example_result(name: str, proc: subprocess.Popen,
+                   timeout: float = 900) -> dict:
+    """The JSON line a child of ``start_example`` printed last; a child
+    that exits non-zero fails the run."""
+    code, out, err = example_output(proc, timeout)
+    check(code == 0, f"examples_torch/{name}.py exited {code}: "
+          f"{out[-3000:]}{err[-3000:]}")
+    report = json.loads(out.strip().splitlines()[-1])
+    report["stdout"] = out
+    return report
+
+
+def same_top(card_bc: list, cpu_bc: list, tol: float = 1e-5) -> bool:
+    """The top-5 betweenness vertices agree wherever their scores are more
+    than ``tol`` apart: two vertices may trade places only on a tie."""
+    card_top = np.argsort(-np.asarray(card_bc))[:5]
+    cpu_top = np.argsort(-np.asarray(cpu_bc))[:5]
+    return all(a == b or abs(cpu_bc[a] - cpu_bc[b]) <= tol
+               for a, b in zip(card_top, cpu_top))
+
+
+def examples_agree(card: dict, cpu: dict) -> None:
+    """Phase 18's deterministic results on the card against the CPU's."""
+    q, qc = card["quickstart"]["results"], cpu["quickstart"]["results"]
+    for key in ("nnz", "triangles", "served_triangles", "cache_hit",
+                "delta", "plan_survived", "span_names", "health"):
+        check(q[key] == qc[key], f"quickstart {key}: card {q[key]} against "
+              f"the CPU's {qc[key]}")
+    check(q["calibration_exact"], "quickstart on the card did not find the "
+          "committed profile of its card in the registry")
+    for res in (q, qc):
+        check(res["lint_findings"] == 0, f"quickstart's linter found "
+              f"{res['lint_findings']}")
+        check(res["digests"][0] == res["digests"][1],
+              f"quickstart's replay digests differ: {res['digests']}")
+        check(res["health"][0] == "ok" and res["health"][1] != "ok",
+              f"quickstart's verdicts {res['health']}: healthy, then not")
+    g, gc = (card["graph_analytics"]["results"],
+             cpu["graph_analytics"]["results"])
+    for key in ("triangles", "ktruss_edges", "ktruss_iterations"):
+        check(g[key] == gc[key], f"graph_analytics {key}: card {g[key]} "
+              f"against the CPU's {gc[key]}")
+    check(same_top(g["bc"], gc["bc"]), f"graph_analytics' top vertices: "
+          f"card {g['bc_top5']} against the CPU's {gc['bc_top5']}")
+    s, sc = card["serve_lm"]["results"], cpu["serve_lm"]["results"]
+    check(s["shapes"] == sc["shapes"], f"serve_lm's shapes: card "
+          f"{s['shapes']} against the CPU's {sc['shapes']}")
+
+
+def examples_phase() -> dict:
+    """Phase 18: ``examples_torch/`` as a user runs it, each example in a
+    child process with jax and the reference package blocked.  quickstart,
+    graph_analytics and serve_lm at the reference's sizes on the card and,
+    at the same time, on the CPU: a child that exits non-zero, a
+    deterministic result of the card's run that differs from the CPU's, or
+    a quickstart that launched no block product on the card fails the run.
+    Then train_lm at its ~100M default for 200 steps on the card (its loss
+    drop asserted by the example itself), with checkpoints in a fresh
+    temporary directory that the phase removes."""
+    t0 = time.perf_counter()
+    ckpt = tempfile.mkdtemp(prefix="train_lm_")
+    cpu_procs = {name: start_example(name, "--device", "cpu")
+                 for name in EXAMPLES[:3]}
+    try:
+        card = {name: example_result(name, start_example(
+            name, "--device", "cuda")) for name in EXAMPLES[:3]}
+        cpu = {name: example_result(name, proc)
+               for name, proc in cpu_procs.items()}
+        t_train = time.perf_counter()
+        card["train_lm"] = example_result("train_lm", start_example(
+            "train_lm", "--device", "cuda", "--ckpt-dir", ckpt))
+        t_done = time.perf_counter()
+    finally:
+        for proc in cpu_procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(ckpt, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    for name, report in card.items():
+        for line in report.pop("stdout").strip().splitlines()[:-1]:
+            print(f"examples: {name} (card): {line}")
+    launches = card["quickstart"]["launches"]
+    check(launches["LAUNCHES"] + launches["FUSED_LAUNCHES"] > 0,
+          f"quickstart launched no block product on the card: {launches}")
+    examples_agree(card, cpu)
+    train = card["train_lm"]
+    steps = train["step_s"]
+    check(train["results"]["steps"] == 200 and len(steps) == 200,
+          f"train_lm ran {train['results']['steps']} steps")
+    out = {"seconds": seconds, "train_seconds": t_done - t_train,
+           "quickstart_launches": launches,
+           "first_loss": train["results"]["first"],
+           "last_loss": train["results"]["last"],
+           "warm_step_ms": statistics.median(steps[10:]) * 1e3}
+    print(f"examples: the card's results equal the CPU's; quickstart's "
+          f"block products on the card {json.dumps(launches)}; train_lm "
+          f"(~100M, 200 steps of 4 x 128 tokens) loss "
+          f"{out['first_loss']:.3f} -> {out['last_loss']:.3f}, warm step "
+          f"{out['warm_step_ms']:.2f} ms (median of steps 10-199, each "
+          f"ended by a synchronise), {out['train_seconds']:.1f} s; the phase "
+          f"{seconds:.1f} s ({CARD})")
+    return out
+
+
 def main() -> int:
     device = card()
     dev = torch.device("cuda", 0)
@@ -5623,6 +5815,9 @@ def main() -> int:
     training = training_phase(dev)
     t_lint = time.perf_counter()
     linted = lint_phase()
+    t_examples = time.perf_counter()
+    examples = examples_phase()
+    entry["examples_launches"] = examples["quickstart_launches"]
     t_end = time.perf_counter()
     print(f"phases: spgemm {t_serving - t_start:.1f} s, serving "
           f"{t_delta - t_serving:.1f} s, delta {t_tuning - t_delta:.1f} s, "
@@ -5634,9 +5829,11 @@ def main() -> int:
           f"families {t_families2 - t_families:.1f} s, "
           f"families II {t_training - t_families2:.1f} s, "
           f"training {t_lint - t_training:.1f} s, "
-          f"lint {t_end - t_lint:.1f} s")
+          f"lint {t_examples - t_lint:.1f} s, "
+          f"examples {t_end - t_examples:.1f} s")
     print("training numbers: " + json.dumps(training))
     print("lint numbers: " + json.dumps(linted))
+    print("examples numbers: " + json.dumps(examples))
     print(json.dumps({"kernels": [entry, sddmm, flash_entry,
                                   moonshot_entry, zamba_entry,
                                   seamless_entry]}))

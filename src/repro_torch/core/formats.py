@@ -379,6 +379,13 @@ def padded_from_csr(a: CSR, width: Optional[int] = None,
     return PaddedCSR(cols, vals.to(dtype), lens, a.shape)
 
 
+def padded_from_dense(a: np.ndarray, width: Optional[int] = None,
+                      device="cuda") -> PaddedCSR:
+    """``padded_from_csr`` of a dense host matrix's nonzeros."""
+    return padded_from_csr(csr_from_dense(np.asarray(a)), width,
+                           device=device)
+
+
 # --------------------------------------------------------------------------
 # Device-side construction from a host CSR (one upload per CSR)
 # --------------------------------------------------------------------------
@@ -811,6 +818,22 @@ def bcsr_concat_row_panels(panels: Sequence[BCSR]) -> BCSR:
                 blocks, (sum(p.shape[0] for p in panels), ncols), bs)
 
 
+def pad_panel_blocks(blocks, target_nnzb: int):
+    """Pad a (nnzb, bs, bs) block array with zero blocks to ``target_nnzb``
+    (>= 1), giving every ring participant one shape.  Works on a tensor,
+    on its device, or on host (numpy) blocks, without changing residency."""
+    nnzb = blocks.shape[0]
+    target = max(1, target_nnzb)
+    if nnzb == target:
+        return blocks
+    shape = (target - nnzb,) + tuple(blocks.shape[1:])
+    if isinstance(blocks, np.ndarray):
+        pad = np.zeros(shape, blocks.dtype)
+        return np.concatenate([blocks, pad]) if nnzb else pad
+    pad = torch.zeros(shape, dtype=blocks.dtype, device=blocks.device)
+    return torch.cat([blocks, pad]) if nnzb else pad
+
+
 # --------------------------------------------------------------------------
 # Random sparse generators (paper Sec. 7: Erdos-Renyi and R-MAT/Graph500)
 # --------------------------------------------------------------------------
@@ -856,6 +879,15 @@ def rmat(scale: int, edge_factor: int = 16, seed: int = 0,
     out = csr_from_coo(rows, cols, vals, (n, n))
     out.data[:] = 1.0  # binarize: duplicate edges must not create weights
     return out
+
+
+def random_mask_like(a: CSR, keep_prob: float, seed: int = 0) -> CSR:
+    """Random subsample of a's pattern (mask values are irrelevant)."""
+    rng = np.random.default_rng(seed)
+    keep = rng.random(a.nnz) < keep_prob
+    rows = _expand_rows(a.indptr)[keep]
+    return csr_from_coo(rows, a.indices[keep], np.ones(keep.sum(), np.float32),
+                        a.shape, sum_dups=False)
 
 
 def er_mask(n: int, d: float, seed: int) -> CSR:

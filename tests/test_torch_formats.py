@@ -7,6 +7,7 @@ block size.
 """
 import numpy as np
 import pytest
+import torch
 
 from repro.core import formats as rf
 from repro_torch.core import formats as tf
@@ -133,3 +134,53 @@ def test_bcsr_of_empty_matrix():
     np.testing.assert_array_equal(
         tf.bcsr_block_positions(got, np.array([0, 1]), np.array([0, 2])),
         rf.bcsr_block_positions(want, np.array([0, 1]), np.array([0, 2])))
+
+
+@pytest.mark.parametrize("width", [None, 1, 4, 12])
+def test_padded_from_dense_matches(width):
+    rng = np.random.default_rng(21)
+    a = with_empty_rows(rng, 14, 11, 0.4)
+    want = rf.padded_from_dense(a, width)
+    got = tf.padded_from_dense(a, width, device="cpu")
+    assert got.shape == want.shape and got.width == want.width
+    np.testing.assert_array_equal(got.cols.numpy(), np.asarray(want.cols))
+    np.testing.assert_array_equal(got.vals.numpy(), np.asarray(want.vals))
+    np.testing.assert_array_equal(got.lens.numpy(), np.asarray(want.lens))
+
+
+@pytest.mark.parametrize("nnzb,target", [(5, 9), (5, 5), (0, 3), (0, 0),
+                                         (3, 0)],
+                         ids=["past_nnzb", "equal", "empty", "empty_to_one",
+                              "three_to_one"])
+@pytest.mark.parametrize("host", [False, True], ids=["tensor", "numpy"])
+def test_pad_panel_blocks_matches(nnzb, target, host):
+    """Zero blocks appended past ``nnzb`` (at least one block in all),
+    the input's values, dtype and residency kept."""
+    blocks = np.random.default_rng(nnzb).standard_normal(
+        (nnzb, 4, 4)).astype(np.float32)
+    if nnzb > max(1, target):
+        with pytest.raises(Exception):
+            rf.pad_panel_blocks(blocks, target)
+        with pytest.raises(Exception):
+            tf.pad_panel_blocks(blocks if host else torch.from_numpy(blocks),
+                                target)
+        return
+    want = rf.pad_panel_blocks(blocks, target)
+    got = tf.pad_panel_blocks(blocks if host else torch.from_numpy(blocks),
+                              target)
+    if host:
+        assert isinstance(got, np.ndarray)
+    else:
+        assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+        got = got.numpy()
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[:nnzb], blocks)
+
+
+@pytest.mark.parametrize("keep,seed", [(0.5, 4), (0.6, 12), (0.1, 0),
+                                       (1.0, 3)])
+def test_random_mask_like_matches(keep, seed):
+    g = rf.rmat(7, 4, seed=11)
+    assert_csr_equal(tf.random_mask_like(as_port(g), keep, seed=seed),
+                     rf.random_mask_like(g, keep, seed=seed))

@@ -34,6 +34,7 @@ from repro_torch import tuning
 from repro_torch.convert import csr_from_reference
 from repro_torch.core import accumulators as acc
 from repro_torch.core import planner
+from repro_torch.core.formats import random_mask_like
 from repro_torch.core.masked_spgemm import masked_spgemm
 from repro_torch.serving.trace import Trace, golden_trace_path
 from repro_torch.tuning import autotune, cli, fit, probes
@@ -487,8 +488,7 @@ def test_activation_changes_live_tables_and_token_then_restores(
 
 def test_new_version_token_invalidates_cached_plans(builtin_tables):
     g = csr_from_reference(rf.rmat(6, 4, seed=3))
-    m = csr_from_reference(rf.random_mask_like(rf.rmat(6, 4, seed=3), 0.5,
-                                               seed=4))
+    m = random_mask_like(g, 0.5, seed=4)
     tuning.activate(perturbed(scale=1.0, version="token-a"))
     planner.clear_plan_cache()
     planner.plan(g, g, m, device=CPU)
@@ -504,8 +504,9 @@ def test_new_version_token_invalidates_cached_plans(builtin_tables):
 def election_problems():
     """Reference operands, m below TRIAL_MIN_ROWS (no measured trial)."""
     g = rf.rmat(7, 4, seed=11)
+    m = random_mask_like(csr_from_reference(g), 0.6, seed=12)
     return {
-        "rmat7": (g, g, rf.random_mask_like(g, 0.6, seed=12)),
+        "rmat7": (g, g, rf.CSR(m.indptr, m.indices, m.data, m.shape)),
         "er_sparse_mask": (rf.erdos_renyi(200, 3.0, seed=1),
                            rf.erdos_renyi(200, 3.0, seed=2),
                            rf.er_mask(200, 2.0, seed=3)),

@@ -26,8 +26,10 @@ held: one tf32 pass for each product (hi.hi only), no split of k or v at
 all (the producer's three warps only arrive), and p.v without p's lo
 term.  Every variant is first held to the plain version at each shape
 (rtol = atol = 2e-5) and to float64 (2e-6 normwise, at llama B 1), the
-ablations only reported; then all of them and the ``mma.sync`` kernel are
-timed in turns (forward, backward, forward, backward), each turn the
+ablations only reported; then all of them, the ``mma.sync`` kernel and
+the library call, f32 ``scaled_dot_product_attention`` (TF32 off, the kv
+heads expanded before the clock starts), are timed in turns (forward,
+backward, forward, backward), each turn the
 device time per call over the calls queued behind a device-side sleep
 (``chip_smoke.kernel_ms``), and the median of each one's turns is printed
 with its registers, spills and ptxas's notes and each shape's f32 bound
@@ -115,6 +117,9 @@ VARIANTS = {
             Values<DP>::mma(part, hi[i], dvh, 1);
 """)], False),
 }
+#: the library call timed in the same turns: f32
+#: ``scaled_dot_product_attention`` (TF32 off) on the same inputs
+LIBRARY = "f32 SDPA"
 #: (name, B, Hq, Hkv, D, causal) of the main path's f32 shapes, S 2048
 SHAPES = (("llama B1", 1, 32, 8, 64, True), ("llama B4", 4, 32, 8, 64, True),
           ("moonshot", 1, 16, 16, 128, True),
@@ -229,6 +234,7 @@ def main() -> int:
 
     contenders = dict(fns)
     contenders["mma.sync kernel"] = None
+    contenders[LIBRARY] = None
     held = {name: gate for name, (_, gate) in VARIANTS.items()}
     held["mma.sync kernel"] = True
     for what, b, hq, hkv, d, causal in SHAPES:
@@ -243,7 +249,16 @@ def main() -> int:
                   prefix=0, q_offset=0)
         args = (q, k, v, *sched)
         want = flash.flash_mask_plain(*args, **kw)
+        # the library call's kv heads expanded before the clock starts, as
+        # chip_smoke's f32_instance does
+        ke, ve = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, ke, ve, is_causal=causal)
         for name, fn in contenders.items():
+            if name == LIBRARY:
+                continue
             got = run(fn, *args, **kw)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
@@ -262,9 +277,10 @@ def main() -> int:
         for turn in range(4):
             for name in (order if turn % 2 == 0 else order[::-1]):
                 fn = contenders[name]
+                call = (library if name == LIBRARY
+                        else lambda: run(fn, *args, **kw))
                 times[name].append(smoke.kernel_ms(
-                    lambda: run(fn, *args, **kw), dev,
-                    calls=8 if b > 1 else 10))
+                    call, dev, calls=8 if b > 1 else 10))
         # the bound as chip_smoke's f32_instance computes it: the allowed
         # elements' operations at three TF32 passes, q, k, v and the
         # output read or written once, 12 bytes a worklist entry
