@@ -262,7 +262,31 @@ Phases, each printing its own lines:
    card, its checkpoints in a fresh temporary directory that the phase
    removes; the example asserts the loss drop, the phase prints the first
    and last loss and the warm step's ms;
-19. one JSON line with every kernel's numbers, then the result line
+19. sharded (after phase 18; every port cache cleared): sharded training
+   and prefill as ranks, one process each, spawned on ``cuda:0`` over
+   gloo (``repro_torch.parallel``; NCCL takes one card per rank).
+   (a) llama3.2-1b as published (full width and 16 layers, f32 masters,
+   block_masked, the config's remat) on a (data 2, model 2) mesh with
+   ZeRO-1: 3 steps of 2 x 2,048 tokens, each loss within 1e-4 relative
+   of a one-device step on the same weights and batches run first in
+   this process; one more step with ``compress=True``, finite; the warm
+   step's ms (every rank synchronised, then a barrier), tokens/s, each
+   rank's peak memory (4 x the largest under the card's memory) and the
+   link bytes a step by collective; block_masked twice a layer a step
+   and no kernel launch.  (b) llama3.2-1b under flash_pallas on (data 1,
+   model 2): bf16 4 x 2,048 and f32 1 x 2,048 prefills on each rank's
+   heads (16 q, 4 K/V, D 64), each rank's vocabulary block of the logits
+   within 5e-2 (bf16) and 1e-4 (f32) normwise of the one-rank prefill on
+   the same weights; every flash launch on the Hopper kernels, one a
+   layer on every rank.  (c) moonshot-v1-16b-a3b at full width, depth
+   cut as memory forces (printed), f32 under flash_pallas on (1, 2): the
+   tensor-parallel attention (8 q heads of D 128 a rank) and the
+   expert-parallel MoE, within 1e-4 normwise of the one-device
+   restatement of the same layers (``layers.moe_ep_plain``, its routing
+   replayed into the sharded run) with equal rows per expert.  (d) one
+   sharded step of (a)'s model at (1, 1) on NCCL and on gloo, run
+   together: losses and gradient norms within 1e-6;
+20. one JSON line with every kernel's numbers, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Wherever phases 4, 6, 7, 11, 12 and 13 drive the path, every block
@@ -328,7 +352,10 @@ from repro_torch.launch.specs import concrete_batch  # noqa: E402
 from repro_torch.optim.adamw import AdamW  # noqa: E402
 from repro_torch.train.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.train.train_step import (  # noqa: E402
-    init_state, make_train_step)
+    init_sharded_state, init_state, make_train_step, shard_model,
+    sharded_train_step)
+from repro_torch import parallel  # noqa: E402
+from repro_torch.launch.mesh import make_device_mesh  # noqa: E402
 
 #: NVIDIA H100 SXM data sheet: f32 on CUDA cores, bf16 and TF32 on tensor
 #: cores (dense), HBM3 bandwidth
@@ -5751,6 +5778,451 @@ def examples_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: sharded training and prefill, ranks sharing the card
+# ---------------------------------------------------------------------------
+
+#: (a): llama3.2-1b as published on (data 2, model 2), 3 steps of 2 x 2,048
+SHARDED_MESH = (2, 2)
+SHARDED_BATCH = 2
+SHARDED_SEQ = 2048
+SHARDED_STEPS = 3
+SHARDED_LOSS_TOL = 1e-4
+#: (b): the tensor-parallel flash prefills on (data 1, model 2)
+TP_PREFILLS = (("bfloat16", (4, 2048), 5e-2), ("float32", (1, 2048), 1e-4))
+#: (c): moonshot's expert-parallel prefill, 1 x 2,048 f32 tokens
+EP_SEQ = 2048
+EP_TOL = 1e-4
+#: (d): NCCL against gloo at world 1
+NCCL_TOL = 1e-6
+
+
+def sharded_opt() -> AdamW:
+    return AdamW(lr=3e-4, warmup=2, total_steps=8)
+
+
+def sharded_join(rank: int, world: int, tmp: str, backend: str = "gloo"):
+    """This child's rank: the card's settings as ``card()`` makes them, a
+    process group on a ``FileStore`` under ``tmp``; every rank on
+    ``cuda:0``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    store = torch.distributed.FileStore(
+        os.path.join(tmp, f"store-{backend}-{world}"), world)
+    return parallel.init_ranks(backend, "cuda", rank=rank, world_size=world,
+                               local_rank=rank, store=store)
+
+
+def rank_sync() -> None:
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+
+
+def rank_result(tmp: str, name: str, rank: int, out: dict) -> None:
+    with open(os.path.join(tmp, f"{name}.{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def rank_results(tmp: str, name: str, world: int) -> list:
+    out = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"{name}.{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def spawn_ranks(fn, world: int, tmp: str) -> None:
+    """``fn(rank, world, tmp)`` in ``world`` spawned processes; raises if
+    any fails."""
+    import torch.multiprocessing as mp
+    mp.spawn(fn, args=(world, tmp), nprocs=world, join=True)
+
+
+def sharded_train_rank(rank: int, world: int, tmp: str) -> None:
+    """(a) on one rank: steps, the compressed step, times, memory, links."""
+    ranks = sharded_join(rank, world, tmp)
+    dev = ranks.device
+    cfg = get_config("llama3_2_1b")
+    mesh = make_device_mesh(SHARDED_MESH, ("data", "model"))
+    dp = parallel.mesh_axes(mesh)["dp"]
+    opt = sharded_opt()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = init_sharded_state(cfg, opt, mesh, seed=0, device=dev)
+    rank_sync()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    pipe = SyntheticLM(cfg.vocab_size, SHARDED_SEQ, SHARDED_BATCH, seed=0)
+    step = sharded_train_step(cfg, opt, mesh)
+    reset_counts()
+    bm0 = A.BLOCK_MASKED_CALLS
+    losses, norms, times = [], [], []
+    for i in range(SHARDED_STEPS):
+        batch = batch_for(cfg, pipe, i, device=dev,
+                          shard=(dp.index, dp.size))
+        rank_sync()
+        parallel.reset_link_bytes()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        rank_sync()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    links = {f"{c}/{b}": n for (c, b), n in parallel.LINK_BYTES.items()}
+    link_s = {f"{c}/{b}": x for (c, b), x in parallel.LINK_SECONDS.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = {"flash": flash.TC_LAUNCHES, "block_spgemm":
+                kernel.LAUNCHES + kernel.FUSED_LAUNCHES,
+                "sddmm": kernel.MASKED_MATMUL_LAUNCHES}
+    calls = A.BLOCK_MASKED_CALLS - bm0
+    cstep = sharded_train_step(cfg, opt, mesh, compress=True)
+    parallel.reset_link_bytes()
+    state, m = cstep(state, batch_for(cfg, pipe, SHARDED_STEPS, device=dev,
+                                      shard=(dp.index, dp.size)))
+    rank_sync()
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in state.model.parameters())
+    rank_result(tmp, "train", rank, {
+        "losses": losses, "grad_norms": norms, "step_ms": times,
+        "init_s": init_s, "init_peak": init_peak, "peak": peak,
+        "links": links, "link_seconds": link_s, "launches": launches,
+        "block_masked_calls": calls,
+        "compressed_loss": float(m["loss"]), "params_finite": finite,
+        "compressed_links": {f"{c}/{b}": n for (c, b), n
+                             in parallel.LINK_BYTES.items()},
+        "local_params": sum(p.numel() for p in state.model.parameters())})
+    del state
+    parallel.shutdown()
+
+
+def sharded_training(dev, tmp: str) -> dict:
+    """(a): the one-device steps here, then the four ranks."""
+    what = "sharded-train"
+    cfg = get_config("llama3_2_1b")
+    free_port_memory(dev)
+    state = init_state(cfg, sharded_opt(), seed=0, device=dev)
+    step = make_train_step(cfg, sharded_opt())
+    pipe = SyntheticLM(cfg.vocab_size, SHARDED_SEQ, SHARDED_BATCH, seed=0)
+    single = []
+    for i in range(SHARDED_STEPS):
+        state, m = step(state, batch_for(cfg, pipe, i, device=dev))
+        single.append(float(m["loss"]))
+    n = sum(p.numel() for p in state.model.parameters())
+    del state, step
+    free_port_memory(dev)
+    t0 = time.perf_counter()
+    spawn_ranks(sharded_train_rank, 4, tmp)
+    wall = time.perf_counter() - t0
+    ranks = rank_results(tmp, "train", 4)
+    r0 = ranks[0]
+    for r, got in enumerate(ranks):
+        check(got["losses"] == r0["losses"], f"{what}: rank {r} reads the "
+              f"same losses as rank 0")
+        check(got["launches"] == {"flash": 0, "block_spgemm": 0,
+                                  "sddmm": 0},
+              f"{what}: rank {r} launched no kernel: {got['launches']}")
+        per = 1 if cfg.remat == "none" else 2
+        check(got["block_masked_calls"] == per * cfg.n_layers * SHARDED_STEPS,
+              f"{what}: rank {r} ran block_masked {per} times a layer a step "
+              f"(forward and remat's recompute): "
+              f"{got['block_masked_calls']}")
+        check(got["params_finite"] and math.isfinite(got["compressed_loss"]),
+              f"{what}: rank {r}'s compressed step is finite")
+    for i, (a, b) in enumerate(zip(r0["losses"], single)):
+        check(abs(a - b) <= SHARDED_LOSS_TOL * abs(b),
+              f"{what}: step {i} loss {a} within {SHARDED_LOSS_TOL} of the "
+              f"one-device step's {b}")
+    total = torch.cuda.get_device_properties(dev).total_memory
+    peak = max(max(g["peak"], g["init_peak"]) for g in ranks)
+    check(4 * peak < total, f"{what}: 4 x the largest rank peak "
+          f"({4 * peak / 2**30:.1f} GiB) under the card's "
+          f"{total / 2**30:.1f} GiB")
+    warm = statistics.median(r0["step_ms"][1:])
+    tokens = SHARDED_BATCH * SHARDED_SEQ
+    out = {"params": n, "losses": r0["losses"], "single_losses": single,
+           "grad_norms": r0["grad_norms"], "step_ms": r0["step_ms"],
+           "warm_ms": warm, "tokens_per_s": tokens / (warm / 1e3),
+           "peak_mib": [g["peak"] / 2**20 for g in ranks],
+           "init_peak_mib": [g["init_peak"] / 2**20 for g in ranks],
+           "link_bytes_per_step": r0["links"],
+           "link_seconds_per_step": [g["link_seconds"] for g in ranks],
+           "compressed_link_bytes": r0["compressed_links"],
+           "compressed_loss": r0["compressed_loss"],
+           "local_params": [g["local_params"] for g in ranks],
+           "seconds": wall}
+    print(f"{what}: {cfg.name} {cfg.n_layers} layers, {n:,} parameters, "
+          f"(data 2, model 2) over gloo, ZeRO-1, 4 ranks on cuda:0; losses "
+          f"{', '.join(f'{x:.6f}' for x in r0['losses'])} against one "
+          f"device's {', '.join(f'{x:.6f}' for x in single)}; compressed "
+          f"step loss {r0['compressed_loss']:.6f}; step ms "
+          f"{', '.join(f'{x:.1f}' for x in r0['step_ms'])} (warm median "
+          f"{warm:.1f}), {out['tokens_per_s']:.0f} tokens/s; peak MiB a "
+          f"rank {', '.join(f'{x:.0f}' for x in out['peak_mib'])} (at "
+          f"init {', '.join(f'{x:.0f}' for x in out['init_peak_mib'])}); "
+          f"link bytes a step {json.dumps(r0['links'])}, compressed "
+          f"{json.dumps(r0['compressed_links'])}; seconds in collectives "
+          f"in the last step, rank 0 {json.dumps(r0['link_seconds'])}; "
+          f"{wall:.1f} s; {CARD}")
+    return out
+
+
+def blocks_normwise(got, want, axis) -> float:
+    """||got - want|| / ||want|| of a tensor split over ``axis`` (each rank
+    holds its block of both), the squares summed in f64 row by row."""
+    num = torch.zeros(2, dtype=torch.float64, device=got.device)
+    for g, w in zip(got.reshape(-1, got.shape[-1]).split(256),
+                    want.reshape(-1, want.shape[-1]).split(256)):
+        num[0] += (g.double() - w.double()).square().sum()
+        num[1] += w.double().square().sum()
+    parallel.all_reduce(num, axis)
+    return float((num[0] / num[1]).sqrt())
+
+
+def flash_counts() -> dict:
+    return {"launches": flash.LAUNCHES, "tc": flash.TC_LAUNCHES,
+            "f32": flash.F32_LAUNCHES, "sm90": flash.SM90_LAUNCHES}
+
+
+class ep_restated:
+    """Within the block, ``MoE.forward`` is ``layers.moe_ep_plain`` over
+    ``ep`` ranks on the whole weights; ``sizes`` collects each call's rows
+    per expert of every rank."""
+
+    def __init__(self, ep: int):
+        self.ep, self.sizes = ep, []
+
+    def __enter__(self):
+        self.saved = L.MoE.forward
+
+        def forward(module, x, cfg):
+            out, sizes = L.moe_ep_plain(module, cfg, x, self.ep)
+            self.sizes.append(sizes)
+            return out
+
+        L.MoE.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        L.MoE.forward = self.saved
+
+
+def moonshot_ep_depth(cfg, free: int) -> int:
+    """The most layers whose whole f32 weights fit one and a half times in
+    ``free`` bytes beside ``LM_HEADROOM_BYTES``: one rank holds the whole
+    model while the other holds its half."""
+    n = cfg.n_layers
+    while n > 1 and 6 * n_params(cfg.replace(n_layers=n)) \
+            + LM_HEADROOM_BYTES > free:
+        n -= 1
+    return n
+
+
+def tp_prefill_rank(rank: int, world: int, tmp: str) -> None:
+    """(b) and (c) on one rank of (data 1, model 2)."""
+    ranks = sharded_join(rank, world, tmp)
+    dev = ranks.device
+    mesh = make_device_mesh((1, world), ("data", "model"))
+    tp = parallel.mesh_axes(mesh)["model"]
+    out = {"llama": {}}
+    for dtype, shape, tol in TP_PREFILLS:
+        cfg = get_config("llama3_2_1b").replace(attn_impl="flash_pallas",
+                                                dtype=dtype)
+        model = T.init_params(cfg, seed=0, device=dev)
+        tokens = lm_tokens(cfg, shape, dev)
+        want = T.forward(model, cfg, {"tokens": tokens})
+        shard_model(model, mesh)
+        rows = model.embed.shape[0]
+        want = want[..., model.vocab_start():model.vocab_start() + rows] \
+            .contiguous()
+        free_port_memory(dev)
+        reset_counts()
+        got = T.forward(model, cfg, {"tokens": tokens})
+        torch.cuda.synchronize()
+        counts = flash_counts()
+        err = blocks_normwise(got, want, tp)
+        rank_sync()
+        t = time.perf_counter()
+        T.forward(model, cfg, {"tokens": tokens})
+        rank_sync()
+        out["llama"][dtype] = {
+            "normwise": err, "tol": tol, "counts": counts,
+            "expected_sm90": sm90_expected(cfg, shape[1], counts["tc"],
+                                           cfg.activation_dtype),
+            "warm_ms": (time.perf_counter() - t) * 1e3,
+            "local_heads": list(model.blocks[0].attn.tp_heads(cfg)),
+            "n_layers": cfg.n_layers, "shape": list(shape),
+            "finite": bool(torch.isfinite(got).all())}
+        del model, want, got
+        free_port_memory(dev)
+    # (c): the whole model one rank at a time, then the shards together
+    cfg = get_config("moonshot_v1_16b_a3b").replace(
+        attn_impl="flash_pallas", dtype="float32")
+    free = torch.tensor([free_port_memory(dev)], dtype=torch.float64)
+    torch.distributed.all_reduce(free, op=torch.distributed.ReduceOp.MIN)
+    depth = moonshot_ep_depth(cfg, int(free))
+    cfg = cfg.replace(n_layers=depth)
+    tokens = lm_tokens(cfg, (1, EP_SEQ), dev)
+    for turn in range(world):
+        if turn == rank:
+            model = T.init_params(cfg, seed=0, device=dev)
+            with routing_log() as log, ep_restated(world) as plain:
+                want = T.forward(model, cfg, {"tokens": tokens})
+            shard_model(model, mesh)
+            rows = model.embed.shape[0]
+            want = want[..., model.vocab_start():
+                        model.vocab_start() + rows].contiguous()
+            free_port_memory(dev)
+        rank_sync()
+    moes = [blk.ffn for blk in model.blocks if isinstance(blk.ffn, L.MoE)]
+    reset_counts()
+    t = time.perf_counter()
+    with routing_log(replay=log.calls):
+        got = T.forward(model, cfg, {"tokens": tokens})
+    rank_sync()
+    ms = (time.perf_counter() - t) * 1e3
+    sizes = [m.group_sizes for m in moes]
+    out["moonshot"] = {
+        "depth": depth, "of": get_config("moonshot_v1_16b_a3b").n_layers,
+        "free_gib": float(free) / 2**30,
+        "normwise": blocks_normwise(got, want, tp), "counts": flash_counts(),
+        "expected_sm90": sm90_expected(cfg, EP_SEQ, depth, torch.float32),
+        "sizes_equal": sizes == [s[rank] for s in plain.sizes],
+        "rows_kept": sum(sum(s) for s in sizes),
+        "ms": ms, "peak_mib": torch.cuda.max_memory_allocated(dev) / 2**20,
+        "local_heads": list(model.blocks[0].attn.tp_heads(cfg)),
+        "finite": bool(torch.isfinite(got).all())}
+    rank_result(tmp, "prefill", rank, out)
+    del model, want, got
+    parallel.shutdown()
+
+
+def sharded_prefills(tmp: str) -> dict:
+    """(b) and (c): two ranks; returns their numbers."""
+    t0 = time.perf_counter()
+    spawn_ranks(tp_prefill_rank, 2, tmp)
+    wall = time.perf_counter() - t0
+    ranks = rank_results(tmp, "prefill", 2)
+    for r, got in enumerate(ranks):
+        for dtype, res in got["llama"].items():
+            what = f"tp-prefill {dtype} rank {r}"
+            c = res["counts"]
+            check(res["finite"] and res["normwise"] <= res["tol"],
+                  f"{what}: logits within {res['tol']} normwise of the "
+                  f"one-rank prefill: {res['normwise']:.3g}")
+            check(c["launches"] == c["tc"] == res["n_layers"]
+                  and c["f32"] == (res["n_layers"] if dtype == "float32"
+                                   else 0),
+                  f"{what}: the flash kernel once a layer: {c}")
+            check(c["sm90"] == res["expected_sm90"] == res["n_layers"],
+                  f"{what}: every flash launch on the Hopper kernel: {c}")
+        mo = got["moonshot"]
+        what = f"ep-prefill rank {r}"
+        c = mo["counts"]
+        check(mo["finite"] and mo["normwise"] <= EP_TOL,
+              f"{what}: logits within {EP_TOL} normwise of the one-device "
+              f"restatement: {mo['normwise']:.3g}")
+        check(mo["sizes_equal"], f"{what}: rows per expert equal the "
+              f"restatement's")
+        check(c["tc"] == c["f32"] == c["sm90"] == mo["expected_sm90"]
+              == mo["depth"], f"{what}: the f32 Hopper flash kernel once a "
+              f"layer: {c}")
+    r0 = ranks[0]
+    for dtype, res in r0["llama"].items():
+        errs = [g["llama"][dtype]["normwise"] for g in ranks]
+        sm90 = [g["llama"][dtype]["counts"]["sm90"] for g in ranks]
+        print(f"tp-prefill: llama3.2-1b {dtype} {res['shape'][0]} x "
+              f"{res['shape'][1]} on (data 1, model 2), heads a rank "
+              f"(q, first K/V, end K/V) {res['local_heads']}: normwise "
+              f"{errs} (limit {res['tol']}); sm90 flash launches a rank "
+              f"{sm90}; warm {res['warm_ms']:.1f} ms; {CARD}")
+    mo = r0["moonshot"]
+    errs = [g["moonshot"]["normwise"] for g in ranks]
+    kept = [g["moonshot"]["rows_kept"] for g in ranks]
+    peaks = [round(g["moonshot"]["peak_mib"]) for g in ranks]
+    print(f"ep-prefill: moonshot-v1-16b-a3b f32 1 x {EP_SEQ}, {mo['depth']} "
+          f"of {mo['of']} layers (depth cut: the whole model must fit 1.5 "
+          f"times in the {mo['free_gib']:.1f} GiB free), (data 1, model 2), "
+          f"heads a rank {mo['local_heads']}: normwise {errs} (limit "
+          f"{EP_TOL}) against the one-device restatement with its routing "
+          f"replayed; rows kept a rank {kept}; {mo['ms']:.1f} ms; peak MiB "
+          f"{peaks}; {wall:.1f} s; {CARD}")
+    return {"llama": {d: {"normwise": [g["llama"][d]["normwise"]
+                                       for g in ranks],
+                          "sm90_launches": [g["llama"][d]["counts"]["sm90"]
+                                            for g in ranks],
+                          "warm_ms": r0["llama"][d]["warm_ms"]}
+                      for d in r0["llama"]},
+            "moonshot": {"depth": mo["depth"], "normwise":
+                         [g["moonshot"]["normwise"] for g in ranks],
+                         "sm90_launches": [g["moonshot"]["counts"]["sm90"]
+                                           for g in ranks],
+                         "ms": mo["ms"]},
+            "seconds": wall}
+
+
+def nccl_rank(rank: int, world: int, tmp: str) -> None:
+    """(d): one step at (1, 1), rank 0 of its own world on gloo, rank 1
+    on NCCL."""
+    backend = ("gloo", "nccl")[rank]
+    ranks = sharded_join(0, 1, tmp, backend)
+    dev = ranks.device
+    cfg = get_config("llama3_2_1b")
+    mesh = make_device_mesh((1, 1), ("data", "model"))
+    opt = sharded_opt()
+    state = init_sharded_state(cfg, opt, mesh, seed=0, device=dev)
+    pipe = SyntheticLM(cfg.vocab_size, SHARDED_SEQ, 1, seed=0)
+    state, m = sharded_train_step(cfg, opt, mesh)(
+        state, batch_for(cfg, pipe, 0, device=dev, shard=(0, 1)))
+    x = torch.ones(1, device=dev)
+    torch.distributed.all_reduce(x)
+    rank_result(tmp, "nccl", rank, {
+        "backend": torch.distributed.get_backend(),
+        "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+        "all_reduce": float(x)})
+    del state
+    parallel.shutdown()
+
+
+def sharded_nccl(tmp: str) -> dict:
+    spawn_ranks(nccl_rank, 2, tmp)
+    gloo, nccl = rank_results(tmp, "nccl", 2)
+    check(gloo["backend"] == "gloo" and nccl["backend"] == "nccl"
+          and nccl["all_reduce"] == 1.0, f"nccl: the backends ran: "
+          f"{gloo['backend']}, {nccl['backend']}")
+    for k in ("loss", "grad_norm"):
+        check(abs(nccl[k] - gloo[k]) <= NCCL_TOL * abs(gloo[k]),
+              f"nccl: {k} {nccl[k]} within {NCCL_TOL} of gloo's {gloo[k]}")
+    print(f"nccl: one sharded step at (1, 1), loss {nccl['loss']:.7f} on "
+          f"NCCL and {gloo['loss']:.7f} on gloo, grad_norm "
+          f"{nccl['grad_norm']:.7g} and {gloo['grad_norm']:.7g}; {CARD}")
+    return {"nccl": nccl, "gloo": gloo}
+
+
+def sharded_phase(dev) -> dict:
+    """Phase 19; returns its numbers (printed on a ``sharded numbers:``
+    line)."""
+    free = free_port_memory(dev)
+    print(f"sharded: {free / 2**30:.1f} GiB free after clearing every port "
+          f"cache")
+    tmp = tempfile.mkdtemp(prefix="sharded-")
+    try:
+        t0 = time.perf_counter()
+        out = {"train": sharded_training(dev, tmp)}
+        t1 = time.perf_counter()
+        out["prefill"] = sharded_prefills(tmp)
+        t2 = time.perf_counter()
+        out["nccl"] = sharded_nccl(tmp)
+        out["seconds"] = {"train": t1 - t0, "prefill": t2 - t1,
+                          "nccl": time.perf_counter() - t2}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"sharded: train {out['seconds']['train']:.1f} s, prefills "
+          f"{out['seconds']['prefill']:.1f} s, nccl "
+          f"{out['seconds']['nccl']:.1f} s")
+    return out
+
+
 def main() -> int:
     device = card()
     dev = torch.device("cuda", 0)
@@ -5818,6 +6290,12 @@ def main() -> int:
     t_examples = time.perf_counter()
     examples = examples_phase()
     entry["examples_launches"] = examples["quickstart_launches"]
+    t_sharded = time.perf_counter()
+    sharded = sharded_phase(dev)
+    flash_entry["sharded_sm90_launches"] = {
+        **{f"llama_{d}": v["sm90_launches"]
+           for d, v in sharded["prefill"]["llama"].items()},
+        "moonshot_float32": sharded["prefill"]["moonshot"]["sm90_launches"]}
     t_end = time.perf_counter()
     print(f"phases: spgemm {t_serving - t_start:.1f} s, serving "
           f"{t_delta - t_serving:.1f} s, delta {t_tuning - t_delta:.1f} s, "
@@ -5830,10 +6308,12 @@ def main() -> int:
           f"families II {t_training - t_families2:.1f} s, "
           f"training {t_lint - t_training:.1f} s, "
           f"lint {t_examples - t_lint:.1f} s, "
-          f"examples {t_end - t_examples:.1f} s")
+          f"examples {t_sharded - t_examples:.1f} s, "
+          f"sharded {t_end - t_sharded:.1f} s")
     print("training numbers: " + json.dumps(training))
     print("lint numbers: " + json.dumps(linted))
     print("examples numbers: " + json.dumps(examples))
+    print("sharded numbers: " + json.dumps(sharded))
     print(json.dumps({"kernels": [entry, sddmm, flash_entry,
                                   moonshot_entry, zamba_entry,
                                   seamless_entry]}))

@@ -214,6 +214,62 @@ def load_reference_params(model, tree, into=None) -> None:
                                              else ""))
 
 
+def _ref_keys(module, keys: tuple, lead: tuple, kv_rep: bool, flat: bool,
+              out: dict, prefix: str) -> None:
+    """Add ``module``'s parameters to ``out``: port name -> (reference
+    keys, leading stack axes).  The inverse of ``_load``'s map: a norm
+    submodule's parameter is ``<norm>_<param>``, a replicated K/V
+    projection ``wk_rep``/``wv_rep``, the hybrid's ``mixer`` is ``ssm``,
+    and the xLSTM mixers (``flat``) sit beside their block's norm."""
+    back = {"mixer": "ssm"}
+    for name, _ in module.named_parameters(recurse=False):
+        ref = name
+        if kv_rep and name in ("wk", "wv") and hasattr(module, "wq"):
+            ref = name + "_rep"
+        out[prefix + name] = (keys + (ref,), lead)
+    for cname, child in module.named_children():
+        if isinstance(child, Norm):
+            for pname, _ in child.named_parameters(recurse=False):
+                out[f"{prefix}{cname}.{pname}"] = (
+                    keys + (f"{cname}_{pname}",), lead)
+        elif isinstance(child, torch.nn.ModuleList):
+            continue
+        elif flat and cname == "mixer":
+            _ref_keys(child, keys, lead, kv_rep, False, out,
+                      f"{prefix}{cname}.")
+        else:
+            _ref_keys(child, keys + (back.get(cname, cname),), lead,
+                      kv_rep, False, out, f"{prefix}{cname}.")
+
+
+def reference_paths(model) -> dict:
+    """Each port parameter's place in the reference's parameter tree:
+    ``{port name: (path, reference shape)}`` with the path written as
+    ``jax.tree_util.keystr`` writes it (``"['layers_dense']['attn']['wq']"``)
+    and the shape the reference's, its stacked layer axes in front of the
+    port parameter's own.  The map is ``load_reference_params``'s."""
+    cfg = model.cfg
+    keyed: dict = {}
+    _ref_keys(model, (), (), cfg.kv_replicated, False, keyed, "")
+    index = {id(b): i for i, b in enumerate(model.blocks)}
+    enc = ({id(b): i for i, b in enumerate(model.enc_blocks)}
+           if model.enc_blocks is not None else {})
+    for stack, (lead, targets) in _stacks(model).items():
+        for block, _ in targets:
+            prefix = (f"enc_blocks.{enc[id(block)]}." if stack == "enc_layers"
+                      else f"blocks.{index[id(block)]}.")
+            _ref_keys(block, (stack,), lead, cfg.kv_replicated,
+                      stack in ("layers_mlstm", "layers_slstm"), keyed,
+                      prefix)
+    params = dict(model.named_parameters())
+    out = {}
+    for name, p in params.items():
+        keys, lead = keyed[name]
+        out[name] = ("".join(f"['{k}']" for k in keys),
+                     tuple(lead) + tuple(p.shape))
+    return out
+
+
 def load_reference_state(state, ref_state) -> None:
     """Copy a reference ``TrainState`` (``params`` and ``OptState(step, m,
     v)``; leaves as numpy or JAX arrays) into a port ``TrainState`` of the

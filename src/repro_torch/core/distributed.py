@@ -33,8 +33,10 @@ share one card.  Shard d's work is issued on ``mesh.devices[d]``; a ring
 rotation is ``tensor.to(next_device, non_blocking=True)``, which copies
 nothing where the next shard lies on the same device (a real ring's link
 traffic is the ring state's ``link_bytes()`` all the same).  Results
-are gathered on ``mesh.devices[0]``.  A ``torch.distributed`` backend (one
-process per card) waits for a host with more than one GPU.
+are gathered on ``mesh.devices[0]``.  The ring stays on this one-process
+mesh, as the reference keeps ``shard_map``: sharded training runs one
+process per rank under ``torch.distributed`` (``repro_torch.parallel``),
+and NCCL rings for the SpGEMM are queued work.
 """
 from __future__ import annotations
 

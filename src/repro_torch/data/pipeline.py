@@ -15,7 +15,7 @@ well below the unigram entropy).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,27 +57,38 @@ class SyntheticLM:
 
 
 def batch_for(cfg: ModelConfig, pipe: SyntheticLM, step: int,
-              rng_seed: int = 0, device="cuda") -> Dict[str, torch.Tensor]:
+              rng_seed: int = 0, device="cuda",
+              shard: Optional[Tuple[int, int]] = None
+              ) -> Dict[str, torch.Tensor]:
     """The model family's batch at ``step`` as tensors on ``device``:
     ``tokens`` and ``labels`` (the stream shifted by one), the VLM's
     ``patches`` (B, img_tokens, d_frontend) with the text cut to make
     room, the encoder-decoder's ``frames`` (B, S, d_frontend); the
     features are normal draws times 0.2 in the activation dtype, drawn
-    from ``(rng_seed, 7, step)`` as the reference draws them."""
-    raw = pipe.global_batch_at(step)
+    from ``(rng_seed, 7, step)`` as the reference draws them.  ``shard =
+    (i, n)`` keeps rows ``i`` of ``n`` equal slices of every entry (the
+    tokens through ``pipe.shard_at``): a data-parallel rank's batch."""
+    raw = (pipe.global_batch_at(step) if shard is None
+           else pipe.shard_at(step, *shard))
     tokens, labels = raw[:, :-1], raw[:, 1:]
     rng = np.random.default_rng(np.random.SeedSequence([rng_seed, 7, step]))
     act = cfg.activation_dtype
+    rows = pipe.global_batch
     out = {"tokens": tokens, "labels": labels}
+    feats = {}
     if cfg.family == "vlm":
         s_txt = tokens.shape[1] - cfg.img_tokens
         out = {"tokens": tokens[:, :s_txt], "labels": labels[:, :s_txt]}
-        out["patches"] = _features(rng.standard_normal(
-            (tokens.shape[0], cfg.img_tokens, cfg.d_frontend)), act)
+        feats["patches"] = _features(rng.standard_normal(
+            (rows, cfg.img_tokens, cfg.d_frontend)), act)
     if cfg.family == "audio":
-        out["frames"] = _features(rng.standard_normal(
-            (tokens.shape[0], tokens.shape[1],
-             cfg.d_frontend or cfg.d_model)), act)
+        feats["frames"] = _features(rng.standard_normal(
+            (rows, tokens.shape[1], cfg.d_frontend or cfg.d_model)), act)
+    for k, x in feats.items():
+        if shard is not None:
+            per = rows // shard[1]
+            x = x[shard[0] * per:(shard[0] + 1) * per]
+        out[k] = x
     return _on(out, device)
 
 

@@ -1,15 +1,28 @@
-"""Shared model numerics: norms, RoPE and the initializer.
+"""Shared model numerics (norms, RoPE, the initializer) and the
+reference's parameter shardings.
 
-The reference's sharding helpers and ``pscan`` have no counterpart: the
-port runs on one device, layer by layer (remat is
-``transformer._remat``).
+The shardings are the reference's rules, copied: ``_RULES`` and
+``spec_for`` give a parameter's spec from its reference path,
+``filter_pspec`` drops the axes a mesh lacks and ``fit_spec`` moves an
+entry that does not divide its dim, as the reference decides legality at
+its jit boundary.  A spec is a tuple with one entry per dim: None, a mesh
+axis name or a tuple of names.  ``placements`` turns one into the
+``Shard(dim)`` / ``Replicate()`` of each mesh axis.  Which port parameter
+has which reference path is ``repro_torch.convert.reference_paths``; the
+per-parameter layout of a sharded model is
+``repro_torch.train.train_step.state_specs``.  The reference's ``shard``
+constraints and ``pscan`` have no counterpart: layers run one after
+another and call their collectives themselves (``repro_torch.parallel``).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+DP = ("pod", "data")     # data-parallel axes (logical); absent axes dropped
+TP = "model"             # tensor/expert-parallel axis
 
 
 def rms_norm(x, scale, eps: float = 1e-5):
@@ -50,3 +63,143 @@ def dense_init(generator: torch.Generator, shape: Sequence[int],
     w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
                     device=generator.device)
     return (w * std).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# parameter shardings by path convention (the reference's rules)
+# ---------------------------------------------------------------------------
+
+_RULES = (
+    # (substring, ndim -> spec entries applied to the TRAILING dims)
+    ("embed",   {2: (TP, None)}),                    # (V, D) vocab on TP
+    ("lm_head", {2: (None, TP)}),                    # (D, V)
+    ("patch_proj", {2: (None, None)}),
+    ("wq",      {2: (None, TP)}),
+    ("wk_rep",  {2: (None, None)}),
+    ("wv_rep",  {2: (None, None)}),
+    ("wkv_a",   {2: (None, None)}),
+    ("wk_rope", {2: (None, None)}),
+    ("wk",      {2: (None, TP)}),
+    ("wv",      {2: (None, TP)}),
+    ("wkv",     {2: (None, TP)}),
+    ("wo",      {2: (TP, None)}),
+    ("w_gate",  {2: (None, TP)}),
+    ("w_up",    {2: (None, TP)}),
+    ("w_down",  {2: (TP, None)}),
+    ("experts", {3: (TP, None, None)}),              # (E, d, f) experts on TP
+    ("router",  {2: (None, None)}),
+    ("in_proj", {2: (None, TP)}),                    # ssm/xlstm big in-proj
+    ("out_proj", {2: (TP, None)}),
+    ("conv",    {2: (None, None), 3: (None, None, None)}),
+)
+
+STACKED_PREFIXES = ("layers", "blocks")
+
+
+def spec_for(path: str, ndim: int, stacked: bool) -> Tuple:
+    """A parameter's spec by name convention: the first rule whose
+    substring is in ``path`` and which has an entry for the trailing
+    ndim; ``stacked`` (a scan-stacked parameter) puts None on the leading
+    layer dim."""
+    trailing = ndim - (1 if stacked else 0)
+    for needle, table in _RULES:
+        if needle in path and trailing in table:
+            entries = table[trailing]
+            break
+    else:
+        entries = (None,) * trailing
+    return ((None,) if stacked else ()) + tuple(entries)
+
+
+def is_stacked(path: str, ndim: int) -> bool:
+    """The reference's test for a scan-stacked parameter."""
+    return any(s in path for s in STACKED_PREFIXES) and ndim >= 2
+
+
+def mesh_sizes(mesh) -> Dict[str, int]:
+    """``{axis name: size}`` of a ``DeviceMesh`` (or such a dict)."""
+    if isinstance(mesh, dict):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def _norm_entry(e, sizes):
+    if e is None:
+        return None
+    if isinstance(e, (tuple, list)):
+        kept = tuple(a for a in e if a in sizes)
+        return kept if kept else None
+    return e if e in sizes else None
+
+
+def filter_pspec(spec, mesh) -> Tuple:
+    """Drop the axis names ``mesh`` does not have (pod vs single pod), and
+    trailing Nones."""
+    sizes = mesh_sizes(mesh)
+    out = [_norm_entry(e, sizes) for e in spec]
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def fit_spec(spec, shape: Sequence[int], mesh) -> Tuple:
+    """Make a spec legal for a concrete (shape, mesh), as the reference
+    does: axis names missing from the mesh are dropped; an entry whose
+    mesh-axis product does not divide its dim is moved to the next free
+    dim that divides (later dims first, then earlier ones), else dropped.
+    One entry per dim."""
+    sizes = mesh_sizes(mesh)
+
+    def axsize(e):
+        if isinstance(e, tuple):
+            n = 1
+            for a in e:
+                n *= sizes[a]
+            return n
+        return sizes[e]
+
+    entries = [_norm_entry(e, sizes) for e in tuple(spec)]
+    entries += [None] * (len(shape) - len(entries))
+    out = [None] * len(shape)
+    for i, e in enumerate(entries):
+        if e is None:
+            continue
+        n = axsize(e)
+        if n <= 1:
+            continue
+        for j in [i] + list(range(i + 1, len(shape))) + \
+                list(range(i - 1, -1, -1)):
+            if out[j] is None and shape[j] % n == 0 and shape[j] >= n:
+                out[j] = e
+                break
+    return tuple(out)
+
+
+def make_param_specs(paths: Dict[str, Tuple[str, Tuple[int, ...]]]
+                     ) -> Dict[str, Tuple]:
+    """Specs by name for ``{name: (reference path, reference shape)}``
+    (``convert.reference_paths``): the reference's ``make_param_specs``,
+    on the reference's stacked shapes."""
+    return {n: spec_for(path, len(shape), is_stacked(path, len(shape)))
+            for n, (path, shape) in paths.items()}
+
+
+def axis_dim(spec, axis: str) -> Optional[int]:
+    """The dim whose entry holds mesh axis ``axis`` in a fitted spec, else
+    None."""
+    for d, e in enumerate(spec):
+        if e == axis or (isinstance(e, tuple) and axis in e):
+            return d
+    return None
+
+
+def placements(spec, mesh_names: Sequence[str]):
+    """The DTensor placement of each mesh axis in ``mesh_names`` order:
+    ``Shard(dim)`` where the fitted ``spec`` puts the axis, else
+    ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for name in mesh_names:
+        d = axis_dim(spec, name)
+        out.append(Replicate() if d is None else Shard(d))
+    return tuple(out)

@@ -12,15 +12,35 @@ or activation dtype).  They are
 stored in f32, as the reference keeps them, and cast to the activation
 dtype at each use.  They are built without gradients, for serving;
 training turns them on (``repro_torch.train.train_step.init_state``).
+
+Tensor parallelism.  ``train_step.shard_model`` replaces the parameters
+of ``Attention``, ``MLP`` and ``MoE`` by a rank's shards, as the
+reference's rules place them, and sets ``tp`` (the model axis,
+``repro_torch.parallel.Axis``) and ``tp_dims`` (parameter name -> the dim
+the model axis splits, None where the parameter is whole).  Then
+``wq``/``wk``/``wv``/``w_gate``/``w_up`` hold column blocks and
+``wo``/``w_down`` row blocks: the input enters by ``copy_to``, the rank
+computes its heads (Hq / tp, and the K/V heads they read) or its hidden
+columns, and the output leaves by ``reduce_from`` (Megatron's f and g).
+A whole parameter read in part (a bias, ``wk``/``wv`` under
+``kv_replicated``) enters by ``copy_to`` too, so its gradient is summed
+over the axis, as do the routing weights in expert parallelism (every
+rank routes alike; each uses the weights of its own experts).  The MoE runs
+the reference's expert-parallel dispatch (``_apply_moe_ep``) when
+``cfg.moe.ep`` and the experts split evenly over the axis, else the dense
+dispatch on experts all-gathered.  Decode and cross-attention are not
+sharded: they raise under ``tp``.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import parallel
 from repro_torch.configs.base import ModelConfig
 from .attention import _bmm_f32, attention, decode_attention
 from .common import dense_init, layer_norm, rms_norm, rope
@@ -28,6 +48,12 @@ from .common import dense_init, layer_norm, rms_norm, rope
 
 def _param(x: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(x, requires_grad=False)
+
+
+def _unsharded(module, what: str) -> None:
+    if module.tp is not None:
+        raise NotImplementedError(f"{what} on tensor-parallel shards: only "
+                                  f"the sharded training forward is ported")
 
 
 class Norm(nn.Module):
@@ -50,7 +76,11 @@ class Norm(nn.Module):
 class Attention(nn.Module):
     """GQA self-attention with RoPE: ``wq`` (d, Hq*hd), ``wk``/``wv``
     (d, Hkv*hd), ``wo`` (Hq*hd, d), and ``bq``/``bk``/``bv`` when
-    ``cfg.qkv_bias``."""
+    ``cfg.qkv_bias``.  Under ``tp`` a rank runs q heads [i * Hq / tp,
+    (i + 1) * Hq / tp) and the K/V heads they read (``tp_heads``)."""
+
+    tp = None
+    tp_dims: Dict[str, Optional[int]] = {}
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator):
         super().__init__()
@@ -65,24 +95,66 @@ class Attention(nn.Module):
             self.bk = _param(torch.zeros(cfg.n_kv_heads * hd, device=dev))
             self.bv = _param(torch.zeros(cfg.n_kv_heads * hd, device=dev))
 
+    def tp_heads(self, cfg: ModelConfig):
+        """(q heads, first K/V head, end K/V head) of this rank: all of
+        them without ``tp``."""
+        if self.tp is None:
+            return cfg.n_heads, 0, cfg.n_kv_heads
+        hq = cfg.n_heads // self.tp.size
+        g = cfg.n_heads // cfg.n_kv_heads
+        first = self.tp.index * hq
+        return hq, first // g, (first + hq - 1) // g + 1
+
+    def _kv_weight(self, name: str, k0: int, k1: int, hd: int):
+        """This rank's columns of ``wk``/``wv`` (its K/V heads k0..k1): the
+        shard itself when it holds exactly those heads, else the whole
+        weight (read in part, so entered by ``copy_to`` or all-gathered
+        with a summed gradient), sliced."""
+        w, dim = getattr(self, name), self.tp_dims.get(name)
+        if dim == 1 and w.shape[1] == (k1 - k0) * hd:
+            return w
+        w = (parallel.copy_to(w, self.tp) if dim is None
+             else parallel.gather_partial(w, self.tp, dim))
+        return w[:, k0 * hd:k1 * hd]
+
+    def _bias(self, name: str, lo: int, hi: int):
+        """Columns lo..hi of a whole bias, read in part."""
+        return parallel.copy_to(getattr(self, name), self.tp)[lo:hi]
+
     def _project(self, x, cfg: ModelConfig):
-        q = x @ self.wq.to(x.dtype)
-        k = x @ self.wk.to(x.dtype)
-        v = x @ self.wv.to(x.dtype)
+        wq, wk, wv = self.wq, self.wk, self.wv
         if cfg.qkv_bias:
-            q = q + self.bq.to(x.dtype)
-            k = k + self.bk.to(x.dtype)
-            v = v + self.bv.to(x.dtype)
+            bq, bk, bv = self.bq, self.bk, self.bv
+        if self.tp is not None:
+            hd = cfg.hd
+            hq, k0, k1 = self.tp_heads(cfg)
+            q0 = self.tp.index * hq * hd
+            x = parallel.copy_to(x, self.tp)
+            wk = self._kv_weight("wk", k0, k1, hd)
+            wv = self._kv_weight("wv", k0, k1, hd)
+            if cfg.qkv_bias:
+                bq = self._bias("bq", q0, q0 + hq * hd)
+                bk = self._bias("bk", k0 * hd, k1 * hd)
+                bv = self._bias("bv", k0 * hd, k1 * hd)
+        q = x @ wq.to(x.dtype)
+        k = x @ wk.to(x.dtype)
+        v = x @ wv.to(x.dtype)
+        if cfg.qkv_bias:
+            q = q + bq.to(x.dtype)
+            k = k + bk.to(x.dtype)
+            v = v + bv.to(x.dtype)
         return q, k, v
 
     def qkv(self, x, positions, cfg: ModelConfig):
         """x: (B, S, D), positions: (B, S) -> q (B, Hq, S, hd) and k, v
-        (B, Hkv, S, hd), RoPE applied to q and k."""
+        (B, Hkv, S, hd), RoPE applied to q and k (this rank's heads under
+        ``tp``)."""
         b, s, _ = x.shape
+        hq, k0, k1 = self.tp_heads(cfg)
         q, k, v = self._project(x, cfg)
-        q = q.reshape(b, s, cfg.n_heads, cfg.hd).transpose(1, 2)
-        k = k.reshape(b, s, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
-        v = v.reshape(b, s, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
+        q = q.reshape(b, s, hq, cfg.hd).transpose(1, 2)
+        k = k.reshape(b, s, k1 - k0, cfg.hd).transpose(1, 2)
+        v = v.reshape(b, s, k1 - k0, cfg.hd).transpose(1, 2)
         q = rope(q, positions[:, None, :], cfg.rope_theta)
         k = rope(k, positions[:, None, :], cfg.rope_theta)
         return q, k, v
@@ -98,14 +170,15 @@ class Attention(nn.Module):
         out = attention(q, k, v, impl=cfg.attn_impl, causal=causal,
                         window=window, prefix=prefix, q_offset=q_offset,
                         block=cfg.attn_block)
-        out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
-        return out @ self.wo.to(x.dtype)
+        out = out.transpose(1, 2).reshape(b, s, q.shape[1] * cfg.hd)
+        return parallel.reduce_from(out @ self.wo.to(x.dtype), self.tp)
 
     def cross(self, x, kv_src, cfg: ModelConfig):
         """Cross-attention (the reference's ``apply_cross_attn``): q from x,
         k and v from ``kv_src`` (B, T, D), no RoPE and no biases, every
         source position visible, always on ``dense_masked``.  x: (B, S, D)
         -> (B, S, D)."""
+        _unsharded(self, "cross-attention")
         b, s, _ = x.shape
         t, hd = kv_src.shape[1], cfg.hd
         q = (x @ self.wq.to(x.dtype)).reshape(
@@ -124,6 +197,7 @@ class Attention(nn.Module):
         cache: this layer's ``{"k", "v"}`` (B, Hkv, T, hd), updated in place
         (the reference returns new arrays; writing the one new slot saves a
         copy of the cache per step).  Returns (out (B, 1, D), cache)."""
+        _unsharded(self, "decode")
         b = x.shape[0]
         q, k, v = self._project(x[:, 0], cfg)
         q = q.reshape(b, cfg.n_heads, cfg.hd)
@@ -258,7 +332,11 @@ def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
 class MLP(nn.Module):
     """Dense MLP: SwiGLU (``w_gate``, ``w_up``, ``w_down``) or tanh-GELU
     (``w_up``, ``b_up``, ``w_down``, ``b_down``), as ``cfg.act`` says;
-    hidden width ``d_ff`` (default ``cfg.d_ff``)."""
+    hidden width ``d_ff`` (default ``cfg.d_ff``).  Under ``tp`` a rank
+    computes its block of hidden columns."""
+
+    tp = None
+    tp_dims: Dict[str, Optional[int]] = {}
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator,
                  d_ff: Optional[int] = None):
@@ -279,13 +357,20 @@ class MLP(nn.Module):
     def forward(self, x, cfg: Optional[ModelConfig] = None):
         """x: (..., D) -> (..., D); ``cfg`` is accepted for a uniform call
         with ``MoE`` and unused (the activation is fixed at build)."""
+        tp = self.tp
+        x = parallel.copy_to(x, tp)
         if self.act == "swiglu":
             h = (F.silu(x @ self.w_gate.to(x.dtype))
                  * (x @ self.w_up.to(x.dtype)))
-            return h @ self.w_down.to(x.dtype)
-        h = F.gelu(x @ self.w_up.to(x.dtype) + self.b_up.to(x.dtype),
+            return parallel.reduce_from(h @ self.w_down.to(x.dtype), tp)
+        b_up = self.b_up
+        if tp is not None:
+            f = self.w_up.shape[1]
+            b_up = parallel.copy_to(b_up, tp)[tp.index * f:(tp.index + 1) * f]
+        h = F.gelu(x @ self.w_up.to(x.dtype) + b_up.to(x.dtype),
                    approximate="tanh")
-        return h @ self.w_down.to(x.dtype) + self.b_down.to(x.dtype)
+        return parallel.reduce_from(h @ self.w_down.to(x.dtype), tp) + \
+            self.b_down.to(x.dtype)
 
 
 #: expert products (three per expert that received tokens) launched by
@@ -307,6 +392,9 @@ class MoE(nn.Module):
     sizes per call (``group_sizes``, a device synchronisation), then three
     products per expert that received tokens (``EXPERT_MATMULS``).
     """
+
+    tp = None
+    tp_dims: Dict[str, Optional[int]] = {}
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator):
         super().__init__()
@@ -335,7 +423,26 @@ class MoE(nn.Module):
         return top_w, top_e
 
     def forward(self, x, cfg: ModelConfig):
-        """x: (B, S, D) -> (B, S, D), the reference's dense (no mesh) path."""
+        """x: (B, S, D) -> (B, S, D).  Without ``tp`` the reference's dense
+        (no mesh) path; under ``tp`` its expert-parallel path when
+        ``cfg.moe.ep`` and ``n_experts`` divides over the axis, else its
+        dense path on experts gathered from the shards.  (The reference
+        also takes the dense path when the batch does not divide over the
+        data ranks; a sharded step refuses such a batch.)"""
+        tp = self.tp
+        if tp is None:
+            return self._dense(x, cfg, self.experts_gate, self.experts_up,
+                               self.experts_down)
+        if cfg.moe.ep and cfg.moe.n_experts % tp.size == 0:
+            return self._expert_parallel(x, cfg)
+        experts = [parallel.gather_replicated(
+            getattr(self, n), tp, self.tp_dims[n])
+            if self.tp_dims.get(n) is not None else getattr(self, n)
+            for n in ("experts_gate", "experts_up", "experts_down")]
+        return self._dense(x, cfg, *experts)
+
+    def _dense(self, x, cfg: ModelConfig, gate, up, down):
+        """The dropless dispatch over every expert (weights given whole)."""
         global EXPERT_MATMULS
         mo = cfg.moe
         b, s, d = x.shape
@@ -357,9 +464,9 @@ class MoE(nn.Module):
             if n == 0:
                 continue
             seg = gathered[start:start + n]
-            h = (F.silu(seg @ self.experts_gate[e].to(x.dtype))
-                 * (seg @ self.experts_up[e].to(x.dtype)))
-            out_sorted[start:start + n] = h @ self.experts_down[e].to(x.dtype)
+            h = (F.silu(seg @ gate[e].to(x.dtype))
+                 * (seg @ up[e].to(x.dtype)))
+            out_sorted[start:start + n] = h @ down[e].to(x.dtype)
             EXPERT_MATMULS += 3
             start += n
         # combine: weight each row, then add it back onto its token
@@ -370,6 +477,101 @@ class MoE(nn.Module):
         if self.shared is not None:
             out = out + self.shared(x)
         return out.to(x.dtype)
+
+    def _expert_parallel(self, x, cfg: ModelConfig):
+        """The reference's ``_apply_moe_ep`` on this rank: the local
+        experts' share of the data shard's tokens, summed over the model
+        axis, plus the shared expert."""
+        tp = self.tp
+        b, s, d = x.shape
+        xt = x.reshape(b * s, d)
+        # every rank routes alike; the weights and x then feed only this
+        # rank's experts, so their gradients are summed over the axis
+        top_w, top_e = self.route(xt, cfg)
+        combined, self.group_sizes = ep_local(
+            parallel.copy_to(xt, tp), cfg, parallel.copy_to(top_w, tp),
+            top_e, self.experts_gate, self.experts_up, self.experts_down,
+            tp.size, tp.index)
+        out = parallel.reduce_from(combined, tp).reshape(b, s, d)
+        out = out.to(x.dtype)
+        if self.shared is not None:
+            out = out + self.shared(x)
+        return out
+
+
+def ep_capacity(cfg: ModelConfig, t_local: int, ep: int) -> int:
+    """Token assignments a rank keeps of its data shard's ``t_local``
+    tokens (the reference's fixed per-rank capacity)."""
+    mo = cfg.moe
+    cap = int(np.ceil(t_local * mo.top_k / ep * mo.capacity_factor))
+    return min(cap, t_local * mo.top_k)
+
+
+def ep_local(xt, cfg: ModelConfig, top_w, top_e, gate, up, down, ep: int,
+             rank: int):
+    """Rank ``rank`` of ``ep``'s part of the reference's expert-parallel
+    MoE on tokens xt (T, D) routed to experts ``top_e`` with weights
+    ``top_w`` (T, k) (``MoE.route``), ``gate``/``up``/``down`` its
+    ``E / ep`` experts: keep the assignments to local experts by a stable
+    sort of ``where(mine, e, E)``, the first ``ep_capacity`` of them (the
+    rest dropped, as the reference drops them), run each local expert on
+    its rows, weight them and add them onto their tokens.  Returns ((T, D)
+    in xt's dtype, the rows each local expert ran (host ints))."""
+    global EXPERT_MATMULS
+    mo = cfg.moe
+    e_local = mo.n_experts // ep
+    n_tok, d = xt.shape
+    cap = ep_capacity(cfg, n_tok, ep)
+    flat_e = top_e.reshape(-1)
+    flat_w = top_w.reshape(-1)
+    src = torch.arange(n_tok, device=xt.device).repeat_interleave(mo.top_k)
+    mine = torch.div(flat_e, e_local, rounding_mode="floor") == rank
+    key = torch.where(mine, flat_e, torch.full_like(flat_e, mo.n_experts))
+    sel = torch.argsort(key, stable=True)[:cap]
+    valid = mine[sel]
+    rows = src[sel]
+    gathered = xt[rows] * valid[:, None].to(xt.dtype)
+    le = torch.where(valid, flat_e[sel] - rank * e_local,
+                     torch.full_like(sel, e_local))
+    sizes = torch.bincount(le, minlength=e_local + 1)[:e_local].tolist()
+    parts, start = [], 0
+    for e, n in enumerate(sizes):
+        if n == 0:
+            continue
+        seg = gathered[start:start + n]
+        h = F.silu(seg @ gate[e].to(xt.dtype)) * (seg @ up[e].to(xt.dtype))
+        parts.append(h @ down[e].to(xt.dtype))
+        EXPERT_MATMULS += 3
+        start += n
+    parts.append(gathered.new_zeros((cap - start, d)))
+    out_rows = torch.cat(parts) * (flat_w[sel] * valid.float())[:, None].to(
+        xt.dtype)
+    combined = torch.zeros((n_tok, d), dtype=out_rows.dtype,
+                           device=xt.device).index_add(0, rows, out_rows)
+    return combined, sizes
+
+
+@torch.no_grad()
+def moe_ep_plain(moe: MoE, cfg: ModelConfig, x, ep: int):
+    """The expert-parallel MoE of ``ep`` ranks restated on one device with
+    the whole weights: each rank's ``ep_local`` part on the data shard x
+    (B, S, D), summed in rank order, plus the shared expert.  Returns
+    (out, each rank's rows per local expert)."""
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    e_local = cfg.moe.n_experts // ep
+    top_w, top_e = moe.route(xt, cfg)
+    total, sizes = None, []
+    for r in range(ep):
+        w = slice(r * e_local, (r + 1) * e_local)
+        part, n = ep_local(xt, cfg, top_w, top_e, moe.experts_gate[w],
+                           moe.experts_up[w], moe.experts_down[w], ep, r)
+        total = part if total is None else total + part
+        sizes.append(n)
+    out = total.reshape(b, s, d).to(x.dtype)
+    if moe.shared is not None:
+        out = out + moe.shared(x)
+    return out, sizes
 
 
 def moe_aux_loss(moe: MoE, cfg: ModelConfig, x):

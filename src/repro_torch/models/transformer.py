@@ -29,6 +29,14 @@ another (the reference scans stacked layers).  For training, ``loss_fn``
 is the reference's next-token loss, and with gradients on each block body
 the reference wraps in ``jax.checkpoint`` is recomputed in the backward as
 ``cfg.remat`` says (``_remat``).
+
+Sharded (``train_step.shard_model``; dense, MoE and VLM families): the
+embedding is split by vocabulary rows over the model axis (``tp``), so a
+rank looks up the tokens it holds, zeros elsewhere, and the ranks' rows
+are summed; the head (``lm_head`` or the tied ``embed.T``) gives each rank
+its vocabulary block of the logits, and ``loss_fn`` is vocabulary
+parallel: the maximum and the sum of exponentials are reduced over the
+axis and the gold logit comes from the rank that holds it.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as _ckpt
 
+from repro_torch import parallel
 from repro_torch.configs.base import ModelConfig
 from . import layers as Lyr
 from . import ssm as SSM
@@ -187,7 +196,12 @@ class Transformer(nn.Module):
     the hybrid ``shared_attn`` (a ``Block``); for the encoder-decoder
     ``frame_proj`` (d_frontend, D), ``enc_blocks`` and ``encfinal_ln``
     (``blocks`` are then the decoder's).  ``cfg`` is the config it was
-    built with, the default of every call."""
+    built with, the default of every call.  ``tp`` is the model axis when
+    ``embed`` and ``lm_head`` hold a rank's vocabulary block, else None;
+    ``shard_layout`` is set by ``train_step.shard_model``."""
+
+    tp = None
+    shard_layout = None
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator):
         super().__init__()
@@ -228,12 +242,23 @@ class Transformer(nn.Module):
                 generator, (cfg.d_frontend or cfg.d_model, cfg.d_model)))
         self.final_ln = Lyr.Norm(cfg, dev)
 
+    def vocab_start(self) -> int:
+        """The first vocabulary row this rank holds."""
+        return 0 if self.tp is None else self.tp.index * self.embed.shape[0]
+
     def _embed(self, tokens, cfg: ModelConfig):
-        return self.embed[tokens].to(cfg.activation_dtype)
+        if self.tp is None:
+            return self.embed[tokens].to(cfg.activation_dtype)
+        rows = self.embed.shape[0]
+        local = tokens.long() - self.vocab_start()
+        held = (local >= 0) & (local < rows)
+        x = self.embed[local.clamp(0, rows - 1)].to(cfg.activation_dtype)
+        return parallel.reduce_from(x * held[..., None].to(x.dtype), self.tp)
 
     def _logits(self, x):
+        """The logits, this rank's vocabulary block of them under ``tp``."""
         head = self.embed.T if self.lm_head is None else self.lm_head
-        return x @ head.to(x.dtype)
+        return parallel.copy_to(x, self.tp) @ head.to(x.dtype)
 
     def _shared(self, i: int, cfg: ModelConfig) -> bool:
         """Whether the hybrid's shared block runs after block i."""
@@ -309,16 +334,36 @@ def loss_fn(model: Transformer, cfg: ModelConfig, batch: Dict[str, Any]):
     the labels ``>= 0``.  The gold logit is gathered where the reference
     contracts a one-hot: the same value, without a (B, S, V) one-hot.
     Differentiable; returns a 0-d f32 tensor."""
+    total, count = nll_sum(model, cfg, batch)
+    return total / torch.clamp(count, min=1.0)
+
+
+def nll_sum(model: Transformer, cfg: ModelConfig, batch: Dict[str, Any]):
+    """(the summed cross-entropy over the labels ``>= 0``, their count as
+    an f32 tensor): ``loss_fn``'s numerator and denominator.  Vocabulary
+    parallel under ``model.tp``."""
     logits = model(batch["tokens"], cfg, batch.get("patches"),
                    batch.get("frames")).float()
     labels = batch["labels"]
     if cfg.family == "vlm":          # the image prefix produces no loss
         logits = logits[:, cfg.img_tokens:]
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        labels.clamp(min=0).long()[..., None])[..., 0]
+    gold_at = labels.clamp(min=0).long()
+    tp = model.tp
+    if tp is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, gold_at[..., None])[..., 0]
+    else:
+        m = parallel.all_reduce(logits.detach().amax(dim=-1), tp, op="max")
+        sumexp = torch.exp(logits - m[..., None]).sum(dim=-1)
+        lse = m + torch.log(parallel.reduce_from(sumexp, tp))
+        rows = logits.shape[-1]
+        local = gold_at - model.vocab_start()
+        held = (local >= 0) & (local < rows)
+        gold = torch.gather(logits, -1,
+                            local.clamp(0, rows - 1)[..., None])[..., 0]
+        gold = parallel.reduce_from(gold * held.float(), tp)
     mask = (labels >= 0).float()
-    return torch.sum((lse - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
+    return torch.sum((lse - gold) * mask), mask.sum()
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):

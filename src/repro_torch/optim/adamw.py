@@ -8,17 +8,27 @@ follows the reference's order, on f32 tensors: the clip scale
 ``min(1, grad_clip / sqrt(sum g^2 + 1e-12))``, the moments, their bias
 corrections, ``delta = mhat / (sqrt(vhat) + eps) + weight_decay * p`` and
 ``p - lr * delta``.  Parameters are f32 masters (the layers cast them to
-the activation dtype at use); moments are f32.  The reference's
-``zero1_specs`` (moments sharded over a data axis) has no counterpart on
-one card.
+the activation dtype at use); moments are f32.
+
+Sharded (``update_sharded``): each rank holds its tensor-parallel shard of
+a parameter and of its gradient (already reduced over the data-parallel
+ranks), and, under ZeRO-1, only its slice of the moments along the dim
+that ``zero1_specs`` gives the data axis.  The global norm is the full
+gradient's: squares of the model-sharded gradients are summed over the
+model axis, those of replicated ones counted once.  Each rank updates its
+slice and the slices are all-gathered over the data axis.  The arithmetic
+is elementwise, so the parameters come out bit for bit as an unsharded
+update of the same gradients leaves them.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch import parallel
 
 
 class OptState(NamedTuple):
@@ -93,3 +103,83 @@ class AdamW:
             p.copy_((p.float() - lr * delta).to(p.dtype))
         return params, OptState(step, state.m, state.v), \
             {"lr": lr, "grad_norm": gnorm}
+
+    @torch.no_grad()
+    def update_sharded(self, grads: Dict[str, torch.Tensor], state: OptState,
+                       params: Dict[str, torch.Tensor],
+                       shards: Dict[str, "ShardedParam"], model_axis,
+                       data_axis):
+        """One step on a rank of a sharded model: ``params`` and ``grads``
+        are the rank's shards (gradients summed over the data-parallel
+        ranks), ``state.m`` / ``.v`` the moments as ``shards`` slice them
+        (the local shard's slice ``data_axis.index`` of ``data_axis.size``
+        along ``zero_dim``).  Written in place; returns what ``update``
+        returns."""
+        step = state.step + 1
+        lr = self.schedule(step)
+        step_f = step.float()
+        dev = state.step.device
+        split = torch.zeros(2, dtype=torch.float32, device=dev)
+        for name, g in grads.items():
+            if g is not None:
+                split[0 if shards[name].model_sharded else 1] += \
+                    torch.sum(torch.square(g.float()))
+        parallel.all_reduce(split[:1], model_axis)
+        gnorm = torch.sqrt(split[0] + split[1] + 1e-12)
+        scale = torch.clamp(self.grad_clip / gnorm, max=1.0)
+        bc1 = 1 - self.b1 ** step_f
+        bc2 = 1 - self.b2 ** step_f
+        for name, p in params.items():
+            zd = shards[name].zero_dim
+            g = grads.get(name)
+            g = (torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 if g is None else g.float()) * scale
+            mine = p
+            if zd is not None:
+                g = parallel.local_slice(g, data_axis, zd)
+                mine = parallel.local_slice(p, data_axis, zd)
+            m, v = state.m[name], state.v[name]
+            m.mul_(self.b1).add_((1 - self.b1) * g)
+            v.mul_(self.b2).add_((1 - self.b2) * torch.square(g))
+            del g
+            delta = (m / bc1) / (torch.sqrt(v / bc2) + self.eps) + \
+                self.weight_decay * mine.float()
+            new = (mine.float() - lr * delta).to(p.dtype)
+            if zd is None:
+                p.copy_(new)
+            else:
+                p.copy_(parallel.all_gather_cat(new, data_axis, zd))
+        return params, OptState(step, state.m, state.v), \
+            {"lr": lr, "grad_norm": gnorm}
+
+
+def zero1_spec(shape: Sequence[int], spec: Tuple, data_axis: str = "data",
+               min_size: int = 1) -> Tuple:
+    """One moment's spec: ``data_axis`` on the first free dim of size at
+    least ``min_size``, dims 1.. first (the stacked layer dim 0 last)."""
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    for idx in list(range(1, len(shape))) + [0]:
+        if entries[idx] is None and shape[idx] >= min_size:
+            entries[idx] = data_axis
+            break
+    return tuple(entries)
+
+
+def zero1_specs(shapes: Dict[str, Sequence[int]], param_specs: Dict[str, Tuple],
+                data_axis: str = "data", min_size: int = 1
+                ) -> Dict[str, Tuple]:
+    """Moment specs by name (the reference's ``zero1_specs``): the data
+    axis added on the first free divisible dim, skipping the scan-stacked
+    layer dim when a later dim can take it."""
+    return {n: zero1_spec(shapes[n], param_specs[n], data_axis, min_size)
+            for n in param_specs}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedParam:
+    """How one parameter is split on a rank: ``model_sharded`` (its shard
+    is a slice over the model axis, so its squares are summed over it) and
+    ``zero_dim`` (the dim of the local shard that the ZeRO-1 moments slice
+    over the data axis, None for whole moments)."""
+    model_sharded: bool
+    zero_dim: Optional[int]

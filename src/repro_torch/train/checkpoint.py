@@ -8,7 +8,13 @@ Layout:  <dir>/step_<k>/arr_<i>.npy + tree.json ; <dir>/LATEST (text).
   file and a replace too, so a crash at any instant leaves the previous
   checkpoint whole, and ``latest_step`` ignores ``.tmp`` directories;
 * **topology independence**: arrays are saved whole, as numpy, and put
-  on whatever device the restore names;
+  on whatever device the restore names.  A sharded ``TrainState``
+  (``train_step.shard_state``) is saved by every rank together: the shards
+  are gathered whole (``train_step.full_tensors``) and rank 0 writes them
+  in the same format; a restore into a sharded state slices the whole
+  arrays for its own mesh, and ``restore(..., mesh=)`` shards a whole state
+  after filling it, so a checkpoint moves between meshes, and between a
+  mesh and one device, both ways;
 * **async**: ``save(..., asynchronous=True)`` copies every tensor to the
   host first, then hands the files to a writer thread; ``wait()`` joins
   it and raises what the write raised, and every save, asynchronous or
@@ -31,7 +37,20 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.train.train_step import TrainState
+import torch.distributed as dist
+
+from repro_torch.train.train_step import (TrainState, full_tensors,
+                                          shard_state, shard_tensor)
+
+
+def _sharded(tree: Any) -> bool:
+    return isinstance(tree, TrainState) and \
+        tree.model.shard_layout is not None
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0, or a process with no group."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
@@ -82,8 +101,11 @@ class CheckpointManager:
         """Publish ``tree`` (a ``TrainState`` or a dict of tensors or
         arrays) as step ``step``.  The device-to-host copies are taken here,
         before any thread starts, so training may go on changing the
-        tensors."""
-        named = _flatten(tree)
+        tensors.  A sharded state is saved by every rank (collective):
+        rank 0 writes, the others return."""
+        named = full_tensors(tree) if _sharded(tree) else _flatten(tree)
+        if _sharded(tree) and not _writer():
+            return
         host = [_to_host(x) for _, x in named]
         names = [n for n, _ in named]
         # one write at a time, a synchronous one too: two writers would
@@ -162,13 +184,17 @@ class CheckpointManager:
         steps = self.all_steps()
         return s if s in steps else (steps[-1] if steps else None)
 
-    def restore(self, step: int, like: Any, device=None) -> Any:
+    def restore(self, step: int, like: Any, device=None, *, mesh=None,
+                zero1: bool = True) -> Any:
         """Load step ``step`` into the structure of ``like``.  A
         ``TrainState`` is filled in place (its model's parameters, moments
-        and step keep their devices) and returned; a dict comes back as a
-        new dict of tensors on ``device`` (default: each ``like`` tensor's
-        device, the CPU for arrays).  A name of ``like`` that the
-        checkpoint lacks, or a shape that differs, raises ``ValueError``."""
+        and step keep their devices) and returned: a sharded one with its
+        rank's slices of the whole arrays; a whole one, given ``mesh``, is
+        then sharded onto it (``shard_state(..., zero1=)``) and the sharded
+        state returned.  A dict comes back as a new dict of tensors on
+        ``device`` (default: each ``like`` tensor's device, the CPU for
+        arrays).  A name of ``like`` that the checkpoint lacks, or a shape
+        that differs, raises ``ValueError``."""
         d = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(d, "tree.json")) as f:
             meta = json.load(f)
@@ -178,14 +204,32 @@ class CheckpointManager:
         if missing:
             raise ValueError(f"checkpoint step {step} has no array for "
                              f"{missing[:8]}")
+        lay = like.model.shard_layout if _sharded(like) else None
         loaded = []
         for name, dst in want:
             i = index[name]
             a = np.load(os.path.join(d, f"arr_{i}.npy"))
-            if tuple(a.shape) != tuple(dst.shape):
+            src = _from_host(a, meta["dtypes"][i])
+            if lay is not None and name != "step":
+                moment = name[:2] in ("m.", "v.")
+                p = lay.params[name[2:] if moment else name]
+                if tuple(a.shape) != p.shape:
+                    raise ValueError(f"{name}: checkpoint shape {a.shape}, "
+                                     f"expected {p.shape}")
+                src = shard_tensor(src, p, lay.axes, moment=moment,
+                                   zero1=lay.zero1)
+            if tuple(src.shape) != tuple(dst.shape):
                 raise ValueError(f"{name}: checkpoint shape {a.shape}, "
                                  f"expected {tuple(dst.shape)}")
-            loaded.append(_from_host(a, meta["dtypes"][i]))
+            loaded.append(src)
+        if isinstance(like, TrainState) and mesh is not None:
+            if lay is not None:
+                raise ValueError("restore(mesh=) takes a whole state; this "
+                                 "one is sharded already")
+            with torch.no_grad():
+                for (_, dst), src in zip(want, loaded):
+                    dst.copy_(src)
+            return shard_state(like, mesh, zero1=zero1)
         if isinstance(like, TrainState):
             with torch.no_grad():
                 for (_, dst), src in zip(want, loaded):

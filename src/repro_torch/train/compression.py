@@ -1,9 +1,14 @@
 """Error-feedback int8 gradient compression for the data-parallel
 all-reduce (the reference's ``repro/train/compression.py``).
 
-The reference runs the reduction explicitly under ``shard_map``; here it
-runs over the shards of a one-process mesh (``repro_torch.core
-.distributed``), one gradient dict per shard, each on its shard's device:
+The reference runs the reduction explicitly under ``shard_map``.
+``allreduce_compressed_group`` is its counterpart on ranks: each rank
+passes its own gradient dict and the reduction runs over a process group
+(``repro_torch.parallel.Axis``), a ``MAX`` all-reduce for the scale (the
+reference's ``pmax``), then an int32 ``SUM`` of the int8 payload (its
+``psum``).  ``allreduce_compressed`` runs it over the shards of a
+one-process mesh (``repro_torch.core.distributed``), one gradient dict per
+shard, each on its shard's device:
 
   1. the max over shards of each shard's ``|grad + error|`` maximum gives
      one shared scale per tensor (the reference's ``pmax``);
@@ -20,6 +25,8 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Tuple
 
 import torch
+
+from repro_torch import parallel
 
 
 def quantize_int8(x, scale):
@@ -54,6 +61,28 @@ def allreduce_compressed(grads_per_shard: Sequence[Dict[str, torch.Tensor]],
             tot = q32 if tot is None else tot + q32
         mean[name] = tot.float() * scale / p
     return mean, errors
+
+
+def allreduce_compressed_group(grads: Dict[str, torch.Tensor],
+                               error: Dict[str, torch.Tensor],
+                               axis: "parallel.Axis"
+                               ) -> Tuple[Dict[str, torch.Tensor],
+                                          Dict[str, torch.Tensor]]:
+    """EF-int8 mean all-reduce of this rank's gradient dict over ``axis``
+    (collective: every rank of the axis calls it with the same names and
+    shapes).  Returns (the f32 mean, this rank's new f32 error)."""
+    mean: Dict[str, torch.Tensor] = {}
+    new_error: Dict[str, torch.Tensor] = {}
+    for name, g in grads.items():
+        x = g.float() + error[name]
+        amax = parallel.all_reduce(torch.max(torch.abs(x)).reshape(1), axis,
+                                   op="max")[0]
+        scale = torch.clamp(amax, min=1e-12) / 127.0
+        q = quantize_int8(x, scale)
+        new_error[name] = x - q.float() * scale
+        tot = parallel.all_reduce(q.to(torch.int32), axis)
+        mean[name] = tot.float() * scale / axis.size
+    return mean, new_error
 
 
 def init_error(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -144,8 +144,11 @@ def test_launcher_log_every(monkeypatch, capsys):
 
 
 def test_launcher_refuses_a_pod_mesh():
-    for kind in ("pod", "multipod"):
-        with pytest.raises(NotImplementedError, match="one device"):
+    """A pod mesh needs its 256 (512) ranks; a world of one is refused
+    before anything starts."""
+    for kind, need in (("pod", 256), ("multipod", 512)):
+        with pytest.raises(ValueError, match=f"pod of {need} ranks; this "
+                                             f"world has 1"):
             run("llama3_2_1b", smoke=True, steps=1, batch=2, seq=16,
                 mesh_kind=kind, device="cpu")
 
