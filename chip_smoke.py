@@ -286,7 +286,27 @@ Phases, each printing its own lines:
    replayed into the sharded run) with equal rows per expert.  (d) one
    sharded step of (a)'s model at (1, 1) on NCCL and on gloo, run
    together: losses and gradient norms within 1e-6;
-20. one JSON line with every kernel's numbers, then the result line
+20. tp (after phase 19): every family on the model axis, two ranks on
+   (data 1, model 2) over gloo on ``cuda:0``.  deepseek-v2-lite-16b (MLA,
+   context-parallel latent cache; the expert-parallel MoE),
+   zamba2-7b (the SSM's gathered in_proj output; flash D 112),
+   xlstm-1.3b, seamless-m4t-large-v2 (cross-attention; flash D 64) and
+   internvl2-2b (the d_model-split embedding and head of its odd
+   vocabulary; flash D 128) at full width in f32, as deep as the card
+   holds (printed): the one-device runs first, in a process of their own
+   that exits before the ranks start, each model's parameters drawn one
+   at a time from seeded generators (a rank draws each whole tensor and
+   keeps its slice).  Each config: a prefill of 1 x 2,048 positions,
+   then 4 decode steps of 2 rows on a decode cache of 32,768 positions
+   filled from a seed, from position 32,760; the ranks' prefill and
+   decode logits and their cache slices (the written K/V and latent
+   slots, every recurrent state) within 1e-4 normwise of the one-device
+   run (deepseek's routing recorded there and replayed, its one-device
+   MoE the expert-parallel restatement); the f32 Hopper flash kernel once
+   a self-attention layer on every rank.  Then each config cut to one
+   period of its layer pattern trains 2 steps of 2 x 512 tokens, each
+   loss within 1e-4 relative of the one-device step's;
+21. one JSON line with every kernel's numbers, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Wherever phases 4, 6, 7, 11, 12 and 13 drive the path, every block
@@ -298,6 +318,7 @@ Any failure raises, and the script exits non-zero without the result line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -348,12 +369,13 @@ from repro_torch.serving import QueryEngine, burst  # noqa: E402
 from repro_torch.serving import trace as serve_trace  # noqa: E402
 from repro_torch.tuning import autotune, fit, probes  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM, batch_for  # noqa: E402
-from repro_torch.launch.specs import concrete_batch  # noqa: E402
+from repro_torch.launch.specs import (  # noqa: E402
+    cache_map, cache_slice, concrete_batch)
 from repro_torch.optim.adamw import AdamW  # noqa: E402
 from repro_torch.train.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.train.train_step import (  # noqa: E402
     init_sharded_state, init_state, make_train_step, shard_model,
-    sharded_train_step)
+    shard_tensor, sharded_train_step)
 from repro_torch import parallel  # noqa: E402
 from repro_torch.launch.mesh import make_device_mesh  # noqa: E402
 
@@ -6223,6 +6245,540 @@ def sharded_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: every family on the model axis (sharded serve and training)
+# ---------------------------------------------------------------------------
+
+#: the five families that a model axis did not run before: MLA and MoE,
+#: the hybrid SSM, the xLSTM, the encoder-decoder and the VLM with its odd
+#: vocabulary, at full width, f32 (the one-device run's 1e-4 holds only
+#: there; the prefills run the f32 Hopper flash instance)
+TP_ARCHS = ("deepseek_v2_lite_16b", "zamba2_7b", "xlstm_1_3b",
+            "seamless_m4t_large_v2", "internvl2_2b")
+TP_MESH = (1, 2)
+#: serving: a prefill of 1 x 2,048 positions; 4 decode steps of 2 rows on a
+#: cache of decode_32k's length filled from a seed, from position 32,760
+TP_SEQ = 2048
+TP_CACHE = 32768
+TP_ROWS = 2
+TP_START = 32760
+TP_STEPS = 4
+TP_TOL = 1e-4
+#: the gate widens to this many times the one-device prefill's own
+#: response to one ulp of its weights (a relative perturbation of 1e-7)
+#: where that is the larger: f32 sums in another order are such a
+#: perturbation, and a deep stack (zamba2's 81 layers) amplifies it
+TP_FLOOR_TIMES = 4
+#: training: one period of each layer pattern, 2 steps of 2 x 512 tokens
+TP_TRAIN_CUT = {"deepseek_v2_lite_16b": dict(n_layers=2),
+                "zamba2_7b": dict(n_layers=6),
+                "xlstm_1_3b": dict(n_layers=8),
+                "seamless_m4t_large_v2": dict(n_layers=1, n_enc_layers=1,
+                                              n_dec_layers=1),
+                "internvl2_2b": dict(n_layers=2)}
+TP_TRAIN_BATCH, TP_TRAIN_SEQ, TP_TRAIN_STEPS = 2, 512, 2
+#: the K/V and latent caches, of which a decode step writes one slot a row:
+#: their T dim (in the stacked tensor) is compared at the written slots
+TP_SLOT_DIMS = {"k": 3, "v": 3, "kv_c": 2, "k_rope": 2}
+
+
+def tp_config(arch: str):
+    """A phase-20 config: the published one in f32, on the flash kernel
+    where its attention takes it (MLA does not; the xLSTM has none)."""
+    cfg = get_config(arch).replace(dtype="float32")
+    if cfg.family in ("hybrid", "audio", "vlm"):
+        cfg = cfg.replace(attn_impl="flash_pallas")
+    return cfg
+
+
+def tp_period(cfg) -> int:
+    if cfg.family == "hybrid":
+        return cfg.hybrid_attn_every
+    if cfg.family == "ssm":
+        return cfg.xlstm.slstm_every
+    return 1
+
+
+def tp_cut(cfg, n: int):
+    if cfg.family == "audio":
+        return cfg.replace(n_layers=n, n_enc_layers=n, n_dec_layers=n)
+    return cfg.replace(n_layers=n)
+
+
+def cache_bytes(cfg, rows: int = TP_ROWS, length: int = TP_CACHE) -> int:
+    sizes = []
+    cache_map(lambda _, t: sizes.append(t.numel() * t.element_size()),
+              T.init_cache(cfg, rows, length, device="meta"))
+    return sum(sizes)
+
+
+def tp_depth(cfg, free: int) -> int:
+    """The deepest stack (whole periods of its layer pattern) whose f32
+    weights and decode cache fit in ``free`` bytes beside
+    ``LM_HEADROOM_BYTES``: the one-device run holds all of both, the two
+    ranks together hold about as much."""
+    n, step = cfg.n_layers, tp_period(cfg)
+    if not free:
+        return n
+    while n > step and 4 * n_params(tp_cut(cfg, n)) \
+            + cache_bytes(tp_cut(cfg, n)) + LM_HEADROOM_BYTES > free:
+        n -= step
+    return n
+
+
+def seeded_model(cfg, dev, mesh=None, seed: int = 0):
+    """``cfg``'s model with every random parameter drawn whole on ``dev``
+    from a generator of its own (seeded by ``seed`` and its place in
+    ``named_parameters``), normal over sqrt(fan-in), the constant ones
+    (norms, biases) as built; with ``mesh``, sharded first (on the meta
+    device) and each whole tensor cut to this rank's slice as it is drawn,
+    so no rank ever holds the whole model."""
+    from repro_torch.models import common as C
+    from repro_torch.models import xlstm as XL
+    mods = (C, L, SSD, XL, T)
+    saved = [m.dense_init for m in mods]
+    meta = (lambda g, shape, dtype=torch.float32, scale=None:
+            torch.empty(tuple(shape), dtype=dtype, device="meta"))
+    for m in mods:
+        m.dense_init = meta
+    try:
+        model = T.Transformer(cfg, torch.Generator(device="cpu"))
+    finally:
+        for m, f in zip(mods, saved):
+            m.dense_init = f
+    lay = None
+    if mesh is not None:
+        shard_model(model, mesh, zero1=False)
+        lay = model.shard_layout
+    for i, (name, p) in enumerate(list(model.named_parameters())):
+        if not p.is_meta:
+            new = p.detach().to(dev)
+        else:
+            shape = lay.params[name].shape if lay is not None else p.shape
+            g = torch.Generator(device=dev).manual_seed(seed * 100003 + i)
+            fan = shape[-2] if len(shape) >= 2 else shape[-1]
+            new = torch.randn(shape, generator=g, device=dev) / math.sqrt(fan)
+            if lay is not None:
+                new = shard_tensor(new, lay.params[name], lay.axes,
+                                   moment=False, zero1=False).clone()
+        owner, _, pname = name.rpartition(".")
+        setattr(model.get_submodule(owner), pname,
+                torch.nn.Parameter(new, requires_grad=False))
+        del new
+    return model
+
+
+def seeded_cache(cfg, dev, model=None, seed: int = 0):
+    """The decode cache of ``TP_ROWS`` rows and ``TP_CACHE`` positions,
+    every tensor drawn one stacked layer at a time on ``dev`` from a
+    generator of its own: normal draws times 0.5, the stabilisers ``m``
+    unscaled and the sLSTM's normaliser ``n`` as 1 + |x|; with a sharded
+    ``model``, this rank's slices (``init_sharded_cache``)."""
+    whole = T.init_cache(cfg, TP_ROWS, TP_CACHE, device="meta")
+    if model is None:
+        local = T.init_cache(cfg, TP_ROWS, TP_CACHE, device=dev)
+    else:
+        local = T.init_sharded_cache(model, cfg, TP_ROWS, TP_CACHE,
+                                     device=dev)
+    leaves = []
+    cache_map(lambda path, t: leaves.append((path, t)), whole)
+    for j, (path, t) in enumerate(leaves):
+        dst = local[path[0]][path[1]]
+        spec = (None if model is None
+                else model.cache_layout["specs"][path[0]][path[1]])
+        for layer in range(t.shape[0]):
+            g = torch.Generator(device=dev).manual_seed(
+                seed * 100003 + j * 1009 + layer)
+            x = torch.randn(t.shape[1:], generator=g, device=dev)
+            if path == ("slstm", "n"):
+                x = 1.0 + x.abs()
+            elif path[1] != "m":
+                x = x * 0.5
+            x = x.to(t.dtype)
+            if spec is not None:
+                x = cache_slice(x, spec[1:], model.shard_layout.axes)
+            dst[layer].copy_(x)
+            del x
+    return local
+
+
+def tp_inputs(cfg, dev) -> dict:
+    """The prefill batch (1 x ``TP_SEQ`` positions: the VLM's 256 image
+    tokens and 1,792 tokens; the encoder-decoder's frames and tokens), the
+    decode tokens (``TP_ROWS`` x ``TP_STEPS``) and the decode's frames."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    tok = lambda *s: torch.randint(0, cfg.vocab_size, s, generator=g,
+                                   device=dev, dtype=torch.int32)
+    text = TP_SEQ - (cfg.img_tokens if cfg.family == "vlm" else 0)
+    out = {"prefill": {"tokens": tok(1, text)}, "decode": tok(TP_ROWS,
+                                                               TP_STEPS)}
+    if cfg.family == "vlm":
+        out["prefill"]["patches"] = torch.randn(
+            (1, cfg.img_tokens, cfg.d_frontend), generator=g, device=dev)
+    if cfg.family == "audio":
+        out["prefill"]["frames"] = torch.randn(
+            (1, TP_SEQ, cfg.d_frontend), generator=g, device=dev) * 0.2
+        out["frames"] = torch.randn((TP_ROWS, TP_SEQ, cfg.d_frontend),
+                                    generator=g, device=dev) * 0.2
+    return out
+
+
+def compared_cache(cache) -> dict:
+    """What a decode check compares of a cache: the written slots of the
+    K/V and latent caches (T at ``TP_START`` .. + ``TP_STEPS``), every
+    recurrent state whole; ``{(group, name): tensor}``."""
+    slots = list(range(TP_START, TP_START + TP_STEPS))
+    out = {}
+    for group, leaves in cache.items():
+        for name, t in (leaves or {}).items():
+            d = TP_SLOT_DIMS.get(name)
+            out[(group, name)] = (t if d is None else t.index_select(
+                d, torch.tensor(slots, device=t.device)))
+    return out
+
+
+def tp_serve_one(arch: str, depth: int, dev, tmp: str, mesh=None) -> dict:
+    """One config's prefill and decode steps, on one device (whole results
+    saved under ``tmp``) or on this rank of ``mesh`` (held against
+    them)."""
+    cfg = tp_cut(tp_config(arch), depth)
+    moe = cfg.moe is not None
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = seeded_model(cfg, dev, mesh)
+    cache = seeded_cache(cfg, dev, model if mesh is not None else None)
+    inp = tp_inputs(cfg, dev)
+    sync(dev)
+    out = {"arch": arch, "layers": depth, "of": get_config(arch).n_layers,
+           "build_s": time.perf_counter() - t0}
+    path = os.path.join(tmp, f"tp-{arch}.pt")
+    if mesh is None:
+        log = routing_log()
+        plain = ep_restated(2)
+    else:
+        saved = torch.load(path, map_location="cpu")     # moved in parts
+        log = routing_log(replay=[(w.to(dev), e.to(dev))
+                                  for w, e in saved["routing"]])
+        plain = contextlib.nullcontext()
+    with log, (plain if moe else contextlib.nullcontext()):
+        reset_counts()
+        bm0 = A.BLOCK_MASKED_CALLS
+        t0 = time.perf_counter()
+        logits = T.forward(model, cfg, inp["prefill"])
+        sync(dev)
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        out["flash"] = flash_counts()
+        out["block_masked"] = A.BLOCK_MASKED_CALLS - bm0
+        out["expected_sm90"] = sm90_expected(cfg, TP_SEQ,
+                                             out["flash"]["tc"],
+                                             torch.float32)
+        out["finite"] = bool(torch.isfinite(logits).all())
+        enc = (model.encode(inp["frames"], cfg)
+               if cfg.family == "audio" else None)
+        steps, times = [], []
+        for i in range(TP_STEPS):
+            pos = torch.full((TP_ROWS,), TP_START + i, dtype=torch.int32,
+                             device=dev)
+            sync(dev)
+            t = time.perf_counter()
+            lg, cache = T.decode_step(model, cfg, inp["decode"][:, i], cache,
+                                      pos, encoder_out=enc)
+            sync(dev)
+            times.append((time.perf_counter() - t) * 1e3)
+            steps.append(lg)
+        out["decode_ms"] = times
+        decoded = torch.stack(steps)
+        out["finite"] = out["finite"] and bool(torch.isfinite(decoded).all())
+    out["peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2**20
+    if mesh is None:
+        out["floor"] = ulp_floor(model, cfg, inp["prefill"], logits, log,
+                                 plain if moe else contextlib.nullcontext())
+        torch.save({"prefill": logits, "decode": decoded,
+                    "cache": compared_cache(cache),
+                    "routing": log.calls}, path)
+    else:
+        tp = parallel.mesh_axes(mesh)["model"]
+        if model.vocab_parallel:
+            lo, n = model.vocab_start(), logits.shape[-1]
+            out["prefill_err"] = blocks_normwise(
+                logits, saved["prefill"][..., lo:lo + n].to(dev), tp)
+        else:
+            out["prefill_err"] = normwise(logits, saved["prefill"].to(dev))
+        out["decode_err"] = normwise(decoded, saved["decode"].to(dev))
+        out["cache_err"] = tp_cache_err(model, cache, saved["cache"], tp)
+        out["head"] = model.head_split()
+    del model, cache, logits
+    free_port_memory(dev)
+    return out
+
+
+def ulp_floor(model, cfg, batch, logits, log, plain) -> float:
+    """How far the one-device prefill's logits move, normwise, when every
+    weight is scaled by 1 + 1e-7 s (s a seeded random sign): the model's
+    own response to one ulp of its weights (the routing replayed)."""
+    with torch.no_grad():
+        for i, p in enumerate(model.parameters()):
+            g = torch.Generator(device=p.device).manual_seed(7 + i)
+            sign = torch.randint(0, 2, p.shape, generator=g,
+                                 device=p.device, dtype=torch.int8)
+            p.mul_(1 + 1e-7 * (2 * sign.float() - 1))
+            del sign
+    with routing_log(replay=log.calls), plain:
+        moved = T.forward(model, cfg, batch)
+    return normwise(moved, logits)
+
+
+def tp_cache_err(model, cache, want: dict, tp) -> float:
+    """||cache - want|| / ||want|| over ``compared_cache``, each rank's
+    slices against the same slices of the one-device tensors (a written
+    slot counted by the rank that holds it, a tensor the model axis does
+    not split by model rank 0), summed over the axis."""
+    from repro_torch.models.common import axis_dim
+    axes = model.shard_layout.axes
+    dev = next(iter(cache.values()))
+    dev = next(iter(dev.values())).device
+    num = torch.zeros(2, dtype=torch.float64, device=dev)
+    for (group, name), w in want.items():
+        t = cache[group][name]
+        w = w.to(t.device)
+        spec = model.cache_layout["specs"][group][name]
+        d = TP_SLOT_DIMS.get(name)
+        mdim = axis_dim(spec, "model")
+        if d is not None and mdim == d:          # T split: held slots only
+            t_loc = t.shape[d]
+            held = [s for s in range(TP_START, TP_START + TP_STEPS)
+                    if s // t_loc == tp.index]
+            if not held:
+                continue
+            got = t.index_select(d, torch.tensor(
+                [s - tp.index * t_loc for s in held], device=t.device))
+            w = w.index_select(d, torch.tensor(
+                [s - TP_START for s in held], device=t.device))
+        else:
+            got = t if d is None else t.index_select(d, torch.arange(
+                TP_START, TP_START + TP_STEPS, device=t.device))
+            w = cache_slice(w, spec, axes)
+            if mdim is None and tp.index != 0:
+                continue
+        num[0] += (got.double() - w.double()).square().sum()
+        num[1] += w.double().square().sum()
+    parallel.all_reduce(num, tp)
+    return float((num[0] / num[1]).sqrt())
+
+
+class expert_replay(routing_log):
+    """``routing_log`` for training: a replay takes the recorded experts
+    but weighs them by the live router's probabilities (renormalised as
+    ``route`` does), so the router keeps its gradient."""
+
+    def __enter__(self):
+        if self.replay is None:
+            return super().__enter__()
+        self.saved = L.MoE.route
+
+        def route(module, xt, cfg):
+            _, top_e = next(self.replay)
+            probs = torch.softmax((xt @ module.router.to(xt.dtype)).float(),
+                                  dim=-1)
+            top_w = torch.gather(probs, -1, top_e)
+            if cfg.moe.router_scale:
+                top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+            return top_w, top_e
+
+        L.MoE.route = route
+        return self
+
+
+def tp_train_one(arch: str, dev, tmp: str, mesh=None) -> dict:
+    """Two steps of ``arch`` cut to one period of its layers, one device
+    (its routing recorded) or this rank of ``mesh`` (its experts replayed,
+    ``expert_replay``); the MoE at a capacity that drops nothing."""
+    cfg = get_config(arch).replace(dtype="float32", **TP_TRAIN_CUT[arch])
+    if cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  capacity_factor=2.0))
+    opt = sharded_opt()
+    pipe = SyntheticLM(cfg.vocab_size, TP_TRAIN_SEQ, TP_TRAIN_BATCH, seed=0)
+    path = os.path.join(tmp, f"tp-train-{arch}.pt")
+    torch.cuda.reset_peak_memory_stats(dev)
+    if mesh is None:
+        state = init_state(cfg, opt, seed=0, device=dev)
+        step = make_train_step(cfg, opt)
+        log = expert_replay()
+    else:
+        state = init_sharded_state(cfg, opt, mesh, seed=0, device=dev)
+        step = sharded_train_step(cfg, opt, mesh)
+        log = expert_replay(replay=[(w.to(dev), e.to(dev)) for w, e in
+                                    torch.load(path, map_location="cpu")])
+    losses, times = [], []
+    with log:
+        for i in range(TP_TRAIN_STEPS):
+            batch = batch_for(cfg, pipe, i, device=dev, shard=(0, 1))
+            sync(dev)
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            times.append((time.perf_counter() - t) * 1e3)
+    if mesh is None:
+        torch.save([(w.detach(), e) for w, e in log.calls], path)
+    out = {"arch": arch, "layers": cfg.n_layers, "losses": losses,
+           "step_ms": times,
+           "params": sum(p.numel() for p in state.model.parameters()),
+           "peak_mib": torch.cuda.max_memory_allocated(dev) / 2**20}
+    del state, step
+    free_port_memory(dev)
+    return out
+
+
+def tp_one_device(rank: int, world: int, tmp: str) -> None:
+    """The one-device runs of phase 20, in a process of their own."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(tmp, "tp-plan.json")) as f:
+        plan = json.load(f)
+    dev = torch.device(plan.pop("device"))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    out = {"serve": [tp_serve_one(a, plan[a], dev, tmp) for a in TP_ARCHS],
+           "train": [tp_train_one(a, dev, tmp) for a in TP_ARCHS]}
+    rank_result(tmp, "tp-one", rank, out)
+
+
+def tp_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of ``TP_MESH``: the sharded runs of phase 20."""
+    ranks = sharded_join(rank, world, tmp)
+    dev = ranks.device
+    mesh = make_device_mesh(TP_MESH, ("data", "model"))
+    with open(os.path.join(tmp, "tp-plan.json")) as f:
+        plan = json.load(f)
+    plan.pop("device")
+    parallel.reset_link_bytes()
+    out = {"serve": [tp_serve_one(a, plan[a], dev, tmp, mesh)
+                     for a in TP_ARCHS],
+           "train": [tp_train_one(a, dev, tmp, mesh) for a in TP_ARCHS],
+           "links": {f"{c}/{b}": n for (c, b), n
+                     in parallel.LINK_BYTES.items()}}
+    rank_result(tmp, "tp-rank", rank, out)
+    parallel.shutdown()
+
+
+def tp_expected_flash(cfg) -> int:
+    """Flash launches of one prefill: one a self-attention layer on
+    ``flash_pallas`` (the hybrid's shared block once an application)."""
+    if cfg.attn_impl != "flash_pallas":
+        return 0
+    if cfg.family == "hybrid":
+        return T.n_shared_attn(cfg)
+    if cfg.family == "audio":
+        return cfg.n_enc_layers + cfg.n_dec_layers
+    return cfg.n_layers
+
+
+def tp_phase(dev) -> dict:
+    """Phase 20: the five families served and trained on (data 1, model
+    2), each against the one-device run of the same weights, inputs and
+    routing; returns its numbers (printed on a ``tp numbers:`` line)."""
+    free = free_port_memory(dev)
+    plan = {a: tp_depth(tp_config(a), free) for a in TP_ARCHS}
+    tmp = tempfile.mkdtemp(prefix="tp-")
+    try:
+        with open(os.path.join(tmp, "tp-plan.json"), "w") as f:
+            json.dump(dict(plan, device=str(dev)), f)
+        t0 = time.perf_counter()
+        spawn_ranks(tp_one_device, 1, tmp)
+        t1 = time.perf_counter()
+        spawn_ranks(tp_rank, 2, tmp)
+        t2 = time.perf_counter()
+        one = rank_results(tmp, "tp-one", 1)[0]
+        ranks = rank_results(tmp, "tp-rank", 2)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"free_gib": free / 2**30, "one_device_s": t1 - t0,
+           "ranks_s": t2 - t1, "serve": {}, "train": {},
+           "links": ranks[0]["links"]}
+    for i, arch in enumerate(TP_ARCHS):
+        cfg = tp_cut(tp_config(arch), plan[arch])
+        o = one["serve"][i]
+        rs = [r["serve"][i] for r in ranks]
+        want = tp_expected_flash(cfg)
+        tol = max(TP_TOL, TP_FLOOR_TIMES * o["floor"])
+        for r, s in enumerate(rs):
+            what = f"tp-serve {arch} rank {r}"
+            check(s["finite"], f"{what}: finite logits")
+            for k in ("prefill_err", "decode_err", "cache_err"):
+                check(s[k] <= tol, f"{what}: {k} {s[k]:.3g} within {tol:.3g} "
+                      f"normwise of the one-device run (the larger of "
+                      f"{TP_TOL} and {TP_FLOOR_TIMES} x its one-ulp response "
+                      f"{o['floor']:.3g})")
+            c = s["flash"]
+            check(c["tc"] == c["f32"] == c["sm90"] == want
+                  == s["expected_sm90"], f"{what}: the f32 Hopper flash "
+                  f"kernel once a self-attention layer ({want}): {c}")
+        check(o["flash"]["tc"] == want, f"tp-serve {arch} one device: "
+              f"{want} flash launches: {o['flash']}")
+        out["serve"][arch] = {
+            "layers": plan[arch], "of": o["of"], "head": rs[0]["head"],
+            "prefill_err": [s["prefill_err"] for s in rs],
+            "decode_err": [s["decode_err"] for s in rs],
+            "cache_err": [s["cache_err"] for s in rs],
+            "ulp_floor": o["floor"], "tol": tol,
+            "flash_sm90": [s["flash"]["sm90"] for s in rs],
+            "block_masked": [s["block_masked"] for s in rs],
+            "prefill_ms": [s["prefill_ms"] for s in rs],
+            "one_device_prefill_ms": o["prefill_ms"],
+            "decode_ms": [s["decode_ms"] for s in rs],
+            "one_device_decode_ms": o["decode_ms"],
+            "peak_mib": [s["peak_mib"] for s in rs],
+            "one_device_peak_mib": o["peak_mib"],
+            "build_s": [s["build_s"] for s in rs]}
+        v = out["serve"][arch]
+        print(f"tp-serve: {arch} f32, {plan[arch]} of {o['of']} layers"
+              f"{' (depth cut to fit the card)' if plan[arch] < o['of'] else ''}"
+              f", (data 1, model 2), head split by {v['head']}: prefill "
+              f"1 x {TP_SEQ} normwise {v['prefill_err']}, {TP_STEPS} decode "
+              f"steps of {TP_ROWS} rows on a {TP_CACHE}-position cache from "
+              f"{TP_START}: logits {v['decode_err']}, caches "
+              f"{v['cache_err']} (limit {tol:.3g}; the one-device "
+              f"prefill's one-ulp response {o['floor']:.3g}); flash sm90 "
+              f"launches a "
+              f"rank {v['flash_sm90']}, block_masked calls "
+              f"{v['block_masked']}; prefill ms a rank "
+              f"{[round(x, 1) for x in v['prefill_ms']]} (one device "
+              f"{o['prefill_ms']:.1f}, first calls); decode ms a step "
+              f"{[round(x, 1) for x in rs[0]['decode_ms']]} (one device "
+              f"{[round(x, 1) for x in o['decode_ms']]}); peak MiB a rank "
+              f"{[round(x) for x in v['peak_mib']]} (one device "
+              f"{o['peak_mib']:.0f}); {CARD}")
+        ot = one["train"][i]
+        rt = [r["train"][i] for r in ranks]
+        for r, t in enumerate(rt):
+            for j, (a, b) in enumerate(zip(t["losses"], ot["losses"])):
+                check(abs(a - b) <= TP_TOL * abs(b),
+                      f"tp-train {arch} rank {r} step {j}: loss {a} within "
+                      f"{TP_TOL} of the one-device step's {b}")
+        out["train"][arch] = {
+            "layers": ot["layers"], "losses": rt[0]["losses"],
+            "one_device_losses": ot["losses"],
+            "step_ms": [t["step_ms"] for t in rt],
+            "one_device_step_ms": ot["step_ms"],
+            "peak_mib": [t["peak_mib"] for t in rt],
+            "one_device_peak_mib": ot["peak_mib"],
+            "local_params": [t["params"] for t in rt],
+            "params": ot["params"]}
+        w = out["train"][arch]
+        print(f"tp-train: {arch} f32 cut to {ot['layers']} layers "
+              f"({ot['params']:,} parameters), 2 steps of "
+              f"{TP_TRAIN_BATCH} x {TP_TRAIN_SEQ} on (data 1, model 2): "
+              f"losses {w['losses']} against one device's "
+              f"{w['one_device_losses']}; step ms a rank "
+              f"{[[round(x, 1) for x in s] for s in w['step_ms']]} (one "
+              f"device {[round(x, 1) for x in ot['step_ms']]}); peak MiB a "
+              f"rank {[round(x) for x in w['peak_mib']]}; {CARD}")
+    print(f"tp: one device {t1 - t0:.1f} s, ranks {t2 - t1:.1f} s; link "
+          f"bytes a rank {json.dumps(out['links'])}")
+    return out
+
+
 def main() -> int:
     device = card()
     dev = torch.device("cuda", 0)
@@ -6296,6 +6852,10 @@ def main() -> int:
         **{f"llama_{d}": v["sm90_launches"]
            for d, v in sharded["prefill"]["llama"].items()},
         "moonshot_float32": sharded["prefill"]["moonshot"]["sm90_launches"]}
+    t_tp = time.perf_counter()
+    tp = tp_phase(dev)
+    flash_entry["tp_sm90_launches"] = {a: v["flash_sm90"]
+                                       for a, v in tp["serve"].items()}
     t_end = time.perf_counter()
     print(f"phases: spgemm {t_serving - t_start:.1f} s, serving "
           f"{t_delta - t_serving:.1f} s, delta {t_tuning - t_delta:.1f} s, "
@@ -6309,11 +6869,12 @@ def main() -> int:
           f"training {t_lint - t_training:.1f} s, "
           f"lint {t_examples - t_lint:.1f} s, "
           f"examples {t_sharded - t_examples:.1f} s, "
-          f"sharded {t_end - t_sharded:.1f} s")
+          f"sharded {t_tp - t_sharded:.1f} s, tp {t_end - t_tp:.1f} s")
     print("training numbers: " + json.dumps(training))
     print("lint numbers: " + json.dumps(linted))
     print("examples numbers: " + json.dumps(examples))
     print("sharded numbers: " + json.dumps(sharded))
+    print("tp numbers: " + json.dumps(tp))
     print(json.dumps({"kernels": [entry, sddmm, flash_entry,
                                   moonshot_entry, zamba_entry,
                                   seamless_entry]}))

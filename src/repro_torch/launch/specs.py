@@ -1,7 +1,13 @@
 """Model input stand-ins: ``concrete_batch``, a small real batch for smoke
 tests and examples, the reference's arrays bit for bit as tensors on a
 device.  The reference's ``train_input_specs`` and ``decode_input_specs``
-(ShapeDtypeStructs for XLA lowering) have no counterpart here."""
+(ShapeDtypeStructs for XLA lowering) have no counterpart here.
+
+The decode caches' placements, the reference's ``_CACHE_RULES`` and
+``cache_specs`` (``launch/dryrun.py``), are here: ``cache_layout`` fits
+them to a cache on a mesh and ``cache_slice`` cuts a rank's slice of one
+tensor (``transformer.shard_cache`` slices a whole cache and records the
+layout on the model for ``decode_step``)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -9,8 +15,10 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch import parallel
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import _features, _on
+from repro_torch.models.common import axis_dim, fit_spec, mesh_sizes
 
 
 def concrete_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
@@ -32,3 +40,79 @@ def concrete_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
         out["frames"] = _features(rng.standard_normal(
             (batch, seq, cfg.d_frontend or cfg.d_model)), act)
     return _on(out, device)
+
+
+# ---------------------------------------------------------------------------
+# decode cache placements (the reference's ``launch/dryrun.py``)
+# ---------------------------------------------------------------------------
+
+DP = ("pod", "data")
+
+#: the reference's ``_CACHE_RULES``, by cache leaf name, on the trailing
+#: dims: K/V heads over the model axis; the MLA latents context-parallel
+#: (their sequence T over model); the SSM state's heads and the conv
+#: history's channels; the mLSTM matrix memory's first head dim; the
+#: sLSTM states' head dim.  ``"m"`` is written for the mLSTM's (B, nh), so
+#: on the sLSTM's (B, nh, hd) it puts the data axes on the heads (a
+#: reference fault the port keeps).
+_CACHE_RULES = {
+    "k": (DP, "model", None, None), "v": (DP, "model", None, None),
+    "kv_c": (DP, "model", None), "k_rope": (DP, "model", None),
+    "S": (DP, "model", None, None), "conv": (DP, None, "model"),
+    "C": (DP, None, "model", None), "n": (DP, None, "model"),
+    "m": (DP, None), "c": (DP, None, "model"), "h": (DP, None, "model"),
+}
+
+
+def cache_map(fn, cache, path=()):
+    """``fn(path, leaf)`` over a cache's nested dicts (the path a tuple of
+    keys), in a tree of the same structure; a None subtree stays None."""
+    if cache is None:
+        return None
+    if isinstance(cache, dict):
+        return {k: cache_map(fn, v, path + (k,)) for k, v in cache.items()}
+    return fn(path, cache)
+
+
+def cache_specs(cache):
+    """The reference's ``cache_specs``: a tree of specs (tuples, one entry
+    per dim) parallel to ``cache`` (``transformer.init_cache``'s nested
+    dicts of tensors, any device, ``meta`` included): the rule of the
+    last path key that has one, on the trailing dims, None in front; a
+    leaf without a rule is ``(DP,)`` on its first trailing dim."""
+    def one(path, leaf):
+        name = next((k for k in reversed(path) if k in _CACHE_RULES), None)
+        base = _CACHE_RULES.get(name, (DP,))
+        return (None,) * (leaf.dim() - len(base)) + tuple(base)
+    return cache_map(one, cache)
+
+
+def cache_layout(cache, mesh):
+    """Each leaf's spec fitted to its shape on ``mesh`` (a ``DeviceMesh``
+    or ``{axis: size}``): ``fit_spec(cache_specs(cache))``, one entry per
+    dim."""
+    sizes = mesh_sizes(mesh)
+    specs = cache_specs(cache)
+
+    def one(path, leaf):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        return fit_spec(spec, tuple(leaf.shape), sizes)
+    return cache_map(one, cache)
+
+
+def cache_slice(t: torch.Tensor, spec, axes) -> torch.Tensor:
+    """This rank's slice of one whole cache tensor under its fitted
+    ``spec`` (a view): each dim an axis splits cut to the rank's block
+    along it (``axes``: ``parallel.mesh_axes``; the data axes, ``pod``
+    then ``data``, as the pair ``dp``)."""
+    for name in ("dp", "model"):
+        d = (axis_dim(spec, "data") if name == "dp" else
+             axis_dim(spec, "model"))
+        if name == "dp" and d is None:
+            d = axis_dim(spec, "pod")
+        if d is not None:
+            t = parallel.local_slice(t, axes[name], d)
+    return t
+

@@ -14,26 +14,35 @@ dtype at each use.  They are built without gradients, for serving;
 training turns them on (``repro_torch.train.train_step.init_state``).
 
 Tensor parallelism.  ``train_step.shard_model`` replaces the parameters
-of ``Attention``, ``MLP`` and ``MoE`` by a rank's shards, as the
-reference's rules place them, and sets ``tp`` (the model axis,
-``repro_torch.parallel.Axis``) and ``tp_dims`` (parameter name -> the dim
-the model axis splits, None where the parameter is whole).  Then
-``wq``/``wk``/``wv``/``w_gate``/``w_up`` hold column blocks and
-``wo``/``w_down`` row blocks: the input enters by ``copy_to``, the rank
-computes its heads (Hq / tp, and the K/V heads they read) or its hidden
-columns, and the output leaves by ``reduce_from`` (Megatron's f and g).
-A whole parameter read in part (a bias, ``wk``/``wv`` under
-``kv_replicated``) enters by ``copy_to`` too, so its gradient is summed
-over the axis, as do the routing weights in expert parallelism (every
-rank routes alike; each uses the weights of its own experts).  The MoE runs
-the reference's expert-parallel dispatch (``_apply_moe_ep``) when
+of every layer by a rank's shards, as the reference's rules place them,
+and sets ``tp`` (the model axis, ``repro_torch.parallel.Axis``) and
+``tp_dims`` (parameter name -> the dim the model axis splits, None where
+the parameter is whole).  Then ``wq``/``wk``/``wv``/``w_gate``/``w_up``
+(and MLA's ``wk_b``/``wv_b``) hold column blocks and ``wo``/``w_down`` row
+blocks: the input enters by ``copy_to``, the rank computes its heads (Hq /
+tp, and the K/V heads they read) or its hidden columns, and the output
+leaves by ``reduce_from`` (Megatron's f and g).  Cross-attention runs its
+heads so too.  A whole parameter read in part (a bias, ``wk``/``wv``
+under ``kv_replicated``, MLA's latent projections ``wkv_a`` and
+``wk_rope``) enters by ``copy_to`` too, so its gradient is summed over the
+axis, as do the routing weights in expert parallelism (every rank routes
+alike; each uses the weights of its own experts).  The MoE runs the
+reference's expert-parallel dispatch (``_apply_moe_ep``) when
 ``cfg.moe.ep`` and the experts split evenly over the axis, else the dense
-dispatch on experts all-gathered.  Decode and cross-attention are not
-sharded: they raise under ``tp``.
+dispatch on experts all-gathered.
+
+Sharded decode takes each layer's cache slice and its ``place`` (the dims
+the model and data axes split, ``transformer.shard_cache``): attention
+runs its q heads on its K/V heads' cache, or, where the reference's
+``fit_spec`` moved the model axis onto T (K/V heads that do not divide
+it), scores every head against its block of T and combines the softmax
+over the axis, as MLA's context-parallel latent cache always does
+(``_cp_softmax``).  Only the rank that holds a new token's slot writes
+it.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,18 +51,18 @@ from torch import nn
 
 from repro_torch import parallel
 from repro_torch.configs.base import ModelConfig
-from .attention import _bmm_f32, attention, decode_attention
+from .attention import NEG_INF, _bmm_f32, attention, decode_attention
 from .common import dense_init, layer_norm, rms_norm, rope
+
+
+#: a decode cache tensor's place on this rank: the dims of the per-layer
+#: tensor that the model axis and the data axes split (None: whole along
+#: them) and its whole per-layer shape (``transformer.shard_cache``)
+Place = Tuple[Optional[int], Optional[int], Tuple[int, ...]]
 
 
 def _param(x: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(x, requires_grad=False)
-
-
-def _unsharded(module, what: str) -> None:
-    if module.tp is not None:
-        raise NotImplementedError(f"{what} on tensor-parallel shards: only "
-                                  f"the sharded training forward is ported")
 
 
 class Norm(nn.Module):
@@ -176,37 +185,59 @@ class Attention(nn.Module):
     def cross(self, x, kv_src, cfg: ModelConfig):
         """Cross-attention (the reference's ``apply_cross_attn``): q from x,
         k and v from ``kv_src`` (B, T, D), no RoPE and no biases, every
-        source position visible, always on ``dense_masked``.  x: (B, S, D)
-        -> (B, S, D)."""
-        _unsharded(self, "cross-attention")
+        source position visible, always on ``dense_masked``; under ``tp``
+        on this rank's heads, as self-attention.  x: (B, S, D) -> (B, S,
+        D)."""
         b, s, _ = x.shape
         t, hd = kv_src.shape[1], cfg.hd
-        q = (x @ self.wq.to(x.dtype)).reshape(
-            b, s, cfg.n_heads, hd).transpose(1, 2)
-        k = (kv_src @ self.wk.to(x.dtype)).reshape(
-            b, t, cfg.n_kv_heads, hd).transpose(1, 2)
-        v = (kv_src @ self.wv.to(x.dtype)).reshape(
-            b, t, cfg.n_kv_heads, hd).transpose(1, 2)
+        hq, k0, k1 = self.tp_heads(cfg)
+        wk, wv = self.wk, self.wv
+        if self.tp is not None:
+            x = parallel.copy_to(x, self.tp)
+            kv_src = parallel.copy_to(kv_src, self.tp)
+            wk = self._kv_weight("wk", k0, k1, hd)
+            wv = self._kv_weight("wv", k0, k1, hd)
+        q = (x @ self.wq.to(x.dtype)).reshape(b, s, hq, hd).transpose(1, 2)
+        k = (kv_src @ wk.to(x.dtype)).reshape(
+            b, t, k1 - k0, hd).transpose(1, 2)
+        v = (kv_src @ wv.to(x.dtype)).reshape(
+            b, t, k1 - k0, hd).transpose(1, 2)
         out = attention(q, k, v, impl="dense_masked", causal=False)
-        out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
-        return out @ self.wo.to(x.dtype)
+        out = out.transpose(1, 2).reshape(b, s, hq * hd)
+        return parallel.reduce_from(out @ self.wo.to(x.dtype), self.tp)
 
     def decode(self, x, cache: Dict[str, torch.Tensor], pos,
-               cfg: ModelConfig):
+               cfg: ModelConfig, place: Optional[Dict[str, Place]] = None):
         """One-token decode. x: (B, 1, D); pos: (B,) absolute position;
         cache: this layer's ``{"k", "v"}`` (B, Hkv, T, hd), updated in place
         (the reference returns new arrays; writing the one new slot saves a
-        copy of the cache per step).  Returns (out (B, 1, D), cache)."""
-        _unsharded(self, "decode")
+        copy of the cache per step).  Returns (out (B, 1, D), cache).
+
+        Under ``tp`` the cache is this rank's slice as ``place`` says: its
+        K/V heads (it runs its q heads on them), or, where the reference's
+        ``fit_spec`` moved the model axis onto T, its block of T for every
+        head (``_decode_context_parallel``)."""
+        mdim = _model_dim(self, place, "k")
+        if mdim == 2:
+            return self._decode_context_parallel(x, cache, pos, cfg)
+        if mdim not in (None, 1) or (self.tp is not None and mdim is None):
+            raise NotImplementedError(
+                f"attention decode with the model axis on dim {mdim} of its "
+                f"(B, Hkv, T, hd) cache: heads or T only")
         b = x.shape[0]
+        hq, k0, k1 = self.tp_heads(cfg)
         q, k, v = self._project(x[:, 0], cfg)
-        q = q.reshape(b, cfg.n_heads, cfg.hd)
-        k = k.reshape(b, cfg.n_kv_heads, cfg.hd)
-        v = v.reshape(b, cfg.n_kv_heads, cfg.hd)
+        q = q.reshape(b, hq, cfg.hd)
+        k = k.reshape(b, k1 - k0, cfg.hd)
+        v = v.reshape(b, k1 - k0, cfg.hd)
         p3 = pos[:, None, None]
         q = rope(q[:, :, None, :], p3, cfg.rope_theta)[:, :, 0]
         k = rope(k[:, :, None, :], p3, cfg.rope_theta)[:, :, 0]
         k_cache, v_cache = cache["k"], cache["v"]
+        if k_cache.shape[1] != k1 - k0:
+            raise NotImplementedError(
+                f"a rank's {k1 - k0} K/V heads against a cache of "
+                f"{k_cache.shape[1]}")
         t = k_cache.shape[2]
         slot = pos % t if cfg.window > 0 else torch.clamp(pos, max=t - 1)
         bidx = torch.arange(b, device=x.device)
@@ -214,8 +245,81 @@ class Attention(nn.Module):
         v_cache[bidx, :, slot] = v.to(v_cache.dtype)
         valid = torch.clamp(pos + 1, max=t)
         out = decode_attention(q, k_cache, v_cache, valid)
-        out = out.reshape(b, 1, cfg.n_heads * cfg.hd)
-        return out @ self.wo.to(x.dtype), cache
+        out = out.reshape(b, 1, hq * cfg.hd)
+        return parallel.reduce_from(out @ self.wo.to(x.dtype), self.tp), \
+            cache
+
+    def _decode_context_parallel(self, x, cache, pos, cfg: ModelConfig):
+        """Decode on a cache whose T is split over the model axis (the K/V
+        heads do not divide it): every rank's q heads and new K/V heads are
+        all-gathered, the rank that holds the slot writes it, each rank
+        scores every head against its block of T and the softmax and
+        ``p.v`` are summed over the axis (``_cp_softmax``); the rank then
+        keeps its q heads for ``wo``."""
+        tp, hd, b = self.tp, cfg.hd, x.shape[0]
+        hq, k0, k1 = self.tp_heads(cfg)
+        g = cfg.n_heads // cfg.n_kv_heads
+        q, k, v = self._project(x[:, 0], cfg)
+        p3 = pos[:, None, None]
+        q = rope(q.reshape(b, hq, 1, hd), p3, cfg.rope_theta)[:, :, 0]
+        k = rope(k.reshape(b, k1 - k0, 1, hd), p3, cfg.rope_theta)[:, :, 0]
+        v = v.reshape(b, k1 - k0, hd)
+        q_all = parallel.all_gather_cat(q, tp, 1)          # (B, Hq, hd)
+        kv = parallel.all_gather_cat(torch.cat([k, v], dim=-1), tp, 1)
+        # rank r computed K/V head (r hq) // g: take each head once
+        heads = [j * g // hq for j in range(cfg.n_kv_heads)]
+        k_all, v_all = kv[:, heads, :hd], kv[:, heads, hd:]
+        k_cache, v_cache = cache["k"], cache["v"]
+        t_loc = k_cache.shape[2]
+        t = t_loc * tp.size
+        slot = pos % t if cfg.window > 0 else torch.clamp(pos, max=t - 1)
+        mine, local = _slot_owner(slot, t_loc, tp)
+        bidx = torch.arange(b, device=x.device)
+        for cache_t, new in ((k_cache, k_all), (v_cache, v_all)):
+            keep = cache_t[bidx, :, local]
+            cache_t[bidx, :, local] = torch.where(
+                mine[:, None, None], new.to(cache_t.dtype), keep)
+        valid = torch.clamp(pos + 1, max=t)
+        qg = q_all.reshape(b, cfg.n_kv_heads, g, hd)
+        s = torch.einsum("bhgd,bhtd->bhgt", qg.float(),
+                         k_cache.float()) * hd ** -0.5
+        at = tp.index * t_loc + torch.arange(t_loc, device=x.device)
+        ok = at[None, :] < valid[:, None]
+        s = torch.where(ok[:, None, None, :], s, NEG_INF)
+        p = _cp_softmax(s, tp)
+        o = parallel.all_reduce(
+            torch.einsum("bhgt,bhtd->bhgd", p, v_cache.float()), tp)
+        o = o.reshape(b, cfg.n_heads, hd)[:, tp.index * hq:(tp.index + 1) * hq]
+        out = o.to(q.dtype).reshape(b, 1, hq * hd)
+        return parallel.reduce_from(out @ self.wo.to(x.dtype), tp), cache
+
+
+def _model_dim(module, place, name: str) -> Optional[int]:
+    """The dim of the per-layer cache tensor ``name`` that the model axis
+    splits on this rank (None without ``tp`` or where the tensor is
+    whole)."""
+    if module.tp is None or place is None:
+        return None
+    return place[name][0]
+
+
+def _slot_owner(slot, t_loc: int, tp):
+    """Rows whose cache slot lies in this rank's block of T (of ``t_loc``
+    positions), and the slot's index in the block (clamped)."""
+    local = slot - tp.index * t_loc
+    mine = (local >= 0) & (local < t_loc)
+    return mine, local.clamp(0, t_loc - 1)
+
+
+def _cp_softmax(s, tp):
+    """This rank's block of ``softmax(s)`` over the last dim, the scores
+    ``s`` (f32) split over the model axis by blocks of that dim: the
+    maximum and the sum of exponentials are reduced over the axis, so the
+    probabilities are the one-device softmax's (their sum in another
+    order)."""
+    m = parallel.all_reduce(s.amax(dim=-1), tp, op="max")
+    e = torch.exp(s - m[..., None])
+    return e / parallel.all_reduce(e.sum(dim=-1), tp)[..., None]
 
 
 def attn_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -234,7 +338,16 @@ class MLA(nn.Module):
     (r, H*dv), ``wo`` (H*dv, d), with dn, dr, dv and r from ``cfg.mla``.
     Prefill expands the latent into per-head keys and values; decode keeps
     only the latent ``kv_c`` and the shared rope key per token and absorbs
-    ``wk_b`` and ``wv_b`` into the query and the output."""
+    ``wk_b`` and ``wv_b`` into the query and the output.
+
+    Under ``tp`` ``wq``, ``wk_b`` and ``wv_b`` hold a rank's heads' column
+    blocks and ``wo`` their rows; ``wkv_a`` and ``wk_rope`` are whole, as
+    the reference keeps them, so every rank computes the whole latent and
+    reads it for its heads (they enter by ``copy_to``).  Decode is
+    context-parallel: the latent caches hold the rank's block of T."""
+
+    tp = None
+    tp_dims: Dict[str, Optional[int]] = {}
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator):
         super().__init__()
@@ -249,19 +362,31 @@ class MLA(nn.Module):
                                       (m.kv_lora_rank, h * m.v_head_dim)))
         self.wo = _param(dense_init(generator, (h * m.v_head_dim, d)))
 
+    def _heads(self, cfg: ModelConfig) -> int:
+        return cfg.n_heads if self.tp is None else \
+            cfg.n_heads // self.tp.size
+
+    def _latent_weights(self, dtype):
+        """``wkv_a`` and ``wk_rope`` in ``dtype``; under ``tp`` each rank
+        reads them whole for its heads, so their gradient is summed."""
+        return (parallel.copy_to(self.wkv_a, self.tp).to(dtype),
+                parallel.copy_to(self.wk_rope, self.tp).to(dtype))
+
     def forward(self, x, positions, cfg: ModelConfig, *, causal=True):
         """x: (B, S, D) -> (B, S, D).  The q.k head dim (dn + dr) differs
         from v's (dv), which ``flash_pallas`` does not take: it raises, as
         the reference's does."""
         m = cfg.mla
         b, s, _ = x.shape
-        h = cfg.n_heads
+        h = self._heads(cfg)
+        x = parallel.copy_to(x, self.tp)
+        wkv_a, wk_rope = self._latent_weights(x.dtype)
         q = (x @ self.wq.to(x.dtype)).reshape(
             b, s, h, m.qk_nope_dim + m.qk_rope_dim).transpose(1, 2)
         q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
         q_rope = rope(q_rope, positions[:, None, :], cfg.rope_theta)
-        kv_c = x @ self.wkv_a.to(x.dtype)                     # (B, S, r)
-        k_rope = rope((x @ self.wk_rope.to(x.dtype))[:, None],
+        kv_c = x @ wkv_a                                      # (B, S, r)
+        k_rope = rope((x @ wk_rope)[:, None],
                       positions[:, None, :], cfg.rope_theta)  # (B, 1, S, dr)
         k_nope = (kv_c @ self.wk_b.to(x.dtype)).reshape(
             b, s, h, m.qk_nope_dim).transpose(1, 2)
@@ -274,49 +399,83 @@ class MLA(nn.Module):
         out = attention(qf, kf, v, impl=cfg.attn_impl, causal=causal,
                         scale=scale, block=cfg.attn_block)
         out = out.transpose(1, 2).reshape(b, s, h * m.v_head_dim)
-        return out @ self.wo.to(x.dtype)
+        return parallel.reduce_from(out @ self.wo.to(x.dtype), self.tp)
 
     def decode(self, x, cache: Dict[str, torch.Tensor], pos,
-               cfg: ModelConfig):
+               cfg: ModelConfig, place: Optional[Dict[str, Place]] = None):
         """Weight-absorbed one-token decode: attention runs in the latent
         space, so the cache is rank r + dr per token instead of 2*H*hd.
         x: (B, 1, D); pos: (B,); cache: this layer's ``{"kv_c"}`` (B, T, r)
         and ``{"k_rope"}`` (B, T, dr), updated in place at slot
         min(pos, T - 1).  Scores and ``p.kv_c`` accumulate in f32 from
-        operands in the cache's dtype, as the reference's."""
+        operands in the cache's dtype, as the reference's.
+
+        Under ``tp`` (``place``: T over the model axis, the reference's
+        context-parallel latents) the rank absorbs ``wk_b`` into its heads'
+        queries, the latent queries of every head are all-gathered, the
+        rank that holds slot ``pos`` writes the new latent, each rank
+        scores every head against its block of T, the softmax and
+        ``p.kv_c`` are summed over the axis (flash-decoding's
+        combination), and the rank keeps its heads for ``wv_b`` and
+        ``wo``."""
         m = cfg.mla
         b = x.shape[0]
-        h = cfg.n_heads
+        h = self._heads(cfg)
+        tp = self.tp
+        mdim = _model_dim(self, place, "kv_c")
+        if tp is not None and (mdim != 1 or _model_dim(
+                self, place, "k_rope") != 1):
+            raise NotImplementedError(
+                f"MLA decode with the model axis on dim {mdim} of its "
+                f"(B, T, r) latent cache: T only (context-parallel)")
+        wkv_a, wk_rope = self._latent_weights(x.dtype)
         q = (x[:, 0] @ self.wq.to(x.dtype)).reshape(
             b, h, m.qk_nope_dim + m.qk_rope_dim)
         q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
         p3 = pos[:, None, None]
         q_rope = rope(q_rope[:, :, None], p3, cfg.rope_theta)[:, :, 0]
-        kv_c_new = x[:, 0] @ self.wkv_a.to(x.dtype)           # (B, r)
-        k_rope_new = rope((x[:, 0] @ self.wk_rope.to(x.dtype))[:, None, None],
+        kv_c_new = x[:, 0] @ wkv_a                            # (B, r)
+        k_rope_new = rope((x[:, 0] @ wk_rope)[:, None, None],
                           p3, cfg.rope_theta)[:, 0, 0]
         kv_c, k_rope = cache["kv_c"], cache["k_rope"]
-        t = kv_c.shape[1]
+        t_loc = kv_c.shape[1]
+        t = t_loc * (1 if tp is None else tp.size)
         bidx = torch.arange(b, device=x.device)
         slot = torch.clamp(pos, max=t - 1)
-        kv_c[bidx, slot] = kv_c_new.to(kv_c.dtype)
-        k_rope[bidx, slot] = k_rope_new.to(k_rope.dtype)
+        if tp is None:
+            kv_c[bidx, slot] = kv_c_new.to(kv_c.dtype)
+            k_rope[bidx, slot] = k_rope_new.to(k_rope.dtype)
+        else:
+            mine, local = _slot_owner(slot, t_loc, tp)
+            for cache_t, new in ((kv_c, kv_c_new), (k_rope, k_rope_new)):
+                cache_t[bidx, local] = torch.where(
+                    mine[:, None], new.to(cache_t.dtype),
+                    cache_t[bidx, local])
         # absorb wk_b into q: q_lat (B, H, r) = q_nope @ wk_b^T per head
         wk_b = self.wk_b.to(x.dtype).reshape(m.kv_lora_rank, h, m.qk_nope_dim)
         q_lat = torch.einsum("bhd,rhd->bhr", q_nope, wk_b)
+        if tp is not None:                    # every head's latent query
+            q_lat = parallel.all_gather_cat(q_lat, tp, 1)
+            q_rope = parallel.all_gather_cat(q_rope, tp, 1)
         s_lat = _bmm_f32(q_lat, kv_c.transpose(1, 2))         # (B, H, T)
         s_rope = _bmm_f32(q_rope, k_rope.transpose(1, 2))
         scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
         s = (s_lat + s_rope) * scale
-        valid = torch.arange(t, device=x.device)[None, :] <= pos[:, None]
+        at = torch.arange(t_loc, device=x.device)
+        if tp is not None:
+            at = at + tp.index * t_loc
+        valid = at[None, :] <= pos[:, None]
         s = torch.where(valid[:, None, :], s, -1e30)
-        p = torch.softmax(s, dim=-1)
+        p = torch.softmax(s, dim=-1) if tp is None else _cp_softmax(s, tp)
         p = p.to(torch.promote_types(kv_c.dtype, torch.bfloat16))
         o_lat = _bmm_f32(p, kv_c)                              # (B, H, r)
+        if tp is not None:
+            o_lat = parallel.all_reduce(o_lat, tp)
+            o_lat = o_lat[:, tp.index * h:(tp.index + 1) * h]
         wv_b = self.wv_b.to(x.dtype).reshape(m.kv_lora_rank, h, m.v_head_dim)
         out = torch.einsum("bhr,rhd->bhd", o_lat.to(x.dtype), wv_b)
         out = out.reshape(b, 1, h * m.v_head_dim)
-        return out @ self.wo.to(x.dtype), cache
+        return parallel.reduce_from(out @ self.wo.to(x.dtype), tp), cache
 
 
 def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,

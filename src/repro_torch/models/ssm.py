@@ -14,10 +14,26 @@ chunk scan is a Python loop over chunks here; every product is a plain
 torch ``matmul``/``einsum`` (the reference's are XLA dots, no Pallas
 kernel), with the intra-chunk product's bf16 operands summed in f32
 (``_bmm_f32``).
+
+Tensor parallelism (``tp``, set by ``train_step.shard_model``).  The
+reference splits ``in_proj`` by columns and ``out_proj`` by rows; the
+column blocks cut across the z | x | B | C | dt segments (zamba2-7b's
+14,576 columns give rank 0 of two all of z and 120 columns of x), so no
+rank can run its heads from its own block.  The projection's output is
+all-gathered instead (``gather_partial``: (B, L, 14,576) a layer, where
+all-gathering the weight would move its 104 MB every forward), and a
+rank then takes its heads' z, x and dt and the whole B and C, runs the
+causal conv on those channels (``conv_w`` / ``conv_b`` whole, read in
+part), the SSD on its heads and the gated RMSNorm with its sum of squares
+summed over the axis (``parallel.sum_partials``), and leaves through its
+rows of ``out_proj`` by ``reduce_from``.  Decode keeps the reference's
+cache placements: the state ``S`` by heads and the conv history by its
+channels over the model axis; a rank convolves its own channels and the
+conv output (C channels a token) is all-gathered.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -25,8 +41,9 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, SSMCfg
 from .attention import _bmm_f32
+from repro_torch import parallel
 from .common import dense_init, rms_norm
-from .layers import _param
+from .layers import Place, _model_dim, _param
 
 
 def _dims(cfg: ModelConfig):
@@ -41,7 +58,11 @@ class SSM(nn.Module):
     ``init_ssm``: ``in_proj`` (d, 2 d_inner + 2 n + nh), ``conv_w`` (W, C)
     and ``conv_b`` (C,) with C = d_inner + 2 n, ``a_log``, ``dt_bias``,
     ``d_skip`` (nh,), ``norm_scale`` (d_inner,), ``out_proj`` (d_inner, d).
+    Under ``tp`` a rank runs heads [i nh / tp, (i + 1) nh / tp).
     """
+
+    tp = None
+    tp_dims: Dict[str, Optional[int]] = {}
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator):
         super().__init__()
@@ -62,8 +83,18 @@ class SSM(nn.Module):
     def forward(self, x, cfg: ModelConfig):
         return apply_ssm(self, cfg, x)
 
-    def decode(self, x, cache: Dict[str, torch.Tensor], cfg: ModelConfig):
-        return apply_ssm_decode(self, cfg, x, cache)
+    def decode(self, x, cache: Dict[str, torch.Tensor], cfg: ModelConfig,
+               place: Optional[Dict[str, Place]] = None):
+        return apply_ssm_decode(self, cfg, x, cache, place)
+
+    def heads(self, cfg: ModelConfig):
+        """(first head, end head) of this rank: all of them without
+        ``tp``."""
+        nh = _dims(cfg)[2]
+        if self.tp is None:
+            return 0, nh
+        n = nh // self.tp.size
+        return self.tp.index * n, (self.tp.index + 1) * n
 
 
 def _causal_conv(x, w, b):
@@ -77,18 +108,57 @@ def _causal_conv(x, w, b):
     return F.silu(out + b.to(x.dtype))
 
 
-def _split_proj(p: SSM, cfg: ModelConfig, x):
+def _split_proj(p: SSM, cfg: ModelConfig, x, gather):
     """``x @ in_proj`` split into z, xs (d_inner each), B, C (n each) and
-    dt (nh)."""
+    dt (nh); under ``tp`` the rank's column block all-gathered by
+    ``gather`` (``parallel.gather_partial`` in a forward, the plain
+    all-gather in decode) into the whole projection."""
     s, d_inner, nh = _dims(cfg)
     zxbcdt = x @ p.in_proj.to(x.dtype)
+    if p.tp is not None:
+        zxbcdt = gather(zxbcdt, p.tp, -1)
     return torch.split(zxbcdt, [d_inner, d_inner, s.d_state, s.d_state, nh],
                        dim=-1)
 
 
+def _local(p: SSM, cfg: ModelConfig, z, xs, dt):
+    """z, xs and dt cut to this rank's heads, and the conv channels (of
+    the C = d_inner + 2 n) those heads read: their xs, then B and C."""
+    s, d_inner, _ = _dims(cfg)
+    h0, h1 = p.heads(cfg)
+    c0, c1 = h0 * s.head_dim, h1 * s.head_dim
+    chans = torch.cat([torch.arange(c0, c1), torch.arange(
+        d_inner, d_inner + 2 * s.d_state)]).to(z.device)
+    return z[..., c0:c1], xs[..., c0:c1], dt[..., h0:h1], chans
+
+
+def _whole(p: SSM, name: str, lo: int = 0, hi: Optional[int] = None):
+    """A whole parameter, read in part under ``tp`` (so its gradient is
+    summed over the axis), cut to [lo, hi) on its last dim."""
+    w = parallel.copy_to(getattr(p, name), p.tp)
+    return w[..., lo:hi]
+
+
+def _gated_norm(p: SSM, cfg: ModelConfig, y, z):
+    """``rms_norm(y * silu(z), norm_scale)`` over d_inner, of which this
+    rank holds its heads' channels: their sum of squares is summed over
+    the model axis."""
+    if p.tp is None:
+        return rms_norm(y * F.silu(z), p.norm_scale)
+    s, d_inner, _ = _dims(cfg)
+    h0, h1 = p.heads(cfg)
+    g = y * F.silu(z)
+    gf = g.float()
+    ss = parallel.sum_partials(gf.square().sum(dim=-1, keepdim=True), p.tp)
+    scale = _whole(p, "norm_scale", h0 * s.head_dim, h1 * s.head_dim)
+    return (gf * torch.rsqrt(ss / d_inner + 1e-5) * scale.float()).to(g.dtype)
+
+
 def _ssd_intra(Ch, Bh, dth, xh, cum, act):
     """The masked tile product of every chunk, Y_intra = (L (.) C Bᵀ) X with
-    L_ij = exp(cum_i - cum_j) dt_j below the diagonal.  Ch, Bh (b, nc, Q,
+    L_ij = exp(cum_i - cum_j) dt_j on and below the diagonal, 0 above it
+    (with a finite gradient there, where the reference's is NaN once the
+    masked exponent overflows).  Ch, Bh (b, nc, Q,
     n), dth, cum (b, nc, Q, nh) and xh (b, nc, Q, nh, p) in f32; the decay
     tile and the gated scores are in ``act`` (decays are <= 1), the product
     sums in f32.  Returns (b, nc, Q, nh, p) f32."""
@@ -96,7 +166,11 @@ def _ssd_intra(Ch, Bh, dth, xh, cum, act):
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (b,nc,Q,Q,nh)
     ii = torch.arange(Q, device=xh.device)
     tri = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
-    Lmask = torch.where(tri, torch.exp(diff), 0.0).to(act)
+    # exp of -inf above the diagonal, not exp(diff) masked after: the
+    # reference's where(tri, exp(diff), 0) overflows there (diff is a
+    # positive sum of dt |A| over up to a chunk) and its backward gives
+    # 0 * inf = NaN; the forward values are the same
+    Lmask = torch.exp(diff.masked_fill(~tri, -torch.inf)).to(act)
     del diff
     scores = torch.einsum("bcqn,bckn->bcqk", Ch, Bh)     # (b, nc, Q, Q)
     gated = (scores[..., None].to(act) * Lmask
@@ -135,21 +209,29 @@ def _ssd_inter(Ch, Bh, dth, xh, cum):
 def apply_ssm(p: SSM, cfg: ModelConfig, x):
     """x: (B, L, D) -> (B, L, D) via the SSD chunked scan; L must be a
     multiple of the chunk (or shorter than it)."""
-    s, d_inner, nh = _dims(cfg)
+    s, d_inner, _ = _dims(cfg)
     b, L, _ = x.shape
     Q = min(s.chunk, L)
     if L % Q:
         raise ValueError(f"sequence {L} is not a multiple of the chunk {Q}")
     nc = L // Q
     hp = s.head_dim
+    h0, h1 = p.heads(cfg)
+    nh = h1 - h0
 
-    z, xs, B, C, dt = _split_proj(p, cfg, x)
+    x = parallel.copy_to(x, p.tp)
+    z, xs, B, C, dt = _split_proj(p, cfg, x, parallel.gather_partial)
+    z, xs, dt, chans = _local(p, cfg, z, xs, dt)
+    conv_w, conv_b = p.conv_w, p.conv_b
+    if p.tp is not None:
+        conv_w = _whole(p, "conv_w")[:, chans]
+        conv_b = _whole(p, "conv_b")[chans]
     conv_in = torch.cat([xs, B, C], dim=-1)
-    conv_out = _causal_conv(conv_in, p.conv_w, p.conv_b)
-    xs, B, C = torch.split(conv_out, [d_inner, s.d_state, s.d_state], dim=-1)
+    conv_out = _causal_conv(conv_in, conv_w, conv_b)
+    xs, B, C = torch.split(conv_out, [nh * hp, s.d_state, s.d_state], dim=-1)
 
-    dt = F.softplus(dt.float() + p.dt_bias)              # (B, L, nh)
-    A = -torch.exp(p.a_log)                              # (nh,)
+    dt = F.softplus(dt.float() + _whole(p, "dt_bias", h0, h1))  # (B, L, nh)
+    A = -torch.exp(_whole(p, "a_log", h0, h1))           # (nh,)
     xh = xs.reshape(b, nc, Q, nh, hp).float()
     Bh = B.reshape(b, nc, Q, s.d_state).float()
     Ch = C.reshape(b, nc, Q, s.d_state).float()
@@ -158,10 +240,10 @@ def apply_ssm(p: SSM, cfg: ModelConfig, x):
 
     y = (_ssd_intra(Ch, Bh, dth, xh, cum, cfg.activation_dtype)
          + _ssd_inter(Ch, Bh, dth, xh, cum)).reshape(b, L, nh, hp)
-    y = y + xh.reshape(b, L, nh, hp) * p.d_skip[:, None]
-    y = y.reshape(b, L, d_inner)
-    y = rms_norm(y.to(x.dtype) * F.silu(z), p.norm_scale)
-    return y @ p.out_proj.to(x.dtype)
+    y = y + xh.reshape(b, L, nh, hp) * _whole(p, "d_skip", h0, h1)[:, None]
+    y = y.reshape(b, L, nh * hp)
+    y = _gated_norm(p, cfg, y.to(x.dtype), z)
+    return parallel.reduce_from(y @ p.out_proj.to(x.dtype), p.tp)
 
 
 # ---------------------------------------------------------------------------
@@ -185,33 +267,55 @@ def ssm_cache_init(cfg: ModelConfig, batch: int, dtype, device,
 
 
 def apply_ssm_decode(p: SSM, cfg: ModelConfig, x,
-                     cache: Dict[str, torch.Tensor]):
+                     cache: Dict[str, torch.Tensor],
+                     place: Optional[Dict[str, Place]] = None):
     """One-token recurrence. x: (B, 1, D); cache: this layer's ``{"S",
-    "conv"}``, updated in place.  Returns (out (B, 1, D), cache)."""
-    s, d_inner, nh = _dims(cfg)
+    "conv"}``, updated in place.  Returns (out (B, 1, D), cache).  Under
+    ``tp`` (``place``: ``S`` by heads, ``conv`` by channels) the rank
+    updates its heads' state and its channels' conv history."""
+    s, d_inner, _ = _dims(cfg)
     b = x.shape[0]
-    z, xs, B, C, dt = _split_proj(p, cfg, x)
+    h0, h1 = p.heads(cfg)
+    nh, hp = h1 - h0, s.head_dim
+    tp = p.tp
+    if tp is not None and (_model_dim(p, place, "S") != 1
+                           or _model_dim(p, place, "conv") != 2):
+        raise NotImplementedError(
+            f"SSM decode with the model axis on dims "
+            f"{_model_dim(p, place, 'S')} and {_model_dim(p, place, 'conv')} "
+            f"of S (B, nh, n, p) and conv (B, W - 1, C): heads and channels "
+            f"only")
+    z, xs, B, C, dt = _split_proj(p, cfg, x, parallel.all_gather_cat)
     conv_in = torch.cat([xs, B, C], dim=-1)[:, 0]        # (B, C)
+    conv_w, conv_b = p.conv_w, p.conv_b
+    if tp is not None:                                   # this rank's channels
+        n_ch = cache["conv"].shape[-1]
+        lo = tp.index * n_ch
+        conv_in = conv_in[:, lo:lo + n_ch]
+        conv_w, conv_b = conv_w[:, lo:lo + n_ch], conv_b[lo:lo + n_ch]
     hist = torch.cat([cache["conv"],
                       conv_in[:, None].to(cache["conv"].dtype)],
                      dim=1)                              # (B, W, C)
-    w = p.conv_w.to(x.dtype)
-    conv_out = F.silu(torch.einsum("bwc,wc->bc", hist.to(x.dtype), w)
-                      + p.conv_b.to(x.dtype))
+    conv_out = F.silu(torch.einsum("bwc,wc->bc", hist.to(x.dtype),
+                                   conv_w.to(x.dtype))
+                      + conv_b.to(x.dtype))
+    if tp is not None:
+        conv_out = parallel.all_gather_cat(conv_out, tp, -1)
     xs, B, C = torch.split(conv_out, [d_inner, s.d_state, s.d_state],
                            dim=-1)
-    dt = F.softplus(dt[:, 0].float() + p.dt_bias)        # (B, nh)
-    A = -torch.exp(p.a_log)
+    z, xs, dt, _ = _local(p, cfg, z, xs, dt)
+    dt = F.softplus(dt[:, 0].float() + p.dt_bias[h0:h1])  # (B, nh)
+    A = -torch.exp(p.a_log[h0:h1])
     dec = torch.exp(dt * A)                              # (B, nh)
-    xh = xs.reshape(b, nh, s.head_dim).float()
+    xh = xs.reshape(b, nh, hp).float()
     Bf, Cf = B.float(), C.float()
     S = cache["S"] * dec[..., None, None] + torch.einsum(
         "bn,bhp->bhnp", Bf, xh * dt[..., None])
     y = torch.einsum("bn,bhnp->bhp", Cf, S)
-    y = y + xh * p.d_skip[:, None]
-    y = y.reshape(b, 1, d_inner)
-    y = rms_norm(y.to(x.dtype) * F.silu(z), p.norm_scale)
-    out = y @ p.out_proj.to(x.dtype)
+    y = y + xh * p.d_skip[h0:h1, None]
+    y = y.reshape(b, 1, nh * hp)
+    y = _gated_norm(p, cfg, y.to(x.dtype), z)
+    out = parallel.reduce_from(y @ p.out_proj.to(x.dtype), tp)
     cache["S"].copy_(S)
     cache["conv"].copy_(hist[:, 1:])
     return out, cache

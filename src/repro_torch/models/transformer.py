@@ -30,18 +30,30 @@ is the reference's next-token loss, and with gradients on each block body
 the reference wraps in ``jax.checkpoint`` is recomputed in the backward as
 ``cfg.remat`` says (``_remat``).
 
-Sharded (``train_step.shard_model``; dense, MoE and VLM families): the
-embedding is split by vocabulary rows over the model axis (``tp``), so a
-rank looks up the tokens it holds, zeros elsewhere, and the ranks' rows
-are summed; the head (``lm_head`` or the tied ``embed.T``) gives each rank
-its vocabulary block of the logits, and ``loss_fn`` is vocabulary
-parallel: the maximum and the sum of exponentials are reduced over the
-axis and the gold logit comes from the rank that holds it.
+Sharded (``train_step.shard_model``, every family): ``tp`` is the model
+axis and ``tp_dims`` the dims it splits of ``embed`` and ``lm_head``, as
+the reference's rules and ``fit_spec`` place them.  An embedding split by
+vocabulary rows gives a rank the tokens it holds (zeros elsewhere) and the
+ranks' rows are summed; one split by d_model columns (a vocabulary that
+does not divide the axis: internvl2's 92,553 rows) gives a rank its
+columns of every token, all-gathered.  A head split by vocabulary gives
+each rank its block of the logits, and ``loss_fn`` is then vocabulary
+parallel (the maximum and the sum of exponentials reduced over the axis,
+the gold logit from the rank that holds it); a head split by d_model rows
+gives partial sums of whole logits, which leave by ``reduce_from``.
+``gather_logits`` makes a rank's vocabulary block whole.
+
+Sharded decode: ``shard_cache`` gives a rank its slices of ``init_cache``'s
+cache as the reference places them (``launch.specs.cache_layout``: its
+``cache_specs`` under ``fit_spec``) and records the layout on the model;
+``init_sharded_cache`` makes the slices without the whole.
+``decode_step`` takes the rank's rows of the tokens and positions (and of
+the encoder output) and passes each layer the place of its cache.
 """
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -49,10 +61,11 @@ from torch.utils import checkpoint as _ckpt
 
 from repro_torch import parallel
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import specs as SP
 from . import layers as Lyr
 from . import ssm as SSM
 from . import xlstm as XL
-from .common import dense_init
+from .common import axis_dim, dense_init
 
 #: the families the port runs, as the reference's ``init_params`` knows
 #: them (``ssm`` only with ``cfg.xlstm``)
@@ -135,8 +148,8 @@ class Block(nn.Module):
         x = x + h
         return x + self.ffn(self.ln2(x), cfg)
 
-    def decode(self, x, cache, pos, cfg: ModelConfig):
-        h, cache = self.attn.decode(self.ln1(x), cache, pos, cfg)
+    def decode(self, x, cache, pos, cfg: ModelConfig, place=None):
+        h, cache = self.attn.decode(self.ln1(x), cache, pos, cfg, place)
         x = x + h
         return x + self.ffn(self.ln2(x), cfg), cache
 
@@ -153,8 +166,8 @@ class MixerBlock(nn.Module):
     def forward(self, x, cfg: ModelConfig):
         return x + self.mixer(self.ln1(x), cfg)
 
-    def decode(self, x, cache, cfg: ModelConfig):
-        h, cache = self.mixer.decode(self.ln1(x), cache, cfg)
+    def decode(self, x, cache, cfg: ModelConfig, place=None):
+        h, cache = self.mixer.decode(self.ln1(x), cache, cfg, place)
         return x + h, cache
 
 
@@ -177,8 +190,8 @@ class DecoderBlock(nn.Module):
         x = x + self.cross.cross(self.ln2(x), enc, cfg)
         return x + self.ffn(self.ln3(x), cfg)
 
-    def decode(self, x, cache, pos, enc, cfg: ModelConfig):
-        h, cache = self.attn.decode(self.ln1(x), cache, pos, cfg)
+    def decode(self, x, cache, pos, enc, cfg: ModelConfig, place=None):
+        h, cache = self.attn.decode(self.ln1(x), cache, pos, cfg, place)
         x = x + h
         x = x + self.cross.cross(self.ln2(x), enc, cfg)
         return x + self.ffn(self.ln3(x), cfg), cache
@@ -196,12 +209,15 @@ class Transformer(nn.Module):
     the hybrid ``shared_attn`` (a ``Block``); for the encoder-decoder
     ``frame_proj`` (d_frontend, D), ``enc_blocks`` and ``encfinal_ln``
     (``blocks`` are then the decoder's).  ``cfg`` is the config it was
-    built with, the default of every call.  ``tp`` is the model axis when
-    ``embed`` and ``lm_head`` hold a rank's vocabulary block, else None;
-    ``shard_layout`` is set by ``train_step.shard_model``."""
+    built with, the default of every call.  ``tp`` is the model axis of a
+    sharded model (else None) and ``tp_dims`` the dims it splits of
+    ``embed`` and ``lm_head``; ``shard_layout`` is set by
+    ``train_step.shard_model``, ``cache_layout`` by ``shard_cache``."""
 
     tp = None
+    tp_dims: Dict[str, Optional[int]] = {}
     shard_layout = None
+    cache_layout = None
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator):
         super().__init__()
@@ -242,23 +258,51 @@ class Transformer(nn.Module):
                 generator, (cfg.d_frontend or cfg.d_model, cfg.d_model)))
         self.final_ln = Lyr.Norm(cfg, dev)
 
+    def _split(self, name: str) -> Optional[int]:
+        return None if self.tp is None else self.tp_dims.get(name)
+
+    def head_split(self) -> Optional[str]:
+        """What the model axis splits of the head: ``"vocab"``,
+        ``"d_model"`` or None (whole)."""
+        if self.lm_head is None:
+            d = self._split("embed")
+            return {0: "vocab", 1: "d_model"}.get(d)
+        return {1: "vocab", 0: "d_model"}.get(self._split("lm_head"))
+
+    @property
+    def vocab_parallel(self) -> bool:
+        """Whether the logits are a rank's vocabulary block."""
+        return self.head_split() == "vocab"
+
     def vocab_start(self) -> int:
-        """The first vocabulary row this rank holds."""
-        return 0 if self.tp is None else self.tp.index * self.embed.shape[0]
+        """The first vocabulary row of this rank's block of the logits."""
+        if not self.vocab_parallel:
+            return 0
+        head = self.embed if self.lm_head is None else self.lm_head.T
+        return self.tp.index * head.shape[0]
 
     def _embed(self, tokens, cfg: ModelConfig):
-        if self.tp is None:
+        split = self._split("embed")
+        if split is None:
             return self.embed[tokens].to(cfg.activation_dtype)
+        if split == 1:                       # d_model columns, gathered
+            x = self.embed[tokens].to(cfg.activation_dtype)
+            return parallel.gather_replicated(x, self.tp, -1)
         rows = self.embed.shape[0]
-        local = tokens.long() - self.vocab_start()
+        local = tokens.long() - self.tp.index * rows
         held = (local >= 0) & (local < rows)
         x = self.embed[local.clamp(0, rows - 1)].to(cfg.activation_dtype)
         return parallel.reduce_from(x * held[..., None].to(x.dtype), self.tp)
 
     def _logits(self, x):
-        """The logits, this rank's vocabulary block of them under ``tp``."""
+        """The logits, this rank's vocabulary block of them under a
+        vocabulary-parallel head."""
         head = self.embed.T if self.lm_head is None else self.lm_head
-        return parallel.copy_to(x, self.tp) @ head.to(x.dtype)
+        x = parallel.copy_to(x, self.tp)
+        if self.head_split() == "d_model":
+            x = parallel.local_slice(x, self.tp, -1)
+            return parallel.reduce_from(x @ head.to(x.dtype), self.tp)
+        return x @ head.to(x.dtype)
 
     def _shared(self, i: int, cfg: ModelConfig) -> bool:
         """Whether the hybrid's shared block runs after block i."""
@@ -322,7 +366,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator = None, *,
 def forward(model: Transformer, cfg: ModelConfig, batch: Dict[str, Any]):
     """batch: ``{"tokens": (B, S)}`` [+ ``"patches"`` (B, P, d_frontend)
     for the VLM, ``"frames"`` (B, S_src, d_frontend) for the
-    encoder-decoder].  Returns logits (B, P + S, V)."""
+    encoder-decoder].  Returns logits (B, P + S, V): this rank's
+    vocabulary block of them on a sharded model whose head is vocabulary
+    parallel (``gather_logits``)."""
     return model(batch["tokens"], cfg, batch.get("patches"),
                  batch.get("frames"))
 
@@ -349,7 +395,7 @@ def nll_sum(model: Transformer, cfg: ModelConfig, batch: Dict[str, Any]):
         logits = logits[:, cfg.img_tokens:]
     gold_at = labels.clamp(min=0).long()
     tp = model.tp
-    if tp is None:
+    if not model.vocab_parallel:
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, gold_at[..., None])[..., 0]
     else:
@@ -409,6 +455,109 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     return {"dense": stack(kd), "moe": stack(cfg.n_layers - kd)}
 
 
+def gather_logits(model: Transformer, logits):
+    """Whole logits from a rank's vocabulary block of them (the identity
+    unless the model's head is vocabulary parallel).  Collective."""
+    if not model.vocab_parallel:
+        return logits
+    return parallel.all_gather_cat(logits, model.tp, -1)
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _record_cache_layout(model: Transformer, shapes) -> dict:
+    """Fit the reference's cache specs to the whole cache's ``shapes`` on
+    the model's mesh, record them as ``model.cache_layout`` and return
+    them; a mesh axis on a stacked layer axis raises."""
+    lay = model.shard_layout
+    if lay is None:
+        raise ValueError("shard the model first (train_step.shard_model)")
+    specs = SP.cache_layout(shapes, lay.mesh)
+    lead = {"mlstm": 2}
+
+    def check(path, spec):
+        n = lead.get(path[0], 1)
+        if any(e is not None for e in spec[:n]):
+            raise NotImplementedError(f"cache {'.'.join(path)}: the "
+                                      f"reference shards its stacked layer "
+                                      f"axis on this mesh ({spec})")
+        return spec
+    SP.cache_map(check, specs)
+    model.cache_layout = {"specs": specs, "shapes": SP.cache_map(
+        lambda _, t: tuple(t.shape), shapes)}
+    return specs
+
+
+def shard_cache(model: Transformer, cache):
+    """This rank's slices (copies) of a whole cache from ``init_cache``,
+    placed as the reference's ``cache_specs`` under ``fit_spec`` place them
+    on the model's mesh; records the layout as ``model.cache_layout`` for
+    ``decode_step`` (one sharded cache layout a model at a time)."""
+    specs = _record_cache_layout(model, cache)
+    axes = model.shard_layout.axes
+    return SP.cache_map(lambda path, t: SP.cache_slice(
+        t, _leaf(specs, path), axes).clone(), cache)
+
+
+def init_sharded_cache(model: Transformer, cfg: ModelConfig, batch: int,
+                       max_len: int, device="cuda"):
+    """``shard_cache(model, init_cache(cfg, batch, max_len))`` without the
+    whole cache: this rank's slices made directly, ``batch`` and
+    ``max_len`` the whole cache's."""
+    whole = init_cache(cfg, batch, max_len, device="meta")
+    specs = _record_cache_layout(model, whole)
+    axes = model.shard_layout.axes
+
+    def one(path, t):
+        shape = SP.cache_slice(t, _leaf(specs, path), axes).shape
+        fill = XL.NEG if path[-1] == "m" else 0.0
+        return torch.full(shape, fill, dtype=t.dtype, device=device)
+    return SP.cache_map(one, whole)
+
+
+def _places(model: Transformer, cache):
+    """Each cache group's ``{name: (model dim, data dim, whole shape)}`` of
+    its per-layer tensors, for a sharded model's cache (None unsharded);
+    raises unless the cache's shapes are the rank's slices of the recorded
+    layout."""
+    if model.shard_layout is None:
+        return None
+    rec = model.cache_layout
+    if rec is None:
+        raise ValueError("a sharded model decodes a sharded cache: make it "
+                         "with shard_cache or init_sharded_cache")
+    axes = model.shard_layout.axes
+    lead = {"mlstm": 2}
+    out = {}
+    for group, leaves in cache.items():
+        if leaves is None:
+            continue
+        out[group] = {}
+        n = lead.get(group, 1)
+        for name, t in leaves.items():
+            spec = rec["specs"][group][name]
+            whole = rec["shapes"][group][name]
+            want = SP.cache_slice(torch.empty(whole, device="meta"), spec,
+                                  axes).shape
+            if tuple(t.shape) != tuple(want):
+                raise ValueError(
+                    f"cache {group}.{name} of shape {tuple(t.shape)} is not "
+                    f"this rank's slice {tuple(want)} of the recorded layout "
+                    f"(shard_cache / init_sharded_cache)")
+            ddim = axis_dim(spec, "data")
+            if ddim is None:
+                ddim = axis_dim(spec, "pod")
+            mdim = axis_dim(spec, "model")
+            out[group][name] = (None if mdim is None else mdim - n,
+                                None if ddim is None else ddim - n,
+                                tuple(whole[n:]))
+    return out
+
+
 def _at(stacked, *idx):
     """One layer's cache: each tensor indexed at ``idx`` (views, so an
     in-place update lands in the stack)."""
@@ -420,32 +569,39 @@ def decode_step(model: Transformer, cfg: ModelConfig, token, cache, pos,
                 encoder_out=None):
     """One decode step.  token: (B,) int; pos: (B,) absolute position;
     ``encoder_out`` (B, S_src, D): the encoder-decoder's ``encode`` output.
-    Returns (logits (B, V), cache); the cache is updated in place."""
+    Returns (logits (B, V), cache); the cache is updated in place.  On a
+    sharded model, the rank's rows of token, pos and encoder_out (the
+    reference's ``P(DP)``) and its slices of the cache (``shard_cache``);
+    the logits are whole."""
     _check_family(cfg)
     fam = cfg.family
     if fam == "audio" and encoder_out is None:
         raise ValueError("the encoder-decoder's decode_step needs "
                          "encoder_out (Transformer.encode)")
+    places = _places(model, cache)
+    at = (lambda g: None) if places is None else places.get
     x = model._embed(token, cfg)[:, None, :]
     kd = n_dense_layers(cfg)
     ai = 0
     for i, block in enumerate(model.blocks):
         if fam == "ssm":
             r = cfg.xlstm.slstm_every
-            c = (_at(cache["slstm"], i // r) if i % r == r - 1
-                 else _at(cache["mlstm"], i // r, i % r))
-            x, _ = block.decode(x, c, cfg)
+            g = "slstm" if i % r == r - 1 else "mlstm"
+            c = (_at(cache[g], i // r) if g == "slstm"
+                 else _at(cache[g], i // r, i % r))
+            x, _ = block.decode(x, c, cfg, at(g))
         elif fam == "hybrid":
-            x, _ = block.decode(x, _at(cache["ssm"], i), cfg)
+            x, _ = block.decode(x, _at(cache["ssm"], i), cfg, at("ssm"))
             if model._shared(i, cfg):
                 x, _ = model.shared_attn.decode(x, _at(cache["attn"], ai),
-                                                pos, cfg)
+                                                pos, cfg, at("attn"))
                 ai += 1
         elif fam == "audio":
             x, _ = block.decode(x, _at(cache["self"], i), pos, encoder_out,
-                                cfg)
+                                cfg, at("self"))
         else:
-            stacked = cache["dense"] if i < kd else cache["moe"]
-            x, _ = block.decode(x, _at(stacked, i if i < kd else i - kd),
-                                pos, cfg)
-    return model._logits(model.final_ln(x))[:, 0], cache
+            g = "dense" if i < kd else "moe"
+            x, _ = block.decode(x, _at(cache[g], i if i < kd else i - kd),
+                                pos, cfg, at(g))
+    logits = model._logits(model.final_ln(x))[:, 0]
+    return gather_logits(model, logits), cache

@@ -10,18 +10,32 @@ matrix-memory recurrence with the reference's log-space stabiliser, run
 as a Python loop over chunks; the sLSTM is a loop over tokens.  Gates,
 states and stabilisers are f32 on the reference's formulas; every product
 is a plain torch ``einsum``/``matmul``, as the reference's are XLA dots.
+
+On a model axis (``tp``, set by ``train_step.shard_model``) the
+reference's rules leave every mLSTM weight whole (its two-deep stack has
+no rule) and of the sLSTM's only ``out_proj`` split, by rows.  So the
+recurrences run whole on every rank, and the sLSTM leaves through the
+rank's rows of ``out_proj`` (``reduce_from``).  Decode keeps the
+reference's cache placements: the mLSTM's ``C`` and ``n`` split by their
+first head dim over the model axis (a rank updates its block of the
+matrix memory, and ``C.q`` and the normaliser ``n.q`` are summed over the
+axis), the sLSTM's ``c``, ``n`` and ``h`` by head dim (all-gathered for
+the step, the rank's block written back) and its ``m`` with the data axes
+on its heads (``launch.specs._CACHE_RULES``; gathered over the data ranks
+and written back to the same place).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig, XLSTMCfg
+from repro_torch import parallel
 from .common import dense_init, rms_norm
-from .layers import _param
+from .layers import Place, _model_dim, _param
 
 NEG = -1e30
 
@@ -45,7 +59,10 @@ class mLSTM(nn.Module):
     """Parameters named as the reference's ``init_mlstm``: ``wq``, ``wk``,
     ``wv``, ``w_og`` (d, nh*hd), ``w_if`` (d, 2 nh) and ``b_if`` (2 nh,)
     (input gates, then forget gates, biased to 3), ``norm_scale`` (nh*hd,),
-    ``out_proj`` (nh*hd, d)."""
+    ``out_proj`` (nh*hd, d).  All whole under ``tp``."""
+
+    tp = None
+    tp_dims: Dict[str, Optional[int]] = {}
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator):
         super().__init__()
@@ -64,8 +81,9 @@ class mLSTM(nn.Module):
     def forward(self, x, cfg: ModelConfig):
         return apply_mlstm(self, cfg, x)
 
-    def decode(self, x, cache: Dict[str, torch.Tensor], cfg: ModelConfig):
-        return apply_mlstm_decode(self, cfg, x, cache)
+    def decode(self, x, cache: Dict[str, torch.Tensor], cfg: ModelConfig,
+               place: Optional[Dict[str, Place]] = None):
+        return apply_mlstm_decode(self, cfg, x, cache, place)
 
 
 def _mlstm_gates(p: mLSTM, cfg: ModelConfig, x):
@@ -169,15 +187,30 @@ def mlstm_cache_init(cfg: ModelConfig, batch: int, device,
 
 
 def apply_mlstm_decode(p: mLSTM, cfg: ModelConfig, x,
-                       cache: Dict[str, torch.Tensor]):
+                       cache: Dict[str, torch.Tensor],
+                       place: Optional[Dict[str, Place]] = None):
     """Exact sequential recurrence, one step. x: (B, 1, D); cache: this
-    layer's ``{"C", "n", "m"}``, updated in place."""
+    layer's ``{"C", "n", "m"}``, updated in place.  Under ``tp``
+    (``place``: ``C`` and ``n`` by their first head dim) the rank updates
+    its rows of the memory, and ``C.q`` and ``n.q`` are summed over the
+    model axis."""
     _, nh, hd = _dims(cfg)
     b = x.shape[0]
+    tp = p.tp
+    if tp is not None and (_model_dim(p, place, "C") != 2
+                           or _model_dim(p, place, "n") != 2
+                           or _model_dim(p, place, "m") is not None):
+        raise NotImplementedError(
+            "mLSTM decode with C and n split elsewhere than their first "
+            "head dim over the model axis")
     q, k, v, log_i, log_f, og = _mlstm_gates(p, cfg, x)
     qf = q[:, 0].float() * hd ** -0.5              # (b, nh, hd)
     kf = k[:, 0].float()
     vf = v[:, 0].float()
+    if tp is not None:                             # this rank's key rows
+        n_k = cache["C"].shape[2]
+        qf = qf[..., tp.index * n_k:(tp.index + 1) * n_k]
+        kf = kf[..., tp.index * n_k:(tp.index + 1) * n_k]
     li, lf = log_i[:, 0], log_f[:, 0]              # (b, nh)
     C, n, m = cache["C"], cache["n"], cache["m"]
     m_new = torch.maximum(lf + m, li)
@@ -188,6 +221,9 @@ def apply_mlstm_decode(p: mLSTM, cfg: ModelConfig, x,
     n_new = n * decay[..., None] + kf * inp[..., None]
     h_num = torch.einsum("bhk,bhkv->bhv", qf, C_new)
     l = torch.einsum("bhk,bhk->bh", qf, n_new)
+    if tp is not None:
+        h_num = parallel.all_reduce(h_num, tp)
+        l = parallel.all_reduce(l, tp)
     denom = torch.maximum(l.abs(), torch.exp(-m_new))
     h = (h_num / denom[..., None]).reshape(b, 1, nh * hd).to(x.dtype)
     h = rms_norm(h * og, p.norm_scale)
@@ -207,7 +243,13 @@ class sLSTM(nn.Module):
     """Parameters named as the reference's ``init_slstm``: ``w_in``
     (d, 4 nh*hd), ``r_blocks`` (4, nh, hd, hd), ``b_gates`` (4 nh*hd,)
     (input, forget biased to 3, cell, output), ``norm_scale`` (nh*hd,),
-    ``out_proj`` (nh*hd, d)."""
+    ``out_proj`` (nh*hd, d).  Under ``tp`` ``out_proj`` holds the rank's
+    rows; ``dp`` is the data-parallel axis, for the ``m`` cache that the
+    reference places on it by heads."""
+
+    tp = None
+    dp = None
+    tp_dims: Dict[str, Optional[int]] = {}
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator):
         super().__init__()
@@ -226,8 +268,19 @@ class sLSTM(nn.Module):
     def forward(self, x, cfg: ModelConfig):
         return apply_slstm(self, cfg, x)
 
-    def decode(self, x, cache: Dict[str, torch.Tensor], cfg: ModelConfig):
-        return apply_slstm_decode(self, cfg, x, cache)
+    def decode(self, x, cache: Dict[str, torch.Tensor], cfg: ModelConfig,
+               place: Optional[Dict[str, Place]] = None):
+        return apply_slstm_decode(self, cfg, x, cache, place)
+
+    def project_out(self, h):
+        """``h @ out_proj`` for the normalised h (..., nh*hd), which every
+        rank holds whole: under ``tp`` its rows' block of h through its
+        rows of ``out_proj``, summed over the axis."""
+        w = self.out_proj.to(h.dtype)
+        if self.tp is None or self.tp_dims.get("out_proj") is None:
+            return h @ w
+        h = parallel.local_slice(parallel.copy_to(h, self.tp), self.tp, -1)
+        return parallel.reduce_from(h @ w, self.tp)
 
 
 def _slstm_cell(r_blocks, b_gates, cfg: ModelConfig, x_pre, state):
@@ -271,7 +324,7 @@ def apply_slstm(p: sLSTM, cfg: ModelConfig, x):
         state = _slstm_cell(r_blocks, b_gates, cfg, x_pre[:, t], state)
         hs[:, t] = state[3]
     h = rms_norm(hs.reshape(b, L, d_in), p.norm_scale)
-    return h @ p.out_proj.to(x.dtype)
+    return p.project_out(h)
 
 
 def slstm_cache_init(cfg: ModelConfig, batch: int, device,
@@ -288,18 +341,54 @@ def slstm_cache_init(cfg: ModelConfig, batch: int, device,
     }
 
 
+def _gather_state(t, place: Optional[Place], tp, dp, b: int):
+    """A whole (B, nh, hd) sLSTM state of this rank's rows from its slice:
+    all-gathered over the model axis where it splits the tensor, and over
+    the data axes where they split it elsewhere than its rows (then the
+    rows are the whole batch's, and this rank's are taken)."""
+    if place is None:
+        return t
+    mdim, ddim, _ = place
+    if mdim is not None:
+        t = parallel.all_gather_cat(t, tp, mdim)
+    if ddim not in (None, 0):
+        t = parallel.all_gather_cat(t, dp, ddim)
+        t = t[dp.index * b:(dp.index + 1) * b]
+    return t
+
+
+def _scatter_state(t, new, place: Optional[Place], tp, dp) -> None:
+    """Write this rank's slice of the whole new state ``new`` (this rank's
+    rows) into its cache tensor ``t``: the inverse of ``_gather_state``."""
+    if place is not None:
+        mdim, ddim, _ = place
+        if ddim not in (None, 0):
+            new = parallel.local_slice(parallel.all_gather_cat(new, dp, 0),
+                                       dp, ddim)
+        if mdim is not None:
+            new = parallel.local_slice(new, tp, mdim)
+    t.copy_(new)
+
+
 def apply_slstm_decode(p: sLSTM, cfg: ModelConfig, x,
-                       cache: Dict[str, torch.Tensor]):
+                       cache: Dict[str, torch.Tensor],
+                       place: Optional[Dict[str, Place]] = None):
     """One step. x: (B, 1, D); cache: this layer's ``{"c", "n", "m", "h"}``,
-    updated in place."""
+    updated in place.  On a mesh (``place``) each state is gathered whole
+    for this rank's rows, the step runs whole, and the rank's slice of each
+    new state is written back where the reference places it."""
     _, nh, hd = _dims(cfg)
     b = x.shape[0]
     x_pre = x[:, 0] @ p.w_in.to(x.dtype)
     r_blocks, b_gates = _slstm_weights(p, cfg, x.dtype)
-    state = (cache["c"], cache["n"], cache["m"], cache["h"].to(x.dtype))
+    whole = {k: _gather_state(cache[k], None if place is None
+                              else place[k], p.tp, p.dp, b)
+             for k in ("c", "n", "m", "h")}
+    state = (whole["c"], whole["n"], whole["m"], whole["h"].to(x.dtype))
     c, n, m, h = _slstm_cell(r_blocks, b_gates, cfg, x_pre, state)
     out = rms_norm(h.reshape(b, 1, nh * hd), p.norm_scale)
-    out = out @ p.out_proj.to(x.dtype)
+    out = p.project_out(out)
     for name, new in (("c", c), ("n", n), ("m", m), ("h", h.float())):
-        cache[name].copy_(new)
+        _scatter_state(cache[name], new, None if place is None
+                       else place[name], p.tp, p.dp)
     return out, cache

@@ -130,14 +130,17 @@ class AdamW:
         bc1 = 1 - self.b1 ** step_f
         bc2 = 1 - self.b2 ** step_f
         for name, p in params.items():
-            zd = shards[name].zero_dim
+            zd, gd = shards[name].zero_dim, shards[name].gather_dim
             g = grads.get(name)
             g = (torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                  if g is None else g.float()) * scale
-            mine = p
+            mine = whole = p
+            if gd is not None:
+                g = parallel.all_gather_cat(g, model_axis, gd)
+                mine = whole = parallel.all_gather_cat(p, model_axis, gd)
             if zd is not None:
                 g = parallel.local_slice(g, data_axis, zd)
-                mine = parallel.local_slice(p, data_axis, zd)
+                mine = parallel.local_slice(whole, data_axis, zd)
             m, v = state.m[name], state.v[name]
             m.mul_(self.b1).add_((1 - self.b1) * g)
             v.mul_(self.b2).add_((1 - self.b2) * torch.square(g))
@@ -145,10 +148,11 @@ class AdamW:
             delta = (m / bc1) / (torch.sqrt(v / bc2) + self.eps) + \
                 self.weight_decay * mine.float()
             new = (mine.float() - lr * delta).to(p.dtype)
-            if zd is None:
-                p.copy_(new)
-            else:
-                p.copy_(parallel.all_gather_cat(new, data_axis, zd))
+            if zd is not None:
+                new = parallel.all_gather_cat(new, data_axis, zd)
+            if gd is not None:
+                new = parallel.local_slice(new, model_axis, gd)
+            p.copy_(new)
         return params, OptState(step, state.m, state.v), \
             {"lr": lr, "grad_norm": gnorm}
 
@@ -178,8 +182,12 @@ def zero1_specs(shapes: Dict[str, Sequence[int]], param_specs: Dict[str, Tuple],
 @dataclasses.dataclass(frozen=True)
 class ShardedParam:
     """How one parameter is split on a rank: ``model_sharded`` (its shard
-    is a slice over the model axis, so its squares are summed over it) and
+    is a slice over the model axis, so its squares are summed over it),
     ``zero_dim`` (the dim of the local shard that the ZeRO-1 moments slice
-    over the data axis, None for whole moments)."""
+    over the data axis, None for whole moments) and ``gather_dim`` (the
+    parameter's model dim where its moments are whole over the model axis:
+    the shard and its gradient are then all-gathered along it for the
+    update, and the rank keeps its slice of the result)."""
     model_sharded: bool
     zero_dim: Optional[int]
+    gather_dim: Optional[int] = None

@@ -27,8 +27,11 @@ and the layers call the collectives below where GSPMD would put them.
   consumer computes the same on every rank, so the backward keeps the
   local slice of the gradient) and ``gather_partial`` (its consumer is a
   partial branch, so the backward sums the gradient over the axis, then
-  keeps the slice).  ``all_reduce(..., op="max")`` is the vocab-parallel
-  loss's maximum (no gradient).
+  keeps the slice).  ``sum_partials`` sums a partial statistic that every
+  rank's part reads whole (a norm's sum of squares over channels split
+  over the axis): all-reduced forward and backward.
+  ``all_reduce(..., op="max")`` is the vocab-parallel loss's maximum and
+  the context-parallel decode's score maximum (no gradient).
 * ``LINK_BYTES`` counts, by (collective, backend), the bytes each rank
   would put on its links for the collectives it ran, as a ring moves them:
   ``2 (p - 1) / p`` of the buffer for an all-reduce and ``(p - 1) / p`` of
@@ -348,3 +351,12 @@ def gather_partial(w: torch.Tensor, axis: Optional[Axis],
     if axis is None or axis.size == 1:
         return w
     return _Gather.apply(w, axis, dim, True)
+
+
+def sum_partials(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """Sum over ``axis`` forward and backward: a partial statistic (each
+    rank's share of a sum) that each rank's part of a computation then
+    reads whole, so its gradient is the sum of every rank's."""
+    if axis is None or axis.size == 1:
+        return x
+    return copy_to(reduce_from(x, axis), axis)

@@ -3,7 +3,11 @@
 ``serve_step`` is one new token for every sequence in the batch against
 the model's cache (KV, recurrent state, or both); the encoder-decoder's
 also attends to the encoder output, computed once per request
-(``Transformer.encode``).
+(``Transformer.encode``).  On a sharded model (``train_step.shard_model``
+with ``zero1=False``) each rank passes its rows of the tokens, positions
+and encoder output (the reference's ``P(DP)``) and its slices of the
+cache (``transformer.shard_cache``); ``generate`` makes those slices
+itself, and every rank gets whole logits and its rows' tokens.
 """
 from __future__ import annotations
 
@@ -37,13 +41,19 @@ def generate(model: T.Transformer, cfg: ModelConfig, prompt_tokens, *,
     path), then samples ``max_new`` tokens: the argmax at temperature 0,
     else a draw from softmax(logits / temperature) with ``generator``;
     the encoder-decoder attends to ``encoder_out`` at every step.  Returns
-    (B, S0 + max_new) int32.
+    (B, S0 + max_new) int32.  On a sharded model B is the rank's rows and
+    the cache is made as its slices (``init_sharded_cache``).
     """
     b, s0 = prompt_tokens.shape
     dev = prompt_tokens.device
     if temperature > 0.0 and generator is None:
         raise ValueError("temperature sampling needs an explicit generator")
-    cache = T.init_cache(cfg, b, s0 + max_new, device=dev)
+    lay = model.shard_layout
+    if lay is None:
+        cache = T.init_cache(cfg, b, s0 + max_new, device=dev)
+    else:
+        cache = T.init_sharded_cache(model, cfg, b * lay.axes["dp"].size,
+                                     s0 + max_new, device=dev)
     step = make_serve_step(cfg)
     logits = None
     for t in range(s0):

@@ -16,7 +16,8 @@ reference's sharding (``convert.reference_paths`` -> ``_RULES`` ->
 mesh, so a sharded model's tensors are the single-device model's slices;
 ``sharded_train_step`` is the step: the rank's rows of the batch
 (``batch_specs``: rows over ``("pod", "data")``), the tensor-parallel
-forward and backward, the gradients summed over the data-parallel ranks
+forward and backward (every family: ``_check_tensor_parallel`` refuses
+only a model axis that would split a head), the gradients summed over the data-parallel ranks
 (or ``compress=True``: the int8 error-feedback reduction), AdamW on the
 ZeRO-1 slices and an all-gather of the parameters over ``data``.
 """
@@ -31,6 +32,8 @@ from repro_torch import parallel
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import reference_paths
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
+from repro_torch.models import xlstm as XL
 from repro_torch.models import transformer as T
 from repro_torch.models.common import (axis_dim, fit_spec, make_param_specs,
                                        mesh_sizes)
@@ -124,6 +127,14 @@ class ParamLayout:
     def zero_dim(self) -> Optional[int]:
         return axis_dim(self.moment_spec, "data")
 
+    @property
+    def moment_model_dim(self) -> Optional[int]:
+        """The moments' model dim: the parameter's, or None where
+        ``fit_spec`` moved the parameter's model axis to a dim that the
+        moments' data axis holds (the moments are then whole over the model
+        axis: internvl2's ``lm_head``)."""
+        return axis_dim(self.moment_spec, "model")
+
 
 @dataclasses.dataclass
 class ShardLayout:
@@ -142,8 +153,9 @@ def state_specs(model: T.Transformer, mesh, *, zero1: bool = True
     size}``) for a whole model: the reference's ``fit_spec`` of its
     ``make_param_specs`` and (``zero1``) ``zero1_specs``, computed on the
     reference's stacked shapes.  A mesh axis that lands on a stacked layer
-    dim, or moments whose model axis sits elsewhere than the parameter's,
-    raise ``NotImplementedError`` (the port keeps layers apart)."""
+    dim, or moments whose model axis sits on another dim than the
+    parameter's, raise ``NotImplementedError`` (the port keeps layers
+    apart); moments whole over the model axis are taken."""
     if model.shard_layout is not None:
         raise ValueError("state_specs takes the whole model; this one is "
                          "already sharded (see model.shard_layout)")
@@ -163,7 +175,7 @@ def state_specs(model: T.Transformer, mesh, *, zero1: bool = True
                 f"{name} ({path}): the reference shards its stacked layer "
                 f"axis on this mesh ({fp}, moments {fm})")
         lay = ParamLayout(tuple(full[lead:]), fp[lead:], fm[lead:])
-        if axis_dim(lay.moment_spec, "model") != lay.model_dim:
+        if lay.moment_model_dim not in (None, lay.model_dim):
             raise NotImplementedError(
                 f"{name}: the moments' model axis ({fm}) is not the "
                 f"parameter's ({fp})")
@@ -178,34 +190,44 @@ def batch_specs(batch: Dict[str, torch.Tensor]) -> Dict[str, Tuple]:
 
 
 #: the dim the model axis must split, by module type and parameter name,
-#: for the tensor-parallel layers (absent: whole on every rank)
+#: for the tensor-parallel layers (absent: whole on every rank; "kv":
+#: columns or whole; "experts": the expert dim under expert parallelism;
+#: "any": wherever ``fit_spec`` put it, the layer reads each placement;
+#: "rows": rows or whole)
 _TP_DIMS = {
-    T.Transformer: {"embed": 0, "lm_head": 1},
+    T.Transformer: {"embed": "any", "lm_head": "any"},
     L.Attention: {"wq": 1, "wk": "kv", "wv": "kv", "wo": 0},
+    L.MLA: {"wq": 1, "wk_b": 1, "wv_b": 1, "wo": 0},
     L.MLP: {"w_gate": 1, "w_up": 1, "w_down": 0},
     L.MoE: {"experts_gate": "experts", "experts_up": "experts",
             "experts_down": "experts"},
+    SSM.SSM: {"in_proj": 1, "out_proj": 0},
+    XL.mLSTM: {},
+    XL.sLSTM: {"out_proj": "rows"},
 }
 
 
 def _check_tensor_parallel(model: T.Transformer, cfg: ModelConfig,
                            layouts: Dict[str, ParamLayout], tp: int) -> None:
-    """Raise ``NotImplementedError`` unless the model's layers can run
-    their shards as the layouts place them on a model axis of ``tp``."""
-    if cfg.family not in ("dense", "moe", "vlm") or cfg.mla is not None:
-        what = "MLA" if cfg.mla is not None else f"family {cfg.family!r}"
-        raise NotImplementedError(
-            f"{what} on a model axis of {tp}: the sharded layers are the "
-            f"dense, MoE and VLM families' GQA attention, MLP, MoE and "
-            f"vocabulary weights (run it on model = 1, data parallel)")
-    if cfg.n_heads % tp:
-        raise NotImplementedError(f"{cfg.n_heads} q heads do not split over "
-                                  f"a model axis of {tp}")
-    hq, g = cfg.n_heads // tp, cfg.n_heads // cfg.n_kv_heads
-    if hq % g and g % hq:
-        raise NotImplementedError(
-            f"{hq} q heads a rank in groups of {g} per K/V head: a rank's "
-            f"heads would read parts of K/V heads")
+    """Raise ``NotImplementedError``, naming the layer, unless every layer
+    can run its shards as the layouts place them on a model axis of
+    ``tp``: attention and MLA by whole heads, the SSM by whole heads with
+    ``in_proj``'s columns and ``out_proj``'s rows split."""
+    mods = [m for _, m in model.named_modules()]
+    if any(isinstance(m, (L.Attention, L.MLA)) for m in mods):
+        if cfg.n_heads % tp:
+            raise NotImplementedError(f"attention: {cfg.n_heads} q heads do "
+                                      f"not split over a model axis of {tp}")
+        hq, g = cfg.n_heads // tp, cfg.n_heads // cfg.n_kv_heads
+        if hq % g and g % hq:
+            raise NotImplementedError(
+                f"attention: {hq} q heads a rank in groups of {g} per K/V "
+                f"head: a rank's heads would read parts of K/V heads")
+    if any(isinstance(m, SSM.SSM) for m in mods):
+        nh = SSM._dims(cfg)[2]
+        if nh % tp:
+            raise NotImplementedError(f"SSM: {nh} heads do not split over a "
+                                      f"model axis of {tp}")
     ep = (cfg.moe is not None and cfg.moe.ep
           and cfg.moe.n_experts % tp == 0)
     for mname, module in model.named_modules():
@@ -217,8 +239,12 @@ def _check_tensor_parallel(model: T.Transformer, cfg: ModelConfig,
             need = want.get(pname)
             if need == "kv":
                 ok = got in (None, 1)
+            elif need == "rows":
+                ok = got in (None, 0)
             elif need == "experts":
                 ok = got == 0 if ep else True
+            elif need == "any":
+                ok = True
             else:
                 ok = got == need
             if not ok:
@@ -246,14 +272,15 @@ def shard_model(model: T.Transformer, mesh, *, zero1: bool = True
             d = layouts[name].model_dim
             if d is not None:
                 p.data = parallel.local_slice(p.data, tp, d).clone()
-    if tp.size > 1:
-        for mname, module in model.named_modules():
-            if isinstance(module, tuple(_TP_DIMS)):
-                module.tp = tp
-                module.tp_dims = {
-                    pname: layouts[f"{mname}.{pname}" if mname
-                                   else pname].model_dim
-                    for pname, _ in module.named_parameters(recurse=False)}
+    for mname, module in model.named_modules():
+        if isinstance(module, XL.sLSTM):
+            module.dp = axes["dp"]
+        if tp.size > 1 and isinstance(module, tuple(_TP_DIMS)):
+            module.tp = tp
+            module.tp_dims = {
+                pname: layouts[f"{mname}.{pname}" if mname
+                               else pname].model_dim
+                for pname, _ in module.named_parameters(recurse=False)}
     model.shard_layout = ShardLayout(mesh, axes, layouts, zero1)
     return model
 
@@ -264,8 +291,9 @@ def shard_tensor(full: torch.Tensor, lay: ParamLayout, axes, *,
     tensor: its slice over the model axis, and for ZeRO-1 moments over the
     data axis (a view)."""
     out = full
-    if lay.model_dim is not None:
-        out = parallel.local_slice(out, axes["model"], lay.model_dim)
+    mdim = lay.moment_model_dim if moment else lay.model_dim
+    if mdim is not None:
+        out = parallel.local_slice(out, axes["model"], mdim)
     if moment and zero1 and lay.zero_dim is not None:
         out = parallel.local_slice(out, axes["data"], lay.zero_dim)
     return out
@@ -316,8 +344,9 @@ def full_tensors(state: TrainState) -> List[Tuple[str, torch.Tensor]]:
     def whole(t, p: ParamLayout, moment: bool):
         if moment and lay.zero1 and p.zero_dim is not None:
             t = parallel.all_gather_cat(t, axes["data"], p.zero_dim)
-        if p.model_dim is not None:
-            t = parallel.all_gather_cat(t, axes["model"], p.model_dim)
+        mdim = p.moment_model_dim if moment else p.model_dim
+        if mdim is not None:
+            t = parallel.all_gather_cat(t, axes["model"], mdim)
         return t.detach()
     named = list(state.model.named_parameters())
     return ([(n, whole(p, lay.params[n], False)) for n, p in named]
@@ -390,7 +419,9 @@ def sharded_train_step(cfg: ModelConfig, optimizer: AdamW, mesh, *,
         else:
             parallel.all_reduce_coalesced(list(grads.values()), dp)
         shards = {n: ShardedParam(l.model_dim is not None,
-                                  l.zero_dim if zero1 else None)
+                                  l.zero_dim if zero1 else None,
+                                  l.model_dim if l.moment_model_dim is None
+                                  else None)
                   for n, l in lay.params.items()}
         _, opt, om = optimizer.update_sharded(
             grads, state.opt, params, shards, axes["model"], axes["data"])

@@ -1549,3 +1549,61 @@ def test_flash_refuses_gradients_on_cuda(cuda_device):
         out = attention(q, k, v, impl="flash_pallas", block=64)
     torch.cuda.synchronize()
     assert out.shape == q.shape and flash.TC_LAUNCHES == before[1] + 1
+
+
+@pytest.fixture(scope="module")
+def sharded_decodes(tmp_path_factory):
+    """The one-device decode on the card of each sharded-decode case, and
+    the two ranks' decode of the same weights, cache and tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the ranks share the card")
+    import sys
+    from pathlib import Path
+    import torch.multiprocessing as mp
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_sharded_serve_ranks as R
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    tmp = tmp_path_factory.mktemp("sharded_decode")
+    want = {}
+    for case in R.GPU_CASES:
+        cfg = R.case_config(case)
+        model = T.init_params(cfg, seed=4, device="cpu")
+        cache, inp = R.seeded_cache(cfg), R.inputs(cfg)
+        torch.save({"params": {n: p.detach().clone() for n, p in
+                               model.named_parameters()},
+                    "cache": cache, "inputs": inp},
+                   tmp / f"{case.replace(' ', '_')}.pt")
+        logits, cache = R.decode(model.to(dev), cfg, R.on(inp, dev),
+                                 R.on(cache, dev))
+        want[case] = (logits.cpu(), R.on(cache, "cpu"))
+    mp.spawn(R.cuda_decode_ranks, args=(2, str(tmp)), nprocs=2, join=True)
+    got = [torch.load(tmp / f"cuda.{r}.pt") for r in range(2)]
+    return R, want, got
+
+
+@pytest.mark.parametrize("case", ["deepseek_v2_lite_16b", "zamba2_7b",
+                                  "xlstm_1_3b", "seamless_m4t_large_v2",
+                                  "internvl2_2b vocab=515"])
+def test_sharded_decode_on_cuda_matches_one_device(sharded_decodes, case):
+    from repro_torch.launch.specs import cache_layout, cache_slice
+    R, want, got = sharded_decodes
+    logits, cache = want[case]
+    layout = cache_layout(cache, {"data": 1, "model": 2})
+
+    class Axis:
+        def __init__(self, size, index):
+            self.size, self.index = size, index
+    for res in got:
+        res = res[case]
+        scale = max(1.0, float(logits.abs().max()))
+        torch.testing.assert_close(res["decode"], logits, rtol=1e-5,
+                                   atol=1e-5 * scale)
+        axes = {"dp": Axis(1, 0), "model": Axis(2, res["model_index"])}
+        for group, leaves in cache.items():
+            for name, whole in (leaves or {}).items():
+                mine = cache_slice(whole, layout[group][name], axes)
+                scale = max(1.0, float(mine.abs().max()))
+                torch.testing.assert_close(
+                    res["cache"][group][name], mine, rtol=1e-5,
+                    atol=1e-5 * scale, msg=f"{case} {group}.{name}")

@@ -19,8 +19,9 @@ then two on (1, 2)) and one ``torchrun``.
   expert-parallel MoE at a capacity that drops nothing, and with ``ep``
   off: the dense dispatch on all-gathered experts) and internvl2 on
   (2, 2), xlstm, zamba2, seamless and deepseek (MLA) data-parallel on
-  (4, 1), llama3.2-1b on (1, 4) (its two K/V heads split mid-head over
-  four ranks): 3 steps from one seed, losses within 1e-5 relative and
+  (4, 1) and again tensor-parallel on (2, 2) (MLA, cross-attention, the
+  SSM and the xLSTM on the model axis), llama3.2-1b on (1, 4) (its two
+  K/V heads split mid-head over four ranks): 3 steps from one seed, losses within 1e-5 relative and
   gradient norms within 1e-4 of the single-device step's.
 * **Expert-parallel MoE** (moonshot SMOKE, capacity factors 1.5 and 0.5,
   so that the second drops assignments) against the reference's
@@ -236,7 +237,7 @@ def test_zero1_moments_leave_parameters_bitwise_equal(runs):
 
 
 @pytest.mark.parametrize("arch", R.TP_FAMILIES + R.DP_FAMILIES
-                         + (R.TP_WIDE,))
+                         + (R.TP_WIDE,) + R.TP_MORE)
 def test_families_match_single_device(runs, arch):
     cfg = R.family_config(arch)
     opt = AdamW(**R.STEP_OPT)

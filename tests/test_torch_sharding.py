@@ -5,8 +5,9 @@ the CPU (the multi-rank runs are ``tests/test_torch_sharded_train.py``):
   meshes, and its ZeRO-1 moments' data dim, equal to the reference's
   ``fit_spec(make_param_specs(...))`` and ``zero1_specs`` computed on
   ``jax.eval_shape`` shapes, for every SMOKE config (exactly);
-* the families whose weights the tensor-parallel layers do not split
-  refuse a model axis before anything changes, and run on model = 1;
+* every family's layers take a model axis of 2 and 4; one that would
+  split a head (llama SMOKE's 4 heads on 8, zamba2 SMOKE's shared
+  attention on 16) refuses before anything changes, naming the layer;
 * the expert-parallel MoE restated on one device equals the dropless
   dense MoE where its capacity drops nothing (rtol 1e-5, atol 1e-6: f32
   sums in another order);
@@ -108,21 +109,22 @@ def test_placements_as_dtensor_shards():
         (Shard(0), Replicate())
 
 
-@pytest.mark.parametrize("arch,ok", [
-    ("llama3_2_1b", True), ("stablelm_3b", True), ("starcoder2_7b", True),
-    ("moonshot_v1_16b_a3b", True), ("internvl2_2b", True),
-    ("deepseek_v2_lite_16b", False), ("xlstm_1_3b", False),
-    ("zamba2_7b", False), ("seamless_m4t_large_v2", False)])
-def test_model_axis_refused_where_the_layers_do_not_split(arch, ok):
+@pytest.mark.parametrize("arch,model,refusal", [
+    *((a, m, None) for a in ARCH_IDS for m in (2, 4)),
+    ("llama3_2_1b", 8, "attention: 4 q heads do not split"),
+    ("zamba2_7b", 16, "attention: 4 q heads do not split")])
+def test_model_axis_refused_where_the_layers_do_not_split(arch, model,
+                                                          refusal):
+    """Every family's layers run their shards on model axes of 2 and 4;
+    a model axis that would split a head refuses, naming the layer."""
     cfg = get_config(arch, smoke=True)
-    model = T.init_params(cfg, device="cpu")
-    for sizes in ({"data": 1, "model": 2}, {"data": 1, "model": 4}):
-        lay = TS.state_specs(model, sizes)
-        if ok:
-            TS._check_tensor_parallel(model, cfg, lay, sizes["model"])
-        else:
-            with pytest.raises(NotImplementedError, match="model = 1"):
-                TS._check_tensor_parallel(model, cfg, lay, sizes["model"])
+    model_ = T.init_params(cfg, device="cpu")
+    lay = TS.state_specs(model_, {"data": 1, "model": model})
+    if refusal is None:
+        TS._check_tensor_parallel(model_, cfg, lay, model)
+    else:
+        with pytest.raises(NotImplementedError, match=refusal):
+            TS._check_tensor_parallel(model_, cfg, lay, model)
 
 
 def test_expert_parallel_restatement_without_drops_is_the_dense_moe():

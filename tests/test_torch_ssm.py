@@ -4,7 +4,10 @@ numpy inputs and the reference's weights, perturbed so that no parameter
 keeps its trivial init (``a_log``, ``dt_bias`` and ``conv_b`` start at 0,
 ``d_skip`` and ``norm_scale`` at 1): the depthwise causal conv, the SSD
 chunked prefill at one chunk and at four, and the one-token recurrence
-with its cache.
+with its cache.  At the published chunk of 128 the reference's masked
+decay tile overflows above its diagonal and its gradient is NaN; the
+port's is finite with the same loss
+(``test_ssd_gradient_is_finite_where_the_reference_overflows``).
 
 Tolerances: 1e-5 (rtol and atol) in f32, where both sides compute the
 same f32 arithmetic in other summation orders; 2e-2 normwise in bf16,
@@ -117,3 +120,39 @@ def test_apply_ssm_decode_matches_reference(mixer):
     full = S.apply_ssm(module, cfg, torch.as_tensor(x))
     np.testing.assert_allclose(torch.cat(outs, dim=1).numpy(), full.numpy(),
                                rtol=2e-2, atol=2e-2)
+
+
+def test_ssd_gradient_is_finite_where_the_reference_overflows():
+    """zamba2 SMOKE at the published chunk of 128 on 256 tokens, the
+    reference's weights: the same loss, but the reference's
+    ``where(tri, exp(diff), 0)`` overflows above the diagonal (diff sums
+    dt |A| over up to 127 positions) and its backward gives NaN, while
+    the port masks the exponent and its every gradient is finite."""
+    import dataclasses
+    from repro.data import pipeline as RP
+    from repro.models import transformer as RT
+    from repro_torch.convert import load_reference_params
+    from repro_torch.data.pipeline import SyntheticLM, batch_for
+    from repro_torch.models import transformer as T
+    ref_cfg, cfg = configs()
+    ref_cfg = ref_cfg.replace(ssm=dataclasses.replace(ref_cfg.ssm,
+                                                      chunk=128))
+    cfg = cfg.replace(ssm=dataclasses.replace(cfg.ssm, chunk=128))
+    params = RT.init_params(ref_cfg, jax.random.PRNGKey(0))
+    model = T.init_params(cfg, device="cpu")
+    load_reference_params(model, params)
+    model.requires_grad_(True)
+    batch = batch_for(cfg, SyntheticLM(cfg.vocab_size, 256, 2, seed=0), 0,
+                      device="cpu")
+    ref_batch = RP.batch_for(ref_cfg, RP.SyntheticLM(cfg.vocab_size, 256, 2,
+                                                     seed=0), 0)
+    ref_loss, ref_grads = jax.value_and_grad(
+        lambda p: RT.loss_fn(p, ref_cfg, ref_batch))(params)
+    loss = T.loss_fn(model, cfg, batch)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(ref_loss),
+                               rtol=TOL)
+    assert not all(bool(jnp.isfinite(g).all())
+                   for g in jax.tree.leaves(ref_grads))
+    assert all(bool(torch.isfinite(p.grad).all())
+               for p in model.parameters())

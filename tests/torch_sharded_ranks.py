@@ -41,6 +41,8 @@ TP_FAMILIES = ("stablelm_3b", "starcoder2_7b", "moonshot_v1_16b_a3b",
 DP_FAMILIES = ("xlstm_1_3b", "zamba2_7b", "seamless_m4t_large_v2",
                "deepseek_v2_lite_16b")
 TP_WIDE = "llama3_2_1b on (1, 4)"
+#: the data-parallel families again, on the model axis of (2, 2)
+TP_MORE = tuple(f"{a} on (2, 2)" for a in DP_FAMILIES)
 
 
 def family_config(arch: str):
@@ -183,7 +185,7 @@ def four_ranks(rank: int, world: int, tmp: str) -> None:
     del state
 
     res["moe"] = _moe(mesh, tmp)
-    res["families"] = _families(mesh, TP_FAMILIES)
+    res["families"] = _families(mesh, TP_FAMILIES + TP_MORE)
     res["families"].update(_families(
         make_device_mesh((4, 1), ("data", "model")), DP_FAMILIES))
     # four model ranks: llama's two K/V heads split mid-head, so each rank
