@@ -306,7 +306,21 @@ Phases, each printing its own lines:
    a self-attention layer on every rank.  Then each config cut to one
    period of its layer pattern trains 2 steps of 2 x 512 tokens, each
    loss within 1e-4 relative of the one-device step's;
-21. one JSON line with every kernel's numbers, then the result line
+21. dryrun (after phase 20): ``repro_torch.launch.dryrun`` in a child
+   process that imports neither JAX nor the reference: rank 0 of the
+   (16, 16) production mesh on a fake process group of 256 ranks, for
+   llama3.2-1b ``train_4k`` (16 sequences of 4,096 tokens, the rank's 2 q
+   heads and 8,016 vocabulary rows) and ``prefill_32k`` on the flash
+   kernel (2 sequences of 32,768), first on meta tensors, then for real on
+   the card under the same group; the warm step's ms,
+   ``max_memory_allocated`` within 0.93 to 1.07 times the dry run's
+   predicted peak, and FLOP/s from the dry run's count; every flash
+   launch of the prefill on the Hopper kernel.  A fake collective writes
+   nothing, so the real rank's values are not checked; the flash
+   kernel's are, once at the prefill's shape (B 2, Hq 2, Hkv 1, S
+   32,768, D 64, causal) against a plain f32 softmax over chunks of
+   queries (3e-2, 2e-3 normwise);
+22. one JSON line with every kernel's numbers, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Wherever phases 4, 6, 7, 11, 12 and 13 drive the path, every block
@@ -6779,6 +6793,179 @@ def tp_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the production dry run, held to one real rank on the card
+# ---------------------------------------------------------------------------
+
+#: the cells of the phase, (arch, shape, attn_impl): rank 0 of the (16,
+#: 16) mesh on a fake group of 256, on meta and then for real on the card
+DRYRUN_CELLS = (("llama3_2_1b", "train_4k", None),
+                ("llama3_2_1b", "prefill_32k", "flash_pallas"))
+#: the measured peak over the dry run's prediction (arguments + temp) must
+#: lie in this range: the caching allocator rounds each block up to 512
+#: bytes, keeps the cuBLAS workspaces and frees in the device thread's
+#: order, none of which the meta tally sees (0.9775 and 1.0224 measured
+#: on one H100); a tally that missed a layer's saved activations or the
+#: moments falls outside it
+DRYRUN_PEAK_RANGE = (0.93, 1.07)
+#: the flash check at the prefill_32k rank's shape: (B, Hq, Hkv, S, D),
+#: and the queries of the plain reference's chunks
+DRYRUN_FLASH_SHAPE = (2, 2, 1, 32768, 64)
+DRYRUN_FLASH_CHUNK = 2048
+#: a child process that imports neither JAX nor the reference: each cell
+#: on meta, then on ``cuda:0`` (the step once under the counters, once
+#: timed), under one fake group of 256; prints one JSON line
+DRYRUN_PRELUDE = r"""
+import json, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import torch
+from repro_torch.kernels.flash_mask import kernel as flash
+from repro_torch.launch import dryrun as D
+out = []
+with D.fake_group(256, 0):
+    for arch, shape, impl in json.loads(sys.argv[1]):
+        meta = D.lower_cell(arch, shape, False, attn_impl=impl)
+        flash.LAUNCHES = flash.SM90_LAUNCHES = 0
+        real = D.lower_cell(arch, shape, False, attn_impl=impl,
+                            device="cuda")
+        out.append({"meta": meta, "real": real, "flash": {
+            "launches": flash.LAUNCHES, "sm90": flash.SM90_LAUNCHES}})
+        torch.cuda.empty_cache()
+print(json.dumps(out))
+"""
+
+
+def dryrun_flash_check(dev) -> dict:
+    """The flash wrapper once on card tensors at the shape phase 21's
+    ``prefill_32k`` rank gives it (``DRYRUN_FLASH_SHAPE``, causal, the
+    config's 128-blocks; 0.5 randn in bf16 from seed 11) against a plain
+    f32 softmax over ``DRYRUN_FLASH_CHUNK`` queries at a time, rounded
+    to bf16 (what ``flash_mask_plain`` computes, without its 32,896 tile
+    steps): within
+    the sweep's 3e-2 and 2e-3 normwise, on the Hopper kernel.  An index
+    or offset that overflows at S 32,768 shows here; the dry run's
+    real rank, whose collectives write nothing, cannot show it."""
+    from repro_torch.kernels.flash_mask.ops import flash_mask_attention
+    b, hq, hkv, s, d = DRYRUN_FLASH_SHAPE
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = ((torch.randn(shape, generator=g, device=dev) * 0.5)
+               .to(torch.bfloat16)
+               for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+    sm90_before = flash.SM90_LAUNCHES
+    got = flash_mask_attention(q, k, v, causal=True, bq=128, bk=128)
+    sync(dev)
+    launched = flash.SM90_LAUNCHES - sm90_before
+    kf = k.float().repeat_interleave(hq // hkv, dim=1)
+    vf = v.float().repeat_interleave(hq // hkv, dim=1)
+    keys = torch.arange(s, device=dev)
+    err = sq_diff = sq_want = 0.0
+    ok = True
+    for lo in range(0, s, DRYRUN_FLASH_CHUNK):
+        rows = torch.arange(lo, lo + DRYRUN_FLASH_CHUNK, device=dev)
+        sc = (q[:, :, lo:lo + DRYRUN_FLASH_CHUNK].float()
+              @ kf.transpose(-1, -2)) * d ** -0.5
+        sc.masked_fill_(keys[None, :] > rows[:, None], float("-inf"))
+        # in q's dtype, as flash_mask_plain returns it
+        want = (torch.softmax(sc, dim=-1) @ vf).to(q.dtype).float()
+        del sc
+        part = got[:, :, lo:lo + DRYRUN_FLASH_CHUNK].float()
+        diff = part - want
+        err = max(err, float(diff.abs().max()))
+        sq_diff += float(diff.square().sum())
+        sq_want += float(want.square().sum())
+        ok &= bool(torch.allclose(part, want, rtol=3e-2, atol=3e-2))
+    rel = (sq_diff / sq_want) ** 0.5
+    what = (f"dryrun flash at the prefill_32k rank's shape B {b} Hq {hq} "
+            f"Hkv {hkv} S {s} D {d} causal bf16")
+    check(launched == 1, f"{what}: one launch on the Hopper kernel (sm90 "
+          f"launches {launched})")
+    check(ok and rel <= 2e-3, f"{what}: within 3e-2 and 2e-3 normwise of "
+          f"plain (max abs err {err:.3g}, normwise {rel:.3g})")
+    print(f"{what}: against a plain f32 softmax in chunks of "
+          f"{DRYRUN_FLASH_CHUNK} queries, max abs err {err:.3g}, normwise "
+          f"{rel:.3g} (limits 3e-2, 2e-3 normwise); 1 sm90 launch")
+    del q, k, v, kf, vf, got
+    free_port_memory(dev)
+    return {"shape": list(DRYRUN_FLASH_SHAPE), "max_abs_err": err,
+            "normwise": rel}
+
+
+def dryrun_phase(dev) -> dict:
+    """Phase 21: ``repro_torch.launch.dryrun``'s rank 0 of llama3.2-1b's
+    ``train_4k`` and ``prefill_32k`` (on the flash kernel) cells, on meta
+    and for real on the card under the same fake group; the measured peak
+    must lie within ``DRYRUN_PEAK_RANGE`` of the predicted one, and every
+    flash launch of the prefill must run the Hopper kernel.  A fake
+    collective writes nothing, so the real rank's values are not checked:
+    its time and memory are the numbers; the flash kernel's values are
+    checked at the prefill's shape (``dryrun_flash_check``).  Returns
+    them (printed on a ``dryrun numbers:`` line)."""
+    free = free_port_memory(dev)
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-c", DRYRUN_PRELUDE, json.dumps(DRYRUN_CELLS)],
+        cwd=root, env={**os.environ, "PYTHONPATH": str(root / "src")},
+        capture_output=True, text=True, timeout=900)
+    check(r.returncode == 0, f"dryrun: the child exited {r.returncode}: "
+          f"{r.stderr[-4000:]}")
+    cells = json.loads(r.stdout.strip().splitlines()[-1])
+    out = {"free_gib": free / 2**30, "seconds": time.perf_counter() - t0,
+           "cells": {}}
+    lo, hi = DRYRUN_PEAK_RANGE
+    for (arch, shape, impl), c in zip(DRYRUN_CELLS, cells):
+        meta, real = c["meta"], c["real"]
+        what = f"dryrun {arch} {shape} {impl or 'default'}"
+        check(meta["status"] == real["status"] == "ok",
+              f"{what}: status meta {meta['status']}, card {real['status']}"
+              f" ({meta.get('reason', '')}{real.get('reason', '')})")
+        pred = meta["memory_analysis"]["peak_bytes"]
+        got = real["measured"]["max_memory_allocated"]
+        check(lo <= got / pred <= hi, f"{what}: measured peak {got:,} B is "
+              f"{got / pred:.3f} x the predicted {pred:,} B (limits {lo} "
+              f"to {hi})")
+        flops = meta["cost_analysis"]["flops"]
+        ms = real["measured"]["step_ms"]
+        if impl == "flash_pallas":
+            want = 2 * get_config(arch).n_layers    # counted + timed steps
+            check(c["flash"]["launches"] == c["flash"]["sm90"] == want,
+                  f"{what}: every flash launch on the Hopper kernel, one a "
+                  f"layer a step ({want}): {c['flash']}")
+        cut = lambda res: res["cost_analysis"]["flops"] - \
+            res["cost_analysis"]["kernel_flops"]
+        out["cells"][f"{shape}"] = v = {
+            "attn_impl": meta["attn_impl"], "step_ms": ms,
+            "predicted_peak": pred, "measured_peak": got,
+            "card_tally_peak": real["memory_analysis"]["peak_bytes"],
+            "ratio": got / pred, "flops": flops,
+            "kernel_flops": meta["cost_analysis"]["kernel_flops"],
+            "flops_per_s": flops / ms * 1e3,
+            "card_flops_agree": cut(meta) == cut(real),
+            "arguments": meta["memory_analysis"]["argument_size_in_bytes"],
+            "temp": meta["memory_analysis"]["temp_size_in_bytes"],
+            "links": meta["collective_bytes_per_device"],
+            "collectives": meta["collective_op_counts"],
+            "flash": c["flash"], "seconds_meta": meta["seconds_lower"],
+            "seconds_card": real["seconds_lower"]}
+        print(f"dryrun: {arch} {shape} ({v['attn_impl']}), rank 0 of "
+              f"(16, 16) on a fake group of 256: warm step {ms:.1f} ms on "
+              f"the card; peak {got / 2**30:.3f} GiB measured "
+              f"(max_memory_allocated) against {pred / 2**30:.3f} GiB "
+              f"predicted on meta ({v['arguments'] / 2**30:.3f} arguments"
+              f" + {v['temp'] / 2**30:.3f} temp), ratio {v['ratio']:.4f} "
+              f"(limits {lo} to {hi}); {flops / 1e12:.3f} TFLOP a step "
+              f"(dry-run count, {v['kernel_flops'] / 1e12:.3f} of it the "
+              f"flash kernel's) = {v['flops_per_s'] / 1e12:.1f} TFLOP/s "
+              f"without its links (the card's own count agrees: "
+              f"{v['card_flops_agree']}); link bytes a step "
+              f"{json.dumps(v['links'])}; flash launches {c['flash']}; "
+              f"values not checked (a fake collective writes nothing); "
+              f"{CARD}")
+    out["flash_check"] = dryrun_flash_check(dev)
+    return out
+
+
 def main() -> int:
     device = card()
     dev = torch.device("cuda", 0)
@@ -6856,6 +7043,12 @@ def main() -> int:
     tp = tp_phase(dev)
     flash_entry["tp_sm90_launches"] = {a: v["flash_sm90"]
                                        for a, v in tp["serve"].items()}
+    t_dryrun = time.perf_counter()
+    dryrun = dryrun_phase(dev)
+    flash_entry["dryrun_sm90_launches"] = {
+        s: c["flash"]["sm90"] for s, c in dryrun["cells"].items()
+        if c["flash"]["launches"]}
+    flash_entry["dryrun_32k_check"] = dryrun["flash_check"]
     t_end = time.perf_counter()
     print(f"phases: spgemm {t_serving - t_start:.1f} s, serving "
           f"{t_delta - t_serving:.1f} s, delta {t_tuning - t_delta:.1f} s, "
@@ -6869,12 +7062,14 @@ def main() -> int:
           f"training {t_lint - t_training:.1f} s, "
           f"lint {t_examples - t_lint:.1f} s, "
           f"examples {t_sharded - t_examples:.1f} s, "
-          f"sharded {t_tp - t_sharded:.1f} s, tp {t_end - t_tp:.1f} s")
+          f"sharded {t_tp - t_sharded:.1f} s, tp {t_dryrun - t_tp:.1f} s, "
+          f"dryrun {t_end - t_dryrun:.1f} s")
     print("training numbers: " + json.dumps(training))
     print("lint numbers: " + json.dumps(linted))
     print("examples numbers: " + json.dumps(examples))
     print("sharded numbers: " + json.dumps(sharded))
     print("tp numbers: " + json.dumps(tp))
+    print("dryrun numbers: " + json.dumps(dryrun))
     print(json.dumps({"kernels": [entry, sddmm, flash_entry,
                                   moonshot_entry, zamba_entry,
                                   seamless_entry]}))

@@ -1,14 +1,16 @@
 """Architecture config schema + registry (a copy of the reference's
 ``repro/configs/base.py`` with every field, so later configs port verbatim).
 
-One ``<arch>.py`` per architecture defines ``CONFIG`` (exact published
-numbers) and ``SMOKE`` (a reduced same-family config for CPU tests).
+The shape grid (``ShapeCfg``, ``SHAPES``, ``cell_is_runnable``) is the
+reference's too.  One ``<arch>.py`` per architecture defines ``CONFIG``
+(exact published numbers) and ``SMOKE`` (a reduced same-family config for
+CPU tests).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -106,6 +108,26 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+# ---------------------------------------------------------------------------
+# shape grid (the reference's): every LM arch x these four shapes
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCfg:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeCfg("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCfg("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCfg("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCfg("long_500k", 524288, 1, "decode"),
+}
+
 ARCH_IDS = (
     "llama3_2_3b", "llama3_2_1b", "stablelm_3b", "starcoder2_7b",
     "xlstm_1_3b", "zamba2_7b", "moonshot_v1_16b_a3b", "deepseek_v2_lite_16b",
@@ -127,3 +149,11 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     mod_name = ARCH_ALIASES.get(arch, arch.replace("-", "_").replace(".", "_"))
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.SMOKE if smoke else mod.CONFIG
+
+
+def cell_is_runnable(cfg: ModelConfig, shape: ShapeCfg) -> Tuple[bool, str]:
+    """Whether (arch x shape) is a defined cell (spec rules)."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("pure full-attention arch: 500k decode requires "
+                       "sub-quadratic attention (skip noted in DESIGN.md)")
+    return True, ""

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from .ref import allowed_count
 
 NEG_INF = -1e30
 #: largest q/kv block and head dim the kernel's tile configs cover
@@ -49,6 +50,11 @@ TC_LAUNCHES = 0
 F32_LAUNCHES = 0
 #: of those, the launches of a Hopper kernel (wgmma + TMA, bf16 or f32)
 SM90_LAUNCHES = 0
+
+#: operations (q.k and p.v at the allowed elements, two a multiply-add)
+#: that the calls on ``meta`` tensors stood for, since the dry run last
+#: reset it; no kernel runs there and no launch is counted
+META_FLOPS = 0
 
 #: the kernels a caller may ask for by name (``variant=``): the Hopper
 #: kernel of the dtype, or flash_mask.cu's mma.sync kernel of the dtype
@@ -252,7 +258,9 @@ def flash_mask_kernel(q, k, v, qi, ki, flags, *, bq: int, bk: int,
     qi/ki/flags: (P,) int32 from ``build_schedule``.  Returns
     (B, Hq, S, D) in q.dtype.
 
-    CPU tensors run ``flash_mask_plain``.  CUDA tensors launch one kernel
+    CPU tensors run ``flash_mask_plain``.  Meta tensors (the dry run) give
+    an empty output of the kernel's shape and add the operations it would
+    do to ``META_FLOPS``.  CUDA tensors launch one kernel
     for every (batch, head) on the current stream without synchronising,
     or raise: ``choose_variant`` picks it (``variant`` None: the Hopper
     kernel of the dtype where ``sm90_takes`` holds, else flash_mask.cu's
@@ -261,7 +269,7 @@ def flash_mask_kernel(q, k, v, qi, ki, flags, *, bq: int, bk: int,
     worklist never visits comes out as zeros; a kv-block index out of range
     reads as fully masked.
     """
-    global LAUNCHES, TC_LAUNCHES, F32_LAUNCHES, SM90_LAUNCHES
+    global LAUNCHES, TC_LAUNCHES, F32_LAUNCHES, SM90_LAUNCHES, META_FLOPS
     _check(q, k, v, qi, ki, flags, bq, bk)
     dev = q.device
     kw = dict(bq=bq, bk=bk, scale=scale, causal=causal, window=window,
@@ -270,6 +278,13 @@ def flash_mask_kernel(q, k, v, qi, ki, flags, *, bq: int, bk: int,
     if dev.type == "cpu":
         choose_variant(variant, q, k, v, bq, bk)
         return flash_mask_plain(q, k, v, qi, ki, flags, **kw)
+    if dev.type == "meta":
+        choose_variant(variant, q, k, v, bq, bk)
+        b, hq, s_q, d = q.shape
+        META_FLOPS += 4 * b * hq * d * allowed_count(
+            s_q, k.shape[2], causal=bool(causal), window=int(window),
+            prefix=int(prefix), q_offset=int(q_offset))
+        return torch.empty_like(q, memory_format=torch.contiguous_format)
     if dev.type != "cuda":
         raise ValueError(f"no flash_mask kernel for device {dev}")
     b, hq, s_q, d = q.shape

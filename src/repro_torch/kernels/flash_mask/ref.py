@@ -26,6 +26,22 @@ def mask_allowed(s_q: int, s_k: int, *, causal: bool, window: int,
     return ok
 
 
+def allowed_count(s_q: int, s_k: int, *, causal: bool, window: int,
+                  prefix: int, q_offset: int) -> int:
+    """``mask_allowed(...).sum()`` row by row in closed form, without the
+    (s_q, s_k) array: each row's keys up to its last allowed one, those
+    inside the window or the prefix."""
+    qa = np.arange(s_q, dtype=np.int64) + q_offset
+    hi = np.minimum(qa, s_k - 1) if causal else np.full(s_q, s_k - 1)
+    n = np.maximum(hi + 1, 0)
+    if window > 0:
+        lo = np.maximum(qa - window + 1, 0)
+        inside = np.maximum(hi - lo + 1, 0)
+        pre = np.minimum(prefix, n)
+        n = inside + pre - np.maximum(pre - lo, 0).clip(max=inside)
+    return int(n.sum())
+
+
 def flash_mask_ref(q, k, v, *, causal=True, window=0, prefix=0,
                    q_offset=0, scale=None) -> torch.Tensor:
     """Dense masked attention oracle in f32. q: (S, D); k, v: (T, D).

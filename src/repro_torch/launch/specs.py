@@ -1,7 +1,8 @@
-"""Model input stand-ins: ``concrete_batch``, a small real batch for smoke
-tests and examples, the reference's arrays bit for bit as tensors on a
-device.  The reference's ``train_input_specs`` and ``decode_input_specs``
-(ShapeDtypeStructs for XLA lowering) have no counterpart here.
+"""Model input stand-ins: ``train_input_specs`` and ``decode_input_specs``,
+one step's inputs for every (arch x shape) cell as tensors on ``meta`` (the
+reference's ShapeDtypeStructs, for the dry run), and ``concrete_batch``, a
+small real batch for smoke tests and examples, the reference's arrays bit
+for bit as tensors on a device.
 
 The decode caches' placements, the reference's ``_CACHE_RULES`` and
 ``cache_specs`` (``launch/dryrun.py``), are here: ``cache_layout`` fits
@@ -16,9 +17,48 @@ import numpy as np
 import torch
 
 from repro_torch import parallel
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeCfg
 from repro_torch.data.pipeline import _features, _on
 from repro_torch.models.common import axis_dim, fit_spec, mesh_sizes
+
+
+def train_input_specs(cfg: ModelConfig, shape: ShapeCfg,
+                      device="meta") -> Dict[str, torch.Tensor]:
+    """One train or prefill step's whole batch as zeros on ``device`` (no
+    storage on ``meta``): int32 ``tokens`` and ``labels`` (B, S), the
+    VLM's text cut to ``S - img_tokens`` beside its ``patches`` (B,
+    img_tokens, d_frontend), the encoder-decoder's ``frames`` (B, S,
+    d_frontend or D), features in the activation dtype."""
+    b, s = shape.global_batch, shape.seq_len
+    act = cfg.activation_dtype
+    s_txt = s - cfg.img_tokens if cfg.family == "vlm" else s
+    out = {k: torch.zeros((b, s_txt), dtype=torch.int32, device=device)
+           for k in ("tokens", "labels")}
+    if cfg.family == "vlm":
+        out["patches"] = torch.zeros((b, cfg.img_tokens, cfg.d_frontend),
+                                     dtype=act, device=device)
+    if cfg.family == "audio":
+        out["frames"] = torch.zeros((b, s, cfg.d_frontend or cfg.d_model),
+                                    dtype=act, device=device)
+    return out
+
+
+def decode_input_specs(cfg: ModelConfig, shape: ShapeCfg,
+                       device="meta") -> Dict[str, object]:
+    """One decode step's whole inputs on ``device``: int32 ``token`` and
+    ``pos`` (B,), the ``cache`` of ``seq_len`` positions
+    (``transformer.init_cache``) and the encoder-decoder's ``encoder_out``
+    (B, S, D) in the activation dtype."""
+    from repro_torch.models.transformer import init_cache
+    b, s = shape.global_batch, shape.seq_len
+    out = {"token": torch.zeros((b,), dtype=torch.int32, device=device),
+           "pos": torch.zeros((b,), dtype=torch.int32, device=device),
+           "cache": init_cache(cfg, b, s, device=device)}
+    if cfg.family == "audio":
+        out["encoder_out"] = torch.zeros((b, s, cfg.d_model),
+                                         dtype=cfg.activation_dtype,
+                                         device=device)
+    return out
 
 
 def concrete_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
@@ -74,17 +114,22 @@ def cache_map(fn, cache, path=()):
     return fn(path, cache)
 
 
+def cache_rule(path, ndim: int):
+    """The spec of a cache tensor of ``ndim`` dims at ``path`` (its keys):
+    the rule of the last key that has one, on the trailing dims, None in
+    front; a leaf without a rule is ``(DP,)`` on its first trailing
+    dim."""
+    name = next((k for k in reversed(path) if k in _CACHE_RULES), None)
+    base = _CACHE_RULES.get(name, (DP,))
+    return (None,) * (ndim - len(base)) + tuple(base)
+
+
 def cache_specs(cache):
     """The reference's ``cache_specs``: a tree of specs (tuples, one entry
     per dim) parallel to ``cache`` (``transformer.init_cache``'s nested
-    dicts of tensors, any device, ``meta`` included): the rule of the
-    last path key that has one, on the trailing dims, None in front; a
-    leaf without a rule is ``(DP,)`` on its first trailing dim."""
-    def one(path, leaf):
-        name = next((k for k in reversed(path) if k in _CACHE_RULES), None)
-        base = _CACHE_RULES.get(name, (DP,))
-        return (None,) * (leaf.dim() - len(base)) + tuple(base)
-    return cache_map(one, cache)
+    dicts of tensors, any device, ``meta`` included), ``cache_rule``'s
+    for each leaf."""
+    return cache_map(lambda path, leaf: cache_rule(path, leaf.dim()), cache)
 
 
 def cache_layout(cache, mesh):
@@ -102,17 +147,33 @@ def cache_layout(cache, mesh):
     return cache_map(one, cache)
 
 
+def _split_dims(spec):
+    """``(axis, dim)`` of each mesh axis that splits a tensor under its
+    fitted ``spec``: the data axes (``pod`` then ``data``) as the pair
+    ``dp``, and ``model``."""
+    d = axis_dim(spec, "data")
+    if d is None:
+        d = axis_dim(spec, "pod")
+    m = axis_dim(spec, "model")
+    return [(name, dim) for name, dim in (("dp", d), ("model", m))
+            if dim is not None]
+
+
+def slice_shape(shape, spec, axes) -> tuple:
+    """The shape of ``cache_slice`` of a tensor of ``shape``, without
+    one."""
+    out = list(shape)
+    for name, d in _split_dims(spec):
+        out[d] //= axes[name].size
+    return tuple(out)
+
+
 def cache_slice(t: torch.Tensor, spec, axes) -> torch.Tensor:
     """This rank's slice of one whole cache tensor under its fitted
     ``spec`` (a view): each dim an axis splits cut to the rank's block
     along it (``axes``: ``parallel.mesh_axes``; the data axes, ``pod``
     then ``data``, as the pair ``dp``)."""
-    for name in ("dp", "model"):
-        d = (axis_dim(spec, "data") if name == "dp" else
-             axis_dim(spec, "model"))
-        if name == "dp" and d is None:
-            d = axis_dim(spec, "pod")
-        if d is not None:
-            t = parallel.local_slice(t, axes[name], d)
+    for name, d in _split_dims(spec):
+        t = parallel.local_slice(t, axes[name], d)
     return t
 

@@ -54,13 +54,35 @@ def rope(x, positions, theta: float = 10000.0):
     return out.to(x.dtype)
 
 
-def dense_init(generator: torch.Generator, shape: Sequence[int],
-               dtype=torch.float32, scale: Optional[float] = None):
-    """Normal(0, scale / sqrt(fan_in)) on the generator's device, where
-    fan_in is the second-to-last dim (the last for a vector)."""
+class Draws:
+    """A generator and the device its draws land on, where that is not the
+    generator's own: a CPU generator drawing onto ``meta`` (PyTorch makes
+    no generator there).  The model's constructors take one wherever they
+    take a generator and put their parameters on its ``device``."""
+
+    def __init__(self, generator: torch.Generator, device):
+        self.generator = generator
+        self.device = torch.device(device)
+
+
+def param_generator(device, seed: int = 0):
+    """A generator seeded with ``seed`` whose draws land on ``device``: a
+    ``torch.Generator`` there, or on ``meta`` a CPU one in ``Draws``."""
+    if torch.device(device).type == "meta":
+        return Draws(torch.Generator().manual_seed(seed), "meta")
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def dense_init(generator, shape: Sequence[int], dtype=torch.float32,
+               scale: Optional[float] = None):
+    """Normal(0, scale / sqrt(fan_in)) on the generator's device (a
+    ``torch.Generator`` or ``Draws``), where fan_in is the second-to-last
+    dim (the last for a vector)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = (scale if scale is not None else 1.0) / np.sqrt(fan_in)
-    w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
+    source = generator.generator if isinstance(generator, Draws) \
+        else generator
+    w = torch.randn(tuple(shape), generator=source, dtype=torch.float32,
                     device=generator.device)
     return (w * std).to(dtype)
 

@@ -549,7 +549,9 @@ class MoE(nn.Module):
     here, one ``torch.matmul`` per expert segment of the sorted rows, with
     the expert's weights cast at use.  Its cost: one host read of the group
     sizes per call (``group_sizes``, a device synchronisation), then three
-    products per expert that received tokens (``EXPERT_MATMULS``).
+    products per expert that received tokens (``EXPERT_MATMULS``).  On
+    ``meta`` the group sizes are ``balanced_sizes``, as no routing can be
+    read there.
     """
 
     tp = None
@@ -615,8 +617,11 @@ class MoE(nn.Module):
         order = torch.argsort(flat_e, stable=True)             # by expert
         rows = src[order]
         gathered = xt[rows]                                    # (T*k, D)
-        self.group_sizes = torch.bincount(
-            flat_e, minlength=mo.n_experts).tolist()           # host sync
+        if x.device.type == "meta":
+            self.group_sizes = balanced_sizes(flat_e.numel(), mo.n_experts)
+        else:
+            self.group_sizes = torch.bincount(
+                flat_e, minlength=mo.n_experts).tolist()       # host sync
         out_sorted = torch.empty_like(gathered)
         start = 0
         for e, n in enumerate(self.group_sizes):
@@ -658,6 +663,16 @@ class MoE(nn.Module):
         return out
 
 
+def balanced_sizes(assignments: int, n_experts: int) -> List[int]:
+    """The routing assumed on ``meta``, where none can be read: the
+    ``assignments`` (tokens times top-k) split evenly over ``n_experts``,
+    the remainder one each to the first experts.  The dropless dispatch
+    does the same products whatever the split; under expert parallelism a
+    rank's rows are this split's, up to its capacity."""
+    q, r = divmod(assignments, n_experts)
+    return [q + (e < r) for e in range(n_experts)]
+
+
 def ep_capacity(cfg: ModelConfig, t_local: int, ep: int) -> int:
     """Token assignments a rank keeps of its data shard's ``t_local``
     tokens (the reference's fixed per-rank capacity)."""
@@ -692,7 +707,15 @@ def ep_local(xt, cfg: ModelConfig, top_w, top_e, gate, up, down, ep: int,
     gathered = xt[rows] * valid[:, None].to(xt.dtype)
     le = torch.where(valid, flat_e[sel] - rank * e_local,
                      torch.full_like(sel, e_local))
-    sizes = torch.bincount(le, minlength=e_local + 1)[:e_local].tolist()
+    if xt.device.type == "meta":
+        # the balanced split's local experts, in order, up to the capacity
+        sizes, left = [], cap
+        for n in balanced_sizes(flat_e.numel(), mo.n_experts)[
+                rank * e_local:(rank + 1) * e_local]:
+            sizes.append(min(n, left))
+            left -= sizes[-1]
+    else:
+        sizes = torch.bincount(le, minlength=e_local + 1)[:e_local].tolist()
     parts, start = [], 0
     for e, n in enumerate(sizes):
         if n == 0:

@@ -65,7 +65,8 @@ from repro_torch.launch import specs as SP
 from . import layers as Lyr
 from . import ssm as SSM
 from . import xlstm as XL
-from .common import axis_dim, dense_init
+from .common import (axis_dim, dense_init, fit_spec, mesh_sizes,
+                     param_generator)
 
 #: the families the port runs, as the reference's ``init_params`` knows
 #: them (``ssm`` only with ``cfg.xlstm``)
@@ -356,9 +357,11 @@ class Transformer(nn.Module):
 def init_params(cfg: ModelConfig, generator: torch.Generator = None, *,
                 seed: int = 0, device="cuda") -> Transformer:
     """A ``Transformer`` with random weights drawn from ``generator`` (or a
-    new generator on ``device`` seeded with ``seed``), on its device."""
+    new generator on ``device`` seeded with ``seed``), on its device.
+    On ``meta`` the model has every parameter's shape and dtype and no
+    storage (``common.param_generator``)."""
     if generator is None:
-        generator = torch.Generator(device=device).manual_seed(seed)
+        generator = param_generator(device, seed)
     return Transformer(cfg, generator)
 
 
@@ -469,15 +472,40 @@ def _leaf(tree, path):
     return tree
 
 
+def _whole_rows_spec(path, shape, dp: int, sizes) -> tuple:
+    """A cache tensor's spec for rows that the data axes do not split
+    (fewer rows than data ranks, or a number they do not divide, as batch
+    1 at ``long_500k``): the layout its layer decodes, each data rank
+    holding every row.  The model axis lies where the reference's rule
+    puts it for rows that the data axes split (fitted to a per-layer shape
+    of ``dp`` rows), the data axes on no dim."""
+    n = {"mlstm": 2}.get(path[0], 1)
+    rule = SP.cache_rule(path, len(shape))[n:]
+    m = axis_dim(fit_spec(rule, (dp,) + tuple(shape[n + 1:]), sizes),
+                 "model")
+    return tuple("model" if m is not None and i == n + m else None
+                 for i in range(len(shape)))
+
+
 def _record_cache_layout(model: Transformer, shapes) -> dict:
     """Fit the reference's cache specs to the whole cache's ``shapes`` on
-    the model's mesh, record them as ``model.cache_layout`` and return
+    the model's mesh (``_whole_rows_spec`` where the data axes do not
+    split its rows), record them as ``model.cache_layout`` and return
     them; a mesh axis on a stacked layer axis raises."""
     lay = model.shard_layout
     if lay is None:
         raise ValueError("shard the model first (train_step.shard_model)")
-    specs = SP.cache_layout(shapes, lay.mesh)
     lead = {"mlstm": 2}
+    dp = lay.axes["dp"].size
+    rows = []
+    SP.cache_map(lambda path, t: rows.append(
+        t.shape[lead.get(path[0], 1)]), shapes)
+    if dp > 1 and rows[0] % dp:
+        sizes = mesh_sizes(lay.mesh)
+        specs = SP.cache_map(lambda path, t: _whole_rows_spec(
+            path, tuple(t.shape), dp, sizes), shapes)
+    else:
+        specs = SP.cache_layout(shapes, lay.mesh)
 
     def check(path, spec):
         n = lead.get(path[0], 1)
@@ -495,8 +523,10 @@ def _record_cache_layout(model: Transformer, shapes) -> dict:
 def shard_cache(model: Transformer, cache):
     """This rank's slices (copies) of a whole cache from ``init_cache``,
     placed as the reference's ``cache_specs`` under ``fit_spec`` place them
-    on the model's mesh; records the layout as ``model.cache_layout`` for
-    ``decode_step`` (one sharded cache layout a model at a time)."""
+    on the model's mesh (rows that the data axes do not split are held
+    whole on each data rank: ``_whole_rows_spec``); records the layout as
+    ``model.cache_layout`` for ``decode_step`` (one sharded cache layout a
+    model at a time)."""
     specs = _record_cache_layout(model, cache)
     axes = model.shard_layout.axes
     return SP.cache_map(lambda path, t: SP.cache_slice(
@@ -541,8 +571,7 @@ def _places(model: Transformer, cache):
         for name, t in leaves.items():
             spec = rec["specs"][group][name]
             whole = rec["shapes"][group][name]
-            want = SP.cache_slice(torch.empty(whole, device="meta"), spec,
-                                  axes).shape
+            want = SP.slice_shape(whole, spec, axes)
             if tuple(t.shape) != tuple(want):
                 raise ValueError(
                     f"cache {group}.{name} of shape {tuple(t.shape)} is not "
@@ -571,8 +600,9 @@ def decode_step(model: Transformer, cfg: ModelConfig, token, cache, pos,
     ``encoder_out`` (B, S_src, D): the encoder-decoder's ``encode`` output.
     Returns (logits (B, V), cache); the cache is updated in place.  On a
     sharded model, the rank's rows of token, pos and encoder_out (the
-    reference's ``P(DP)``) and its slices of the cache (``shard_cache``);
-    the logits are whole."""
+    reference's ``P(DP)``: all of them where the data axes do not split
+    the batch) and its slices of the cache (``shard_cache``); the logits
+    are whole."""
     _check_family(cfg)
     fam = cfg.family
     if fam == "audio" and encoder_out is None:

@@ -22,7 +22,8 @@ block_masked and, with attention, flash_pallas) against the CPU, a
 monitored engine's ``/metrics`` and ``/health``
 answering while its async worker launches the fused kernel, and training:
 a backward of each family's SMOKE model against the CPU (then a bf16
-step), ``_bmm_f32``'s bf16 backward and flash refusing gradients.  Every test
+step), ``_bmm_f32``'s bf16 backward and flash refusing gradients, and the
+dry run's rank on the card against its meta count.  Every test
 needs a GPU and skips without one.
 
 This file imports neither JAX nor the reference package, so it runs where
@@ -1607,3 +1608,70 @@ def test_sharded_decode_on_cuda_matches_one_device(sharded_decodes, case):
                 torch.testing.assert_close(
                     res["cache"][group][name], mine, rtol=1e-5,
                     atol=1e-5 * scale, msg=f"{case} {group}.{name}")
+
+
+#: a rank of the dry run on meta and on the card, in a child process (the
+#: fake process group never enters the test process): llama3.2-1b SMOKE
+#: on (2, 2) as rank 0 of a fake group of 4, a train step and a prefill on
+#: the flash kernel (its 16-blocks run the mma.sync kernel)
+DRYRUN_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from repro_torch.configs.base import ShapeCfg, get_config
+from repro_torch.kernels.flash_mask import kernel as flash
+from repro_torch.launch import dryrun as D
+cfg = get_config("llama3_2_1b", smoke=True)
+out = {}
+with D.fake_group(4, 0):
+    for name, c, shape in (
+            ("train", cfg, ShapeCfg("t", 64, 8, "train")),
+            ("prefill", cfg.replace(attn_impl="flash_pallas"),
+             ShapeCfg("p", 128, 8, "prefill"))):
+        meta = D.run_cell(c, shape, {"data": 2, "model": 2})
+        flash.LAUNCHES = 0
+        card = D.run_cell(c, shape, {"data": 2, "model": 2}, device="cuda")
+        out[name] = {"meta": meta, "card": card, "launches": flash.LAUNCHES}
+print(json.dumps(out))
+"""
+
+
+def test_dryrun_rank_on_cuda_counts_what_meta_counts():
+    """The dry run's rank on the card holds the storages, runs the
+    products and collectives, and moves the link bytes that it predicts
+    on meta; the flash kernel launches once a layer a step (the counted
+    step and the timed one) and its operations are the meta count's
+    ``kernel_flops``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the rank runs on the card")
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    r = subprocess.run([sys.executable, "-c", DRYRUN_CHILD, src],
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    n_layers = get_config("llama3_2_1b", smoke=True).n_layers
+    for name, res in out.items():
+        meta, card = res["meta"], res["card"]
+        for k in ("argument_size_in_bytes", "state_bytes"):
+            assert card["memory_analysis"][k] == \
+                meta["memory_analysis"][k], (name, k)
+        # the kernel's own small buffers (the flash worklist's segment
+        # offsets) are the card's alone: 1 % of the peak
+        assert card["memory_analysis"]["peak_bytes"] == pytest.approx(
+            meta["memory_analysis"]["peak_bytes"], rel=1e-2), name
+        assert card["collective_op_counts"] == meta["collective_op_counts"]
+        assert card["collective_bytes_per_device"] == \
+            meta["collective_bytes_per_device"]
+        assert card["measured"]["step_ms"] > 0
+        assert card["measured"]["max_memory_allocated"] > 0
+        if name == "train":
+            assert card["cost_analysis"]["flops"] == \
+                meta["cost_analysis"]["flops"]
+        else:
+            assert meta["cost_analysis"]["kernel_flops"] > 0
+            assert card["cost_analysis"]["kernel_flops"] == 0
+            assert res["launches"] == 2 * n_layers

@@ -1,4 +1,5 @@
-"""Rank bodies for ``tests/test_torch_sharded_train.py``: each runs in a
+"""Rank bodies for ``tests/test_torch_sharded_train.py`` (and, at the end,
+``tests/test_torch_dryrun.py``'s real ranks): each runs in a
 process spawned by ``torch.multiprocessing``, joins a gloo group on a
 ``FileStore`` under the test's directory, runs on the CPU with one
 intra-op thread and writes what it measured as ``<name>.pt`` there (rank
@@ -245,3 +246,102 @@ def two_ranks(rank: int, world: int, tmp: str) -> None:
         torch.save(res, os.path.join(tmp, "two.pt"))
     dist.barrier()
     parallel.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# the production dry run against real ranks (tests/test_torch_dryrun.py)
+# ---------------------------------------------------------------------------
+
+#: the dry run's cells on (2, 2): SMOKE configs, (arch, ShapeCfg fields):
+#: training for three families (moonshot's experts expert-parallel), and
+#: decode steps of 4 rows and of 1 row (fewer than the data ranks, so
+#: that its cache's data axes move off the rows)
+DRYRUN_MESH = {"data": 2, "model": 2}
+DRYRUN_CELLS = (("llama3_2_1b", ("train", 32, 4, "train")),
+                ("moonshot_v1_16b_a3b", ("train", 32, 4, "train")),
+                ("zamba2_7b", ("train", 32, 4, "train")),
+                ("llama3_2_1b", ("decode", 64, 4, "decode")),
+                ("xlstm_1_3b", ("one_row", 64, 1, "decode")))
+#: the ranks the dry run plays on a fake group of 4
+DRYRUN_RANKS = (0, 3)
+#: decode of one row on (2, 2) against one device: these SMOKE configs,
+#: ``WHOLE_ROWS_STEPS`` steps from position 0 on a cache of 32 positions
+WHOLE_ROWS_ARCHS = ("llama3_2_1b", "starcoder2_7b", "xlstm_1_3b")
+WHOLE_ROWS_STEPS = 4
+
+
+def dryrun_cells(device) -> list:
+    """``dryrun.run_cell`` of every ``DRYRUN_CELLS`` cell on ``device`` as
+    this rank of the default group, under PyTorch's ``FlopCounterMode``
+    beside the dry run's own count: its counts by module are the result's
+    ``flops_by_module`` (``"Global"`` their total).  Its module tracker
+    keeps activations alive, so the temp and peak bytes are not the
+    step's."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import dryrun as D
+    out = []
+    for arch, shape in DRYRUN_CELLS:
+        with FlopCounterMode(display=False) as flops:
+            res = D.run_cell(get_config(arch, smoke=True), ShapeCfg(*shape),
+                             DRYRUN_MESH, device=device)
+        res["flops_by_module"] = {m: sum(c.values()) for m, c in
+                                  flops.get_flop_counts().items()}
+        out.append(res)
+    return out
+
+
+def whole_rows_decode(arch: str, mesh) -> dict:
+    """One row decoded on ``mesh`` and on one device from the same weights
+    and tokens: each step's logits, the rank's cache specs, and the
+    one-device cache's slices beside the rank's cache after the last
+    step."""
+    from repro_torch.launch import specs as SP
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch, smoke=True)
+    one = T.init_params(cfg, seed=4, device="cpu")
+    model = TS.shard_model(T.init_params(cfg, seed=4, device="cpu"), mesh,
+                           zero1=False)
+    cache_one = T.init_cache(cfg, 1, 32, device="cpu")
+    cache = T.shard_cache(model, cache_one)
+    gen = torch.Generator().manual_seed(9)
+    out = {"logits": [], "one_logits": []}
+    for i in range(WHOLE_ROWS_STEPS):
+        tok = torch.randint(0, cfg.vocab_size, (1,), generator=gen)
+        pos = torch.full((1,), i, dtype=torch.int32)
+        want, cache_one = T.decode_step(one, cfg, tok, cache_one, pos)
+        got, cache = T.decode_step(model, cfg, tok, cache, pos)
+        out["logits"].append(got)
+        out["one_logits"].append(want)
+    specs = model.cache_layout["specs"]
+    axes = model.shard_layout.axes
+    out["specs"] = specs
+    out["cache"] = SP.cache_map(lambda _, t: t.clone(), cache)
+    out["one_cache"] = SP.cache_map(
+        lambda path, t: SP.cache_slice(t, T._leaf(specs, path), axes)
+        .clone(), cache_one)
+    return out
+
+
+def dryrun_ranks(rank: int, world: int, tmp: str) -> None:
+    """A real gloo rank of (2, 2): the dry run's cells on the CPU, and the
+    one-row decodes; ranks ``DRYRUN_RANKS`` write ``dryrun_real.<rank>.pt``."""
+    _join(rank, world, tmp)
+    mesh = make_device_mesh((2, 2), ("data", "model"))
+    res = {"cells": dryrun_cells("cpu"),
+           "whole_rows": {a: whole_rows_decode(a, mesh)
+                          for a in WHOLE_ROWS_ARCHS}}
+    if dist.get_rank() in DRYRUN_RANKS:
+        torch.save(res, os.path.join(tmp, f"dryrun_real.{dist.get_rank()}.pt"))
+    dist.barrier()
+    parallel.shutdown()
+
+
+def dryrun_fake(tmp: str) -> None:
+    """The dry run's cells on meta as each of ``DRYRUN_RANKS`` of a fake
+    group of 4, one after another; writes ``dryrun_fake.<rank>.pt``."""
+    from repro_torch.launch import dryrun as D
+    for rank in DRYRUN_RANKS:
+        with D.fake_group(4, rank):
+            res = {"cells": dryrun_cells("meta")}
+        torch.save(res, os.path.join(tmp, f"dryrun_fake.{rank}.pt"))
