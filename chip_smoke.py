@@ -196,7 +196,7 @@ Phases, each printing its own lines:
    weights from seed 0, bf16 activations, full width and full depth, each
    model freed before the next): zamba2-7b (81 Mamba2 blocks and one
    shared attention block applied 13 times, D 112), a prefill of
-   1 x 2,048 under the published ``block_masked`` (13 worklist calls, no
+   1 x 512 under the published ``block_masked`` (13 worklist calls, no
    flash launch) and under ``flash_pallas`` (13 bf16 launches, no plain
    version): bf16 logits within 5e-2 normwise of ``block_masked``'s, or
    within 1.5 times the bf16 floor (``dense_masked`` against
@@ -205,13 +205,13 @@ Phases, each printing its own lines:
    ms, tokens/s, peak
    memory, a ``torch.profiler`` breakdown by group (projections, SSD
    intra-chunk, chunk states and recurrence, conv, attention, casts) with
-   the idle share; decode ms a step at B 1 over 2,048 and 32,768 slots,
+   the idle share; decode ms a step at B 1 over 512 and 32,768 slots,
    ``generate`` 16 + 16, f32 decode against prefill over 64 tokens
    (2e-2); the kernel at the shared block's shape against its plain
    version, causal SDPA and its bound.  xlstm-1.3b (42 mLSTM and 6 sLSTM
    blocks): prefill, its kernels launched and idle share, decode,
    ``generate``, the f32 check.  seamless-m4t-large-v2 (24 + 24 layers):
-   2,048 frames and 2,048 tokens under ``block_masked`` (24 causal
+   512 frames and 512 tokens under ``block_masked`` (24 causal
    worklist calls, 24 bidirectional encoder layers on the dense path) and
    ``flash_pallas`` (24 non-causal then 24 causal launches), held as
    zamba2's; the encoder computed once, decode with cross-attention over it,
@@ -274,7 +274,7 @@ Phases, each printing its own lines:
    rank's peak memory (4 x the largest under the card's memory) and the
    link bytes a step by collective; block_masked twice a layer a step
    and no kernel launch.  (b) llama3.2-1b under flash_pallas on (data 1,
-   model 2): bf16 4 x 2,048 and f32 1 x 2,048 prefills on each rank's
+   model 2): bf16 4 x 512 and f32 1 x 512 prefills on each rank's
    heads (16 q, 4 K/V, D 64), each rank's vocabulary block of the logits
    within 5e-2 (bf16) and 1e-4 (f32) normwise of the one-rank prefill on
    the same weights; every flash launch on the Hopper kernels, one a
@@ -296,7 +296,7 @@ Phases, each printing its own lines:
    holds (printed): the one-device runs first, in a process of their own
    that exits before the ranks start, each model's parameters drawn one
    at a time from seeded generators (a rank draws each whole tensor and
-   keeps its slice).  Each config: a prefill of 1 x 2,048 positions,
+   keeps its slice).  Each config: a prefill of 1 x 512 positions,
    then 4 decode steps of 2 rows on a decode cache of 32,768 positions
    filled from a seed, from position 32,760; the ranks' prefill and
    decode logits and their cache slices (the written K/V and latent
@@ -311,16 +311,36 @@ Phases, each printing its own lines:
    (16, 16) production mesh on a fake process group of 256 ranks, for
    llama3.2-1b ``train_4k`` (16 sequences of 4,096 tokens, the rank's 2 q
    heads and 8,016 vocabulary rows) and ``prefill_32k`` on the flash
-   kernel (2 sequences of 32,768), first on meta tensors, then for real on
-   the card under the same group; the warm step's ms,
+   kernel (2 sequences of 32,768), and llama3.2-3b ``prefill_32k`` (24 q
+   heads on 16: rank 0 runs 2 of them, a heaviest rank), first on meta
+   tensors, then for real on the card under the same group; the warm
+   step's ms,
    ``max_memory_allocated`` within 0.93 to 1.07 times the dry run's
    predicted peak, and FLOP/s from the dry run's count; every flash
    launch of the prefill on the Hopper kernel.  A fake collective writes
    nothing, so the real rank's values are not checked; the flash
-   kernel's are, once at the prefill's shape (B 2, Hq 2, Hkv 1, S
-   32,768, D 64, causal) against a plain f32 softmax over chunks of
-   queries (3e-2, 2e-3 normwise);
-22. one JSON line with every kernel's numbers, then the result line
+   kernel's are, once at each prefill's shape (B 2, Hq 2, Hkv 1, S
+   32,768, D 64 and D 128, causal) against a plain f32 softmax over
+   chunks of queries (3e-2, 2e-3 normwise), the D 128 one also timed
+   beside causal SDPA;
+22. uneven-tp (after phase 21): q heads that do not divide the model
+   axis.  starcoder2-7b at full width (36 q / 4 K/V heads of 128, qkv
+   biases drawn from a seed, window 4,096), f32, its depth cut to 2 of 32
+   layers, on (data 1, model 8): eight gloo ranks on ``cuda:0``, rank i
+   running the i-th block of whole q heads (four ranks of 5, four of 4;
+   ranks whose heads straddle a K/V group read their K/V heads once per q
+   head) from ``wq`` and ``wo`` gathered whole.  A 1 x 512 prefill on
+   flash_pallas, 4 decode steps of 2 rows on a seeded 4,096-slot cache
+   (T split over the ranks) from position 4,094, and one training step of
+   1 x 512 on block_masked, each against the one-device run of the same
+   weights (in the script's own process, first): logits and written cache
+   slots within the larger of 1e-4 and 4 x the model's one-ulp response
+   normwise, the loss within 1e-4 relative; every flash launch on the
+   f32 Hopper kernel; rank 1's (5 heads, K/V per q head) flash call
+   within 2e-5 of ``flash_mask_plain`` on its own inputs, and the kernel's
+   ms at that shape beside plain, SDPA and the bound.  Each rank's heads,
+   link bytes by collective and peak are printed;
+23. one JSON line with every kernel's numbers, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Wherever phases 4, 6, 7, 11, 12 and 13 drive the path, every block
@@ -4707,9 +4727,11 @@ def families_phase(dev, flash_warm_ms: float):
 # ---------------------------------------------------------------------------
 
 
-#: the phase's prefill: 1 x 2,048 tokens (and 2,048 frames for seamless,
-#: which the reference's ``concrete_batch`` makes as long as the tokens)
-FAMILIES2_SEQ = 2048
+#: the phase's prefill: 1 x 512 tokens (and 512 frames for seamless,
+#: which the reference's ``concrete_batch`` makes as long as the tokens),
+#: at full depth; 2,048 until the script had to pay for phase 22 (xlstm's
+#: sLSTM runs one step a token a block: 3,072 steps now, 12,288 then)
+FAMILIES2_SEQ = 512
 #: zamba2-7b's long decode cache: decode_32k's length
 ZAMBA_LONG_CACHE = 32768
 #: tokens of the f32 decode-vs-prefill checks
@@ -4895,11 +4917,11 @@ def flash_agreement(model, cfg, batch_in, flash_logits, logits, dev,
 def zamba_phase(dev, smoke: bool = False):
     """zamba2-7b at full width and depth (81 Mamba2 blocks and 13
     applications of one shared attention block, D 112): a bf16 prefill
-    of 1 x 2,048 under the published block_masked (13 worklist calls) and
+    of 1 x 512 under the published block_masked (13 worklist calls) and
     under flash_pallas (13 launches of the bf16 kernel, no plain version),
     held to each other as ``flash_agreement`` says; the profile by group;
     decode ms a
-    step over 2,048 and 32,768 slots; ``generate``; the f32
+    step over 512 and 32,768 slots; ``generate``; the f32
     decode-vs-prefill check over 64 tokens; the kernel at the shared
     block's shape.  Returns the phase's numbers and the kernel's JSON
     entry."""
@@ -4992,7 +5014,7 @@ def zamba_phase(dev, smoke: bool = False):
 
 def xlstm_phase(dev, smoke: bool = False) -> dict:
     """xlstm-1.3b at full width and depth (6 super-blocks of 7 mLSTM and
-    one sLSTM block): a bf16 prefill of 1 x 2,048 (no attention, no
+    one sLSTM block): a bf16 prefill of 1 x 512 (no attention, no
     kernel of the port), its device profile (kernels launched, idle
     share), decode ms a step, ``generate`` and the f32 decode-vs-prefill
     check over 64 tokens.  The sLSTM's per-token loop is the reference's
@@ -5036,7 +5058,7 @@ def xlstm_phase(dev, smoke: bool = False) -> dict:
 
 def seamless_phase(dev, smoke: bool = False):
     """seamless-m4t-large-v2 at full width and depth (24 encoder and 24
-    decoder layers): frames 1 x 2,048 x 1,024 and tokens 1 x 2,048; a
+    decoder layers): frames 1 x 512 x 1,024 and tokens 1 x 512; a
     bf16 prefill under block_masked (24 causal worklist calls in the
     decoder, the encoder's 24 bidirectional layers on the dense path) and
     under flash_pallas (24 non-causal encoder and 24 causal decoder
@@ -5824,8 +5846,10 @@ SHARDED_BATCH = 2
 SHARDED_SEQ = 2048
 SHARDED_STEPS = 3
 SHARDED_LOSS_TOL = 1e-4
-#: (b): the tensor-parallel flash prefills on (data 1, model 2)
-TP_PREFILLS = (("bfloat16", (4, 2048), 5e-2), ("float32", (1, 2048), 1e-4))
+#: (b): the tensor-parallel flash prefills on (data 1, model 2), at full
+#: depth; 4 x 2,048 and 1 x 2,048 until the script had to pay for phase
+#: 22 (their time is gloo's host copies of activations)
+TP_PREFILLS = (("bfloat16", (4, 512), 5e-2), ("float32", (1, 512), 1e-4))
 #: (c): moonshot's expert-parallel prefill, 1 x 2,048 f32 tokens
 EP_SEQ = 2048
 EP_TOL = 1e-4
@@ -6169,8 +6193,9 @@ def sharded_prefills(tmp: str) -> dict:
         sm90 = [g["llama"][dtype]["counts"]["sm90"] for g in ranks]
         print(f"tp-prefill: llama3.2-1b {dtype} {res['shape'][0]} x "
               f"{res['shape'][1]} on (data 1, model 2), heads a rank "
-              f"(q, first K/V, end K/V) {res['local_heads']}: normwise "
-              f"{errs} (limit {res['tol']}); sm90 flash launches a rank "
+              f"(first q, end q, first K/V, end K/V) {res['local_heads']}: "
+              f"normwise {errs} (limit {res['tol']}); sm90 flash launches a "
+              f"rank "
               f"{sm90}; warm {res['warm_ms']:.1f} ms; {CARD}")
     mo = r0["moonshot"]
     errs = [g["moonshot"]["normwise"] for g in ranks]
@@ -6270,9 +6295,11 @@ def sharded_phase(dev) -> dict:
 TP_ARCHS = ("deepseek_v2_lite_16b", "zamba2_7b", "xlstm_1_3b",
             "seamless_m4t_large_v2", "internvl2_2b")
 TP_MESH = (1, 2)
-#: serving: a prefill of 1 x 2,048 positions; 4 decode steps of 2 rows on a
+#: serving: a prefill of 1 x 512 positions (2,048 until the script had to
+#: pay for phase 22: its time is gloo's host copies of activations, which
+#: scale with tokens, and the depth stays full); 4 decode steps of 2 rows on a
 #: cache of decode_32k's length filled from a seed, from position 32,760
-TP_SEQ = 2048
+TP_SEQ = 512
 TP_CACHE = 32768
 TP_ROWS = 2
 TP_START = 32760
@@ -6343,10 +6370,11 @@ def tp_depth(cfg, free: int) -> int:
 def seeded_model(cfg, dev, mesh=None, seed: int = 0):
     """``cfg``'s model with every random parameter drawn whole on ``dev``
     from a generator of its own (seeded by ``seed`` and its place in
-    ``named_parameters``), normal over sqrt(fan-in), the constant ones
-    (norms, biases) as built; with ``mesh``, sharded first (on the meta
-    device) and each whole tensor cut to this rank's slice as it is drawn,
-    so no rank ever holds the whole model."""
+    ``named_parameters``), normal over sqrt(fan-in), and the attention's
+    q/k/v biases normal times 0.1 (so a rank's slice of them counts), the
+    constant ones (norms, other biases) as built; with ``mesh``, sharded
+    first (on the meta device) and each whole tensor cut to this rank's
+    slice as it is drawn, so no rank ever holds the whole model."""
     from repro_torch.models import common as C
     from repro_torch.models import xlstm as XL
     mods = (C, L, SSD, XL, T)
@@ -6365,35 +6393,37 @@ def seeded_model(cfg, dev, mesh=None, seed: int = 0):
         shard_model(model, mesh, zero1=False)
         lay = model.shard_layout
     for i, (name, p) in enumerate(list(model.named_parameters())):
-        if not p.is_meta:
+        owner, _, pname = name.rpartition(".")
+        drawn = pname in ("bq", "bk", "bv")
+        if not p.is_meta and not drawn:
             new = p.detach().to(dev)
         else:
             shape = lay.params[name].shape if lay is not None else p.shape
             g = torch.Generator(device=dev).manual_seed(seed * 100003 + i)
             fan = shape[-2] if len(shape) >= 2 else shape[-1]
-            new = torch.randn(shape, generator=g, device=dev) / math.sqrt(fan)
+            new = torch.randn(shape, generator=g, device=dev) * (
+                0.1 if drawn else 1 / math.sqrt(fan))
             if lay is not None:
                 new = shard_tensor(new, lay.params[name], lay.axes,
                                    moment=False, zero1=False).clone()
-        owner, _, pname = name.rpartition(".")
         setattr(model.get_submodule(owner), pname,
                 torch.nn.Parameter(new, requires_grad=False))
         del new
     return model
 
 
-def seeded_cache(cfg, dev, model=None, seed: int = 0):
-    """The decode cache of ``TP_ROWS`` rows and ``TP_CACHE`` positions,
+def seeded_cache(cfg, dev, model=None, seed: int = 0, rows: int = TP_ROWS,
+                 length: int = TP_CACHE):
+    """The decode cache of ``rows`` rows and ``length`` positions,
     every tensor drawn one stacked layer at a time on ``dev`` from a
     generator of its own: normal draws times 0.5, the stabilisers ``m``
     unscaled and the sLSTM's normaliser ``n`` as 1 + |x|; with a sharded
     ``model``, this rank's slices (``init_sharded_cache``)."""
-    whole = T.init_cache(cfg, TP_ROWS, TP_CACHE, device="meta")
+    whole = T.init_cache(cfg, rows, length, device="meta")
     if model is None:
-        local = T.init_cache(cfg, TP_ROWS, TP_CACHE, device=dev)
+        local = T.init_cache(cfg, rows, length, device=dev)
     else:
-        local = T.init_sharded_cache(model, cfg, TP_ROWS, TP_CACHE,
-                                     device=dev)
+        local = T.init_sharded_cache(model, cfg, rows, length, device=dev)
     leaves = []
     cache_map(lambda path, t: leaves.append((path, t)), whole)
     for j, (path, t) in enumerate(leaves):
@@ -6418,7 +6448,7 @@ def seeded_cache(cfg, dev, model=None, seed: int = 0):
 
 def tp_inputs(cfg, dev) -> dict:
     """The prefill batch (1 x ``TP_SEQ`` positions: the VLM's 256 image
-    tokens and 1,792 tokens; the encoder-decoder's frames and tokens), the
+    tokens and 256 tokens; the encoder-decoder's frames and tokens), the
     decode tokens (``TP_ROWS`` x ``TP_STEPS``) and the decode's frames."""
     g = torch.Generator(device=dev).manual_seed(2)
     tok = lambda *s: torch.randint(0, cfg.vocab_size, s, generator=g,
@@ -6437,11 +6467,12 @@ def tp_inputs(cfg, dev) -> dict:
     return out
 
 
-def compared_cache(cache) -> dict:
-    """What a decode check compares of a cache: the written slots of the
-    K/V and latent caches (T at ``TP_START`` .. + ``TP_STEPS``), every
+def compared_cache(cache, slots=tuple(range(TP_START, TP_START + TP_STEPS))
+                   ) -> dict:
+    """What a decode check compares of a cache: the written ``slots`` of
+    the K/V and latent caches (T at ``TP_START`` .. + ``TP_STEPS``), every
     recurrent state whole; ``{(group, name): tensor}``."""
-    slots = list(range(TP_START, TP_START + TP_STEPS))
+    slots = list(slots)
     out = {}
     for group, leaves in cache.items():
         for name, t in (leaves or {}).items():
@@ -6542,11 +6573,12 @@ def ulp_floor(model, cfg, batch, logits, log, plain) -> float:
     return normwise(moved, logits)
 
 
-def tp_cache_err(model, cache, want: dict, tp) -> float:
-    """||cache - want|| / ||want|| over ``compared_cache``, each rank's
-    slices against the same slices of the one-device tensors (a written
-    slot counted by the rank that holds it, a tensor the model axis does
-    not split by model rank 0), summed over the axis."""
+def tp_cache_err(model, cache, want: dict, tp,
+                 slots=tuple(range(TP_START, TP_START + TP_STEPS))) -> float:
+    """||cache - want|| / ||want|| over ``compared_cache`` of ``slots``,
+    each rank's slices against the same slices of the one-device tensors
+    (a written slot counted by the rank that holds it, a tensor the model
+    axis does not split by model rank 0), summed over the axis."""
     from repro_torch.models.common import axis_dim
     axes = model.shard_layout.axes
     dev = next(iter(cache.values()))
@@ -6560,17 +6592,15 @@ def tp_cache_err(model, cache, want: dict, tp) -> float:
         mdim = axis_dim(spec, "model")
         if d is not None and mdim == d:          # T split: held slots only
             t_loc = t.shape[d]
-            held = [s for s in range(TP_START, TP_START + TP_STEPS)
-                    if s // t_loc == tp.index]
+            held = [j for j, s in enumerate(slots) if s // t_loc == tp.index]
             if not held:
                 continue
             got = t.index_select(d, torch.tensor(
-                [s - tp.index * t_loc for s in held], device=t.device))
-            w = w.index_select(d, torch.tensor(
-                [s - TP_START for s in held], device=t.device))
+                [slots[j] - tp.index * t_loc for j in held], device=t.device))
+            w = w.index_select(d, torch.tensor(held, device=t.device))
         else:
-            got = t if d is None else t.index_select(d, torch.arange(
-                TP_START, TP_START + TP_STEPS, device=t.device))
+            got = t if d is None else t.index_select(d, torch.tensor(
+                list(slots), device=t.device))
             w = cache_slice(w, spec, axes)
             if mdim is None and tp.index != 0:
                 continue
@@ -6800,7 +6830,8 @@ def tp_phase(dev) -> dict:
 #: the cells of the phase, (arch, shape, attn_impl): rank 0 of the (16,
 #: 16) mesh on a fake group of 256, on meta and then for real on the card
 DRYRUN_CELLS = (("llama3_2_1b", "train_4k", None),
-                ("llama3_2_1b", "prefill_32k", "flash_pallas"))
+                ("llama3_2_1b", "prefill_32k", "flash_pallas"),
+                ("llama3_2_3b", "prefill_32k", "flash_pallas"))
 #: the measured peak over the dry run's prediction (arguments + temp) must
 #: lie in this range: the caching allocator rounds each block up to 512
 #: bytes, keeps the cuBLAS workspaces and frees in the device thread's
@@ -6808,9 +6839,11 @@ DRYRUN_CELLS = (("llama3_2_1b", "train_4k", None),
 #: on one H100); a tally that missed a layer's saved activations or the
 #: moments falls outside it
 DRYRUN_PEAK_RANGE = (0.93, 1.07)
-#: the flash check at the prefill_32k rank's shape: (B, Hq, Hkv, S, D),
-#: and the queries of the plain reference's chunks
-DRYRUN_FLASH_SHAPE = (2, 2, 1, 32768, 64)
+#: the flash checks at the prefill_32k ranks' shapes: (B, Hq, Hkv, S, D)
+#: by arch (llama3.2-3b's rank 0 runs 2 of its 24 heads, both reading K/V
+#: head 0), and the queries of the plain reference's chunks
+DRYRUN_FLASH_SHAPES = {"llama3_2_1b": (2, 2, 1, 32768, 64),
+                       "llama3_2_3b": (2, 2, 1, 32768, 128)}
 DRYRUN_FLASH_CHUNK = 2048
 #: a child process that imports neither JAX nor the reference: each cell
 #: on meta, then on ``cuda:0`` (the step once under the counters, once
@@ -6836,18 +6869,21 @@ print(json.dumps(out))
 """
 
 
-def dryrun_flash_check(dev) -> dict:
-    """The flash wrapper once on card tensors at the shape phase 21's
-    ``prefill_32k`` rank gives it (``DRYRUN_FLASH_SHAPE``, causal, the
+def dryrun_flash_check(dev, shape=DRYRUN_FLASH_SHAPES["llama3_2_1b"],
+                       timed: bool = False) -> dict:
+    """The flash wrapper once on card tensors at the shape a phase 21
+    ``prefill_32k`` rank gives it (``DRYRUN_FLASH_SHAPES``, causal, the
     config's 128-blocks; 0.5 randn in bf16 from seed 11) against a plain
     f32 softmax over ``DRYRUN_FLASH_CHUNK`` queries at a time, rounded
     to bf16 (what ``flash_mask_plain`` computes, without its 32,896 tile
     steps): within
     the sweep's 3e-2 and 2e-3 normwise, on the Hopper kernel.  An index
     or offset that overflows at S 32,768 shows here; the dry run's
-    real rank, whose collectives write nothing, cannot show it."""
+    real rank, whose collectives write nothing, cannot show it.  With
+    ``timed``, the kernel's ms at that shape beside causal SDPA's and the
+    bound (``flash_mask_plain``'s 32,896 tile steps are not timed)."""
     from repro_torch.kernels.flash_mask.ops import flash_mask_attention
-    b, hq, hkv, s, d = DRYRUN_FLASH_SHAPE
+    b, hq, hkv, s, d = shape
     g = torch.Generator(device=dev).manual_seed(11)
     q, k, v = ((torch.randn(shape, generator=g, device=dev) * 0.5)
                .to(torch.bfloat16)
@@ -6885,15 +6921,39 @@ def dryrun_flash_check(dev) -> dict:
     print(f"{what}: against a plain f32 softmax in chunks of "
           f"{DRYRUN_FLASH_CHUNK} queries, max abs err {err:.3g}, normwise "
           f"{rel:.3g} (limits 3e-2, 2e-3 normwise); 1 sm90 launch")
-    del q, k, v, kf, vf, got
+    del kf, vf, got
+    out = {"shape": list(shape), "max_abs_err": err, "normwise": rel}
+    if timed:
+        sched = [torch.as_tensor(x, device=dev) for x in flash.build_schedule(
+            s, s, bq=128, bk=128, q_offset=0, **FLASH_PATTERNS[0])]
+        kw = dict(bq=128, bk=128, scale=d ** -0.5, q_offset=0,
+                  **FLASH_PATTERNS[0])
+        out["ms"] = chained_ms(lambda: flash.flash_mask_kernel(
+            q, k, v, *sched, **kw), dev, calls=3, reps=3)
+        out["library_ms"] = chained_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=hq != hkv), dev,
+            calls=3, reps=3)
+        flops = 4.0 * b * hq * d * s * (s + 1) / 2
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) \
+            + 12 * int(sched[0].shape[0])
+        out["bound_ms"], out["bound_by"] = bound(flops, nbytes,
+                                                 PEAK_BF16_FLOPS)
+        out["plain_ms"] = None
+        print(f"{what}: kernel {out['ms']:.3f} ms, causal SDPA "
+              f"{out['library_ms']:.3f} ms, bound {out['bound_ms']:.4f} ms "
+              f"(by {out['bound_by']}); plain not timed (32,896 tile "
+              f"steps); {CARD}")
+    del q, k, v
     free_port_memory(dev)
-    return {"shape": list(DRYRUN_FLASH_SHAPE), "max_abs_err": err,
-            "normwise": rel}
+    return out
 
 
 def dryrun_phase(dev) -> dict:
     """Phase 21: ``repro_torch.launch.dryrun``'s rank 0 of llama3.2-1b's
-    ``train_4k`` and ``prefill_32k`` (on the flash kernel) cells, on meta
+    ``train_4k`` and ``prefill_32k`` (on the flash kernel) cells and of
+    llama3.2-3b's ``prefill_32k`` (24 q heads on 16: rank 0 runs 2, a
+    heaviest rank), on meta
     and for real on the card under the same fake group; the measured peak
     must lie within ``DRYRUN_PEAK_RANGE`` of the predicted one, and every
     flash launch of the prefill must run the Hopper kernel.  A fake
@@ -6934,7 +6994,7 @@ def dryrun_phase(dev) -> dict:
                   f"layer a step ({want}): {c['flash']}")
         cut = lambda res: res["cost_analysis"]["flops"] - \
             res["cost_analysis"]["kernel_flops"]
-        out["cells"][f"{shape}"] = v = {
+        out["cells"][f"{arch}/{shape}"] = v = {
             "attn_impl": meta["attn_impl"], "step_ms": ms,
             "predicted_peak": pred, "measured_peak": got,
             "card_tally_peak": real["memory_analysis"]["peak_bytes"],
@@ -6946,7 +7006,8 @@ def dryrun_phase(dev) -> dict:
             "temp": meta["memory_analysis"]["temp_size_in_bytes"],
             "links": meta["collective_bytes_per_device"],
             "collectives": meta["collective_op_counts"],
-            "flash": c["flash"], "seconds_meta": meta["seconds_lower"],
+            "flash": c["flash"], "tp_heads": meta.get("tp_heads"),
+            "seconds_meta": meta["seconds_lower"],
             "seconds_card": real["seconds_lower"]}
         print(f"dryrun: {arch} {shape} ({v['attn_impl']}), rank 0 of "
               f"(16, 16) on a fake group of 256: warm step {ms:.1f} ms on "
@@ -6959,10 +7020,344 @@ def dryrun_phase(dev) -> dict:
               f"flash kernel's) = {v['flops_per_s'] / 1e12:.1f} TFLOP/s "
               f"without its links (the card's own count agrees: "
               f"{v['card_flops_agree']}); link bytes a step "
-              f"{json.dumps(v['links'])}; flash launches {c['flash']}; "
+              f"{json.dumps(v['links'])}; flash launches {c['flash']}; q "
+              f"heads a rank [most, fewest] {v['tp_heads']}; "
               f"values not checked (a fake collective writes nothing); "
               f"{CARD}")
-    out["flash_check"] = dryrun_flash_check(dev)
+    out["flash_check"] = {a: dryrun_flash_check(dev, shp, timed=a != (
+        "llama3_2_1b")) for a, shp in DRYRUN_FLASH_SHAPES.items()}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 22: q heads that do not divide the model axis
+# ---------------------------------------------------------------------------
+
+#: starcoder2-7b at full width (d 4,608, 36 q / 4 K/V heads of 128, qkv
+#: biases, window 4,096) in f32 on (data 1, model 8): the only config whose
+#: q heads do not divide an axis that one card's ranks can form (four ranks
+#: of 5 heads, four of 4).  Its depth is cut to 2 of 32 layers: every layer
+#: runs the same code, and a layer costs each of the eight ranks two
+#: gathers of the whole ``wq`` and ``wo`` (85 MB each in f32) through
+#: gloo's host copies per forward, so the phase's time grows with the
+#: layers; 2 keeps it near a minute inside the script's limit
+UNEVEN_ARCH = "starcoder2_7b"
+UNEVEN_MESH = (1, 8)
+UNEVEN_LAYERS = 2
+#: serving: a 1 x 512 prefill on flash_pallas, and 4 decode steps of 2
+#: rows on a seeded cache of one window (4,096 slots; the 4 K/V heads do
+#: not divide 8, so T splits, 512 slots a rank) from position 4,094: the
+#: written slots wrap from rank 7's block to rank 0's
+UNEVEN_SEQ = 512
+UNEVEN_CACHE = 4096
+UNEVEN_ROWS = 2
+UNEVEN_START = 4094
+UNEVEN_STEPS = 4
+#: training: one step of 1 x 512 tokens on block_masked
+UNEVEN_TRAIN_SEQ = 512
+#: the rank whose first flash call is held to ``flash_mask_plain`` at its
+#: shape (the f32 sweep's 2e-5): 5 q heads (5..9) that read K/V heads 0
+#: and 1, so its K/V heads are indexed once per q head (Hkv 5)
+UNEVEN_FLASH_RANK = 1
+UNEVEN_FLASH_TOL = 2e-5
+
+
+def uneven_config(impl: str):
+    return get_config(UNEVEN_ARCH).replace(
+        dtype="float32", n_layers=UNEVEN_LAYERS, attn_impl=impl)
+
+
+class flash_capture:
+    """Within the block, the path's first ``flash_mask_kernel`` call's
+    arguments and output are kept as ``call`` (the wrapper counts its
+    launches as ever)."""
+
+    def __enter__(self):
+        self.saved, self.call = flash_ops.flash_mask_kernel, None
+
+        def wrapped(*args, **kw):
+            out = self.saved(*args, **kw)
+            if self.call is None:
+                self.call = (args, kw, out)
+            return out
+        flash_ops.flash_mask_kernel = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        flash_ops.flash_mask_kernel = self.saved
+
+
+def flash_call_vs_plain(call, tol: float) -> dict:
+    """A captured flash call's output against ``flash_mask_plain`` on its
+    own arguments: elementwise within ``tol`` (rtol and atol); its shape,
+    max abs error and normwise error."""
+    (q, k, v, qi, ki, flags), kw, got = call
+    kw = {n: x for n, x in kw.items() if n != "variant"}
+    want = flash.flash_mask_plain(q, k, v, qi, ki, flags, **kw)
+    diff = got.float() - want.float()
+    return {"q": list(q.shape), "k": list(k.shape),
+            "max_abs_err": float(diff.abs().max()),
+            "normwise": float(diff.norm() / want.float().norm()),
+            "within": bool(torch.allclose(got.float(), want.float(),
+                                          rtol=tol, atol=tol)),
+            "window": kw["window"], "causal": kw["causal"]}
+
+
+def uneven_run(dev, tmp: str, mesh=None) -> dict:
+    """Phase 22's prefill, decode steps and train step on one device (the
+    whole results saved under ``tmp``) or on this rank of ``mesh`` (held
+    against them)."""
+    cfg = uneven_config("flash_pallas")
+    slots = [(UNEVEN_START + i) % UNEVEN_CACHE for i in range(UNEVEN_STEPS)]
+    path = os.path.join(tmp, "uneven-one.pt")
+    saved = None
+    torch.cuda.reset_peak_memory_stats(dev)
+    parallel.reset_link_bytes()
+    t0 = time.perf_counter()
+    model = seeded_model(cfg, dev, mesh)
+    cache = seeded_cache(cfg, dev, model if mesh is not None else None,
+                         rows=UNEVEN_ROWS, length=UNEVEN_CACHE)
+    g = torch.Generator(device=dev).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (1, UNEVEN_SEQ), generator=g,
+                           device=dev, dtype=torch.int32)
+    dec = torch.randint(0, cfg.vocab_size, (UNEVEN_ROWS, UNEVEN_STEPS),
+                        generator=g, device=dev, dtype=torch.int32)
+    sync(dev)
+    out = {"build_s": time.perf_counter() - t0,
+           "heads": list(model.blocks[0].attn.tp_heads(cfg))}
+    with flash_capture() as cap:
+        reset_counts()
+        t0 = time.perf_counter()
+        logits = T.forward(model, cfg, {"tokens": tokens})
+        sync(dev)
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        out["flash"] = flash_counts()
+    out["expected_sm90"] = sm90_expected(cfg, UNEVEN_SEQ, out["flash"]["tc"],
+                                         torch.float32)
+    out["flash_shape"] = {"q": list(cap.call[0][0].shape),
+                          "k": list(cap.call[0][1].shape)}
+    if mesh is not None and parallel.mesh_axes(mesh)["model"].index \
+            == UNEVEN_FLASH_RANK:
+        out["flash_vs_plain"] = flash_call_vs_plain(cap.call,
+                                                    UNEVEN_FLASH_TOL)
+    del cap
+    steps, times = [], []
+    for i in range(UNEVEN_STEPS):
+        pos = torch.full((UNEVEN_ROWS,), UNEVEN_START + i, dtype=torch.int32,
+                         device=dev)
+        sync(dev)
+        t = time.perf_counter()
+        lg, cache = T.decode_step(model, cfg, dec[:, i], cache, pos)
+        sync(dev)
+        times.append((time.perf_counter() - t) * 1e3)
+        steps.append(lg)
+    decoded = torch.stack(steps)
+    out["decode_ms"] = times
+    out["finite"] = bool(torch.isfinite(logits).all()
+                         and torch.isfinite(decoded).all())
+    out["serve_peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2**20
+    if mesh is None:
+        out["floor"] = ulp_floor(model, cfg, {"tokens": tokens}, logits,
+                                 routing_log(), contextlib.nullcontext())
+        torch.save({"prefill": logits, "decode": decoded,
+                    "cache": compared_cache(cache, slots)}, path)
+    else:
+        saved = torch.load(path, map_location="cpu")
+        tp = parallel.mesh_axes(mesh)["model"]
+        lo, n = model.vocab_start(), logits.shape[-1]
+        out["prefill_err"] = blocks_normwise(
+            logits, saved["prefill"][..., lo:lo + n].to(dev), tp)
+        out["decode_err"] = normwise(decoded, saved["decode"].to(dev))
+        out["cache_err"] = tp_cache_err(model, cache, saved["cache"], tp,
+                                        slots)
+        out["cache_split"] = model.cache_layout["specs"]["dense"]["k"]
+    del model, cache, logits, decoded, saved
+    free_port_memory(dev)
+    # one train step on block_masked, from the same seed on both sides
+    cfg = uneven_config("block_masked")
+    opt = sharded_opt()
+    pipe = SyntheticLM(cfg.vocab_size, UNEVEN_TRAIN_SEQ, 1, seed=0)
+    if mesh is None:
+        state = init_state(cfg, opt, seed=0, device=dev)
+        step = make_train_step(cfg, opt)
+    else:
+        state = init_sharded_state(cfg, opt, mesh, seed=0, device=dev)
+        step = sharded_train_step(cfg, opt, mesh)
+    batch = batch_for(cfg, pipe, 0, device=dev, shard=(0, 1))
+    sync(dev)
+    t = time.perf_counter()
+    state, m = step(state, batch)
+    out["loss"] = float(m["loss"])
+    out["train_ms"] = (time.perf_counter() - t) * 1e3
+    out["peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2**20
+    out["links"] = {f"{c}/{b}": n for (c, b), n
+                    in parallel.LINK_BYTES.items()}
+    del state, step
+    free_port_memory(dev)
+    return out
+
+
+def uneven_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of ``UNEVEN_MESH``: phase 22's sharded runs."""
+    ranks = sharded_join(rank, world, tmp)
+    mesh = make_device_mesh(UNEVEN_MESH, ("data", "model"))
+    rank_result(tmp, "uneven-rank", rank, uneven_run(ranks.device, tmp,
+                                                     mesh))
+    parallel.shutdown()
+
+
+def uneven_flash_times(dev, q, k, v, kw: dict) -> dict:
+    """The flash wrapper's ms at a path's shape beside
+    ``flash_mask_plain``'s, SDPA's under the same mask and the bound at the
+    allowed elements (f32 in three TF32 passes, bf16 at its peak)."""
+    sched = [torch.as_tensor(x, device=dev) for x in flash.build_schedule(
+        q.shape[2], k.shape[2], bq=kw["bq"], bk=kw["bk"],
+        q_offset=kw["q_offset"], causal=kw["causal"], window=kw["window"],
+        prefix=kw["prefix"])]
+    ms = chained_ms(lambda: flash.flash_mask_kernel(q, k, v, *sched, **kw),
+                    dev)
+    plain_ms = device_ms(lambda: flash.flash_mask_plain(q, k, v, *sched,
+                                                        **kw),
+                         dev, reps=3, warm=1)
+    s = q.shape[2]
+    keys = torch.arange(s, device=dev)
+    ok = keys[None, :] <= keys[:, None]
+    if kw["window"] > 0:
+        ok &= (keys[:, None] - keys[None, :]) < kw["window"]
+    library_ms = chained_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=ok), dev)
+    allowed = int(mask_allowed(s, s, causal=kw["causal"],
+                               window=kw["window"], prefix=kw["prefix"],
+                               q_offset=kw["q_offset"]).sum())
+    b, hq, _, d = q.shape
+    flops = 4.0 * b * hq * allowed * d
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
+        + 12 * int(sched[0].shape[0])
+    f32 = q.dtype == torch.float32
+    bound_ms, by = bound(3 * flops if f32 else flops, nbytes,
+                         PEAK_TF32_FLOPS if f32 else PEAK_BF16_FLOPS)
+    return {"shape": [b, hq, k.shape[1], s, d], "dtype": str(q.dtype),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": by,
+            "chosen": flash.choose_variant(None, q, k, v, kw["bq"],
+                                           kw["bk"])}
+
+
+def uneven_tp_phase(dev) -> dict:
+    """Phase 22: starcoder2-7b's 36 q heads on (data 1, model 8), eight
+    gloo ranks on the card, against the one-device run of the same weights
+    and inputs: the prefill's logits, the decode steps' logits and written
+    cache slots within the larger of ``TP_TOL`` and ``TP_FLOOR_TIMES`` x
+    the model's one-ulp response, normwise; the train step's loss within
+    ``TP_TOL``; every flash launch on the f32 Hopper kernel, and the
+    5-head rank's flash call within ``UNEVEN_FLASH_TOL`` of plain.  The
+    one-device run is this process's, first; the ranks are spawned.  Then
+    the flash kernel's ms at that rank's shape.  Returns its numbers
+    (printed on an ``uneven numbers:`` line)."""
+    free = free_port_memory(dev)
+    tmp = tempfile.mkdtemp(prefix="uneven-")
+    world = math.prod(UNEVEN_MESH)
+    try:
+        t0 = time.perf_counter()
+        one = uneven_run(dev, tmp)
+        t1 = time.perf_counter()
+        spawn_ranks(uneven_rank, world, tmp)
+        t2 = time.perf_counter()
+        ranks = rank_results(tmp, "uneven-rank", world)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cfg = uneven_config("flash_pallas")
+    tol = max(TP_TOL, TP_FLOOR_TIMES * one["floor"])
+    check(one["flash"]["tc"] == one["flash"]["sm90"] == UNEVEN_LAYERS,
+          f"uneven one device: the f32 Hopper flash kernel once a layer: "
+          f"{one['flash']}")
+    for r, res in enumerate(ranks):
+        what = f"uneven rank {r}"
+        want = L.head_blocks(cfg.n_heads, cfg.n_kv_heads, world, r)
+        check(tuple(res["heads"]) == want, f"{what}: heads {res['heads']} "
+              f"are the balanced block {want}")
+        check(res["finite"], f"{what}: finite logits")
+        for k in ("prefill_err", "decode_err", "cache_err"):
+            check(res[k] <= tol, f"{what}: {k} {res[k]:.3g} within "
+                  f"{tol:.3g} normwise of the one-device run (the larger of "
+                  f"{TP_TOL} and {TP_FLOOR_TIMES} x its one-ulp response "
+                  f"{one['floor']:.3g})")
+        c = res["flash"]
+        check(c["tc"] == c["f32"] == c["sm90"] == res["expected_sm90"]
+              == UNEVEN_LAYERS, f"{what}: the f32 Hopper flash kernel once "
+              f"a layer ({UNEVEN_LAYERS}): {c}")
+        check(abs(res["loss"] - one["loss"]) <= TP_TOL * abs(one["loss"]),
+              f"{what}: train loss {res['loss']} within {TP_TOL} of the "
+              f"one-device step's {one['loss']}")
+        check(res["cache_split"][3] == "model", f"{what}: the cache splits "
+              f"T ({res['cache_split']})")
+    fv = ranks[UNEVEN_FLASH_RANK]["flash_vs_plain"]
+    check(fv["within"] and fv["q"][1] == fv["k"][1] == 5,
+          f"uneven rank {UNEVEN_FLASH_RANK}: its flash call (q {fv['q']}, "
+          f"k {fv['k']}) within {UNEVEN_FLASH_TOL} of flash_mask_plain "
+          f"(max abs err {fv['max_abs_err']:.3g})")
+    # the kernel's time at that rank's shape (0.5 randn from seed 7)
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn(tuple(fv["q"]), generator=g, device=dev) * 0.5
+               for _ in range(3))
+    blk = min(cfg.attn_block, UNEVEN_SEQ)
+    times = uneven_flash_times(dev, q, k, v, dict(
+        bq=blk, bk=blk, scale=cfg.hd ** -0.5, causal=True,
+        window=cfg.window, prefix=0, q_offset=0))
+    del q, k, v
+    free_port_memory(dev)
+    out = {"free_gib": free / 2**30, "one_device_s": t1 - t0,
+           "ranks_s": t2 - t1, "layers": UNEVEN_LAYERS,
+           "of": get_config(UNEVEN_ARCH).n_layers, "tol": tol,
+           "ulp_floor": one["floor"],
+           "heads": [r["heads"] for r in ranks],
+           "prefill_err": [r["prefill_err"] for r in ranks],
+           "decode_err": [r["decode_err"] for r in ranks],
+           "cache_err": [r["cache_err"] for r in ranks],
+           "loss": [r["loss"] for r in ranks], "one_device_loss": one["loss"],
+           "flash_sm90": [r["flash"]["sm90"] for r in ranks],
+           "flash_shapes": [r["flash_shape"] for r in ranks],
+           "flash_vs_plain": fv, "flash_times": times,
+           "prefill_ms": [r["prefill_ms"] for r in ranks],
+           "one_device_prefill_ms": one["prefill_ms"],
+           "decode_ms": [r["decode_ms"] for r in ranks],
+           "one_device_decode_ms": one["decode_ms"],
+           "train_ms": [r["train_ms"] for r in ranks],
+           "one_device_train_ms": one["train_ms"],
+           "peak_mib": [r["peak_mib"] for r in ranks],
+           "one_device_peak_mib": one["peak_mib"],
+           "links": [r["links"] for r in ranks]}
+    for r, res in enumerate(ranks):
+        print(f"uneven: rank {r} of (data, model) {UNEVEN_MESH}: q heads "
+              f"{res['heads'][0]}..{res['heads'][1] - 1} reading K/V heads "
+              f"{res['heads'][2]}..{res['heads'][3] - 1}, flash q "
+              f"{res['flash_shape']['q']} k {res['flash_shape']['k']}, "
+              f"launches {res['flash']}; link bytes {json.dumps(res['links'])}"
+              f"; peak {res['peak_mib']:.0f} MiB")
+    print(f"uneven-tp: {UNEVEN_ARCH} f32 at full width, {UNEVEN_LAYERS} of "
+          f"{out['of']} layers (depth cut), (data, model) {UNEVEN_MESH}, "
+          f"heads a rank "
+          f"{[h[1] - h[0] for h in out['heads']]}: prefill 1 x {UNEVEN_SEQ} "
+          f"normwise {out['prefill_err']}, {UNEVEN_STEPS} decode steps of "
+          f"{UNEVEN_ROWS} rows on a {UNEVEN_CACHE}-slot cache from "
+          f"{UNEVEN_START} (slots wrap): logits {out['decode_err']}, caches "
+          f"{out['cache_err']} (limit {tol:.3g}; one-ulp response "
+          f"{one['floor']:.3g}); train step 1 x {UNEVEN_TRAIN_SEQ} losses "
+          f"{out['loss']} against {one['loss']}; rank {UNEVEN_FLASH_RANK}'s "
+          f"flash call vs plain max abs err {fv['max_abs_err']:.3g}, "
+          f"normwise {fv['normwise']:.3g} (limit {UNEVEN_FLASH_TOL}); flash "
+          f"at its shape {times['shape']} f32: {times['ms']:.4f} ms "
+          f"({times['chosen']}), plain {times['plain_ms']:.3f}, SDPA "
+          f"{times['library_ms']:.4f}, bound {times['bound_ms']:.4f} ms (by "
+          f"{times['bound_by']}); prefill ms a rank "
+          f"{[round(x, 1) for x in out['prefill_ms']]} (one device "
+          f"{one['prefill_ms']:.1f}); decode ms a step (rank 0) "
+          f"{[round(x, 1) for x in ranks[0]['decode_ms']]} (one device "
+          f"{[round(x, 1) for x in one['decode_ms']]}); train ms a rank "
+          f"{[round(x) for x in out['train_ms']]} (one device "
+          f"{one['train_ms']:.0f}); one device {t1 - t0:.1f} s, ranks "
+          f"{t2 - t1:.1f} s; {CARD}")
     return out
 
 
@@ -7049,6 +7444,10 @@ def main() -> int:
         s: c["flash"]["sm90"] for s, c in dryrun["cells"].items()
         if c["flash"]["launches"]}
     flash_entry["dryrun_32k_check"] = dryrun["flash_check"]
+    t_uneven = time.perf_counter()
+    uneven = uneven_tp_phase(dev)
+    flash_entry["uneven_tp_sm90_launches"] = uneven["flash_sm90"]
+    flash_entry["uneven_tp_rank_flash"] = uneven["flash_times"]
     t_end = time.perf_counter()
     print(f"phases: spgemm {t_serving - t_start:.1f} s, serving "
           f"{t_delta - t_serving:.1f} s, delta {t_tuning - t_delta:.1f} s, "
@@ -7063,13 +7462,15 @@ def main() -> int:
           f"lint {t_examples - t_lint:.1f} s, "
           f"examples {t_sharded - t_examples:.1f} s, "
           f"sharded {t_tp - t_sharded:.1f} s, tp {t_dryrun - t_tp:.1f} s, "
-          f"dryrun {t_end - t_dryrun:.1f} s")
+          f"dryrun {t_uneven - t_dryrun:.1f} s, "
+          f"uneven-tp {t_end - t_uneven:.1f} s")
     print("training numbers: " + json.dumps(training))
     print("lint numbers: " + json.dumps(linted))
     print("examples numbers: " + json.dumps(examples))
     print("sharded numbers: " + json.dumps(sharded))
     print("tp numbers: " + json.dumps(tp))
     print("dryrun numbers: " + json.dumps(dryrun))
+    print("uneven numbers: " + json.dumps(uneven))
     print(json.dumps({"kernels": [entry, sddmm, flash_entry,
                                   moonshot_entry, zamba_entry,
                                   seamless_entry]}))

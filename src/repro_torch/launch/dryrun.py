@@ -56,8 +56,14 @@ counters, then once timed (``measured``: the step's ms and
 ``torch.cuda.max_memory_allocated``).  A fake collective writes nothing,
 so such a rank's values mean nothing; its time and memory do.
 
-A cell the port cannot shard (heads that do not divide the model axis, say)
-is ``status: "unsupported"`` with the error's text; one the reference does
+Attention runs whole q heads a rank: where they do not divide the model
+axis (llama3.2-3b's 24 and starcoder2-7b's 36 on 16) rank i runs the i-th
+block of ``layers.balanced_sizes(Hq, 16)``, the first Hq mod 16 ranks one
+head more, from ``wq`` and ``wo`` all-gathered whole (their gathers are in
+the link bytes).  ``"tp_heads": [max, min]`` gives a rank's q heads for
+the cell; ``--rank 0`` (the default) is a heaviest rank.  A cell the port
+cannot shard (an SSM whose heads do not divide the axis, say) is
+``status: "unsupported"`` with the error's text; one the reference does
 not define (``cell_is_runnable``) is ``"skipped"``.  ``account_cell`` is
 the reference's two-depth extrapolation, kept for speed: the eager loop
 visits every layer, so a full-depth run is already exact and ``--unroll``
@@ -399,6 +405,9 @@ def run_cell(cfg: ModelConfig, shape: ShapeCfg, mesh_shape: Dict[str, int],
         "params": dict(param_counts(cfg),
                        local=sum(p.numel() for p in params)),
     }
+    heads = tp_heads(cfg, mesh_shape.get("model", 1))
+    if heads is not None:
+        res["tp_heads"] = heads
     if shape.kind == "decode":
         res["memory_analysis"].update(
             cache_bytes=storage_bytes(rest[0]),
@@ -416,6 +425,17 @@ def run_cell(cfg: ModelConfig, shape: ShapeCfg, mesh_shape: Dict[str, int],
             "step_ms": (time.perf_counter() - t) * 1e3,
             "max_memory_allocated": torch.cuda.max_memory_allocated(device)}
     return res
+
+
+def tp_heads(cfg: ModelConfig, model_axis: int):
+    """[most, fewest] attention q heads a rank runs on a model axis of
+    ``model_axis`` (``layers.balanced_sizes``), None without attention
+    heads (the xLSTM)."""
+    from repro_torch.models.layers import balanced_sizes
+    if cfg.family == "ssm" or not cfg.n_heads:
+        return None
+    sizes = balanced_sizes(cfg.n_heads, model_axis)
+    return [max(sizes), min(sizes)]
 
 
 def reduced_depth_cfgs(cfg):

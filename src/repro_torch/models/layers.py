@@ -19,10 +19,14 @@ and sets ``tp`` (the model axis, ``repro_torch.parallel.Axis``) and
 ``tp_dims`` (parameter name -> the dim the model axis splits, None where
 the parameter is whole).  Then ``wq``/``wk``/``wv``/``w_gate``/``w_up``
 (and MLA's ``wk_b``/``wv_b``) hold column blocks and ``wo``/``w_down`` row
-blocks: the input enters by ``copy_to``, the rank computes its heads (Hq /
-tp, and the K/V heads they read) or its hidden columns, and the output
-leaves by ``reduce_from`` (Megatron's f and g).  Cross-attention runs its
-heads so too.  A whole parameter read in part (a bias, ``wk``/``wv``
+blocks: the input enters by ``copy_to``, the rank computes its heads (a
+contiguous block of whole q heads, ``head_blocks``, and the K/V heads they
+read) or its hidden columns, and the output leaves by ``reduce_from``
+(Megatron's f and g).  Cross-attention runs its heads so too.  Where the
+q heads do not divide the axis, the shards of ``wq`` and ``wo`` hold parts
+of heads (the reference's placements): a rank gathers the whole weight and
+runs its block of whole heads, the first ``Hq mod tp`` ranks one head
+more.  A whole parameter read in part (a bias, ``wk``/``wv``
 under ``kv_replicated``, MLA's latent projections ``wkv_a`` and
 ``wk_rope``) enters by ``copy_to`` too, so its gradient is summed over the
 axis, as do the routing weights in expert parallelism (every rank routes
@@ -85,8 +89,14 @@ class Norm(nn.Module):
 class Attention(nn.Module):
     """GQA self-attention with RoPE: ``wq`` (d, Hq*hd), ``wk``/``wv``
     (d, Hkv*hd), ``wo`` (Hq*hd, d), and ``bq``/``bk``/``bv`` when
-    ``cfg.qkv_bias``.  Under ``tp`` a rank runs q heads [i * Hq / tp,
-    (i + 1) * Hq / tp) and the K/V heads they read (``tp_heads``)."""
+    ``cfg.qkv_bias``.  Under ``tp`` rank i runs the i-th block of whole q
+    heads of ``balanced_sizes(Hq, tp)`` (Hq / tp each where they divide
+    the axis; else the first Hq mod tp ranks one more) and the K/V heads
+    they read (``tp_heads``).  Its columns of ``wq`` and rows of ``wo``
+    are its shards where those hold exactly its heads, else slices of the
+    whole weights all-gathered in the activation dtype (``_head_weight``).
+    Where its heads read parts of two K/V groups, its K/V heads are
+    indexed once per q head (``_kv_per_q_head``), else GQA runs as is."""
 
     tp = None
     tp_dims: Dict[str, Optional[int]] = {}
@@ -105,14 +115,42 @@ class Attention(nn.Module):
             self.bv = _param(torch.zeros(cfg.n_kv_heads * hd, device=dev))
 
     def tp_heads(self, cfg: ModelConfig):
-        """(q heads, first K/V head, end K/V head) of this rank: all of
-        them without ``tp``."""
+        """(first q head, end q head, first K/V head, end K/V head) of this
+        rank (``head_blocks``): all of them without ``tp``."""
         if self.tp is None:
-            return cfg.n_heads, 0, cfg.n_kv_heads
-        hq = cfg.n_heads // self.tp.size
+            return 0, cfg.n_heads, 0, cfg.n_kv_heads
+        return head_blocks(cfg.n_heads, cfg.n_kv_heads, self.tp.size,
+                           self.tp.index)
+
+    def _head_weight(self, name: str, dim: int, cfg: ModelConfig, dtype):
+        """This rank's q heads' block of ``wq`` (columns, ``dim`` 1) or
+        ``wo`` (rows, ``dim`` 0): the shard itself when it holds exactly
+        those heads, else the whole weight (cast to ``dtype`` first, then
+        all-gathered with a summed gradient), sliced."""
+        w, placed = getattr(self, name), self.tp_dims.get(name)
+        h0, h1, _, _ = self.tp_heads(cfg)
+        n = (h1 - h0) * cfg.hd
+        if placed == dim and w.shape[dim] == n \
+                and self.tp.index * n == h0 * cfg.hd:
+            return w
+        w = w.to(dtype)
+        w = (parallel.copy_to(w, self.tp) if placed is None
+             else parallel.gather_partial(w, self.tp, placed))
+        return w.narrow(dim, h0 * cfg.hd, n)
+
+    def _kv_per_q_head(self, cfg: ModelConfig, *kv):
+        """The rank's K/V heads (B, k1 - k0, ...) as GQA reads them: as
+        they are where each K/V head serves a run of the rank's q heads of
+        one length, else indexed once per q head (B, h1 - h0, ...: a rank
+        whose heads straddle a group boundary)."""
+        h0, h1, k0, k1 = self.tp_heads(cfg)
         g = cfg.n_heads // cfg.n_kv_heads
-        first = self.tp.index * hq
-        return hq, first // g, (first + hq - 1) // g + 1
+        idx = [h // g - k0 for h in range(h0, h1)]
+        hq, hkv = h1 - h0, k1 - k0
+        if hq % hkv == 0 and idx == [j // (hq // hkv) for j in range(hq)]:
+            return kv
+        idx = torch.tensor(idx, device=kv[0].device)
+        return tuple(t.index_select(1, idx) for t in kv)
 
     def _kv_weight(self, name: str, k0: int, k1: int, hd: int):
         """This rank's columns of ``wk``/``wv`` (its K/V heads k0..k1): the
@@ -136,13 +174,13 @@ class Attention(nn.Module):
             bq, bk, bv = self.bq, self.bk, self.bv
         if self.tp is not None:
             hd = cfg.hd
-            hq, k0, k1 = self.tp_heads(cfg)
-            q0 = self.tp.index * hq * hd
+            h0, h1, k0, k1 = self.tp_heads(cfg)
             x = parallel.copy_to(x, self.tp)
+            wq = self._head_weight("wq", 1, cfg, x.dtype)
             wk = self._kv_weight("wk", k0, k1, hd)
             wv = self._kv_weight("wv", k0, k1, hd)
             if cfg.qkv_bias:
-                bq = self._bias("bq", q0, q0 + hq * hd)
+                bq = self._bias("bq", h0 * hd, h1 * hd)
                 bk = self._bias("bk", k0 * hd, k1 * hd)
                 bv = self._bias("bv", k0 * hd, k1 * hd)
         q = x @ wq.to(x.dtype)
@@ -159,9 +197,9 @@ class Attention(nn.Module):
         (B, Hkv, S, hd), RoPE applied to q and k (this rank's heads under
         ``tp``)."""
         b, s, _ = x.shape
-        hq, k0, k1 = self.tp_heads(cfg)
+        h0, h1, k0, k1 = self.tp_heads(cfg)
         q, k, v = self._project(x, cfg)
-        q = q.reshape(b, s, hq, cfg.hd).transpose(1, 2)
+        q = q.reshape(b, s, h1 - h0, cfg.hd).transpose(1, 2)
         k = k.reshape(b, s, k1 - k0, cfg.hd).transpose(1, 2)
         v = v.reshape(b, s, k1 - k0, cfg.hd).transpose(1, 2)
         q = rope(q, positions[:, None, :], cfg.rope_theta)
@@ -175,12 +213,19 @@ class Attention(nn.Module):
         (B, S, D) -> (B, S, D)."""
         b, s, _ = x.shape
         q, k, v = self.qkv(x, positions, cfg)
+        k, v = self._kv_per_q_head(cfg, k, v)
         window = cfg.window if window is None else window
         out = attention(q, k, v, impl=cfg.attn_impl, causal=causal,
                         window=window, prefix=prefix, q_offset=q_offset,
                         block=cfg.attn_block)
         out = out.transpose(1, 2).reshape(b, s, q.shape[1] * cfg.hd)
-        return parallel.reduce_from(out @ self.wo.to(x.dtype), self.tp)
+        return self._out(out, cfg)
+
+    def _out(self, out, cfg: ModelConfig):
+        """``out @ wo`` over this rank's heads, summed over the axis."""
+        wo = self.wo if self.tp is None else \
+            self._head_weight("wo", 0, cfg, out.dtype)
+        return parallel.reduce_from(out @ wo.to(out.dtype), self.tp)
 
     def cross(self, x, kv_src, cfg: ModelConfig):
         """Cross-attention (the reference's ``apply_cross_attn``): q from x,
@@ -190,21 +235,23 @@ class Attention(nn.Module):
         D)."""
         b, s, _ = x.shape
         t, hd = kv_src.shape[1], cfg.hd
-        hq, k0, k1 = self.tp_heads(cfg)
-        wk, wv = self.wk, self.wv
+        h0, h1, k0, k1 = self.tp_heads(cfg)
+        wq, wk, wv = self.wq, self.wk, self.wv
         if self.tp is not None:
             x = parallel.copy_to(x, self.tp)
             kv_src = parallel.copy_to(kv_src, self.tp)
+            wq = self._head_weight("wq", 1, cfg, x.dtype)
             wk = self._kv_weight("wk", k0, k1, hd)
             wv = self._kv_weight("wv", k0, k1, hd)
-        q = (x @ self.wq.to(x.dtype)).reshape(b, s, hq, hd).transpose(1, 2)
+        q = (x @ wq.to(x.dtype)).reshape(b, s, h1 - h0, hd).transpose(1, 2)
         k = (kv_src @ wk.to(x.dtype)).reshape(
             b, t, k1 - k0, hd).transpose(1, 2)
         v = (kv_src @ wv.to(x.dtype)).reshape(
             b, t, k1 - k0, hd).transpose(1, 2)
+        k, v = self._kv_per_q_head(cfg, k, v)
         out = attention(q, k, v, impl="dense_masked", causal=False)
-        out = out.transpose(1, 2).reshape(b, s, hq * hd)
-        return parallel.reduce_from(out @ self.wo.to(x.dtype), self.tp)
+        out = out.transpose(1, 2).reshape(b, s, (h1 - h0) * hd)
+        return self._out(out, cfg)
 
     def decode(self, x, cache: Dict[str, torch.Tensor], pos,
                cfg: ModelConfig, place: Optional[Dict[str, Place]] = None):
@@ -225,7 +272,8 @@ class Attention(nn.Module):
                 f"attention decode with the model axis on dim {mdim} of its "
                 f"(B, Hkv, T, hd) cache: heads or T only")
         b = x.shape[0]
-        hq, k0, k1 = self.tp_heads(cfg)
+        h0, h1, k0, k1 = self.tp_heads(cfg)
+        hq = h1 - h0
         q, k, v = self._project(x[:, 0], cfg)
         q = q.reshape(b, hq, cfg.hd)
         k = k.reshape(b, k1 - k0, cfg.hd)
@@ -244,30 +292,38 @@ class Attention(nn.Module):
         k_cache[bidx, :, slot] = k.to(k_cache.dtype)
         v_cache[bidx, :, slot] = v.to(v_cache.dtype)
         valid = torch.clamp(pos + 1, max=t)
-        out = decode_attention(q, k_cache, v_cache, valid)
+        out = decode_attention(q, *self._kv_per_q_head(cfg, k_cache, v_cache),
+                               valid)
         out = out.reshape(b, 1, hq * cfg.hd)
-        return parallel.reduce_from(out @ self.wo.to(x.dtype), self.tp), \
-            cache
+        return self._out(out, cfg), cache
 
     def _decode_context_parallel(self, x, cache, pos, cfg: ModelConfig):
         """Decode on a cache whose T is split over the model axis (the K/V
         heads do not divide it): every rank's q heads and new K/V heads are
-        all-gathered, the rank that holds the slot writes it, each rank
+        all-gathered (``all_gather_uneven``: ranks may hold different
+        counts), the rank that holds the slot writes it, each rank
         scores every head against its block of T and the softmax and
         ``p.v`` are summed over the axis (``_cp_softmax``); the rank then
         keeps its q heads for ``wo``."""
         tp, hd, b = self.tp, cfg.hd, x.shape[0]
-        hq, k0, k1 = self.tp_heads(cfg)
+        h0, h1, k0, k1 = self.tp_heads(cfg)
         g = cfg.n_heads // cfg.n_kv_heads
         q, k, v = self._project(x[:, 0], cfg)
         p3 = pos[:, None, None]
-        q = rope(q.reshape(b, hq, 1, hd), p3, cfg.rope_theta)[:, :, 0]
+        q = rope(q.reshape(b, h1 - h0, 1, hd), p3, cfg.rope_theta)[:, :, 0]
         k = rope(k.reshape(b, k1 - k0, 1, hd), p3, cfg.rope_theta)[:, :, 0]
         v = v.reshape(b, k1 - k0, hd)
-        q_all = parallel.all_gather_cat(q, tp, 1)          # (B, Hq, hd)
-        kv = parallel.all_gather_cat(torch.cat([k, v], dim=-1), tp, 1)
-        # rank r computed K/V head (r hq) // g: take each head once
-        heads = [j * g // hq for j in range(cfg.n_kv_heads)]
+        blocks = [head_blocks(cfg.n_heads, cfg.n_kv_heads, tp.size, r)
+                  for r in range(tp.size)]
+        q_all = parallel.all_gather_uneven(             # (B, Hq, hd)
+            q, tp, 1, [e - f for f, e, _, _ in blocks])
+        kv = parallel.all_gather_uneven(
+            torch.cat([k, v], dim=-1), tp, 1, [e - f for _, _, f, e in blocks])
+        # each K/V head once, from the first rank that computed it
+        heads, at = [], 0
+        for _, _, f, e in blocks:
+            heads += [at + j - f for j in range(max(f, len(heads)), e)]
+            at += e - f
         k_all, v_all = kv[:, heads, :hd], kv[:, heads, hd:]
         k_cache, v_cache = cache["k"], cache["v"]
         t_loc = k_cache.shape[2]
@@ -289,9 +345,23 @@ class Attention(nn.Module):
         p = _cp_softmax(s, tp)
         o = parallel.all_reduce(
             torch.einsum("bhgt,bhtd->bhgd", p, v_cache.float()), tp)
-        o = o.reshape(b, cfg.n_heads, hd)[:, tp.index * hq:(tp.index + 1) * hq]
-        out = o.to(q.dtype).reshape(b, 1, hq * hd)
-        return parallel.reduce_from(out @ self.wo.to(x.dtype), tp), cache
+        o = o.reshape(b, cfg.n_heads, hd)[:, h0:h1]
+        out = o.to(q.dtype).reshape(b, 1, (h1 - h0) * hd)
+        return self._out(out, cfg), cache
+
+
+def head_blocks(n_heads: int, n_kv_heads: int, tp: int, index: int
+                ) -> Tuple[int, int, int, int]:
+    """Rank ``index`` of a model axis of ``tp``'s q heads [h0, h1) (the
+    ``index``-th contiguous block of ``balanced_sizes(n_heads, tp)``: the
+    first ``n_heads mod tp`` ranks one head more) and the K/V heads [k0,
+    k1) those read (q head h reads K/V head h // (n_heads /
+    n_kv_heads))."""
+    sizes = balanced_sizes(n_heads, tp)
+    h0 = sum(sizes[:index])
+    h1 = h0 + sizes[index]
+    g = n_heads // n_kv_heads
+    return h0, h1, h0 // g, (h1 - 1) // g + 1
 
 
 def _model_dim(module, place, name: str) -> Optional[int]:

@@ -27,9 +27,11 @@ and the layers call the collectives below where GSPMD would put them.
   consumer computes the same on every rank, so the backward keeps the
   local slice of the gradient) and ``gather_partial`` (its consumer is a
   partial branch, so the backward sums the gradient over the axis, then
-  keeps the slice).  ``sum_partials`` sums a partial statistic that every
-  rank's part reads whole (a norm's sum of squares over channels split
-  over the axis): all-reduced forward and backward.
+  keeps the slice).  ``all_gather_uneven`` gathers blocks of unequal
+  sizes (each padded to the largest on the link; a rank's q heads where
+  they do not divide the axis).  ``sum_partials`` sums a partial
+  statistic that every rank's part reads whole (a norm's sum of squares
+  over channels split over the axis): all-reduced forward and backward.
   ``all_reduce(..., op="max")`` is the vocab-parallel loss's maximum and
   the context-parallel decode's score maximum (no gradient).
 * ``LINK_BYTES`` counts, by (collective, backend), the bytes each rank
@@ -268,6 +270,21 @@ def all_gather_cat(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
+def all_gather_uneven(t: torch.Tensor, axis: Axis, dim: int,
+                      sizes: Sequence[int]) -> torch.Tensor:
+    """The blocks of ``axis``, this one ``t`` of ``sizes[axis.index]`` along
+    ``dim``, concatenated in axis order: each block padded to the largest
+    size, ``all_gather_cat``, the padding dropped (equal sizes:
+    ``all_gather_cat`` itself).  The backward gives this rank the gradient
+    of its own block (a consumer that every rank computes alike)."""
+    if axis.size == 1:
+        return t
+    if t.shape[dim] != sizes[axis.index]:
+        raise ValueError(f"block of {t.shape[dim]} along dim {dim}, rank "
+                         f"{axis.index} of sizes {list(sizes)}")
+    return _GatherUneven.apply(t, axis, dim, tuple(sizes))
+
+
 def local_slice(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     """This rank's equal slice of ``t`` along ``dim`` (a view)."""
     if axis.size == 1:
@@ -314,6 +331,28 @@ class _Gather(torch.autograd.Function):
             g = all_reduce(g.contiguous().clone(), ctx.axis)
         return local_slice(g, ctx.axis, ctx.dim).contiguous(), None, None, \
             None
+
+
+class _GatherUneven(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, sizes):
+        ctx.axis, ctx.dim, ctx.sizes = axis, dim, sizes
+        top = max(sizes)
+        if min(sizes) == top:
+            return all_gather_cat(x, axis, dim)
+        if x.shape[dim] < top:
+            pad = list(x.shape)
+            pad[dim] = top - x.shape[dim]
+            x = torch.cat([x, x.new_zeros(pad)], dim=dim)
+        blocks = all_gather_cat(x, axis, dim).split(top, dim=dim)
+        return torch.cat([b.narrow(dim, 0, n)
+                          for b, n in zip(blocks, sizes)], dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        start = sum(ctx.sizes[:ctx.axis.index])
+        return g.narrow(ctx.dim, start, ctx.sizes[ctx.axis.index]
+                        ).contiguous(), None, None, None
 
 
 def copy_to(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:

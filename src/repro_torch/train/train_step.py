@@ -17,7 +17,8 @@ mesh, so a sharded model's tensors are the single-device model's slices;
 ``sharded_train_step`` is the step: the rank's rows of the batch
 (``batch_specs``: rows over ``("pod", "data")``), the tensor-parallel
 forward and backward (every family: ``_check_tensor_parallel`` refuses
-only a model axis that would split a head), the gradients summed over the data-parallel ranks
+only a model axis that would leave a rank no attention head, or split an
+MLA or SSM head), the gradients summed over the data-parallel ranks
 (or ``compress=True``: the int8 error-feedback reduction), AdamW on the
 ZeRO-1 slices and an all-gather of the parameters over ``data``.
 """
@@ -211,18 +212,22 @@ def _check_tensor_parallel(model: T.Transformer, cfg: ModelConfig,
                            layouts: Dict[str, ParamLayout], tp: int) -> None:
     """Raise ``NotImplementedError``, naming the layer, unless every layer
     can run its shards as the layouts place them on a model axis of
-    ``tp``: attention and MLA by whole heads, the SSM by whole heads with
+    ``tp``: attention by whole q heads, rank i the i-th block of
+    ``layers.balanced_sizes(Hq, tp)`` and the K/V heads it reads (where
+    Hq does not divide the axis, the first Hq mod tp ranks run one head
+    more, from ``wq`` and ``wo`` gathered whole; a rank whose heads
+    straddle a K/V group reads its K/V heads once per q head), so only an
+    axis longer than Hq, which would leave a rank no head, is refused;
+    MLA by equal blocks of whole heads; the SSM by whole heads with
     ``in_proj``'s columns and ``out_proj``'s rows split."""
     mods = [m for _, m in model.named_modules()]
-    if any(isinstance(m, (L.Attention, L.MLA)) for m in mods):
-        if cfg.n_heads % tp:
-            raise NotImplementedError(f"attention: {cfg.n_heads} q heads do "
-                                      f"not split over a model axis of {tp}")
-        hq, g = cfg.n_heads // tp, cfg.n_heads // cfg.n_kv_heads
-        if hq % g and g % hq:
-            raise NotImplementedError(
-                f"attention: {hq} q heads a rank in groups of {g} per K/V "
-                f"head: a rank's heads would read parts of K/V heads")
+    if any(isinstance(m, L.Attention) for m in mods) and cfg.n_heads < tp:
+        raise NotImplementedError(
+            f"attention: {cfg.n_heads} q heads do not split over a model "
+            f"axis of {tp}: a rank would run no head")
+    if any(isinstance(m, L.MLA) for m in mods) and cfg.n_heads % tp:
+        raise NotImplementedError(f"MLA: {cfg.n_heads} heads do not split "
+                                  f"over a model axis of {tp}")
     if any(isinstance(m, SSM.SSM) for m in mods):
         nh = SSM._dims(cfg)[2]
         if nh % tp:

@@ -123,7 +123,9 @@ out = sys.argv[1]
 D.main(["--arch", "llama3_2_1b", "--shape", "train_4k", "--mesh", "pod",
         "--account", "--out", out])
 D.main(["--arch", "llama3_2_3b", "--shape", "train_4k", "--mesh", "pod",
-        "--out", out])
+        "--account", "--out", out])
+D.main(["--arch", "zamba2_7b", "--shape", "train_4k", "--mesh", "pod",
+        "--patch", "ssm.head_dim=128", "--out", out])
 """
 #: the keys of the reference's ``lower_cell`` result
 REF_KEYS = ("arch", "shape", "mesh", "n_devices", "kind", "attn_impl",
@@ -420,9 +422,17 @@ def test_cli_writes_the_reference_keys_with_jax_blocked(children):
     # a rank's share of 6 N T, at least: 256 x 4,096 tokens over 256 ranks
     assert res["cost_analysis"]["flops"] > \
         6 * res["params"]["total"] * 256 * 4096 / 256
-    refused = json.loads((out / "llama3_2_3b.train_4k.pod.json").read_text())
+    uneven = json.loads((out / "llama3_2_3b.train_4k.pod.json").read_text())
+    assert uneven["status"] == "ok" and uneven["tp_heads"] == [2, 1]
+
+
+def test_cli_reports_a_cell_the_port_cannot_shard(children):
+    """An SSM whose 56 heads (``ssm.head_dim=128``) do not split over the
+    model axis of 16 is ``unsupported``, with the refusal's text."""
+    out = children("cli")
+    refused = json.loads((out / "zamba2_7b.train_4k.pod.json").read_text())
     assert refused["status"] == "unsupported"
-    assert "24 q heads" in refused["reason"]
+    assert "SSM: 56 heads" in refused["reason"]
 
 
 def test_balanced_split_sums_to_the_assignments():

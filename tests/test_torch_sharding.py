@@ -5,9 +5,15 @@ the CPU (the multi-rank runs are ``tests/test_torch_sharded_train.py``):
   meshes, and its ZeRO-1 moments' data dim, equal to the reference's
   ``fit_spec(make_param_specs(...))`` and ``zero1_specs`` computed on
   ``jax.eval_shape`` shapes, for every SMOKE config (exactly);
+* llama3.2-3b and starcoder2-7b at full width (q heads that do not
+  divide 16) on the production (16, 16) and (2, 16, 16) meshes: their
+  placements and moments' dims equal the reference's on ``jax.eval_shape``
+  shapes from a child, the port's model on meta, and the tensor-parallel
+  layers take them;
 * every family's layers take a model axis of 2 and 4; one that would
-  split a head (llama SMOKE's 4 heads on 8, zamba2 SMOKE's shared
-  attention on 16) refuses before anything changes, naming the layer;
+  leave a rank no attention head (llama SMOKE's 4 heads on 8, zamba2
+  SMOKE's shared attention on 16) refuses before anything changes,
+  naming the layer;
 * the expert-parallel MoE restated on one device equals the dropless
   dense MoE where its capacity drops nothing (rtol 1e-5, atol 1e-6: f32
   sums in another order);
@@ -17,6 +23,11 @@ the CPU (the multi-rank runs are ``tests/test_torch_sharded_train.py``):
   wrong world, raise before any process group starts.
 """
 import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -92,6 +103,92 @@ def test_placements_and_zero1_dims_match_reference(arch):
             assert got[name].zero_dim == axis_dim(fz[lead:], "data")
         plain = TS.state_specs(model, sizes, zero1=False)
         assert all(plain[n].moment_spec == plain[n].spec for n in plain)
+
+
+#: full-width configs whose q heads do not divide the production model axis
+UNEVEN_ARCHS = ("llama3_2_3b", "starcoder2_7b")
+PRODUCTION_MESHES = ({"data": 16, "model": 16},
+                     {"pod": 2, "data": 16, "model": 16})
+#: the reference's layouts of full configs, in a child (``jax.eval_shape``
+#: of a full-width model): keystr -> [param spec, moment spec, shape] a mesh
+REF_FULL_LAYOUTS = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import jax
+from repro.configs.base import get_config
+from repro.models import transformer as RT
+from repro.models.common import fit_spec, make_param_specs
+from repro.optim.adamw import zero1_specs
+
+class Mesh:
+    def __init__(self, sizes):
+        self.shape = dict(sizes)
+        self.axis_names = tuple(sizes)
+
+archs, meshes = json.loads(sys.argv[2])
+is_p = lambda x: isinstance(x, jax.sharding.PartitionSpec)
+entry = lambda e: list(e) if isinstance(e, tuple) else e
+out = {}
+for arch in archs:
+    shapes = jax.eval_shape(lambda: RT.init_params(get_config(arch),
+                                                   jax.random.PRNGKey(0)))
+    ps = make_param_specs(shapes)
+    zs = zero1_specs(shapes, ps)
+    flat = jax.tree_util.tree_flatten_with_path(shapes)[0]
+    for sizes in meshes:
+        key = arch + " " + json.dumps(sizes)
+        out[key] = {jax.tree_util.keystr(path): [
+            [entry(e) for e in fit_spec(p, leaf.shape, Mesh(sizes))],
+            [entry(e) for e in fit_spec(z, leaf.shape, Mesh(sizes))],
+            list(leaf.shape)]
+            for (path, leaf), p, z in zip(
+                flat, jax.tree.leaves(ps, is_leaf=is_p),
+                jax.tree.leaves(zs, is_leaf=is_p))}
+print("REF " + json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def full_layouts():
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    r = subprocess.run(
+        [sys.executable, "-c", REF_FULL_LAYOUTS, src,
+         json.dumps([UNEVEN_ARCHS, PRODUCTION_MESHES])],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    assert r.returncode == 0, r.stderr[-4000:]
+    line = next(x for x in r.stdout.splitlines() if x.startswith("REF "))
+    return json.loads(line[4:])
+
+
+def _spec(entries) -> tuple:
+    return tuple(tuple(e) if isinstance(e, list) else e for e in entries)
+
+
+@pytest.mark.parametrize("sizes", PRODUCTION_MESHES,
+                         ids=["pod", "multipod"])
+@pytest.mark.parametrize("arch", UNEVEN_ARCHS)
+def test_full_width_uneven_placements_match_reference(full_layouts, arch,
+                                                      sizes):
+    cfg = get_config(arch)
+    assert cfg.n_heads % sizes["model"]
+    model = T.init_params(cfg, device="meta")
+    paths = reference_paths(model)
+    want = full_layouts[arch + " " + json.dumps(sizes)]
+    assert {p for p, _ in paths.values()} == set(want)
+    got = TS.state_specs(model, sizes, zero1=True)
+    for name, (path, full) in paths.items():
+        fp, fz, shape = (_spec(want[path][0]), _spec(want[path][1]),
+                         tuple(want[path][2]))
+        assert full == shape, name
+        lead = len(full) - len(got[name].shape)
+        assert fp[:lead] == (None,) * lead and fz[:lead] == (None,) * lead
+        assert got[name].spec == fp[lead:], (sizes, name)
+        assert got[name].moment_spec == fz[lead:], (sizes, name)
+    # wq splits by columns, wo by rows, as the reference places them
+    assert got["blocks.0.attn.wq"].spec == (None, "model")
+    assert got["blocks.0.attn.wo"].spec == ("model", None)
+    TS._check_tensor_parallel(model, cfg, got, sizes["model"])
 
 
 def test_placements_as_dtensor_shards():
