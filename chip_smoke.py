@@ -282,8 +282,9 @@ Phases, each printing its own lines:
    cut as memory forces (printed), f32 under flash_pallas on (1, 2): the
    tensor-parallel attention (8 q heads of D 128 a rank) and the
    expert-parallel MoE, within 1e-4 normwise of the one-device
-   restatement of the same layers (``layers.moe_ep_plain``, its routing
-   replayed into the sharded run) with equal rows per expert.  (d) one
+   restatement of the same layers (``layers.moe_ep_plain``; rank 0's
+   routing replayed into the other rank's restatement and into the
+   sharded run) with equal rows per expert.  (d) one
    sharded step of (a)'s model at (1, 1) on NCCL and on gloo, run
    together: losses and gradient norms within 1e-6;
 20. tp (after phase 19): every family on the model axis, two ranks on
@@ -4338,18 +4339,25 @@ class routing_log:
     """Within the block, ``MoE.route`` appends each call's (weights,
     experts) to ``calls``; given ``replay`` (an earlier block's calls), it
     returns those instead, in call order, so a second forward routes every
-    token as the first did."""
+    token as the first did.  With ``count_moved`` a replaying block also
+    routes each call itself and adds to ``moved`` the tokens whose set of
+    experts it would have chosen otherwise."""
 
-    def __init__(self, replay=None):
+    def __init__(self, replay=None, count_moved: bool = False):
         self.replay = None if replay is None else iter(replay)
-        self.calls = []
+        self.calls, self.count_moved, self.moved = [], count_moved, 0
 
     def __enter__(self):
         self.saved = L.MoE.route
 
         def route(module, xt, cfg):
             if self.replay is not None:
-                return next(self.replay)
+                got = next(self.replay)
+                if self.count_moved:
+                    own = self.saved(module, xt, cfg)[1].sort(-1).values
+                    self.moved += int((own != got[1].sort(-1).values)
+                                      .any(-1).sum())
+                return got
             self.calls.append(self.saved(module, xt, cfg))
             return self.calls[-1]
 
@@ -6115,7 +6123,12 @@ def tp_prefill_rank(rank: int, world: int, tmp: str) -> None:
             "finite": bool(torch.isfinite(got).all())}
         del model, want, got
         free_port_memory(dev)
-    # (c): the whole model one rank at a time, then the shards together
+    # (c): the whole model one rank at a time, then the shards together.
+    # Rank 0's one-device run routes, and every later forward (the other
+    # ranks' one-device runs, the sharded one) replays its routing: two
+    # one-device runs may route a near-tied token apart (``index_add``'s
+    # atomics round their sums in any order), and ranks that replayed
+    # different routings would run different experts for it.
     cfg = get_config("moonshot_v1_16b_a3b").replace(
         attn_impl="flash_pallas", dtype="float32")
     free = torch.tensor([free_port_memory(dev)], dtype=torch.float64)
@@ -6123,11 +6136,19 @@ def tp_prefill_rank(rank: int, world: int, tmp: str) -> None:
     depth = moonshot_ep_depth(cfg, int(free))
     cfg = cfg.replace(n_layers=depth)
     tokens = lm_tokens(cfg, (1, EP_SEQ), dev)
+    path = os.path.join(tmp, "ep-routing.pt")
     for turn in range(world):
         if turn == rank:
             model = T.init_params(cfg, seed=0, device=dev)
-            with routing_log() as log, ep_restated(world) as plain:
+            routing = None if rank == 0 else [
+                (w.to(dev), e.to(dev))
+                for w, e in torch.load(path, map_location="cpu")]
+            with routing_log(routing, count_moved=True) as log, \
+                    ep_restated(world) as plain:
                 want = T.forward(model, cfg, {"tokens": tokens})
+            if rank == 0:
+                routing = log.calls
+                torch.save([(w.cpu(), e.cpu()) for w, e in routing], path)
             shard_model(model, mesh)
             rows = model.embed.shape[0]
             want = want[..., model.vocab_start():
@@ -6137,7 +6158,7 @@ def tp_prefill_rank(rank: int, world: int, tmp: str) -> None:
     moes = [blk.ffn for blk in model.blocks if isinstance(blk.ffn, L.MoE)]
     reset_counts()
     t = time.perf_counter()
-    with routing_log(replay=log.calls):
+    with routing_log(routing):
         got = T.forward(model, cfg, {"tokens": tokens})
     rank_sync()
     ms = (time.perf_counter() - t) * 1e3
@@ -6148,6 +6169,7 @@ def tp_prefill_rank(rank: int, world: int, tmp: str) -> None:
         "normwise": blocks_normwise(got, want, tp), "counts": flash_counts(),
         "expected_sm90": sm90_expected(cfg, EP_SEQ, depth, torch.float32),
         "sizes_equal": sizes == [s[rank] for s in plain.sizes],
+        "tokens_moved": log.moved,
         "rows_kept": sum(sum(s) for s in sizes),
         "ms": ms, "peak_mib": torch.cuda.max_memory_allocated(dev) / 2**20,
         "local_heads": list(model.blocks[0].attn.tp_heads(cfg)),
@@ -6163,6 +6185,9 @@ def sharded_prefills(tmp: str) -> dict:
     spawn_ranks(tp_prefill_rank, 2, tmp)
     wall = time.perf_counter() - t0
     ranks = rank_results(tmp, "prefill", 2)
+    print(f"ep-prefill: tokens a rank's own one-device run would have "
+          f"routed to other experts than rank 0's routing, which every "
+          f"rank replays: {[g['moonshot']['tokens_moved'] for g in ranks]}")
     for r, got in enumerate(ranks):
         for dtype, res in got["llama"].items():
             what = f"tp-prefill {dtype} rank {r}"
@@ -6205,9 +6230,9 @@ def sharded_prefills(tmp: str) -> dict:
           f"of {mo['of']} layers (depth cut: the whole model must fit 1.5 "
           f"times in the {mo['free_gib']:.1f} GiB free), (data 1, model 2), "
           f"heads a rank {mo['local_heads']}: normwise {errs} (limit "
-          f"{EP_TOL}) against the one-device restatement with its routing "
-          f"replayed; rows kept a rank {kept}; {mo['ms']:.1f} ms; peak MiB "
-          f"{peaks}; {wall:.1f} s; {CARD}")
+          f"{EP_TOL}) against the one-device restatement, rank 0's "
+          f"routing replayed; rows kept a rank {kept}; {mo['ms']:.1f} ms; "
+          f"peak MiB {peaks}; {wall:.1f} s; {CARD}")
     return {"llama": {d: {"normwise": [g["llama"][d]["normwise"]
                                        for g in ranks],
                           "sm90_launches": [g["llama"][d]["counts"]["sm90"]
@@ -7005,6 +7030,7 @@ def dryrun_phase(dev) -> dict:
             "arguments": meta["memory_analysis"]["argument_size_in_bytes"],
             "temp": meta["memory_analysis"]["temp_size_in_bytes"],
             "links": meta["collective_bytes_per_device"],
+            "fetch": meta.get("fetch_bytes_per_device"),
             "collectives": meta["collective_op_counts"],
             "flash": c["flash"], "tp_heads": meta.get("tp_heads"),
             "seconds_meta": meta["seconds_lower"],
@@ -7020,7 +7046,9 @@ def dryrun_phase(dev) -> dict:
               f"flash kernel's) = {v['flops_per_s'] / 1e12:.1f} TFLOP/s "
               f"without its links (the card's own count agrees: "
               f"{v['card_flops_agree']}); link bytes a step "
-              f"{json.dumps(v['links'])}; flash launches {c['flash']}; q "
+              f"{json.dumps(v['links'])} (the served blocks' one-time fetch "
+              f"before it {json.dumps(v['fetch'])}); flash launches "
+              f"{c['flash']}; q "
               f"heads a rank [most, fewest] {v['tp_heads']}; "
               f"values not checked (a fake collective writes nothing); "
               f"{CARD}")
@@ -7037,10 +7065,11 @@ def dryrun_phase(dev) -> dict:
 #: biases, window 4,096) in f32 on (data 1, model 8): the only config whose
 #: q heads do not divide an axis that one card's ranks can form (four ranks
 #: of 5 heads, four of 4).  Its depth is cut to 2 of 32 layers: every layer
-#: runs the same code, and a layer costs each of the eight ranks two
-#: gathers of the whole ``wq`` and ``wo`` (85 MB each in f32) through
-#: gloo's host copies per forward, so the phase's time grows with the
-#: layers; 2 keeps it near a minute inside the script's limit
+#: runs the same code, and each of the eight ranks moves its heads'
+#: columns of ``wq``, ``wo``, ``wk`` and ``wv`` (2.4 to 14.2 MB a layer in
+#: f32) through gloo's host copies, once for serving and in each forward
+#: and backward of the train step, so the phase's time grows with the
+#: layers
 UNEVEN_ARCH = "starcoder2_7b"
 UNEVEN_MESH = (1, 8)
 UNEVEN_LAYERS = 2
@@ -7060,6 +7089,52 @@ UNEVEN_TRAIN_SEQ = 512
 #: and 1, so its K/V heads are indexed once per q head (Hkv 5)
 UNEVEN_FLASH_RANK = 1
 UNEVEN_FLASH_TOL = 2e-5
+#: a rank's weight traffic in the phase at most (bytes): its all-to-all
+#: bytes and the bytes of any shard of ``wq``, ``wo``, ``wk`` or ``wv`` it
+#: all-gathers (PR 35's whole-weight gathers: 2.31 GB a rank)
+UNEVEN_WEIGHT_BYTES = 0.15e9
+
+
+def uneven_exchange_bytes(cfg, world: int, rank: int) -> tuple:
+    """(forward, backward) bytes that rank ``rank`` of a model axis of
+    ``world`` sends for one layer's ``wq``, ``wo``, ``wk`` and ``wv`` in
+    f32, worked out here from ``layers.head_blocks`` and the equal shards
+    alone: the parts of its shards that lie in the other ranks' heads'
+    columns, then the parts of its heads' columns that lie in the other
+    ranks' shards."""
+    blocks = [L.head_blocks(cfg.n_heads, cfg.n_kv_heads, world, r)
+              for r in range(world)]
+    fwd = bwd = 0
+    for kv in (0, 0, 1, 1):                     # wq, wo, wk, wv
+        n = (cfg.n_kv_heads if kv else cfg.n_heads) * cfg.hd // world
+        cols = [(b[2 * kv] * cfg.hd, b[2 * kv + 1] * cfg.hd) for b in blocks]
+        meet = lambda lo, hi, j: max(0, min(hi, (j + 1) * n) - max(lo, j * n))
+        fwd += sum(meet(*cols[j], rank) for j in range(world) if j != rank)
+        bwd += sum(meet(*cols[rank], j) for j in range(world) if j != rank)
+    return fwd * cfg.d_model * 4, bwd * cfg.d_model * 4
+
+
+def uneven_shard_shapes(cfg, world: int) -> set:
+    """The shapes of a rank's shards of ``wq``, ``wo`` and ``wk`` / ``wv``."""
+    d, q, kv = cfg.d_model, cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    return {(d, q // world), (q // world, d), (d, kv // world)}
+
+
+@contextlib.contextmanager
+def gathered_shapes(log: list):
+    """Within the block, the shape of every tensor that
+    ``parallel.all_gather_cat`` (every all-gather's path) gathers is
+    appended to ``log``."""
+    saved = parallel.all_gather_cat
+
+    def gather(t, axis, dim):
+        log.append(list(t.shape))
+        return saved(t, axis, dim)
+    parallel.all_gather_cat = gather
+    try:
+        yield log
+    finally:
+        parallel.all_gather_cat = saved
 
 
 def uneven_config(impl: str):
@@ -7106,7 +7181,16 @@ def flash_call_vs_plain(call, tol: float) -> dict:
 def uneven_run(dev, tmp: str, mesh=None) -> dict:
     """Phase 22's prefill, decode steps and train step on one device (the
     whole results saved under ``tmp``) or on this rank of ``mesh`` (held
-    against them)."""
+    against them; its link bytes after serving and at the end, and the
+    shapes it all-gathers)."""
+    gathered = []
+    with gathered_shapes(gathered):
+        out = uneven_steps(dev, tmp, mesh)
+    out["gathered"] = gathered
+    return out
+
+
+def uneven_steps(dev, tmp: str, mesh=None) -> dict:
     cfg = uneven_config("flash_pallas")
     slots = [(UNEVEN_START + i) % UNEVEN_CACHE for i in range(UNEVEN_STEPS)]
     path = os.path.join(tmp, "uneven-one.pt")
@@ -7142,6 +7226,7 @@ def uneven_run(dev, tmp: str, mesh=None) -> dict:
                                                     UNEVEN_FLASH_TOL)
     del cap
     steps, times = [], []
+    link_s = sum(parallel.LINK_SECONDS.values())
     for i in range(UNEVEN_STEPS):
         pos = torch.full((UNEVEN_ROWS,), UNEVEN_START + i, dtype=torch.int32,
                          device=dev)
@@ -7153,6 +7238,8 @@ def uneven_run(dev, tmp: str, mesh=None) -> dict:
         steps.append(lg)
     decoded = torch.stack(steps)
     out["decode_ms"] = times
+    out["decode_link_ms"] = (sum(parallel.LINK_SECONDS.values())
+                             - link_s) * 1e3
     out["finite"] = bool(torch.isfinite(logits).all()
                          and torch.isfinite(decoded).all())
     out["serve_peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2**20
@@ -7171,6 +7258,8 @@ def uneven_run(dev, tmp: str, mesh=None) -> dict:
         out["cache_err"] = tp_cache_err(model, cache, saved["cache"], tp,
                                         slots)
         out["cache_split"] = model.cache_layout["specs"]["dense"]["k"]
+    out["links_serve"] = {f"{c}/{b}": n for (c, b), n
+                          in parallel.LINK_BYTES.items()}
     del model, cache, logits, decoded, saved
     free_port_memory(dev)
     # one train step on block_masked, from the same seed on both sides
@@ -7192,6 +7281,8 @@ def uneven_run(dev, tmp: str, mesh=None) -> dict:
     out["peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2**20
     out["links"] = {f"{c}/{b}": n for (c, b), n
                     in parallel.LINK_BYTES.items()}
+    out["link_s"] = {f"{c}/{b}": t for (c, b), t
+                     in parallel.LINK_SECONDS.items()}
     del state, step
     free_port_memory(dev)
     return out
@@ -7251,7 +7342,11 @@ def uneven_tp_phase(dev) -> dict:
     cache slots within the larger of ``TP_TOL`` and ``TP_FLOOR_TIMES`` x
     the model's one-ulp response, normwise; the train step's loss within
     ``TP_TOL``; every flash launch on the f32 Hopper kernel, and the
-    5-head rank's flash call within ``UNEVEN_FLASH_TOL`` of plain.  The
+    5-head rank's flash call within ``UNEVEN_FLASH_TOL`` of plain; no rank
+    all-gathers a shard of ``wq``, ``wo``, ``wk`` or ``wv``, each rank's
+    all-to-all bytes are ``uneven_exchange_bytes``' (served: one fetch a
+    layer; trained: the forwards and the backward), and its weight traffic
+    is within ``UNEVEN_WEIGHT_BYTES``.  The
     one-device run is this process's, first; the ranks are spawned.  Then
     the flash kernel's ms at that rank's shape.  Returns its numbers
     (printed on an ``uneven numbers:`` line)."""
@@ -7269,6 +7364,9 @@ def uneven_tp_phase(dev) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     cfg = uneven_config("flash_pallas")
     tol = max(TP_TOL, TP_FLOOR_TIMES * one["floor"])
+    shards = uneven_shard_shapes(cfg, world)
+    # the train step's forwards a layer: the recompute runs its exchange
+    n_fwd = 1 if uneven_config("block_masked").remat == "none" else 2
     check(one["flash"]["tc"] == one["flash"]["sm90"] == UNEVEN_LAYERS,
           f"uneven one device: the f32 Hopper flash kernel once a layer: "
           f"{one['flash']}")
@@ -7292,6 +7390,23 @@ def uneven_tp_phase(dev) -> dict:
               f"one-device step's {one['loss']}")
         check(res["cache_split"][3] == "model", f"{what}: the cache splits "
               f"T ({res['cache_split']})")
+        # the weights: the heads' columns by all-to-all, no shard gathered
+        weight_gathers = [g for g in res["gathered"]
+                          if tuple(g) in shards]
+        check(not weight_gathers, f"{what}: no all-gather of a shard of wq, "
+              f"wo, wk or wv ({weight_gathers})")
+        fwd, bwd = uneven_exchange_bytes(cfg, world, r)
+        serve = res["links_serve"].get("all_to_all/gloo", 0)
+        a2a = res["links"].get("all_to_all/gloo", 0)
+        want = (UNEVEN_LAYERS * fwd, UNEVEN_LAYERS * (n_fwd * fwd + bwd))
+        check((serve, a2a - serve) == want, f"{what}: all-to-all bytes "
+              f"served {serve:,} and trained {a2a - serve:,} are head_blocks'"
+              f" {want[0]:,} (one fetch a layer) and {want[1]:,} ({n_fwd} "
+              f"forward(s) and a backward a layer)")
+        check(a2a <= UNEVEN_WEIGHT_BYTES, f"{what}: weight traffic {a2a:,} "
+              f"B within {UNEVEN_WEIGHT_BYTES:,.0f} (PR 35: 2.31 GB)")
+        res["weight_bytes"] = a2a
+        res["a2a_serve"], res["a2a_train"] = serve, a2a - serve
     fv = ranks[UNEVEN_FLASH_RANK]["flash_vs_plain"]
     check(fv["within"] and fv["q"][1] == fv["k"][1] == 5,
           f"uneven rank {UNEVEN_FLASH_RANK}: its flash call (q {fv['q']}, "
@@ -7327,14 +7442,23 @@ def uneven_tp_phase(dev) -> dict:
            "one_device_train_ms": one["train_ms"],
            "peak_mib": [r["peak_mib"] for r in ranks],
            "one_device_peak_mib": one["peak_mib"],
-           "links": [r["links"] for r in ranks]}
+           "links": [r["links"] for r in ranks],
+           "link_s": [r["link_s"] for r in ranks],
+           "decode_link_ms": [r["decode_link_ms"] for r in ranks],
+           "weight_bytes": [r["weight_bytes"] for r in ranks],
+           "a2a_serve": [r["a2a_serve"] for r in ranks],
+           "a2a_train": [r["a2a_train"] for r in ranks]}
     for r, res in enumerate(ranks):
         print(f"uneven: rank {r} of (data, model) {UNEVEN_MESH}: q heads "
               f"{res['heads'][0]}..{res['heads'][1] - 1} reading K/V heads "
               f"{res['heads'][2]}..{res['heads'][3] - 1}, flash q "
               f"{res['flash_shape']['q']} k {res['flash_shape']['k']}, "
               f"launches {res['flash']}; link bytes {json.dumps(res['links'])}"
-              f"; peak {res['peak_mib']:.0f} MiB")
+              f" (all-to-all {res['a2a_serve']:,} served, "
+              f"{res['a2a_train']:,} trained: the head_blocks figures); "
+              f"host seconds in those calls {json.dumps(res['link_s'])}, "
+              f"{res['decode_link_ms']:.1f} ms of them in the "
+              f"{UNEVEN_STEPS} decode steps; peak {res['peak_mib']:.0f} MiB")
     print(f"uneven-tp: {UNEVEN_ARCH} f32 at full width, {UNEVEN_LAYERS} of "
           f"{out['of']} layers (depth cut), (data, model) {UNEVEN_MESH}, "
           f"heads a rank "
@@ -7356,8 +7480,11 @@ def uneven_tp_phase(dev) -> dict:
           f"{[round(x, 1) for x in ranks[0]['decode_ms']]} (one device "
           f"{[round(x, 1) for x in one['decode_ms']]}); train ms a rank "
           f"{[round(x) for x in out['train_ms']]} (one device "
-          f"{one['train_ms']:.0f}); one device {t1 - t0:.1f} s, ranks "
-          f"{t2 - t1:.1f} s; {CARD}")
+          f"{one['train_ms']:.0f}); weight traffic a rank (all-to-all, no "
+          f"weight all-gathered) "
+          f"{[round(b / 1e6, 1) for b in out['weight_bytes']]} MB (limit "
+          f"{UNEVEN_WEIGHT_BYTES / 1e6:.0f}); one device "
+          f"{t1 - t0:.1f} s, ranks {t2 - t1:.1f} s; {CARD}")
     return out
 
 

@@ -59,9 +59,15 @@ so such a rank's values mean nothing; its time and memory do.
 Attention runs whole q heads a rank: where they do not divide the model
 axis (llama3.2-3b's 24 and starcoder2-7b's 36 on 16) rank i runs the i-th
 block of ``layers.balanced_sizes(Hq, 16)``, the first Hq mod 16 ranks one
-head more, from ``wq`` and ``wo`` all-gathered whole (their gathers are in
-the link bytes).  ``"tp_heads": [max, min]`` gives a rank's q heads for
-the cell; ``--rank 0`` (the default) is a heaviest rank.  A cell the port
+head more, on the columns of its heads of ``wq``, ``wo``, ``wk`` and ``wv``
+regrouped from the shards by an all-to-all (``parallel.regroup``; the
+link bytes' ``all-to-all``).  A train step exchanges them in each forward
+and back; a served model (prefill, decode) fetches them once, before its
+first step (``fetch_blocks``): that fetch is reported apart, as
+``fetch_bytes_per_device``, and the blocks it leaves are in the rank's
+arguments, so a step's link bytes are the step's own.  ``"tp_heads":
+[max, min]`` gives a rank's q heads for the cell; ``--rank 0`` (the
+default) is a heaviest rank.  A cell the port
 cannot shard (an SSM whose heads do not divide the axis, say) is
 ``status: "unsupported"`` with the error's text; one the reference does
 not define (``cell_is_runnable``) is ``"skipped"``.  ``account_cell`` is
@@ -109,7 +115,8 @@ _COLLECTIVES = (("allreduce", "all-reduce"), ("allgather", "all-gather"),
 REF_COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter",
                    "all-to-all", "collective-permute")
 #: ``parallel.LINK_BYTES``'s names, as the reference's
-_LINK_NAMES = {"all_reduce": "all-reduce", "all_gather": "all-gather"}
+_LINK_NAMES = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+               "all_to_all": "all-to-all"}
 
 
 def collective_kind(op) -> str:
@@ -293,6 +300,26 @@ def reference_cache_bytes(cfg: ModelConfig, shape: ShapeCfg, mesh) -> int:
     return sum(sizes)
 
 
+def _links() -> Dict[str, int]:
+    """``parallel.LINK_BYTES`` by the reference's names of the
+    collectives."""
+    links: Dict[str, int] = {}
+    for (name, _), n in parallel.LINK_BYTES.items():
+        kind = _LINK_NAMES.get(name, name)
+        links[kind] = links.get(kind, 0) + n
+    return links
+
+
+def fetch_blocks(model, cfg: ModelConfig) -> list:
+    """A served model's one-time fetch: every attention layer's blocks of
+    its q heads' (and K/V heads') columns, regrouped from the shards in
+    the activation dtype (``layers.Attention.fetch_blocks``), before the
+    first step; returns the blocks the layers hold."""
+    from repro_torch.models.layers import Attention
+    return [b for m in model.modules() if isinstance(m, Attention)
+            for b in m.fetch_blocks(cfg, cfg.activation_dtype)]
+
+
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
@@ -359,6 +386,11 @@ def run_cell(cfg: ModelConfig, shape: ShapeCfg, mesh_shape: Dict[str, int],
                                   microbatches=microbatches, device=device,
                                   seed=seed)
     params = list(state[0].parameters())
+    fetch = None
+    if shape.kind != "train":
+        parallel.reset_link_bytes()
+        state = state + (fetch_blocks(state[0], cfg),)
+        fetch = _links()
     state = (params,) + state[1:]
     arguments = (state, rest)
     _sync(device)
@@ -370,10 +402,7 @@ def run_cell(cfg: ModelConfig, shape: ShapeCfg, mesh_shape: Dict[str, int],
     _sync(device)
     seconds = time.perf_counter() - t0
     argument = storage_bytes(arguments)
-    links: Dict[str, int] = {}
-    for (name, _), n in parallel.LINK_BYTES.items():
-        kind = _LINK_NAMES.get(name, name)
-        links[kind] = links.get(kind, 0) + n
+    links = _links()
     arg_keys = {_storage_key(t) for t in _tensors(arguments)}
     aliased = storage_bytes([t for t in _tensors(out)
                              if _storage_key(t) in arg_keys])
@@ -405,6 +434,8 @@ def run_cell(cfg: ModelConfig, shape: ShapeCfg, mesh_shape: Dict[str, int],
         "params": dict(param_counts(cfg),
                        local=sum(p.numel() for p in params)),
     }
+    if fetch is not None:
+        res["fetch_bytes_per_device"] = fetch
     heads = tp_heads(cfg, mesh_shape.get("model", 1))
     if heads is not None:
         res["tp_heads"] = heads
@@ -469,7 +500,8 @@ def _numbers(res: dict) -> Dict[str, float]:
     """The additive counts of a result, flattened to ``section/key``."""
     out = {}
     for sec in ("cost_analysis", "collective_bytes_per_device",
-                "collective_op_counts", "memory_analysis", "params"):
+                "fetch_bytes_per_device", "collective_op_counts",
+                "memory_analysis", "params"):
         for k, v in res.get(sec, {}).items():
             out[f"{sec}/{k}"] = v
     return out

@@ -23,14 +23,23 @@ blocks: the input enters by ``copy_to``, the rank computes its heads (a
 contiguous block of whole q heads, ``head_blocks``, and the K/V heads they
 read) or its hidden columns, and the output leaves by ``reduce_from``
 (Megatron's f and g).  Cross-attention runs its heads so too.  Where the
-q heads do not divide the axis, the shards of ``wq`` and ``wo`` hold parts
-of heads (the reference's placements): a rank gathers the whole weight and
-runs its block of whole heads, the first ``Hq mod tp`` ranks one head
-more.  A whole parameter read in part (a bias, ``wk``/``wv``
-under ``kv_replicated``, MLA's latent projections ``wkv_a`` and
-``wk_rope``) enters by ``copy_to`` too, so its gradient is summed over the
-axis, as do the routing weights in expert parallelism (every rank routes
-alike; each uses the weights of its own experts).  The MoE runs the
+q heads do not divide the axis, the shards of ``wq`` and ``wo`` (and of
+``wk``/``wv``, split mid-head) hold parts of heads (the reference's
+placements): a rank runs its block of whole heads, the first ``Hq mod
+tp`` ranks one head more, on the columns of those heads fetched from the
+shards that hold them (``parallel.regroup``: one all-to-all that moves
+only those columns, and its inverse for the gradient).  A weight that
+takes a gradient is exchanged in every forward; otherwise (prefill and
+decode of served weights) the rank's block is fetched once a weight
+version and kept on the module, outside its parameters, buffers and
+checkpoints.  Where the q heads divide the axis and the K/V heads do not
+(llama3.2-1b on 16), ``wk``/``wv`` are still gathered whole, so those
+configs' link bytes stay as they were.  A whole parameter read in part
+(a bias, ``wk``/``wv`` under ``kv_replicated``, MLA's latent projections
+``wkv_a`` and ``wk_rope``) enters by ``copy_to`` too, so its gradient is
+summed over the axis, as do the routing weights in expert parallelism
+(every rank routes alike; each uses the weights of its own experts).  The
+MoE runs the
 reference's expert-parallel dispatch (``_apply_moe_ep``) when
 ``cfg.moe.ep`` and the experts split evenly over the axis, else the dense
 dispatch on experts all-gathered.
@@ -93,8 +102,10 @@ class Attention(nn.Module):
     heads of ``balanced_sizes(Hq, tp)`` (Hq / tp each where they divide
     the axis; else the first Hq mod tp ranks one more) and the K/V heads
     they read (``tp_heads``).  Its columns of ``wq`` and rows of ``wo``
-    are its shards where those hold exactly its heads, else slices of the
-    whole weights all-gathered in the activation dtype (``_head_weight``).
+    are its shards where those hold exactly its heads, else its heads'
+    block regrouped from the shards in the activation dtype
+    (``_head_weight``); ``wk``/``wv`` likewise where the q heads do not
+    divide the axis (``_kv_weight``).
     Where its heads read parts of two K/V groups, its K/V heads are
     indexed once per q head (``_kv_per_q_head``), else GQA runs as is."""
 
@@ -113,6 +124,10 @@ class Attention(nn.Module):
             self.bq = _param(torch.zeros(cfg.n_heads * hd, device=dev))
             self.bk = _param(torch.zeros(cfg.n_kv_heads * hd, device=dev))
             self.bv = _param(torch.zeros(cfg.n_kv_heads * hd, device=dev))
+        #: (name, dtype) -> (weight, its _version and data_ptr, the rank's
+        #: block): the blocks fetched without gradients (``_regrouped``),
+        #: no parameter or buffer, so no checkpoint holds them
+        self._fetched: Dict[tuple, tuple] = {}
 
     def tp_heads(self, cfg: ModelConfig):
         """(first q head, end q head, first K/V head, end K/V head) of this
@@ -125,18 +140,59 @@ class Attention(nn.Module):
     def _head_weight(self, name: str, dim: int, cfg: ModelConfig, dtype):
         """This rank's q heads' block of ``wq`` (columns, ``dim`` 1) or
         ``wo`` (rows, ``dim`` 0): the shard itself when it holds exactly
-        those heads, else the whole weight (cast to ``dtype`` first, then
-        all-gathered with a summed gradient), sliced."""
+        those heads, else the shard cast to ``dtype`` and regrouped
+        (``_regrouped``: the columns of the rank's heads from the shards
+        that hold them)."""
         w, placed = getattr(self, name), self.tp_dims.get(name)
         h0, h1, _, _ = self.tp_heads(cfg)
         n = (h1 - h0) * cfg.hd
         if placed == dim and w.shape[dim] == n \
                 and self.tp.index * n == h0 * cfg.hd:
             return w
-        w = w.to(dtype)
-        w = (parallel.copy_to(w, self.tp) if placed is None
-             else parallel.gather_partial(w, self.tp, placed))
-        return w.narrow(dim, h0 * cfg.hd, n)
+        if placed is None:
+            return parallel.copy_to(w.to(dtype), self.tp).narrow(
+                dim, h0 * cfg.hd, n)
+        return self._regrouped(name, dim, self._ranges(cfg, kv=False),
+                               dtype)
+
+    def _ranges(self, cfg: ModelConfig, kv: bool):
+        """Every rank's [lo, hi) columns of its q heads' (or, ``kv``, its
+        K/V heads') block (``head_blocks``), in rank order."""
+        tp, hd = self.tp, cfg.hd
+        blocks = [head_blocks(cfg.n_heads, cfg.n_kv_heads, tp.size, r)
+                  for r in range(tp.size)]
+        return tuple((b[2 * kv] * hd, b[2 * kv + 1] * hd) for b in blocks)
+
+    def _regrouped(self, name: str, dim: int, want, dtype):
+        """``parallel.regroup`` of the shard ``name`` cast to ``dtype``
+        into this rank's range of ``want`` along ``dim``: on every call
+        where the weight takes a gradient, else once a weight and dtype
+        (the weight's identity, ``_version`` and storage), the block kept
+        in ``_fetched``."""
+        w = getattr(self, name)
+        if torch.is_grad_enabled() and w.requires_grad:
+            return parallel.regroup(w.to(dtype), self.tp, dim, want)
+        stamp = (w._version, w.data_ptr())
+        hit = self._fetched.get((name, dtype))
+        if hit is None or hit[0] is not w or hit[1] != stamp:
+            with torch.no_grad():
+                block = parallel.regroup(w.to(dtype), self.tp, dim, want)
+            hit = self._fetched[(name, dtype)] = (w, stamp, block)
+        return hit[2]
+
+    def fetch_blocks(self, cfg: ModelConfig, dtype) -> List[torch.Tensor]:
+        """Fetch, without gradients, the blocks that a forward in ``dtype``
+        would fetch (``_head_weight``, ``_kv_weight``: only where the q
+        heads do not divide the axis), and return every block held: a
+        served model's one-time fetch, done before its first step
+        (``launch.dryrun`` counts it apart from a step)."""
+        if self.tp is not None and cfg.n_heads % self.tp.size:
+            with torch.no_grad():
+                self._head_weight("wq", 1, cfg, dtype)
+                self._head_weight("wo", 0, cfg, dtype)
+                self._kv_weight("wk", cfg)
+                self._kv_weight("wv", cfg)
+        return [block for _, _, block in self._fetched.values()]
 
     def _kv_per_q_head(self, cfg: ModelConfig, *kv):
         """The rank's K/V heads (B, k1 - k0, ...) as GQA reads them: as
@@ -152,14 +208,20 @@ class Attention(nn.Module):
         idx = torch.tensor(idx, device=kv[0].device)
         return tuple(t.index_select(1, idx) for t in kv)
 
-    def _kv_weight(self, name: str, k0: int, k1: int, hd: int):
-        """This rank's columns of ``wk``/``wv`` (its K/V heads k0..k1): the
-        shard itself when it holds exactly those heads, else the whole
-        weight (read in part, so entered by ``copy_to`` or all-gathered
-        with a summed gradient), sliced."""
+    def _kv_weight(self, name: str, cfg: ModelConfig):
+        """This rank's columns of ``wk``/``wv`` (its K/V heads): the shard
+        itself when it holds exactly those heads; where the q heads do not
+        divide the axis, the shard regrouped (``_regrouped``, in the
+        parameter's dtype); else the whole weight (read in part, so entered
+        by ``copy_to`` or all-gathered with a summed gradient), sliced."""
         w, dim = getattr(self, name), self.tp_dims.get(name)
+        _, _, k0, k1 = self.tp_heads(cfg)
+        hd = cfg.hd
         if dim == 1 and w.shape[1] == (k1 - k0) * hd:
             return w
+        if dim == 1 and cfg.n_heads % self.tp.size:
+            return self._regrouped(name, 1, self._ranges(cfg, kv=True),
+                                   w.dtype)
         w = (parallel.copy_to(w, self.tp) if dim is None
              else parallel.gather_partial(w, self.tp, dim))
         return w[:, k0 * hd:k1 * hd]
@@ -177,8 +239,8 @@ class Attention(nn.Module):
             h0, h1, k0, k1 = self.tp_heads(cfg)
             x = parallel.copy_to(x, self.tp)
             wq = self._head_weight("wq", 1, cfg, x.dtype)
-            wk = self._kv_weight("wk", k0, k1, hd)
-            wv = self._kv_weight("wv", k0, k1, hd)
+            wk = self._kv_weight("wk", cfg)
+            wv = self._kv_weight("wv", cfg)
             if cfg.qkv_bias:
                 bq = self._bias("bq", h0 * hd, h1 * hd)
                 bk = self._bias("bk", k0 * hd, k1 * hd)
@@ -241,8 +303,8 @@ class Attention(nn.Module):
             x = parallel.copy_to(x, self.tp)
             kv_src = parallel.copy_to(kv_src, self.tp)
             wq = self._head_weight("wq", 1, cfg, x.dtype)
-            wk = self._kv_weight("wk", k0, k1, hd)
-            wv = self._kv_weight("wv", k0, k1, hd)
+            wk = self._kv_weight("wk", cfg)
+            wv = self._kv_weight("wv", cfg)
         q = (x @ wq.to(x.dtype)).reshape(b, s, h1 - h0, hd).transpose(1, 2)
         k = (kv_src @ wk.to(x.dtype)).reshape(
             b, t, k1 - k0, hd).transpose(1, 2)

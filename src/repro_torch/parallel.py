@@ -29,28 +29,38 @@ and the layers call the collectives below where GSPMD would put them.
   partial branch, so the backward sums the gradient over the axis, then
   keeps the slice).  ``all_gather_uneven`` gathers blocks of unequal
   sizes (each padded to the largest on the link; a rank's q heads where
-  they do not divide the axis).  ``sum_partials`` sums a partial
-  statistic that every rank's part reads whole (a norm's sum of squares
-  over channels split over the axis): all-reduced forward and backward.
+  they do not divide the axis).  ``regroup`` hands each rank a range of
+  its own of a dim split into equal shards by one uneven all-to-all,
+  each rank sending only the parts of its shard that another rank's
+  range holds (a rank's q heads' columns of ``wq`` where the heads do not
+  divide the axis); its backward is the inverse exchange, the gradients
+  of a part that several ranks read (K/V heads) summed at its shard.
+  ``sum_partials`` sums a partial statistic that every rank's part reads
+  whole (a norm's sum of squares over channels split over the axis):
+  all-reduced forward and backward.
   ``all_reduce(..., op="max")`` is the vocab-parallel loss's maximum and
   the context-parallel decode's score maximum (no gradient).
 * ``LINK_BYTES`` counts, by (collective, backend), the bytes each rank
   would put on its links for the collectives it ran, as a ring moves them:
   ``2 (p - 1) / p`` of the buffer for an all-reduce and ``(p - 1) / p`` of
-  the gathered result for an all-gather; ``LINK_SECONDS`` the host seconds
+  the gathered result for an all-gather, what it sends to the other
+  ranks for an all-to-all; ``LINK_SECONDS`` the host seconds
   spent in those calls (blocking calls, so on gloo they include its device
   copies and waiting for the other ranks).  ``reset_link_bytes()`` zeroes
   both.
 
 Gloo and CUDA tensors.  On the card's torch (2.11.0+cu128) gloo takes
 CUDA tensors in every collective used here (all-reduce of f32 and int32
-by sum and max, all-gather), with ranks sharing ``cuda:0``
-(``chip_smoke.py`` phase 19 runs each of them so).  So no collective is
-staged through host buffers: gloo copies to the host inside the call.
+by sum and max, all-gather, and ``all_to_all_single`` with uneven and
+empty splits in f32 and bf16), with ranks sharing ``cuda:0``
+(``chip_smoke.py`` phases 19 and 22 run each of them so).  So no
+collective is staged through host buffers: gloo copies to the host
+inside the call.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -293,6 +303,64 @@ def local_slice(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     return t.narrow(dim, axis.index * n, n)
 
 
+Ranges = Tuple[Tuple[int, int], ...]
+
+
+def _overlap(lo: int, hi: int, start: int, n: int) -> Tuple[int, int]:
+    """(offset in the shard, length) of [lo, hi) within the shard [start,
+    start + n) (length 0 where they do not meet)."""
+    a, b = max(lo, start), min(hi, start + n)
+    return a - start, max(0, b - a)
+
+
+def regroup_plan(n: int, want: Ranges, index: int):
+    """What rank ``index`` of shards of ``n`` along a dim (shard j holds
+    [j n, (j + 1) n)) sends and receives when each rank j takes
+    ``want[j]`` = [lo, hi) of that dim: ``send[j]`` (offset in its shard,
+    length) of rank j's part, ``recv[j]`` the length of its part of shard
+    j (its own part both), and whether any rank's part crosses to
+    another."""
+    size = len(want)
+    send = [_overlap(*want[j], index * n, n) for j in range(size)]
+    recv = [_overlap(*want[index], j * n, n)[1] for j in range(size)]
+    crosses = any(_overlap(*want[j], i * n, n)[1]
+                  for i in range(size) for j in range(size) if i != j)
+    return send, recv, crosses
+
+
+def _exchange(x: torch.Tensor, axis: Axis, send: Sequence[Tuple[int, int]],
+              recv: Sequence[int]) -> torch.Tensor:
+    """One ``all_to_all_single`` along dim 0 of ``x``: rank j gets the rows
+    ``send[j]`` of it, and the rows received from rank j are ``recv[j]``
+    long; this rank's own part is no message.  Returns what was received,
+    in rank order, this rank's own part in its place."""
+    me = axis.index
+    ins = [0 if j == me else n for j, (_, n) in enumerate(send)]
+    outs = [0 if j == me else n for j, n in enumerate(recv)]
+    parts = [x.narrow(0, s, n) for j, (s, n) in enumerate(send)
+             if j != me and n]
+    inp = torch.cat(parts) if parts else x.new_empty((0,) + x.shape[1:])
+    got = x.new_empty((sum(outs),) + x.shape[1:])
+    _count("all_to_all", axis, inp.numel() * inp.element_size(),
+           lambda: dist.all_to_all_single(got, inp, outs, ins,
+                                          group=axis.group))
+    got = list(got.split(outs))
+    got[me] = x.narrow(0, *send[me])
+    pieces = [p for p, n in zip(got, recv) if n] or [x[:0]]
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+
+
+def _regroup_forward(w: torch.Tensor, axis: Axis, dim: int,
+                     want: Ranges) -> torch.Tensor:
+    send, recv, crosses = regroup_plan(w.shape[dim], want, axis.index)
+    if not crosses:
+        return w.narrow(dim, *send[axis.index])
+    # back in the shard's row-major layout, not the exchange's transposed
+    # one, so that a product reads the block as it reads a shard
+    return _exchange(w.movedim(dim, 0), axis, send, recv).movedim(
+        0, dim).contiguous()
+
+
 # ---------------------------------------------------------------------------
 # differentiable collectives
 # ---------------------------------------------------------------------------
@@ -353,6 +421,57 @@ class _GatherUneven(torch.autograd.Function):
         start = sum(ctx.sizes[:ctx.axis.index])
         return g.narrow(ctx.dim, start, ctx.sizes[ctx.axis.index]
                         ).contiguous(), None, None, None
+
+
+class _Regroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, axis, dim, want):
+        ctx.axis, ctx.dim, ctx.want, ctx.n = axis, dim, want, w.shape[dim]
+        out = _regroup_forward(w, axis, dim, want)
+        base = w if w._base is None else w._base
+        return out.clone() if out._base is base else out
+
+    @staticmethod
+    def backward(ctx, g):
+        """The inverse exchange: each part of ``g`` goes back to the shard
+        it came from, and the parts of this shard that several ranks read
+        are added in rank order (onto zeros)."""
+        send, recv, crosses = regroup_plan(ctx.n, ctx.want, ctx.axis.index)
+        got = g = g.movedim(ctx.dim, 0)
+        if crosses:         # what came from rank j goes back to it
+            starts = itertools.accumulate(recv, initial=0)
+            got = _exchange(g.contiguous(), ctx.axis,
+                            list(zip(starts, recv)), [n for _, n in send])
+        out = g.new_zeros((ctx.n,) + g.shape[1:])
+        at = 0
+        for s, n in send:
+            if n:
+                out[s:s + n] += got[at:at + n]
+                at += n
+        return out.movedim(0, ctx.dim).contiguous(), None, None, None
+
+
+def regroup(w: torch.Tensor, axis: Optional[Axis], dim: int,
+            want: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """This rank's range ``want[axis.index]`` = [lo, hi) of a dim that
+    ``axis`` splits into equal shards (``w`` this rank's, shard j [j n,
+    (j + 1) n) of it), every rank j taking ``want[j]``: one uneven
+    ``all_to_all_single`` moves to each rank the parts of the others'
+    shards in its range (this rank's own part is a slice, no message;
+    where no part crosses between ranks there is no collective, and the
+    result is a view of ``w``).  Differentiable: the backward is the
+    inverse exchange, the gradients of a part that several ranks read
+    added at its shard."""
+    if axis is None or axis.size == 1:
+        return w
+    want = tuple((int(lo), int(hi)) for lo, hi in want)
+    if len(want) != axis.size or not all(
+            0 <= lo <= hi <= w.shape[dim] * axis.size for lo, hi in want):
+        raise ValueError(f"ranges {list(want)} of a dim of {axis.size} "
+                         f"shards of {w.shape[dim]}")
+    if torch.is_grad_enabled() and w.requires_grad:
+        return _Regroup.apply(w, axis, dim, want)
+    return _regroup_forward(w, axis, dim, want)
 
 
 def copy_to(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:

@@ -215,10 +215,10 @@ def _check_tensor_parallel(model: T.Transformer, cfg: ModelConfig,
     ``tp``: attention by whole q heads, rank i the i-th block of
     ``layers.balanced_sizes(Hq, tp)`` and the K/V heads it reads (where
     Hq does not divide the axis, the first Hq mod tp ranks run one head
-    more, from ``wq`` and ``wo`` gathered whole; a rank whose heads
-    straddle a K/V group reads its K/V heads once per q head), so only an
-    axis longer than Hq, which would leave a rank no head, is refused;
-    MLA by equal blocks of whole heads; the SSM by whole heads with
+    more, on their heads' columns regrouped from the shards; a rank whose
+    heads straddle a K/V group reads its K/V heads once per q head), so
+    only an axis longer than Hq, which would leave a rank no head, is
+    refused; MLA by equal blocks of whole heads; the SSM by whole heads with
     ``in_proj``'s columns and ``out_proj``'s rows split."""
     mods = [m for _, m in model.named_modules()]
     if any(isinstance(m, L.Attention) for m in mods) and cfg.n_heads < tp:

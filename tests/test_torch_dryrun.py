@@ -118,15 +118,51 @@ for arch in ARCH_IDS:
     out[arch] += depths
 print(json.dumps(out))
 """
+#: the CLI on a divisible cell, the uneven ones (``UNEVEN_CELLS``) and a
+#: refused one, every all-gather's axis and shape kept by cell
+#: (``gathered.json``)
 CLI = PRELUDE + """
+from repro_torch import parallel
 out = sys.argv[1]
-D.main(["--arch", "llama3_2_1b", "--shape", "train_4k", "--mesh", "pod",
-        "--account", "--out", out])
-D.main(["--arch", "llama3_2_3b", "--shape", "train_4k", "--mesh", "pod",
-        "--account", "--out", out])
+gathered, saved = {}, parallel.all_gather_cat
+
+def gather(t, axis, dim):
+    gathered.setdefault(cell, []).append([axis.name, list(t.shape)])
+    return saved(t, axis, dim)
+parallel.all_gather_cat = gather
+for cell in ("llama3_2_1b.train_4k", "llama3_2_3b.train_4k",
+             "starcoder2_7b.train_4k", "llama3_2_3b.decode_32k"):
+    arch, shape = cell.split(".")
+    D.main(["--arch", arch, "--shape", shape, "--mesh", "pod", "--account",
+            "--out", out])
+cell = "zamba2_7b.train_4k"
 D.main(["--arch", "zamba2_7b", "--shape", "train_4k", "--mesh", "pod",
         "--patch", "ssm.head_dim=128", "--out", out])
+with open(out + "/gathered.json", "w") as f:
+    json.dump(gathered, f)
 """
+#: the cells whose q heads do not divide the model axis of 16 that the CLI
+#: child runs, with the all-gather bytes of ``wq`` / ``wo`` (and ``wk`` /
+#: ``wv``) gathered whole that the parent commit counted for a
+#: ``train_4k`` step
+UNEVEN_CELLS = {"llama3_2_3b": 4148962560.0, "starcoder2_7b": 7968311040.0}
+#: llama3.2-1b's ``train_4k`` counts (rank 0 of the pod mesh, extrapolated)
+#: as the parent commit gave them, before the exchange of uneven heads
+DIVISIBLE_COUNTS = {
+    "collective_bytes_per_device": {"all-reduce": 42104847381.0,
+                                    "all-gather": 541539840.0},
+    "collective_op_counts": {"all-gather": 210.0, "all-reduce": 121.0,
+                             "reduce-scatter": 0.0, "all-to-all": 0.0,
+                             "collective-permute": 0.0},
+    "cost_analysis": {"flops": 42080650919936.0,
+                      "bytes accessed": 3167937167052.0,
+                      "kernel_flops": 0.0},
+    "memory_analysis": {"argument_size_in_bytes": 348382212.0,
+                        "output_size_in_bytes": 38650896.0,
+                        "temp_size_in_bytes": 14086813080.0,
+                        "alias_size_in_bytes": 38650880.0,
+                        "peak_bytes": 14435195292.0,
+                        "state_bytes": 347857924.0}}
 #: the keys of the reference's ``lower_cell`` result
 REF_KEYS = ("arch", "shape", "mesh", "n_devices", "kind", "attn_impl",
             "unrolled", "status", "seconds_lower", "seconds_compile",
@@ -424,6 +460,75 @@ def test_cli_writes_the_reference_keys_with_jax_blocked(children):
         6 * res["params"]["total"] * 256 * 4096 / 256
     uneven = json.loads((out / "llama3_2_3b.train_4k.pod.json").read_text())
     assert uneven["status"] == "ok" and uneven["tp_heads"] == [2, 1]
+
+
+def test_divisible_cell_counts_equal_the_parent_commits(children):
+    res = json.loads((children("cli") /
+                      "llama3_2_1b.train_4k.pod.json").read_text())
+    for sec, want in DIVISIBLE_COUNTS.items():
+        assert res[sec] == want, sec
+    assert "fetch_bytes_per_device" not in res
+
+
+def _shard_shapes(arch: str, tp: int = 16) -> set:
+    """The shapes of a rank's shards of ``wq``, ``wo`` and ``wk`` / ``wv``
+    on a model axis of ``tp``."""
+    cfg = get_config(arch)
+    d, q, kv = cfg.d_model, cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    return {(d, q // tp), (q // tp, d), (d, kv // tp)}
+
+
+def _fetch_bytes(arch: str, rank: int = 0, tp: int = 16) -> int:
+    """The bytes that ``rank``'s served model sends to fetch its heads'
+    columns of ``wq``, ``wo``, ``wk`` and ``wv`` once, in the activation
+    dtype (bf16), worked out from ``head_blocks`` and the equal shards: the
+    parts of its shards in the other ranks' blocks."""
+    from repro_torch.models.layers import head_blocks
+    cfg = get_config(arch)
+    blocks = [head_blocks(cfg.n_heads, cfg.n_kv_heads, tp, r)
+              for r in range(tp)]
+    sent = 0
+    for kv, copies in ((0, 2), (1, 2)):
+        n = (cfg.n_kv_heads if kv else cfg.n_heads) * cfg.hd // tp
+        for j, b in enumerate(blocks):
+            lo, hi = b[2 * kv] * cfg.hd, b[2 * kv + 1] * cfg.hd
+            if j != rank:
+                sent += copies * max(0, min(hi, (rank + 1) * n)
+                                     - max(lo, rank * n))
+    return sent * cfg.d_model * 2 * cfg.n_layers
+
+
+@pytest.mark.parametrize("arch", list(UNEVEN_CELLS))
+def test_uneven_cells_exchange_their_heads_columns(children, arch):
+    """Where the q heads do not divide the model axis, a ``train_4k`` step
+    moves its heads' columns by all-to-all, at most a tenth of the parent
+    commit's whole-weight gathers, and no rank all-gathers a shard of
+    ``wq``, ``wo``, ``wk`` or ``wv`` over the model axis (what it
+    all-gathers there is activations)."""
+    out = children("cli")
+    res = json.loads((out / f"{arch}.train_4k.pod.json").read_text())
+    a2a = res["collective_bytes_per_device"]["all-to-all"]
+    assert 0 < a2a <= UNEVEN_CELLS[arch] / 10
+    assert res["collective_op_counts"]["all-to-all"] > 0
+    gathered = json.loads((out / "gathered.json").read_text())
+    model = [tuple(shape) for axis, shape in gathered[f"{arch}.train_4k"]
+             if axis == "model"]
+    assert not _shard_shapes(arch) & set(model), model
+
+
+def test_uneven_decode_fetches_its_blocks_once_before_the_step(children):
+    """llama3.2-3b's decode rank fetches its blocks before the step (the
+    ``head_blocks`` figure, reported apart) and its step moves no weight:
+    no all-to-all, no shard all-gathered."""
+    out = children("cli")
+    res = json.loads((out / "llama3_2_3b.decode_32k.pod.json").read_text())
+    assert res["fetch_bytes_per_device"] == {
+        "all-to-all": _fetch_bytes("llama3_2_3b")}
+    assert res["collective_bytes_per_device"].get("all-to-all", 0) == 0
+    assert res["collective_op_counts"]["all-to-all"] == 0
+    gathered = json.loads((out / "gathered.json").read_text())
+    assert not _shard_shapes("llama3_2_3b") & {
+        tuple(shape) for _, shape in gathered["llama3_2_3b.decode_32k"]}
 
 
 def test_cli_reports_a_cell_the_port_cannot_shard(children):

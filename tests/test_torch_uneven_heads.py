@@ -237,6 +237,153 @@ def test_only_a_rank_without_heads_or_an_uneven_mla_is_refused():
 
 
 # ---------------------------------------------------------------------------
+# the exchange of a rank's heads' columns (``parallel.regroup``)
+# ---------------------------------------------------------------------------
+
+def _meet(lo: int, hi: int, start: int, n: int) -> int:
+    return max(0, min(hi, start + n) - max(lo, start))
+
+
+def _wants(hq: int, hkv: int, tp: int, hd: int, kv: bool):
+    blocks = [L.head_blocks(hq, hkv, tp, r) for r in range(tp)]
+    return [(b[2 * kv] * hd, b[2 * kv + 1] * hd) for b in blocks]
+
+
+def exchange_bytes(cfg, world: int, rank: int, kv: bool, nbytes: int = 4):
+    """(forward, backward) bytes that rank ``rank`` sends for one weight of
+    ``d_model`` rows and ``cfg``'s q (or, ``kv``, K/V) heads' columns,
+    worked out from ``head_blocks`` and the equal shards alone: the parts
+    of its shard in the other ranks' blocks, then the parts of its block in
+    the other ranks' shards."""
+    want = _wants(cfg.n_heads, cfg.n_kv_heads, world, cfg.hd, kv)
+    n = (cfg.n_kv_heads if kv else cfg.n_heads) * cfg.hd // world
+    fwd = sum(_meet(*want[j], rank * n, n) for j in range(world) if j != rank)
+    bwd = sum(_meet(*want[rank], j * n, n) for j in range(world) if j != rank)
+    return fwd * cfg.d_model * nbytes, bwd * cfg.d_model * nbytes
+
+
+def layer_exchange_bytes(cfg, world: int, rank: int):
+    """(forward, backward) bytes of one layer's ``wq``, ``wo``, ``wk`` and
+    ``wv``."""
+    parts = [exchange_bytes(cfg, world, rank, kv) for _, _, kv in R.WEIGHTS]
+    return sum(f for f, _ in parts), sum(b for _, b in parts)
+
+
+def test_regroup_on_an_axis_of_one_is_the_identity():
+    one = parallel.Axis("model", None, 1, 0, "gloo")
+    x = torch.arange(6.0).reshape(2, 3)
+    assert parallel.regroup(x, one, 1, [(0, 3)]) is x
+
+
+@pytest.mark.parametrize("hq,hkv,tp", [
+    (24, 8, 16), (36, 4, 16), (36, 4, 8), (6, 2, 4), (9, 3, 4), (9, 3, 2)])
+@pytest.mark.parametrize("kv", [False, True], ids=["q", "kv"])
+def test_regroup_plan_moves_only_what_another_rank_reads(hq, hkv, tp, kv):
+    """Each rank receives its block's width, part j what rank j sends it;
+    what it sends is the parts of its shard in the other ranks' blocks
+    (``exchange_bytes``), and some part crosses where the heads do not
+    divide the axis."""
+    hd = 8
+    want = tuple(_wants(hq, hkv, tp, hd, kv))
+    n = (hkv if kv else hq) * hd // tp
+    plans = [parallel.regroup_plan(n, want, i) for i in range(tp)]
+    cfg = R.case_config("llama3_2_3b").replace(
+        n_heads=hq, n_kv_heads=hkv, d_model=1, head_dim=hd)
+    for i, (send, recv, crosses) in enumerate(plans):
+        assert crosses == bool(hq % tp)
+        assert sum(recv) == want[i][1] - want[i][0]
+        for j in range(tp):
+            assert plans[j][0][i][1] == recv[j]
+        sent = sum(k for j, (_, k) in enumerate(send) if j != i)
+        assert (sent * 4, sum(recv) * 4 - recv[i] * 4) == \
+            exchange_bytes(cfg, tp, i, kv)
+
+
+@pytest.mark.parametrize("world", list(R.MESHES))
+def test_regroup_gives_each_rank_its_heads_columns(runs, world):
+    """Every rank's block of ``wq`` (columns), ``wo`` (rows) and ``wk`` /
+    ``wv`` (columns; K/V heads read by two or three ranks) equals the
+    slice of the whole weight bit for bit; each shard's gradient equals
+    its slice of the whole weight's gradient, the readers' parts of a
+    shared K/V head added in rank order; the forward and the backward each
+    put ``exchange_bytes`` on the links, by one all-to-all each."""
+    _, cases = R.MESHES[world]
+    for arch in cases:
+        cfg = R.case_config(arch)
+        whole = R.whole_weights(cfg)
+        for name, dim, kv in R.WEIGHTS:
+            want = _wants(cfg.n_heads, cfg.n_kv_heads, world, cfg.hd, kv)
+            grad = torch.zeros_like(whole[name])
+            for r, (lo, hi) in enumerate(want):
+                grad.narrow(dim, lo, hi - lo).add_(R.consumer(
+                    whole[name].narrow(dim, lo, hi - lo).shape, r))
+            n = whole[name].shape[dim] // world
+            for r, got in enumerate(runs["got"][world]):
+                res, what = got["regroup"][arch, name], f"{arch} {name} {r}"
+                lo, hi = want[r]
+                assert torch.equal(res["block"],
+                                   whole[name].narrow(dim, lo, hi - lo)), what
+                assert torch.equal(res["grad"],
+                                   grad.narrow(dim, r * n, n)), what
+                fwd, bwd = exchange_bytes(cfg, world, r, kv)
+                assert res["forward"] == {("all_to_all", "gloo"): fwd}, what
+                assert res["backward"] == {("all_to_all", "gloo"): bwd}, what
+
+
+def _shard_shapes(cfg, world: int) -> set:
+    d, q, kv = cfg.d_model, cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    return {(d, q // world), (q // world, d), (d, kv // world)}
+
+
+@pytest.mark.parametrize("arch,world", RUNS, ids=RUN_IDS)
+def test_model_moves_only_its_heads_columns(runs, arch, world):
+    """No rank all-gathers a shard of ``wq``, ``wo``, ``wk`` or ``wv``;
+    its all-to-all bytes are ``exchange_bytes``': the three served models
+    fetch their blocks once each (``3 x layers x`` the forward's), the
+    decode steps fetch nothing, the train step exchanges in its forward and
+    back."""
+    cfg = R.case_config(arch)
+    shards = _shard_shapes(cfg, world)
+    for r, got in enumerate(runs["got"][world]):
+        res = got[arch]
+        stages = dict(res["stages"], train=res["train"]["stage"])
+        fwd, bwd = layer_exchange_bytes(cfg, world, r)
+        want = {"prefill": len(R.IMPLS) * cfg.n_layers * fwd, "decode": 0,
+                "train": cfg.n_layers * (fwd + bwd)}
+        for name, n in want.items():
+            st = stages[name]
+            assert st["links"].get(("all_to_all", "gloo"), 0) == n, \
+                (r, name)
+            assert not shards & set(st["gathered"]), (r, name)
+
+
+@pytest.mark.parametrize("arch,world", RUNS, ids=RUN_IDS)
+def test_served_blocks_are_fetched_once_a_weight_version(runs, arch, world):
+    """A served model's blocks are the whole weights' slices; two more
+    forwards fetch nothing; after an in-place update of ``wq`` the next
+    forward fetches that block alone, and it holds the updated columns."""
+    model = runs["ref"][arch][0]
+    cfg = R.case_config(arch)
+    attn = model.blocks[0].attn
+    for r, got in enumerate(runs["got"][world]):
+        res = got[arch]
+        for name, dim, kv in R.WEIGHTS:
+            lo, hi = _wants(cfg.n_heads, cfg.n_kv_heads, world, cfg.hd,
+                            kv)[r]
+            w = getattr(attn, name).detach()
+            assert torch.equal(res["fetched"][name],
+                               w.narrow(dim, lo, hi - lo)), (r, name)
+        a2a = lambda st: res["stages"][st]["links"].get(
+            ("all_to_all", "gloo"), 0)
+        assert a2a("again") == 0, r
+        assert a2a("updated") == exchange_bytes(cfg, world, r, False)[0], r
+        lo, hi = _wants(cfg.n_heads, cfg.n_kv_heads, world, cfg.hd,
+                        False)[r]
+        assert torch.equal(res["refetched"],
+                           2.0 * attn.wq.detach()[:, lo:hi]), r
+
+
+# ---------------------------------------------------------------------------
 # four gloo ranks against one device
 # ---------------------------------------------------------------------------
 
@@ -248,8 +395,8 @@ def test_ranks_run_their_balanced_heads(runs, arch, world):
             cfg.n_heads, cfg.n_kv_heads, world, r)
         # the K/V heads do not divide the axis: the cache splits T
         assert got[arch]["place"]["dense"]["k"][3] == "model"
-        # the gathers of wq and wo are on the links
-        assert got[arch]["links"][("all_gather", "gloo")] > 0
+        # the exchange of its heads' columns is on the links
+        assert got[arch]["links"][("all_to_all", "gloo")] > 0
 
 
 @pytest.mark.parametrize("impl", R.IMPLS)

@@ -5,9 +5,13 @@ intra-op thread and writes what it computed as ``uneven.<rank>.pt``
 there.  Four ranks serve and train both configs on (data 1, model 4),
 two ranks the starcoder2-7b one on (1, 2), from the whole weights the
 test saved (``<case>.pt``); rank 0 of one of them then runs the same on
-one device (``ONE_DEVICE``).  Nothing here imports JAX or the reference
-package.  The ranks start before the test has written every case: each
-waits for its case's file."""
+one device (``ONE_DEVICE``).  Each rank first regroups seeded whole
+weights' shards into its heads' blocks and back (``regroup_cases``), and
+records each stage's link bytes and all-gathered shapes (``stage``) and
+the blocks its served model fetched (``served_blocks``).  Nothing here
+imports JAX or the reference package.  The ranks start before the test
+has written every case: each waits for its case's file."""
+import contextlib
 import os
 
 import numpy as np
@@ -18,6 +22,7 @@ from repro_torch import parallel
 from repro_torch.configs.base import get_config
 from repro_torch.data.pipeline import SyntheticLM, batch_for
 from repro_torch.launch.mesh import make_device_mesh
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import AdamW
 from repro_torch.train import train_step as TS
@@ -47,6 +52,12 @@ CACHE_LEN, STARTS, DECODE_STEPS = 32, (12, 14), 4
 #: the train step: one step of 4 x 32 tokens
 STEP_OPT = dict(lr=1e-3, warmup=1, total_steps=10)
 TRAIN_PIPE = dict(seq_len=32, global_batch=4, seed=2)
+
+
+#: the attention weights whose heads' columns are regrouped: (name, the
+#: dim the model axis splits, whether its columns are K/V heads')
+WEIGHTS = (("wq", 1, False), ("wo", 0, False), ("wk", 1, True),
+           ("wv", 1, True))
 
 
 def case_config(arch: str, impl: str = None):
@@ -81,21 +92,64 @@ def _model(cfg, params: dict):
     return model
 
 
+@contextlib.contextmanager
+def stage(out: dict, name: str):
+    """Within the block, the bytes this rank puts on its links by
+    collective and the shape of every tensor it all-gathers
+    (``parallel.all_gather_cat``, which every all-gather goes through):
+    ``out["stages"][name]``."""
+    before, shapes = dict(parallel.LINK_BYTES), []
+    saved = parallel.all_gather_cat
+
+    def gather(t, axis, dim):
+        shapes.append(tuple(t.shape))
+        return saved(t, axis, dim)
+    parallel.all_gather_cat = gather
+    try:
+        yield
+    finally:
+        parallel.all_gather_cat = saved
+    out.setdefault("stages", {})[name] = {
+        "links": {k: n - before.get(k, 0)
+                  for k, n in parallel.LINK_BYTES.items()},
+        "gathered": shapes}
+
+
+def served_blocks(model, cfg, tokens, out: dict) -> None:
+    """The blocks layer 0 fetched for serving (``Attention._fetched``),
+    two more forwards (which fetch nothing), an in-place update of its
+    ``wq`` (doubled), a forward (which fetches that block again) and the
+    block it then holds."""
+    attn, f32 = model.blocks[0].attn, torch.float32
+    out["fetched"] = {n: attn._fetched[(n, f32)][2].clone()
+                      for n, _, _ in WEIGHTS}
+    with torch.no_grad():
+        with stage(out, "again"):
+            for _ in range(2):
+                T.forward(model, cfg, {"tokens": tokens})
+        attn.wq.mul_(2.0)
+        with stage(out, "updated"):
+            T.forward(model, cfg, {"tokens": tokens})
+    out["refetched"] = attn._fetched[("wq", f32)][2].clone()
+
+
 def run(arch: str, saved: dict, mesh=None) -> dict:
     """Prefill logits on every impl, the decode steps' logits and cache,
     and one train step's loss and parameters, on one device or on this
-    rank of ``mesh`` (logits and parameters made whole)."""
+    rank of ``mesh`` (logits and parameters made whole; each stage's link
+    bytes and all-gathered shapes, ``stage``; then ``served_blocks``)."""
     inp, out = saved["inputs"], {"prefill": {}}
     whole = lambda model, x: (x if mesh is None
                               else T.gather_logits(model, x))
-    for impl in IMPLS:
-        cfg = case_config(arch, impl)
-        model = _model(cfg, saved["params"])
-        if mesh is not None:
-            TS.shard_model(model, mesh, zero1=False)
-        with torch.no_grad():
-            out["prefill"][impl] = whole(
-                model, T.forward(model, cfg, {"tokens": inp["tokens"]}))
+    with stage(out, "prefill"):
+        for impl in IMPLS:
+            cfg = case_config(arch, impl)
+            model = _model(cfg, saved["params"])
+            if mesh is not None:
+                TS.shard_model(model, mesh, zero1=False)
+            with torch.no_grad():
+                out["prefill"][impl] = whole(
+                    model, T.forward(model, cfg, {"tokens": inp["tokens"]}))
     cfg = case_config(arch)
     cache = {g: None if leaves is None else
              {k: t.clone() for k, t in leaves.items()}
@@ -107,13 +161,15 @@ def run(arch: str, saved: dict, mesh=None) -> dict:
         out["axes"] = {k: (a.size, a.index) for k, a in
                        model.shard_layout.axes.items()}
     logits = []
-    with torch.no_grad():
+    with torch.no_grad(), stage(out, "decode"):
         for i in range(DECODE_STEPS):
             lg, cache = T.decode_step(model, cfg, inp["decode"][:, i], cache,
                                       inp["pos"] + i)
             logits.append(lg)
     out["decode"], out["cache"] = torch.stack(logits), cache
     out["train"] = train_step(cfg, saved["params"], mesh)
+    if mesh is not None:
+        served_blocks(model, cfg, inp["tokens"], out)
     return out
 
 
@@ -138,11 +194,13 @@ def train_step(cfg, params: dict, mesh=None) -> dict:
                 "params": new, "grads": grads}
     else:
         state = TS.shard_state(state, mesh)
-        state, m = TS.sharded_train_step(cfg, opt, mesh)(state, batch)
+        out = {}
+        with stage(out, "train"):
+            state, m = TS.sharded_train_step(cfg, opt, mesh)(state, batch)
         new = {n: t.clone() for n, t in TS.full_tensors(state)
                if not n.startswith(("m.", "v.")) and n != "step"}
     return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-            "params": new}
+            "params": new, "stage": out["stages"]["train"]}
 
 
 def uneven_gather(tp) -> dict:
@@ -158,6 +216,50 @@ def uneven_gather(tp) -> dict:
     return {"sizes": sizes, "gathered": y.detach(), "grad": x.grad}
 
 
+def whole_weights(cfg, seed: int = 11) -> dict:
+    """Whole ``wq``, ``wo``, ``wk`` and ``wv`` of ``cfg``'s shapes: normal
+    draws from ``seed``."""
+    rng = np.random.default_rng(seed)
+    d, q, kv = cfg.d_model, cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    shapes = {"wq": (d, q), "wo": (q, d), "wk": (d, kv), "wv": (d, kv)}
+    return {n: torch.as_tensor(rng.standard_normal(shapes[n]),
+                               dtype=torch.float32) for n, _, _ in WEIGHTS}
+
+
+def consumer(shape, rank: int) -> torch.Tensor:
+    """The weights of rank ``rank``'s consumer of its block: normal draws
+    from seed 100 + rank."""
+    return torch.as_tensor(np.random.default_rng(100 + rank).standard_normal(
+        tuple(shape)), dtype=torch.float32)
+
+
+def regroup_cases(tp, cases) -> dict:
+    """``parallel.regroup`` of each case's whole weights' shards into this
+    rank's heads' block (``head_blocks``) and its backward through
+    ``(block * consumer).sum()``: the block, the shard's gradient and the
+    link bytes of the two exchanges, by case and weight."""
+    out = {}
+    for arch in cases:
+        cfg = case_config(arch)
+        blocks = [L.head_blocks(cfg.n_heads, cfg.n_kv_heads, tp.size, r)
+                  for r in range(tp.size)]
+        for name, dim, kv in WEIGHTS:
+            want = [(b[2 * kv] * cfg.hd, b[2 * kv + 1] * cfg.hd)
+                    for b in blocks]
+            w = whole_weights(cfg)[name]
+            shard = parallel.local_slice(w, tp, dim).clone()
+            shard.requires_grad_(True)
+            parallel.reset_link_bytes()
+            block = parallel.regroup(shard, tp, dim, want)
+            forward = dict(parallel.LINK_BYTES)
+            parallel.reset_link_bytes()
+            (block * consumer(block.shape, tp.index)).sum().backward()
+            out[arch, name] = {"block": block.detach(), "grad": shard.grad,
+                               "forward": forward,
+                               "backward": dict(parallel.LINK_BYTES)}
+    return out
+
+
 def ranks(rank: int, world: int, tmp: str) -> None:
     """``MESHES[world]``'s cases; rank 0 adds the one-device runs
     ``ONE_DEVICE`` gives this world."""
@@ -167,7 +269,8 @@ def ranks(rank: int, world: int, tmp: str) -> None:
                             tmp, f"store{world}"), world))
     shape, cases = MESHES[world]
     mesh = make_device_mesh(shape, ("data", "model"))
-    res = {"gather": uneven_gather(parallel.mesh_axes(mesh)["model"])}
+    tp = parallel.mesh_axes(mesh)["model"]
+    res = {"gather": uneven_gather(tp), "regroup": regroup_cases(tp, cases)}
     for arch in cases:
         saved = torch.load(wait_for(os.path.join(tmp, f"{arch}.pt")))
         parallel.reset_link_bytes()
